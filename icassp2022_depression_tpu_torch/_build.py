@@ -1,0 +1,93 @@
+"""Builds the package's CUDA sources (``csrc/*.cu``) into shared libraries
+with a plain C interface, loaded with :mod:`ctypes`.
+
+A source is compiled at its first use in a process::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+into ``_build/`` beside this file (listed in ``.gitignore``), keyed by a
+hash of the source and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
+then on ``PATH``, then in ``/usr/local/cuda/bin``.  A missing compiler or
+a failed build raises: there is no fallback to a plain version.  The
+compiler's report (``-Xptxas=-v``: registers, shared memory, spills) is
+kept in ``_build/lib<name>-<hash>.log``.
+
+Importing this module runs nothing; only :func:`load` builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``; raises if there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels of icassp2022_depression_tpu_torch are compiled at "
+        "first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where :func:`load` builds ``csrc/<name>.cu``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+    so = library_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                           f"{name}.cu:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the last build of ``csrc/<name>.cu``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

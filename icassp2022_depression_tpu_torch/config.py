@@ -1,0 +1,137 @@
+"""Configuration dataclasses (port of :mod:`icassp2022_depression_tpu.config`).
+
+The dataclasses are framework-neutral, so the fields and the audio presets
+are copied verbatim from the JAX package.  The one difference is the set
+of values ``RNNConfig.rnn_backend`` takes: ``"auto"`` (the CUDA kernel for
+CUDA tensors, the plain torch recurrence for CPU tensors), ``"torch"`` or
+``"cuda"`` — see :func:`.ops.rnn.resolve_backend`.
+
+Only the presets of the ported slice are here (``audio_clf``,
+``audio_reg``); the text and fusion presets arrive with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class RNNConfig:
+    """Shared hyper-parameters of the recurrent branch models."""
+
+    num_classes: int = 2
+    dropout: float = 0.5
+    rnn_layers: int = 2
+    embedding_size: int = 256
+    hidden_dims: int = 256
+    bidirectional: bool = False
+    #: "gru" or "lstm"
+    cell: str = "gru"
+    #: apply LayerNorm on the input embedding before the RNN
+    input_layernorm: bool = True
+    #: temporal pooling over RNN outputs: "mean" | "sum" | "attention"
+    pooling: str = "mean"
+    #: final activation of the head: "softmax" (classification) | "relu"
+    #: (regression) | "none"
+    head_activation: str = "softmax"
+    #: weight init: "torch" (PyTorch module defaults) or "xavier"
+    init: str = "torch"
+    #: dropout before the first Linear of the FC head (the audio head has it,
+    #: the clf text head does not — ``text_bilstm_whole.py:60-68``)
+    head_input_dropout: bool = True
+    #: recurrence implementation: "auto" | "torch" | "cuda"
+    rnn_backend: str = "auto"
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # "adamw" | "adam"
+    learning_rate: float = 6e-6
+    #: weight decay applied to all params except LayerNorm ('ln') params,
+    #: mirroring ``get_param_group`` (``audio_gru_whole.py:247-255``)
+    weight_decay: float = 1e-5
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class GateConfig:
+    """Metric-gated best-checkpoint selection thresholds."""
+
+    f1_floor: float = 0.5
+    train_acc_frac: float = 0.9
+    mae_ceiling: float = 8.5
+    train_mae_ceiling: float = 13.0
+    f1_tie_update: bool = True
+    train_acc_strict: bool = True
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    model: RNNConfig = field(default_factory=RNNConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    gate: GateConfig = field(default_factory=GateConfig)
+    batch_size: int = 8
+    epochs: int = 170
+    loss: str = "ce"
+    seed: int = 0
+    track: str = "classification"  # "classification" | "regression"
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Audio frontend (``Classification/audio_features_whole.py:34,57-72``)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 2048
+    hop_length: int = 512
+    n_mels: int = 80
+    log_floor: float = 1e-6
+    netvlad_clusters: int = 16
+    netvlad_output_dim: int = 256  # cluster_size * 16
+    #: silence fallback amplitude/duration for empty wavs
+    #: (``audio_features_whole.py:105-110``)
+    silence_amplitude: float = 1e-4
+    silence_seconds: int = 5
+    #: per-utterance NetVLAD weights derive from this seed and the
+    #: utterance ordinal (threefry, :mod:`.ops.prng`)
+    netvlad_seed: int = 0
+
+
+AUDIO_CLF = TrainerConfig(
+    # Classification/audio_gru_whole.py:110-121
+    model=RNNConfig(
+        num_classes=2, dropout=0.5, rnn_layers=2, embedding_size=256,
+        hidden_dims=256, bidirectional=False, cell="gru",
+        input_layernorm=True, pooling="mean", head_activation="softmax",
+        init="torch", head_input_dropout=True,
+    ),
+    optimizer=OptimizerConfig(name="adamw", learning_rate=6e-6),
+    gate=GateConfig(f1_floor=0.5, train_acc_frac=0.9),
+    batch_size=8, epochs=170, loss="ce", track="classification",
+)
+
+AUDIO_REG = TrainerConfig(
+    # Regression/audio_bilstm_perm.py:32-43
+    model=RNNConfig(
+        num_classes=1, dropout=0.5, rnn_layers=2, embedding_size=256,
+        hidden_dims=256, bidirectional=False, cell="gru",
+        input_layernorm=False, pooling="sum", head_activation="relu",
+        init="torch", head_input_dropout=True,
+    ),
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-5, weight_decay=0.0),
+    gate=GateConfig(mae_ceiling=8.5, train_mae_ceiling=13.0),
+    batch_size=2, epochs=120, loss="l1", track="regression",
+)
+
+PRESETS = {
+    "audio_clf": AUDIO_CLF,
+    "audio_reg": AUDIO_REG,
+}
+
+
+def replace(cfg, **kwargs):
+    """Functional update of any frozen config dataclass."""
+    return dataclasses.replace(cfg, **kwargs)

@@ -1,0 +1,89 @@
+"""Audio branch model, "AudioBiLSTM" in the reference but a GRU (port of
+:mod:`icassp2022_depression_tpu.models.audio_net`).
+
+Classification (``Classification/audio_gru_whole.py:24-108``): LayerNorm
+-> 2-layer GRU -> mean over time -> [Dropout, Linear(H, H), ReLU, Dropout,
+Linear(H, 2)] -> softmax.  Regression (``Regression/audio_bilstm_perm.py``):
+no LayerNorm, sum over time, the head ends in Linear(H, 1) + ReLU.  Both
+are :class:`AudioNet` under an :class:`~..config.RNNConfig`.
+
+Parameter names are the reference module's ``state_dict()`` names:
+``ln.*`` (clf only), ``lstm_net_audio.{weight,bias}_{ih,hh}_l{k}``,
+``attention_layer.0.*`` (declared but never used by the reference's
+forward, kept for checkpoint fidelity) and ``fc_audio.{1,4}.*``
+(``{0,3}`` without the head's input dropout), so
+:func:`..models.porting.audio_net_state_dict_from_jax` output loads with
+``strict=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from icassp2022_depression_tpu_torch.config import RNNConfig
+from icassp2022_depression_tpu_torch.ops import initializers, rnn
+from icassp2022_depression_tpu_torch.ops.nn import layer_norm
+
+
+class AudioNet(nn.Module):
+    def __init__(self, cfg: RNNConfig,
+                 generator: Optional[torch.Generator] = None, device=None):
+        """Torch-default init (the reference never calls its
+        ``init_weight``) drawn from ``generator``."""
+        super().__init__()
+        self.cfg = cfg
+        pooled = cfg.hidden_dims * (2 if cfg.bidirectional else 1)
+        if cfg.input_layernorm:
+            # the module holds ln.weight / ln.bias; the forward is
+            # ops.nn.layer_norm, the JAX package's arithmetic
+            self.ln = nn.LayerNorm(cfg.embedding_size, device=device)
+        self.lstm_net_audio = rnn.RNN(
+            cfg.embedding_size, cfg.hidden_dims, cfg.rnn_layers,
+            cfg.bidirectional, cfg.dropout, cfg.cell, cfg.init,
+            cfg.rnn_backend, generator, device)
+        self.attention_layer = nn.Sequential(
+            self._linear(cfg.hidden_dims, cfg.hidden_dims, generator, device),
+            nn.ReLU())
+        head = [self._linear(pooled, cfg.hidden_dims, generator, device),
+                nn.ReLU(), nn.Dropout(cfg.dropout),
+                self._linear(cfg.hidden_dims, cfg.num_classes, generator,
+                             device)]
+        if cfg.head_input_dropout:
+            head.insert(0, nn.Dropout(cfg.dropout))
+        self.fc_audio = nn.Sequential(*head)
+
+    @staticmethod
+    def _linear(in_features: int, out_features: int, generator, device):
+        lin = nn.Linear(in_features, out_features, device=device)
+        p = initializers.torch_linear(out_features, in_features, generator,
+                                      device=device)
+        with torch.no_grad():
+            lin.weight.copy_(p["w"])
+            lin.bias.copy_(p["b"])
+        return lin
+
+    def features(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T, D] -> pooled hidden [B, H * num_dirs] (pre-head)."""
+        if self.cfg.input_layernorm:
+            x = layer_norm(x, self.ln.weight, self.ln.bias)
+        y, _, _ = self.lstm_net_audio(x, generator)
+        if self.cfg.pooling == "mean":
+            return y.mean(dim=1)
+        if self.cfg.pooling == "sum":
+            return y.sum(dim=1)
+        raise ValueError(f"unsupported audio pooling {self.cfg.pooling!r}")
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
+        scores (reg)."""
+        out = self.fc_audio(self.features(x, generator))
+        if self.cfg.head_activation == "softmax":
+            return torch.softmax(out, dim=-1)
+        if self.cfg.head_activation == "relu":
+            return torch.relu(out)
+        return out

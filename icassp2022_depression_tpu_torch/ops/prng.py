@@ -1,0 +1,135 @@
+"""JAX's threefry2x32 random streams in torch, bit for bit.
+
+The JAX package draws every utterance's NetVLAD weights from
+``jax.random.fold_in(PRNGKey(seed), ordinal)`` followed by ``split`` and
+``normal`` (:mod:`icassp2022_depression_tpu.ops.netvlad`).  Features, and
+so every served prediction, depend on those exact numbers, so this module
+reproduces JAX's default PRNG (threefry2x32, 20 rounds) with
+``jax_threefry_partitionable=True`` and 32-bit mode, the JAX 0.9 defaults:
+
+* a key is a pair of uint32 words, held here in the last axis of an int64
+  tensor (``[..., 2]``);
+* ``PRNGKey(seed) = (0, seed mod 2**32)``;
+* ``fold_in(key, d) = threefry(key, (0, d))``;
+* ``split(key, n)[i] = threefry(key, (hi(i), lo(i)))`` and
+  ``random_bits(key, shape)[i] = xor(threefry(key, (hi(i), lo(i))))`` over
+  the row-major index ``i`` (``jax/_src/prng.py``, ``iota_2x32_shape``);
+* ``uniform`` by the mantissa trick and
+  ``normal = sqrt(2) * erfinv(u)`` with ``u`` uniform in
+  ``(nextafter(-1, 0), 1)`` (``jax/_src/random.py``); ``erfinv`` is XLA's
+  single-precision polynomial (Giles), so the two frameworks agree to an
+  ulp instead of to the accuracy of two different approximations.
+
+The arithmetic is int64 with a ``& 0xFFFFFFFF`` mask after every add
+(torch's uint32 coverage is thin); every operation is elementwise, so a
+batch of keys broadcasts against the counters and a whole bucket's
+weights are one pass on the device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) & MASK) | (x >> (32 - d))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 block cipher on broadcastable int64 tensors holding
+    uint32 values -> the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x1, x2
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` -> int64 tensor [2]."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: keys [..., 2] with data broadcastable to
+    ``key.shape[:-1]`` -> keys [..., 2]."""
+    data = torch.as_tensor(data, dtype=torch.int64,
+                           device=key.device) & MASK
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
+                          data)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def _counters(n: int, device):
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & MASK
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable): keys [..., 2] -> [..., num, 2]."""
+    hi, lo = _counters(num, key.device)
+    o1, o2 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits`` (32-bit, partitionable): keys [..., 2] ->
+    int64 tensor [..., *shape] of uint32 values."""
+    shape = tuple(shape)
+    hi, lo = _counters(math.prod(shape), key.device)
+    o1, o2 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
+    return (o1 ^ o2).reshape(key.shape[:-1] + shape)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: the top 23 bits become the
+    mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval)."""
+    bits = random_bits(key, shape)
+    float_bits = (bits >> 9) | 0x3F800000
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function")
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, XLA's polynomial."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(x.dtype)
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge).to(x.dtype) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(x.dtype).max, p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` in float32: keys [..., 2] -> [..., *shape]."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * erfinv(u)

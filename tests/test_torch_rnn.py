@@ -1,0 +1,132 @@
+"""The port's GRU (plain recurrence, backend seam, multi-layer and
+bidirectional wrapper) against the JAX package's Pallas kernel, run in
+interpret mode on the CPU as ``tests/test_rnn_pallas.py`` runs it, and
+against its scan path."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icassp2022_depression_tpu.ops import rnn as jrnn
+from icassp2022_depression_tpu.ops import rnn_pallas
+from icassp2022_depression_tpu_torch import _build
+from icassp2022_depression_tpu_torch.ops import rnn as trnn
+from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+ATOL = 1e-5
+
+
+def _layers(seed, d, h, num_layers, bidirectional):
+    """JAX params + the same numbers as torch tensors."""
+    jp = jrnn.init_params(jax.random.PRNGKey(seed), "gru", d, h, num_layers,
+                          bidirectional)
+    tp = [{dirn: {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+           for dirn, p in layer.items()} for layer in jp]
+    return jp, tp
+
+
+@pytest.mark.parametrize("t,b,h", [(3, 4, 8), (3, 1, 32), (7, 3, 16)])
+def test_gru_sequence_torch_matches_pallas_kernel(t, b, h):
+    rng = np.random.default_rng(t * 100 + b)
+    xp = rng.standard_normal((t, b, 3 * h)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (h, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    bias = (rng.uniform(-1, 1, (1, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    want = np.asarray(rnn_pallas.gru_sequence(jnp.asarray(xp), jnp.asarray(w),
+                                              jnp.asarray(bias)))
+    got = rnn_cuda.gru_sequence_torch(torch.from_numpy(xp),
+                                      torch.from_numpy(w),
+                                      torch.from_numpy(bias))
+    assert tuple(got.shape) == (t, b, h)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_gru_sequence_wrapper_uses_plain_version_on_cpu():
+    rng = np.random.default_rng(0)
+    xp = torch.from_numpy(rng.standard_normal((3, 2, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 24)).astype(np.float32))
+    bias = torch.zeros(1, 24)
+    before = rnn_cuda.LAUNCHES
+    assert torch.equal(rnn_cuda.gru_sequence(xp, w, bias),
+                       rnn_cuda.gru_sequence_torch(xp, w, bias))
+    assert rnn_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_layer_matches_pallas_layer(reverse):
+    jp, tp = _layers(1, 12, 16, 1, False)
+    x = np.random.default_rng(2).standard_normal((4, 3, 12)).astype(np.float32)
+    ys_j, h_j = rnn_pallas.gru_layer(jp[0]["fwd"], jnp.asarray(x), reverse)
+    ys_t, h_t = trnn.gru_layer(tp[0]["fwd"], torch.from_numpy(x), reverse)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("num_layers,bidirectional,backend", [
+    (1, False, "pallas"), (2, False, "pallas"), (2, True, "pallas"),
+    (2, True, "xla")])
+def test_rnn_matches_jax(num_layers, bidirectional, backend):
+    jp, tp = _layers(3, 10, 16, num_layers, bidirectional)
+    x = np.random.default_rng(4).standard_normal((5, 3, 10)).astype(np.float32)
+    y_j, hn_j, cn_j = jrnn.rnn(jp, jnp.asarray(x), "gru", backend=backend)
+    y_t, hn_t, cn_t = trnn.rnn(tp, torch.from_numpy(x), "gru")
+    assert cn_j is None and cn_t is None
+    assert tuple(hn_t.shape) == hn_j.shape
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(hn_t.numpy(), np.asarray(hn_j), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_rnn_module_matches_torch_gru(bidirectional):
+    """Parameter names are nn.GRU's, and so are the outputs."""
+    mod = trnn.RNN(6, 8, 2, bidirectional,
+                   generator=torch.Generator().manual_seed(0))
+    ref = torch.nn.GRU(6, 8, 2, batch_first=True,
+                       bidirectional=bidirectional)
+    assert set(mod.state_dict()) == set(ref.state_dict())
+    ref.load_state_dict(mod.state_dict(), strict=True)
+    mod.eval()
+    x = torch.randn(3, 4, 6, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        y, h_n, _ = mod(x)
+        y_ref, h_ref = ref(x)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=ATOL)
+    torch.testing.assert_close(h_n, h_ref.transpose(0, 1), rtol=0, atol=ATOL)
+
+
+def test_backend_seam():
+    x = torch.zeros(2, 3, 4)
+    assert trnn.resolve_backend("auto", x) == "torch"
+    assert trnn.resolve_backend("torch", x) == "torch"
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        trnn.resolve_backend("cuda", x)
+    with pytest.raises(ValueError, match="backend must be one of"):
+        trnn.resolve_backend("pallas", x)
+    _, tp = _layers(0, 4, 8, 1, False)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        trnn.rnn(tp, x, "gru", backend="cuda")
+
+
+def test_lstm_and_xavier_name_the_text_slice():
+    with pytest.raises(NotImplementedError, match="text slice"):
+        trnn.init_params("lstm", 4, 8, 1, False)
+    with pytest.raises(NotImplementedError, match="text slice"):
+        trnn.init_params("gru", 4, 8, 1, False, init="xavier")
+    with pytest.raises(NotImplementedError, match="text slice"):
+        trnn.rnn([], torch.zeros(1, 3, 4), "lstm")
+
+
+def test_kernel_module_imports_without_building():
+    """Importing the kernel module and the builder compiles nothing; the
+    library path is keyed by the source and lies in the ignored _build/."""
+    assert rnn_cuda._fn is None
+    assert "gru_fwd" not in _build._loaded
+    so = _build.library_path("gru_fwd")
+    assert so.parent == _build.BUILD_DIR and so.name.startswith("libgru_fwd-")
+    assert (_build.CSRC / "gru_fwd.cu").is_file()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
