@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -98,6 +99,31 @@ class FrontendConfig:
     #: per-utterance NetVLAD weights derive from this seed and the
     #: utterance ordinal (threefry, :mod:`.ops.prng`)
     netvlad_seed: int = 0
+
+
+@dataclass(frozen=True)
+class FoldConfig:
+    """3-fold evaluation recipes.
+
+    Classification folds come from persisted index files
+    (``audio_gru_whole.py:261-263``); regression folds slice persisted
+    shuffles of depressed / non-depressed indices into 10 + 44 test speakers
+    per fold (``Regression/audio_bilstm_perm.py:215-219``).
+    """
+
+    n_folds: int = 3
+    reg_test_dep: int = 10
+    reg_test_non: int = 44
+    #: number of leading train-depressed speakers that get permutation
+    #: augmentation in the regression track (``audio_bilstm_perm.py:225``)
+    reg_augment_first_n: int = 14
+    #: permutation ids kept for augmented *train* depressed samples
+    train_perm_ids: Tuple[int, ...] = (0, 1, 2, 3, 4, 5)
+    #: permutation ids kept for augmented *test* depressed samples
+    #: (test-set augmentation, ``audio_gru_whole.py:290``)
+    test_perm_ids: Tuple[int, ...] = (0, 1, 4, 5)
+    #: SDS cutoff for the binary label (``audio_features_whole.py:113``)
+    sds_threshold: float = 53.0
 
 
 AUDIO_CLF = TrainerConfig(

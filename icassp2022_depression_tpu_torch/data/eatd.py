@@ -10,8 +10,8 @@ NumPy only, so it is the JAX package's reader line for line:
 * the SDS score is the first line of ``new_label.txt``;
 * speakers are iterated 1..114 over ``Data/`` then ``ValidationData/``.
 
-The native threaded wav reader of the JAX package is not ported: the
-serving path reads one speaker at a time through :func:`load_speaker`.
+The native threaded wav reader of the JAX package is not ported:
+:func:`load_speakers` reads the corpus through the stdlib path.
 """
 
 from __future__ import annotations
@@ -114,6 +114,21 @@ def iter_speakers(root: Path, splits=("Data", "ValidationData"),
             sp = load_speaker(Path(root), split, number, read_text)
             if sp is not None:
                 yield sp
+
+
+def eatd_targets(sds, threshold: float = 53.0):
+    """Label derivation shared by every EATD extraction entry point:
+    SDS scores -> (sds_targets f32, clf_targets int64), depressed iff
+    ``target >= 53`` (``audio_features_whole.py:113``)."""
+    sds_targets = np.asarray(sds, np.float32)
+    return sds_targets, (sds_targets >= threshold).astype(np.int64)
+
+
+def load_speakers(root: Path, splits=("Data", "ValidationData"),
+                  max_id: int = MAX_SPEAKER_ID,
+                  read_text: bool = False) -> List[Speaker]:
+    """The whole corpus in :func:`iter_speakers` order."""
+    return list(iter_speakers(root, splits, max_id, read_text))
 
 
 def corpus_position(root: Path, split: str, number: int) -> int:

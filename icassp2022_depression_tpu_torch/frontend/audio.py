@@ -1,5 +1,6 @@
 """EATD audio frontend: batched wav2vlad (port of
-:mod:`icassp2022_depression_tpu.frontend.audio`, serving half).
+:mod:`icassp2022_depression_tpu.frontend.audio`: the batched extraction,
+the fused corpus pass that feeds training, and the npz feature reader).
 
 Reference: ``wav2vlad`` (``Classification/audio_features_whole.py:57-72``)
 = librosa log-mel -> a freshly initialised NetVLAD per utterance.
@@ -16,12 +17,13 @@ for a slow host link) is not ported.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from pathlib import Path
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from icassp2022_depression_tpu_torch.config import FrontendConfig
+from icassp2022_depression_tpu_torch.config import FoldConfig, FrontendConfig
 from icassp2022_depression_tpu_torch.data import eatd
 from icassp2022_depression_tpu_torch.ops import mel, netvlad
 from icassp2022_depression_tpu_torch.utils import shapes
@@ -111,3 +113,51 @@ def extract_batch(waveforms: Sequence[np.ndarray], sample_rates: Sequence[int],
                                 sr, cfg)
         out[torch.as_tensor(idxs, device=device)] = feats[:len(idxs)]
     return out
+
+
+def _corpus_utterances(root: Path, max_id: int):
+    """Flatten the corpus into per-utterance lists in ``load_speakers``
+    order (3 utterances per speaker).  Returns (waveforms, rates, sds,
+    manifest)."""
+    waveforms: List[np.ndarray] = []
+    rates: List[int] = []
+    sds: List[float] = []
+    manifest = []
+    for sp in eatd.load_speakers(root, max_id=max_id, read_text=False):
+        sds.append(sp.sds)
+        manifest.append({"split": sp.split, "number": sp.number,
+                         "status": "ok"})
+        for w, sr in zip(sp.waveforms, sp.sample_rates):
+            waveforms.append(np.asarray(w))
+            rates.append(sr)
+    return waveforms, rates, sds, manifest
+
+
+def extract_eatd_device(root: Path, cfg: FrontendConfig = FrontendConfig(),
+                        max_id: int = eatd.MAX_SPEAKER_ID,
+                        sds_threshold: float = FoldConfig.sds_threshold,
+                        device="cpu"):
+    """The fused corpus pass that feeds training (``cli train --corpus``):
+    one corpus read, and the [N, 3, output_dim] features stay on
+    ``device`` for the trainers, which gather their folds there.  Same
+    math and ordinals as the JAX package's ``extract_eatd``; no npz
+    artifacts.  Labels are host arrays.
+
+    Returns (features [N, 3, output_dim] on ``device``, sds_targets [N]
+    float32, clf_targets [N] int64).
+    """
+    waveforms, rates, sds, _ = _corpus_utterances(root, max_id)
+    flat = extract_batch(waveforms, rates, cfg, device=device)
+    feats = flat.reshape(len(sds), 3, cfg.netvlad_output_dim)
+    sds_targets, clf_targets = eatd.eatd_targets(sds, sds_threshold)
+    return feats, sds_targets, clf_targets
+
+
+def load_features(features_dir: Path, track: str = "clf", dim: int = 256):
+    """Load the reference-layout npz pair (written by the JAX package's
+    ``extract-audio``) and squeeze the singleton axis the trainers expect
+    (``audio_gru_whole.py:19``)."""
+    features_dir = Path(features_dir)
+    feats = np.load(features_dir / f"whole_samples_{track}_{dim}.npz")["arr_0"]
+    labels = np.load(features_dir / f"whole_labels_{track}_{dim}.npz")["arr_0"]
+    return np.squeeze(feats, axis=2), labels

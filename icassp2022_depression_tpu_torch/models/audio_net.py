@@ -14,6 +14,12 @@ forward, kept for checkpoint fidelity) and ``fc_audio.{1,4}.*``
 (``{0,3}`` without the head's input dropout), so
 :func:`..models.porting.audio_net_state_dict_from_jax` output loads with
 ``strict=True``.
+
+Every dropout mask (the GRU's inter-layer dropout and the head's two)
+is drawn from the ``generator`` passed to :meth:`AudioNet.forward`, so a
+training run is reproducible from its seed whatever else uses torch's
+global generator.  The head's dropout slots in ``fc_audio`` are
+parameter-free placeholders that keep the reference's indices.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch import nn
 
 from icassp2022_depression_tpu_torch.config import RNNConfig
 from icassp2022_depression_tpu_torch.ops import initializers, rnn
-from icassp2022_depression_tpu_torch.ops.nn import layer_norm
+from icassp2022_depression_tpu_torch.ops.nn import dropout, layer_norm
 
 
 class AudioNet(nn.Module):
@@ -47,12 +53,14 @@ class AudioNet(nn.Module):
         self.attention_layer = nn.Sequential(
             self._linear(cfg.hidden_dims, cfg.hidden_dims, generator, device),
             nn.ReLU())
+        # [Dropout, Linear, ReLU, Dropout, Linear]: the dropouts run in
+        # head() from the explicit generator; Identity keeps their indices
         head = [self._linear(pooled, cfg.hidden_dims, generator, device),
-                nn.ReLU(), nn.Dropout(cfg.dropout),
+                nn.ReLU(), nn.Identity(),
                 self._linear(cfg.hidden_dims, cfg.num_classes, generator,
                              device)]
         if cfg.head_input_dropout:
-            head.insert(0, nn.Dropout(cfg.dropout))
+            head.insert(0, nn.Identity())
         self.fc_audio = nn.Sequential(*head)
 
     @staticmethod
@@ -77,11 +85,25 @@ class AudioNet(nn.Module):
             return y.sum(dim=1)
         raise ValueError(f"unsupported audio pooling {self.cfg.pooling!r}")
 
+    def head(self, pooled: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """FC head before the final activation: [Dropout, Linear, ReLU,
+        Dropout, Linear], the masks drawn from ``generator``."""
+        cfg = self.cfg
+        fc1, fc2 = (self.fc_audio[i] for i in
+                    ((1, 4) if cfg.head_input_dropout else (0, 3)))
+        h = pooled
+        if cfg.head_input_dropout:
+            h = dropout(h, cfg.dropout, self.training, generator)
+        h = torch.relu(fc1(h))
+        h = dropout(h, cfg.dropout, self.training, generator)
+        return fc2(h)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
         scores (reg)."""
-        out = self.fc_audio(self.features(x, generator))
+        out = self.head(self.features(x, generator), generator)
         if self.cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if self.cfg.head_activation == "relu":

@@ -3,11 +3,13 @@
 * The input projection ``x @ W_ih^T + b_ih`` for all time steps is one
   ``torch.matmul`` outside the recurrence, as in the JAX package
   (``rnn_pallas.py:981-983``).
-* The recurrence goes through one backend seam, :func:`resolve_backend`:
-  ``"cuda"`` is the hand-written kernel of :mod:`.rnn_cuda`, ``"torch"``
-  the plain PyTorch loop beside it, ``"auto"`` picks the kernel for CUDA
-  tensors and the plain loop for CPU tensors.  The kernel takes any batch
-  size, so the TPU package's VMEM-fit guards have no counterpart here.
+* The recurrence goes through one backend seam, :func:`resolve_backend`,
+  and one autograd Function, :class:`.rnn_cuda.GRUSequence`: ``"cuda"``
+  runs the hand-written forward and backward kernels of :mod:`.rnn_cuda`,
+  ``"torch"`` the plain PyTorch loops beside them, ``"auto"`` picks the
+  kernels for CUDA tensors and the plain loops for CPU tensors.  The
+  kernels take any batch size and sequence length, so the TPU package's
+  VMEM-fit guards (and its streamed kernels) have no counterpart here.
 * Parameters keep torch's layout (row-stacked ``[3H, D]`` matrices in gate
   order r, z, n), and :class:`RNN` registers them under ``nn.GRU``'s
   names, so reference checkpoints load tensor for tensor.  ``nn.GRU``
@@ -87,9 +89,8 @@ def gru_layer(p: dict, x: torch.Tensor, reverse: bool = False,
     xp = xp.transpose(0, 1).contiguous()                  # [T, B, 3H]
     w_hh_t = p["w_hh"].t().contiguous()
     b_hh = p["b_hh"].reshape(1, -1)
-    seq = (rnn_cuda.gru_sequence if backend == "cuda"
-           else rnn_cuda.gru_sequence_torch)
-    ys = seq(xp, w_hh_t, b_hh)
+    # "torch": the plain forward and backward, no kernel on any device
+    ys = rnn_cuda.GRUSequence.apply(xp, w_hh_t, b_hh, backend == "torch")
     h_last = ys[-1]
     ys = ys.transpose(0, 1)
     if reverse:

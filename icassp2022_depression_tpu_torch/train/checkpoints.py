@@ -89,3 +89,15 @@ def load_meta(path) -> dict:
     if p.endswith(".npz"):
         p = p[:-4]
     return json.loads(Path(p + ".json").read_text())
+
+
+# -- reference-style checkpoint names ---------------------------------------
+
+
+def audio_clf_name(embedding_size: int, hidden_dims: int, f1: float,
+                   fold: int) -> str:
+    return f"BiLSTM_gru_vlad{embedding_size}_{hidden_dims}_{f1:.2f}_{fold}"
+
+
+def audio_reg_name(embedding_size: int, hidden_dims: int, mae: float) -> str:
+    return f"gru_vlad{embedding_size}_{hidden_dims}_{mae:.2f}"

@@ -152,3 +152,40 @@ def test_nn_primitives_match_jax():
     kept = dropped != 0
     assert 0 < kept.float().mean() < 1
     torch.testing.assert_close(dropped[kept], t["x"][kept] / 0.5)
+
+
+@pytest.mark.parametrize("preset", ["AUDIO_CLF", "AUDIO_REG"])
+def test_every_dropout_draws_from_the_explicit_generator(preset):
+    """Train-mode forwards with generators of the same seed agree even when
+    torch's global generator moves in between; other seeds differ; eval
+    mode is unchanged by the generator."""
+    _, tcfg = _cfgs(preset, **SMALL)
+    model = AudioNet(tcfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(6, 3, 32, generator=torch.Generator().manual_seed(1))
+    # the reg head ends in a ReLU; lift it so dropout shows in the output
+    with torch.no_grad():
+        model.fc_audio[-1].bias.fill_(5.0)
+    model.train()
+    with torch.no_grad():
+        torch.manual_seed(1)
+        a = model(x, torch.Generator().manual_seed(7))
+        torch.manual_seed(2)
+        torch.rand(100)
+        b = model(x, torch.Generator().manual_seed(7))
+        c = model(x, torch.Generator().manual_seed(8))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    # the head's own masks follow the generator too, not only the GRU's
+    pooled = torch.randn(6, 16, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        torch.manual_seed(3)
+        h1 = model.head(pooled, torch.Generator().manual_seed(9))
+        torch.manual_seed(4)
+        h2 = model.head(pooled, torch.Generator().manual_seed(9))
+    assert torch.equal(h1, h2)
+    model.eval()
+    with torch.no_grad():
+        e1 = model(x, torch.Generator().manual_seed(7))
+        e2 = model(x)
+    assert torch.equal(e1, e2)
+    assert set(model.state_dict()) == set(AudioNet(tcfg).state_dict())

@@ -145,3 +145,25 @@ def test_synthetic_corpus_and_reader_equal(tmp_path):
     for a, b in zip(st.waveforms, sj.waveforms):
         np.testing.assert_array_equal(a, b)
     assert teatd.corpus_position(tmp_path / "t", "ValidationData", 1) == 2
+
+
+def test_extract_eatd_device_and_load_features_match_jax(tmp_path):
+    """The fused corpus pass that feeds ``train --corpus`` (full default
+    frontend), and the npz reader of the JAX package's extract-audio
+    artifacts."""
+    teatd.make_synthetic_corpus(tmp_path, 2, 1, seconds=(0.2, 0.4), seed=6)
+    feats, sds, clf = taudio.extract_eatd_device(tmp_path, device="cpu")
+    jfeats, jsds, jclf = jaudio.extract_eatd_device(tmp_path)
+    assert tuple(feats.shape) == (3, 3, 256) and feats.device.type == "cpu"
+    np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(sds, jsds)
+    np.testing.assert_array_equal(clf, jclf)
+    out = tmp_path / "Features"
+    out.mkdir()
+    np.savez(out / "whole_samples_clf_256.npz",
+             np.asarray(jfeats)[:, :, None, :])
+    np.savez(out / "whole_labels_clf_256.npz", jclf)
+    for a, b in zip(taudio.load_features(out, "clf"),
+                    jaudio.load_features(out, "clf")):
+        np.testing.assert_array_equal(a, b)

@@ -124,9 +124,11 @@ def test_lstm_and_xavier_name_the_text_slice():
 def test_kernel_module_imports_without_building():
     """Importing the kernel module and the builder compiles nothing; the
     library path is keyed by the source and lies in the ignored _build/."""
-    assert rnn_cuda._fn is None
-    assert "gru_fwd" not in _build._loaded
-    so = _build.library_path("gru_fwd")
-    assert so.parent == _build.BUILD_DIR and so.name.startswith("libgru_fwd-")
-    assert (_build.CSRC / "gru_fwd.cu").is_file()
+    assert rnn_cuda._fns == {}
+    for name in ("gru_fwd", "gru_bwd"):
+        assert name not in _build._loaded
+        so = _build.library_path(name)
+        assert so.parent == _build.BUILD_DIR
+        assert so.name.startswith(f"lib{name}-")
+        assert (_build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
