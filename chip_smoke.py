@@ -1,45 +1,51 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``icassp2022_depression_tpu_torch``)
-on one NVIDIA GPU: the serving path and the training path of the audio
-models at full width.
+on one NVIDIA GPU: the serving path of the audio model, and the training
+paths of both tracks (audio and text branches and their fusion), at full
+width.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the exit code is nonzero):
 
 1. setup: require CUDA, print the card's name and power limit, turn TF32
-   off, build both GRU kernels from ``icassp2022_depression_tpu_torch/csrc``
-   with ``nvcc`` (one compiler process per source, started together) and
-   print the build time and the compiler's reports;
-2. kernels: the CUDA GRU forward against its plain PyTorch version at the
-   shapes of the serving path and one ragged shape (max |diff| <= 1e-5),
-   the CUDA GRU backward against its plain version at the training shapes,
-   a ragged shape and (T, B, H) = (256, 16, 256), a shape the JAX package
-   would stream (max |d dxp| <= 1e-5; dw and db within 1e-5 of their
-   largest magnitude), both timed with CUDA events; the forward wrapper
-   must refuse a CUDA input that requires grad;
+   off, build the four kernels from ``icassp2022_depression_tpu_torch/csrc``
+   (GRU and LSTM, forward and backward) with ``nvcc``, one compiler process
+   per source, started together, and print the build time and the
+   compiler's reports;
+2. kernels: each CUDA kernel against its plain PyTorch version at the
+   shapes of the paths below, a ragged shape and one the JAX package would
+   stream ((256, 16, H)): outputs and dxp within 1e-5, dw and db within
+   1e-5 of their largest magnitude, reruns bitwise equal, the LSTM
+   backward with a nonzero cell-state cotangent; timed with CUDA events;
+   the forward wrappers must refuse a CUDA input that requires grad;
 3. serving: a synthetic EATD corpus, a full-width ``audio_clf`` with seeded
    random weights saved as a JAX-layout npz, ``cli predict`` for one
-   speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers.  The
-   forward kernel must launch twice (two layers) per forward; outputs must
-   be finite probabilities equal (1e-5) to a comparison run whose forward
-   uses the plain recurrence, and the ``cli predict`` speaker must agree
-   with the same predictor run on the CPU;
-4. training: a synthetic corpus of 24 + 12 speakers; ``cli train --task
-   audio_clf --corpus`` with the full recipe (170 epochs, 3 folds), then
-   ``train_audio_reg`` (120 epochs) on the same features.  Each run must
-   launch the backward kernel exactly twice per optimizer step (two
-   layers), the forward kernel twice per step and twice per epoch's eval,
-   log finite metrics, and write its artifacts for every fold its gate
-   passed.  Comparisons, not counted: a 5-epoch ``audio_clf`` fold and a
-   5-epoch ``audio_reg`` fold with dropout through the kernels against the
-   plain recurrence on the card, and the ``audio_clf`` fold with dropout 0
-   against the CPU (per-step losses within 1e-5, relative to the largest
-   loss for the L1 loss on SDS scores; final params within 1e-5 of the
-   largest |param|);
+   speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers, the
+   GRU forward kernel launched twice per forward; outputs equal (1e-5) to
+   the plain recurrence's and, for ``cli predict``, to the CPU's;
+4. training: a synthetic corpus of 24 + 12 speakers, its wav2vlad features
+   extracted on the card and written with seeded synthetic text features
+   ([N, 3, 1024], shifted by label; the ELMo frontend is not ported yet) as
+   a JAX-layout npz root.  Counted, each with every kernel counter zeroed
+   just before and read just after: ``cli pipeline --track clf`` at the
+   full recipes (audio_clf 170, text_clf 150, fuse_clf 100 epochs, 3
+   folds each), ``cli train --task audio_clf --corpus`` and ``cli
+   pipeline --track reg`` (folds cut to the corpus) at 20 epochs.  Per
+   stage the launches must be exact (audio: 2 GRU forwards per step and
+   eval, 2 GRU backwards per step; text: 4 LSTM forwards per step and
+   eval, 4 LSTM backwards per step; fusion: 4 LSTM and 2 GRU forwards per
+   step and per fold, and no backward kernel at all), the metrics finite
+   and every gated fold's artifacts written.  Comparisons, not counted:
+   5-epoch ``audio_clf``, ``audio_reg``, ``text_clf`` and ``fuse_clf``
+   folds through the kernels against the plain recurrence on the card
+   with the same dropout masks, and ``audio_clf`` and ``text_clf`` folds
+   with dropout 0 on the card against the CPU (per-step losses within
+   1e-5, relative to the largest loss for the L1 loss on SDS scores;
+   final params within 1e-5 of the largest |param|);
 5. timing: warm ``predict_batch`` latency at 1 and 8 speakers; the wall
-   time of the 3-fold recipe; a train step split into forward, backward
-   and optimizer.
+   time of each pipeline stage; an ``audio_clf`` and a ``text_clf`` train
+   step split into forward, backward and optimizer.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
@@ -71,8 +77,19 @@ BATCHES = (1, 3, 8)
 BWD_SHAPES = ((3, 8, 256), (3, 2, 256), (3, 24, 256), (7, 3, 200),
               (256, 16, 256))
 BWD_TIMED = ((3, 8, 256), (3, 2, 256))
+#: the LSTM at the text model's H = 128: the training batches (text_clf 4,
+#: text_reg and fuse_clf 2), an eval split, a ragged shape, and one the JAX
+#: package would stream
+LSTM_SHAPES = ((3, 4, 128), (3, 2, 128), (3, 24, 128), (7, 3, 100),
+               (256, 16, 128))
+LSTM_TIMED = ((3, 4, 128), (3, 2, 128))
 TRAIN_TOL = 1e-5
 COMPARE_EPOCHS = 5
+#: epochs of the runs cut to keep the script short (cli train --corpus and
+#: the reg pipeline); the clf pipeline runs the full recipes
+REDUCED_EPOCHS = 20
+#: per-dimension shift of the synthetic text features by label (+-)
+TEXT_SHIFT = 0.1
 
 
 def fail(msg: str) -> None:
@@ -339,36 +356,292 @@ def bwd_kernel_phase(torch, rnn_cuda, card: str):
     return worst, timings
 
 
-def _expect_launches(rnn_cuda, steps: int, evals: int, what: str) -> None:
-    """Two layers: one forward per layer per step and per eval, one
-    backward per layer per step."""
-    fwd, bwd = rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES
-    print(f"{what}: {steps} optimizer steps, {evals} evals; kernel launches "
-          f"gru_fwd {fwd}, gru_bwd {bwd}")
-    if bwd != 2 * steps:
-        fail(f"{what} launched the backward kernel {bwd} times, expected "
-             f"{2 * steps} (two layers x {steps} steps)")
-    if fwd != 2 * (steps + evals):
-        fail(f"{what} launched the forward kernel {fwd} times, expected "
-             f"{2 * (steps + evals)}")
+def lstm_kernel_phase(torch, rnn_cuda, card: str):
+    """Both LSTM kernels against their plain versions, the backward with a
+    nonzero cell-state cotangent; returns the worst errors and the
+    (kernel, plain) ms of each at the timed shapes."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    gen = torch.Generator().manual_seed(2)
+    inputs = {}
+    for t, b, h in LSTM_SHAPES:
+        bound = h ** -0.5
+        xp = torch.randn((t, b, 4 * h), generator=gen).cuda()
+        w = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1) * bound).cuda()
+        bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
+                * bound).cuda()
+        dys = torch.randn((t, b, h), generator=gen).cuda()
+        dcs = torch.randn((t, b, h), generator=gen).cuda()
+        ys, cs = rnn_cuda.lstm_sequence(xp, w, bias)
+        ref_ys, ref_cs = rnn_cuda.lstm_sequence_torch(xp, w, bias)
+        args = (xp, w, bias, ref_ys, ref_cs, dys, dcs)
+        got = rnn_cuda.lstm_sequence_bwd(*args)
+        again = rnn_cuda.lstm_sequence_bwd(*args)
+        ref = rnn_cuda.lstm_sequence_bwd_torch(*args)
+        torch.cuda.synchronize()
+        for g, want in zip((ys, cs) + got,
+                           ((t, b, h), (t, b, h), (t, b, 4 * h),
+                            (h, 4 * h), (1, 4 * h))):
+            if tuple(g.shape) != want or not torch.isfinite(g).all():
+                fail(f"LSTM kernel output at {(t, b, h)} is malformed")
+        fwd = max((ys - ref_ys).abs().max().item(),
+                  (cs - ref_cs).abs().max().item())
+        bwd = (got[0] - ref[0]).abs().max().item()
+        rel = [((g - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(got[1:], ref[1:])]
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        print(f"kernel lstm_fwd/lstm_bwd T={t} B={b} H={h}: max|d ys|, "
+              f"|d cs| = {fwd:.3e}, max|d dxp| = {bwd:.3e} (tol "
+              f"{KERNEL_TOL}), dw rel {rel[0]:.3e}, db rel {rel[1]:.3e} (tol "
+              f"{KERNEL_TOL} of max|ref|), dcs nonzero, rerun bitwise equal: "
+              f"{same}")
+        if not (fwd <= KERNEL_TOL and bwd <= KERNEL_TOL
+                and max(rel) <= KERNEL_TOL and same):
+            fail(f"LSTM kernels disagree with their plain versions at "
+                 f"{(t, b, h)}: fwd {fwd}, dxp {bwd}, dw/db {rel}, rerun "
+                 f"{same}")
+        worst["fwd"] = max(worst["fwd"], fwd)
+        worst["bwd"] = max(worst["bwd"], bwd)
+        inputs[(t, b, h)] = args
+    try:
+        rnn_cuda.lstm_sequence(xp.clone().requires_grad_(), w, bias)
+    except ValueError:
+        pass
+    else:
+        fail("lstm_sequence returned a detached result for an input that "
+             "requires grad")
+    timings = {}
+    for shape in LSTM_TIMED:
+        args = inputs[shape]
+        for _ in range(5):
+            rnn_cuda.lstm_sequence(*args[:3])
+            rnn_cuda.lstm_sequence_torch(*args[:3])
+            rnn_cuda.lstm_sequence_bwd(*args)
+            rnn_cuda.lstm_sequence_bwd_torch(*args)
+        timings[shape] = {
+            "fwd": (event_ms(lambda: rnn_cuda.lstm_sequence(*args[:3]), 50,
+                             torch),
+                    event_ms(lambda: rnn_cuda.lstm_sequence_torch(*args[:3]),
+                             50, torch)),
+            "bwd": (event_ms(lambda: rnn_cuda.lstm_sequence_bwd(*args), 50,
+                             torch),
+                    event_ms(lambda: rnn_cuda.lstm_sequence_bwd_torch(*args),
+                             50, torch))}
+        for k, (ms, plain) in timings[shape].items():
+            print(f"timing lstm_{k} T={shape[0]} B={shape[1]} H={shape[2]}: "
+                  f"cuda kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
+                  f"(median of 50, CUDA events) [{card}]")
+    return worst, timings
 
 
-def _check_logs(results, what: str) -> None:
-    for r in results:
-        for k, v in r["logs"].items():
-            if not all(map(_finite, v.tolist())):
-                fail(f"{what} fold {r['fold']}: non-finite {k}")
+def _counts(rnn_cuda) -> dict:
+    return {"gru_fwd": rnn_cuda.LAUNCHES, "gru_bwd": rnn_cuda.BWD_LAUNCHES,
+            "lstm_fwd": rnn_cuda.LSTM_LAUNCHES,
+            "lstm_bwd": rnn_cuda.LSTM_BWD_LAUNCHES}
+
+
+def _set_counts(rnn_cuda, counts: dict) -> None:
+    rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES = (counts["gru_fwd"],
+                                                counts["gru_bwd"])
+    rnn_cuda.LSTM_LAUNCHES, rnn_cuda.LSTM_BWD_LAUNCHES = (
+        counts["lstm_fwd"], counts["lstm_bwd"])
+
+
+ZERO = {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+
+
+def expected_launches(task: str, steps: int, evals: int, folds: int) -> dict:
+    """Two GRU layers (audio), two layers x two directions of LSTM (text):
+    one forward per layer and direction per step and per eval, one backward
+    per step.  The fusion trains only its head: its frozen branches run
+    forward once per step and once per fold (the test split's features),
+    and no backward kernel launches."""
+    if task.startswith("audio"):
+        return dict(ZERO, gru_fwd=2 * (steps + evals), gru_bwd=2 * steps)
+    if task.startswith("text"):
+        return dict(ZERO, lstm_fwd=4 * (steps + evals), lstm_bwd=4 * steps)
+    return dict(ZERO, gru_fwd=2 * (steps + folds),
+                lstm_fwd=4 * (steps + folds))
+
+
+def _check_launches(task: str, got: dict, steps: int, evals: int,
+                    folds: int) -> None:
+    want = expected_launches(task, steps, evals, folds)
+    print(f"{task}: {steps} optimizer steps, {evals} evals, {folds} folds; "
+          f"kernel launches {got}")
+    if got != want:
+        fail(f"{task} launched {got}, expected {want}")
+
+
+def write_npz_root(root: Path, feats, sds, clf, seed: int = 3) -> None:
+    """``Features/{AudioWhole,TextWhole}`` in the JAX package's npz layout:
+    the audio from the port's own extraction, the text [N, 3, 1024] drawn
+    from a seeded normal with a label-dependent shift (the ELMo frontend
+    is not ported yet), and an extraction_meta.json naming that."""
+    import numpy as np
+
+    audio = root / "Features" / "AudioWhole"
+    text = root / "Features" / "TextWhole"
+    audio.mkdir(parents=True)
+    text.mkdir(parents=True)
+    xa = feats.cpu().numpy()[:, :, None, :]
+    rng = np.random.default_rng(seed)
+    xt = (rng.standard_normal((len(clf), 3, 1024), dtype=np.float32)
+          + np.float32(TEXT_SHIFT) * (2 * clf - 1)[:, None, None]
+          ).astype(np.float32)
+    for track, y in (("clf", clf), ("reg", sds)):
+        np.savez(audio / f"whole_samples_{track}_256.npz", xa)
+        np.savez(audio / f"whole_labels_{track}_256.npz", y)
+        np.savez(text / f"whole_samples_{track}_avg.npz", xt)
+        np.savez(text / f"whole_labels_{track}_avg.npz", y)
+    (text / "extraction_meta.json").write_text(json.dumps(
+        {"embedder": f"synthetic-normal-seed{seed}", "segmenter": None}))
+
+
+PIPELINE_TASKS = {"clf": ("audio_clf", "text_clf", "fuse_clf"),
+                  "reg": ("audio_reg", "text_reg", "fuse_reg")}
+
+
+def pipeline_run(torch, root: Path, track: str, card: str,
+                 fold_cfg=None) -> dict:
+    """``cli pipeline --track <track>`` on the npz root, counted: every
+    kernel counter is zeroed just before and read just after, and each
+    stage's launches and wall time are recorded by wrapping its trainer
+    (``fold_cfg``, when given, is passed to the reg trainers).  Checks the
+    launches of each stage, the metrics, the summary line and every gated
+    fold's artifacts; returns the launches and the stage wall times."""
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.train import checkpoints, trainers
+
+    tasks = PIPELINE_TASKS[track]
+    stages: dict = {}
+    originals = {t: getattr(trainers, f"train_{t}") for t in tasks}
+
+    def staged(task, fn):
+        def run(*args, **kwargs):
+            if fold_cfg is not None:
+                kwargs["fold_cfg"] = fold_cfg
+            before = _counts(rnn_cuda)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = _counts(rnn_cuda)
+            stages[task] = (time.perf_counter() - t0,
+                            {k: after[k] - before[k] for k in after})
+            return out
+        return run
+
+    for t, fn in originals.items():
+        setattr(trainers, f"train_{t}", staged(t, fn))
+    buf = io.StringIO()
+    try:
+        _set_counts(rnn_cuda, ZERO)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["pipeline", "--track", track, "--root",
+                           str(root), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = _counts(rnn_cuda)
+    finally:
+        for t, fn in originals.items():
+            setattr(trainers, f"train_{t}", fn)
+    if rc != 0:
+        fail(f"cli pipeline --track {track} returned {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"cli pipeline --track {track}: {json.dumps(summary)}")
+    metric = "f1" if track == "clf" else "mae"
+    records = [json.loads(line) for line in
+               (root / "Model" / f"pipeline_{track}_metrics.jsonl")
+               .read_text().splitlines()]
+    model = root / "Model"
+    for task in tasks:
+        epochs = [r for r in records
+                  if r["event"] == "epoch" and r["trainer"] == task]
+        bests = [r for r in records
+                 if r["event"] == "fold_best" and r["trainer"] == task]
+        for r in epochs:
+            bad = [k for k, v in r.items()
+                   if isinstance(v, float) and not _finite(v)]
+            if bad:
+                fail(f"{task}: non-finite metrics logged: {r}")
+        if len(bests) != 3 or summary[f"{task.split('_')[0]}_{metric}"] \
+                != [round(b[metric], 4) for b in bests]:
+            fail(f"{task}: {len(bests)} fold results, summary {summary}")
+        _check_launches(task, stages[task][1],
+                        int(sum(r["steps"] for r in epochs)), len(epochs),
+                        len(bests))
+        gated = [r for r in bests if r["epoch"] >= 0]
+        for r in gated:
+            for f in _artifacts(checkpoints, model, task, r):
+                if not f.is_file():
+                    fail(f"gated {task} fold {r['fold']} wrote no {f}")
+            if not task.startswith("audio"):
+                meta = checkpoints.load_meta(
+                    next(iter(_artifacts(checkpoints, model, task, r))))
+                if not meta.get("text_embedder", "").startswith("synthetic"):
+                    fail(f"{task} sidecar lacks the text provenance: {meta}")
+        print(f"  {task}: {len(gated)} of 3 folds gated, their artifacts "
+              f"written; wall {stages[task][0]:.2f} s [{card}]")
+    if total != {k: sum(st[1][k] for st in stages.values()) for k in total}:
+        fail(f"launches outside the trainers: {total}, stages {stages}")
+    print(f"cli pipeline --track {track}: wall {wall:.2f} s, launches "
+          f"{total} [{card}]")
+    return {"launches": total, "wall_s": wall,
+            "stage_s": {t: st[0] for t, st in stages.items()}}
+
+
+def _artifacts(checkpoints, model: Path, task: str, r: dict) -> list:
+    """The files the JAX package's trainers write for a gated fold, the
+    npz first."""
+    branch, track = task.split("_")
+    sub = {"audio": "Audio", "text": "Text", "fuse": "Fuse"}[branch]
+    if track == "clf":
+        f1, fold = r["f1"], r["fold"]
+        name = (checkpoints.audio_clf_name(256, 256, f1, fold)
+                if branch == "audio" else
+                checkpoints.text_clf_name(128, f1, fold)
+                if branch == "text" else checkpoints.fuse_clf_name(f1, fold))
+        d = model / "ClassificationWhole" / sub
+        return [d / f"{name}.npz", d / f"{name}.json",
+                d / "train_idxs_{:.2f}_{}.npy".format(f1, fold)]
+    mae = r["mae"]
+    name = (checkpoints.audio_reg_name(256, 256, mae) if branch == "audio"
+            else checkpoints.text_reg_name(128, mae) if branch == "text"
+            else checkpoints.fuse_reg_name(mae))
+    d = model / "Regression" / f"{sub}{r['fold']}"
+    return [d / f"{name}.npz", d / f"{name}.json"]
 
 
 def _fold_run(torch, tcfg, data, device):
-    """One fold through the trainers' own pieces; returns the per-step
-    losses and the final params."""
+    """One branch fold through the trainers' own pieces; returns the
+    per-step losses and the final params."""
     from icassp2022_depression_tpu_torch.train import loop, optim, trainers
 
     model = trainers.init_model(tcfg, 0, 1, device)
     opt = optim.build(tcfg.optimizer, model)
     _, _, step_losses = loop.run_fold(
-        model, opt, trainers._branch_fns(tcfg), data, tcfg.track,
+        model, opt, *loop.model_fns(model, trainers._branch_fns(tcfg)), data,
+        tcfg.track, tcfg.gate, tcfg.epochs,
+        trainers.dropout_generator(0, 1, device))
+    return step_losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _fusion_fold_run(torch, fcfg, tcfg, data, branch, device):
+    """One fusion fold as ``trainers._run_fusion_folds`` runs it (branch
+    init, the test split's features once, only fc_final trains)."""
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.train import loop, optim, trainers
+
+    model = FusionNet(fcfg, generator=torch.Generator().manual_seed(0))
+    model = model.to(device)
+    model.init_from_branches(*branch, tcfg.track)
+    opt = optim.build(tcfg.optimizer, model)
+    model.eval()
+    tf, af = model.pretrained_feature(*data.test_x)
+    data = data._replace(test_x=(torch.cat([tf, af], dim=-1),))
+    _, _, step_losses = loop.run_fold(
+        model, opt, *trainers._fusion_fns(model, tcfg), data, tcfg.track,
         tcfg.gate, tcfg.epochs, trainers.dropout_generator(0, 1, device))
     return step_losses, {k: v.cpu() for k, v in model.state_dict().items()}
 
@@ -402,7 +675,21 @@ def _compare_runs(a, b, what: str, loss_scale: float = 1.0) -> tuple:
     return d_loss, d_param
 
 
-def step_split(torch, tcfg, data, card: str, steps: int = 60) -> dict:
+def _plain(tcfg, C):
+    return C.replace(tcfg, model=C.replace(tcfg.model, rnn_backend="torch"))
+
+
+def _no_kernel(rnn_cuda, fn):
+    """``fn()``, failing if it launched any kernel."""
+    before = _counts(rnn_cuda)
+    out = fn()
+    if _counts(rnn_cuda) != before:
+        fail("the plain recurrence launched a kernel")
+    return out
+
+
+def step_split(torch, tcfg, data, card: str, what: str,
+               steps: int = 60) -> dict:
     """Median ms of a train step's forward (+ loss), backward and optimizer
     step, CUDA events between the phases, after 10 warm steps."""
     from icassp2022_depression_tpu_torch.train import optim, trainers
@@ -433,121 +720,97 @@ def step_split(torch, tcfg, data, card: str, steps: int = 60) -> dict:
              for k, name in enumerate(("forward", "backward", "optimizer"))}
     split["step"] = statistics.median(m[0].elapsed_time(m[3])
                                       for m in marks)
-    print(f"timing audio_clf train step (batch {data.train_y.shape[1]}): "
+    print(f"timing {what} train step (batch {data.train_y.shape[1]}): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f" (median of {steps}, CUDA events between phases) [{card}]")
     return split
 
 
 def train_phase(torch, card: str):
-    """The training path, counted, then the comparisons and timings."""
+    """The training paths, counted (the clf pipeline at the full recipes,
+    ``cli train --corpus`` and the reg pipeline at reduced epochs), then
+    the comparisons and timings.  Returns the counted launches."""
     from icassp2022_depression_tpu_torch import cli
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import eatd, folds
     from icassp2022_depression_tpu_torch.frontend import audio as afe
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
-    from icassp2022_depression_tpu_torch.train import checkpoints, trainers
+    from icassp2022_depression_tpu_torch.train import trainers
 
-    launches = {"gru_fwd": 0, "gru_bwd": 0}
+    launches = dict(ZERO)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        root = Path(tmp) / "corpus"
-        eatd.make_synthetic_corpus(root, n_data=24, n_validation=12,
+        corpus = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
                                    seconds=(2.0, 12.0), seed=1)
-
-        # -- main path 1: cli train --task audio_clf --corpus, counted ----
-        rnn_cuda.LAUNCHES = rnn_cuda.BWD_LAUNCHES = 0
-        buf = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["train", "--task", "audio_clf", "--root",
-                           str(root), "--corpus", str(root), "--device",
-                           "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            fail(f"cli train returned {rc}")
-        print(buf.getvalue().strip())
-        records = [json.loads(line) for line in
-                   (root / "Model" / "audio_clf_metrics.jsonl")
-                   .read_text().splitlines()]
-        epochs = [r for r in records if r["event"] == "epoch"]
-        bests = [r for r in records if r["event"] == "fold_best"]
-        if len(bests) != 3 or len(epochs) != 3 * (C.AUDIO_CLF.epochs - 1):
-            fail(f"the metrics jsonl holds {len(epochs)} epochs and "
-                 f"{len(bests)} fold results")
-        for r in epochs:
-            if not all(_finite(r[k]) for k in ("loss", "f1", "accuracy",
-                                               "train_correct")):
-                fail(f"non-finite metrics logged: {r}")
-        _expect_launches(rnn_cuda, int(sum(r["steps"] for r in epochs)),
-                         len(epochs), f"cli train audio_clf (3 folds x "
-                                      f"{C.AUDIO_CLF.epochs - 1} epochs)")
-        launches["gru_fwd"] += rnn_cuda.LAUNCHES
-        launches["gru_bwd"] += rnn_cuda.BWD_LAUNCHES
-        out = root / "Model" / "ClassificationWhole" / "Audio"
-        gated = [r for r in bests if r["epoch"] >= 0]
-        for r in gated:
-            name = checkpoints.audio_clf_name(256, 256, r["f1"], r["fold"])
-            for f in (f"{name}.npz", f"{name}.json",
-                      "train_idxs_{:.2f}_{}.npy".format(r["f1"], r["fold"])):
-                if not (out / f).is_file():
-                    fail(f"gated fold {r['fold']} wrote no {f}")
-        print(f"cli train audio_clf: {len(gated)} of 3 folds gated, their "
-              f"npz, sidecar and train-idx files written; wall {wall:.2f} s "
-              f"(extraction + 3 folds) [{card}]")
-
-        t0 = time.perf_counter()
-        feats, sds, clf = afe.extract_eatd_device(root, device="cuda")
+        feats, sds, clf = afe.extract_eatd_device(corpus, device="cuda")
         torch.cuda.synchronize()
         extract_s = time.perf_counter() - t0
+        root = Path(tmp) / "npz"
+        write_npz_root(root, feats, sds, clf)
         print(f"extract_eatd_device: {feats.shape[0]} speakers "
-              f"({int(clf.sum())} depressed), {extract_s:.2f} s warm "
+              f"({int(clf.sum())} depressed), {extract_s:.2f} s; npz root "
+              f"written (text features synthetic, shift {TEXT_SHIFT}) "
               f"[{card}]")
 
-        # -- main path 2: train_audio_reg, counted ------------------------
-        cut = C.FoldConfig.sds_threshold
-        n_dep, n_non = int((sds >= cut).sum()), int((sds < cut).sum())
-        fold_cfg = C.FoldConfig(reg_test_dep=n_dep // 3,
-                                reg_test_non=n_non // 3)
-        dep, non = folds.generate_reg_shuffles(sds, seed=0)
-        rnn_cuda.LAUNCHES = rnn_cuda.BWD_LAUNCHES = 0
-        t0 = time.perf_counter()
-        reg = trainers.train_audio_reg(feats, sds, dep, non,
-                                       out_dir=Path(tmp) / "Regression",
-                                       fold_cfg=fold_cfg)
-        torch.cuda.synchronize()
-        reg_wall = time.perf_counter() - t0
-        _check_logs(reg, "train_audio_reg")
-        _expect_launches(
-            rnn_cuda, int(sum(r["logs"]["steps"].sum() for r in reg)),
-            sum(len(r["logs"]["mae"]) for r in reg),
-            f"train_audio_reg (3 folds x {C.AUDIO_REG.epochs - 1} epochs, test "
-            f"{fold_cfg.reg_test_dep}+{fold_cfg.reg_test_non} speakers)")
-        launches["gru_fwd"] += rnn_cuda.LAUNCHES
-        launches["gru_bwd"] += rnn_cuda.BWD_LAUNCHES
-        for r in reg:
-            best = {k: round(v, 4) for k, v in r["best"].items()
-                    if k != "params"}
-            print(f"train_audio_reg fold {r['fold']}: {best}")
-        reg_gated = trainers._gated(reg)
-        for r in reg_gated:
-            name = checkpoints.audio_reg_name(256, 256, r["best"]["mae"])
-            for f in (f"{name}.npz", f"{name}.json"):
-                if not (Path(tmp) / "Regression" / f"Audio{r['fold']}"
-                        / f).is_file():
-                    fail(f"gated reg fold {r['fold']} wrote no {f}")
-        print(f"train_audio_reg: {len(reg_gated)} of 3 folds gated"
-              + (", their npz and sidecar written" if reg_gated else
-                 " (the gated save is held by tests/test_torch_train.py)")
-              + f"; wall {reg_wall:.2f} s [{card}]")
+        # -- main path: cli pipeline --track clf at the full recipes ------
+        clf_run = pipeline_run(torch, root, "clf", card)
+        for k, v in clf_run["launches"].items():
+            launches[k] += v
+
+        # -- cli train --task audio_clf --corpus, reduced epochs -----------
+        full = {n: getattr(C, n) for n in
+                ("AUDIO_CLF", "AUDIO_REG", "TEXT_REG", "FUSE_REG_TRAINER")}
+        try:
+            C.AUDIO_CLF = C.replace(full["AUDIO_CLF"],
+                                    epochs=REDUCED_EPOCHS + 1)
+            _set_counts(rnn_cuda, ZERO)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["train", "--task", "audio_clf", "--root",
+                               str(corpus), "--corpus", str(corpus),
+                               "--device", "cuda"])
+            torch.cuda.synchronize()
+            corpus_wall = time.perf_counter() - t0
+            got = _counts(rnn_cuda)
+            if rc != 0:
+                fail(f"cli train returned {rc}")
+            records = [json.loads(line) for line in
+                       (corpus / "Model" / "audio_clf_metrics.jsonl")
+                       .read_text().splitlines()]
+            epochs = [r for r in records if r["event"] == "epoch"]
+            if len(epochs) != 3 * REDUCED_EPOCHS or not all(
+                    _finite(r["loss"]) for r in epochs):
+                fail(f"cli train audio_clf logged {len(epochs)} epochs")
+            _check_launches("audio_clf (cli train --corpus)", got,
+                            int(sum(r["steps"] for r in epochs)),
+                            len(epochs), 3)
+            for k, v in got.items():
+                launches[k] += v
+            print(f"cli train audio_clf --corpus, 3 folds x "
+                  f"{REDUCED_EPOCHS} epochs: wall {corpus_wall:.2f} s "
+                  f"(extraction + folds) [{card}]")
+
+            # -- cli pipeline --track reg, reduced epochs ----------------
+            for n in ("AUDIO_REG", "TEXT_REG", "FUSE_REG_TRAINER"):
+                setattr(C, n, C.replace(full[n], epochs=REDUCED_EPOCHS + 1))
+            cut = C.FoldConfig.sds_threshold
+            n_dep, n_non = int((sds >= cut).sum()), int((sds < cut).sum())
+            fold_cfg = C.FoldConfig(reg_test_dep=n_dep // 3,
+                                    reg_test_non=n_non // 3)
+            reg_run = pipeline_run(torch, root, "reg", card, fold_cfg)
+            for k, v in reg_run["launches"].items():
+                launches[k] += v
+        finally:
+            for n, v in full.items():
+                setattr(C, n, v)
 
         # -- comparisons, not counted --------------------------------------
-        counted = (rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES)
+        counted = _counts(rnn_cuda)
         train_idx = folds.generate_clf_folds(clf, 3, seed=0)
         data = trainers._clf_fold_datas([feats], clf, train_idx, 8)[0]
         base = C.replace(C.AUDIO_CLF, epochs=COMPARE_EPOCHS + 1)
-        plain = C.replace(base, model=C.replace(base.model,
-                                                rnn_backend="torch"))
         # the fold loop never waits for the card: a fold's host syncs (set
         # up and the one readback) do not grow with its epochs
         runs, syncs = {}, {}
@@ -561,44 +824,74 @@ def train_phase(torch, card: str):
         if syncs[1] != syncs[COMPARE_EPOCHS]:
             fail("the fold loop synchronises with the card inside its "
                  "epochs")
-        kernel_run = runs[COMPARE_EPOCHS]
-        before = (rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES)
-        plain_run = _fold_run(torch, plain, data, "cuda")
-        if (rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES) != before:
-            fail("the plain recurrence launched a kernel")
-        cmp_kernel = _compare_runs(kernel_run, plain_run,
-                                   f"{COMPARE_EPOCHS}-epoch audio_clf fold, "
-                                   "dropout 0.5, kernels vs plain recurrence "
-                                   "on the card")
+        cmp = {}
+        cmp["audio_clf"] = _compare_runs(
+            runs[COMPARE_EPOCHS], _no_kernel(rnn_cuda, lambda: _fold_run(
+                torch, _plain(base, C), data, "cuda")),
+            f"{COMPARE_EPOCHS}-epoch audio_clf fold, dropout 0.5, kernels vs "
+            "plain recurrence on the card")
         no_drop = C.replace(base, model=C.replace(base.model, dropout=0.0))
         cpu_data = trainers._clf_fold_datas([feats.cpu()], clf, train_idx,
                                             8)[0]
-        cmp_cpu = _compare_runs(_fold_run(torch, no_drop, data, "cuda"),
-                                _fold_run(torch, no_drop, cpu_data, "cpu"),
-                                f"{COMPARE_EPOCHS}-epoch audio_clf fold, "
-                                "dropout 0, card vs CPU")
-        # the regression recipe: batch 2, sum pooling, ReLU head, Adam, L1
+        cmp["audio_clf_cpu"] = _compare_runs(
+            _fold_run(torch, no_drop, data, "cuda"),
+            _fold_run(torch, no_drop, cpu_data, "cpu"),
+            f"{COMPARE_EPOCHS}-epoch audio_clf fold, dropout 0, card vs CPU")
+        dep, non = folds.generate_reg_shuffles(sds, seed=0)
         reg_data = trainers._reg_fold_datas(
             [feats], sds, dep, non, C.AUDIO_REG.batch_size, fold_cfg)[0]
         reg_base = C.replace(C.AUDIO_REG, epochs=COMPARE_EPOCHS + 1)
-        reg_plain = C.replace(reg_base, model=C.replace(
-            reg_base.model, rnn_backend="torch"))
-        reg_kernel_run = _fold_run(torch, reg_base, reg_data, "cuda")
-        before = (rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES)
-        reg_plain_run = _fold_run(torch, reg_plain, reg_data, "cuda")
-        if (rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES) != before:
-            fail("the plain recurrence launched a kernel")
-        cmp_reg = _compare_runs(
-            reg_kernel_run, reg_plain_run,
+        reg_plain_run = _no_kernel(rnn_cuda, lambda: _fold_run(
+            torch, _plain(reg_base, C), reg_data, "cuda"))
+        cmp["audio_reg"] = _compare_runs(
+            _fold_run(torch, reg_base, reg_data, "cuda"), reg_plain_run,
             f"{COMPARE_EPOCHS}-epoch audio_reg fold, dropout 0.5, kernels vs "
             "plain recurrence on the card",
             loss_scale=max(1.0, float(abs(reg_plain_run[0]).max())))
-        split = step_split(torch, C.AUDIO_CLF, data, card)
-        rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES = counted
-    return launches, {"clf_wall_s": wall, "extract_s": extract_s,
-                      "reg_wall_s": reg_wall, "split": split,
-                      "cmp_kernel": cmp_kernel, "cmp_cpu": cmp_cpu,
-                      "cmp_reg": cmp_reg}
+        # the text branch: batch 4, BiLSTM x 2 layers, attention, xavier
+        import numpy as np
+
+        xt = torch.as_tensor(np.load(root / "Features" / "TextWhole" /
+                                     "whole_samples_clf_avg.npz")["arr_0"],
+                             device="cuda")
+        text_data = trainers._clf_fold_datas([xt], clf, train_idx, 4)[0]
+        text_base = C.replace(C.TEXT_CLF, epochs=COMPARE_EPOCHS + 1)
+        cmp["text_clf"] = _compare_runs(
+            _fold_run(torch, text_base, text_data, "cuda"),
+            _no_kernel(rnn_cuda, lambda: _fold_run(
+                torch, _plain(text_base, C), text_data, "cuda")),
+            f"{COMPARE_EPOCHS}-epoch text_clf fold, dropout 0.5, kernels vs "
+            "plain recurrence on the card")
+        text_nd = C.replace(text_base, model=C.replace(text_base.model,
+                                                       dropout=0.0))
+        cmp["text_clf_cpu"] = _compare_runs(
+            _fold_run(torch, text_nd, text_data, "cuda"),
+            _fold_run(torch, text_nd, trainers._clf_fold_datas(
+                [xt.cpu()], clf, train_idx, 4)[0], "cpu"),
+            f"{COMPARE_EPOCHS}-epoch text_clf fold, dropout 0, card vs CPU")
+        # the fusion: frozen branches (random, seeded), only fc_final trains
+        fuse_data = trainers._clf_fold_datas([feats, xt], clf, train_idx,
+                                             2)[0]
+        branch = (trainers.init_model(C.TEXT_CLF, 0, 1, "cuda").state_dict(),
+                  trainers.init_model(C.AUDIO_CLF, 0, 1,
+                                      "cuda").state_dict())
+        fuse_t = C.replace(C.FUSE_CLF_TRAINER, epochs=COMPARE_EPOCHS + 1)
+        cmp["fuse_clf"] = _compare_runs(
+            _fusion_fold_run(torch, C.FUSE_CLF, fuse_t, fuse_data, branch,
+                             "cuda"),
+            _no_kernel(rnn_cuda, lambda: _fusion_fold_run(
+                torch, C.replace(C.FUSE_CLF, rnn_backend="torch"), fuse_t,
+                fuse_data, branch, "cuda")),
+            f"{COMPARE_EPOCHS}-epoch fuse_clf fold, dropout 0.3, kernels vs "
+            "plain recurrence on the card")
+        split = {"audio_clf": step_split(torch, C.AUDIO_CLF, data, card,
+                                         "audio_clf"),
+                 "text_clf": step_split(torch, C.TEXT_CLF, text_data, card,
+                                        "text_clf")}
+        _set_counts(rnn_cuda, counted)
+    return launches, {"clf": clf_run, "reg": reg_run, "extract_s": extract_s,
+                      "corpus_wall_s": corpus_wall, "split": split,
+                      "cmp": cmp}
 
 
 def main() -> int:
@@ -616,6 +909,7 @@ def main() -> int:
     from icassp2022_depression_tpu_torch import _build
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -623,7 +917,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ("gru_fwd", "gru_bwd")
+    names = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(so.name for so in libs)} in "
@@ -633,25 +927,41 @@ def main() -> int:
 
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
+    lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
     serve_launches, _ = slice_phase(torch, card)
-    launches, _ = train_phase(torch, card)
+    launches, train = train_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     if "jax" in sys.modules:
         fail("jax was imported")
+    for task, wall in {**train["clf"]["stage_s"],
+                       **train["reg"]["stage_s"]}.items():
+        print(f"timing pipeline stage {task}: {wall:.2f} s wall [{card}]")
+    print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
 
     ms, plain_ms = kernel_times[(3, 8, 256)]
     bwd_ms, bwd_plain_ms = bwd_times[(3, 8, 256)]
+    lstm_fwd_ms, lstm_fwd_plain = lstm_times[(3, 4, 128)]["fwd"]
+    lstm_bwd_ms, lstm_bwd_plain = lstm_times[(3, 4, 128)]["bwd"]
     src = "icassp2022_depression_tpu_torch/csrc"
+    pallas = "icassp2022_depression_tpu/ops/rnn_pallas.py"
     print(json.dumps({"kernels": [
         {"name": "gru_fwd", "route": "cuda", "source": f"{src}/gru_fwd.cu",
-         "replaces": "icassp2022_depression_tpu/ops/rnn_pallas.py:149",
+         "replaces": f"{pallas}:149",
          "launches": launches["gru_fwd"], "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms},
         {"name": "gru_bwd", "route": "cuda", "source": f"{src}/gru_bwd.cu",
-         "replaces": "icassp2022_depression_tpu/ops/rnn_pallas.py:38 "
-                     "(+:174)",
+         "replaces": f"{pallas}:38 (+:174)",
          "launches": launches["gru_bwd"], "max_abs_err": bwd_err,
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
+        {"name": "lstm_fwd", "route": "cuda", "source": f"{src}/lstm_fwd.cu",
+         "replaces": f"{pallas}:346",
+         "launches": launches["lstm_fwd"], "max_abs_err": lstm_err["fwd"],
+         "ms": lstm_fwd_ms, "plain_ms": lstm_fwd_plain},
+        {"name": "lstm_bwd", "route": "cuda", "source": f"{src}/lstm_bwd.cu",
+         "replaces": f"{pallas}:868 (+:377)",
+         "launches": launches["lstm_bwd"], "max_abs_err": lstm_err["bwd"],
+         "ms": lstm_bwd_ms, "plain_ms": lstm_bwd_plain}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

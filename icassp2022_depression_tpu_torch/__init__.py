@@ -7,25 +7,32 @@ array layouts at the boundary, and is held against it by the
 ``tests/test_torch_*.py`` parity tests.  This package imports ``torch``
 and never ``jax``.
 
-Ported so far (serving and training ``audio_clf`` / ``audio_reg``):
+Ported so far (serving ``audio_clf`` / ``audio_reg``; training the audio
+and text branches and the fusion of both tracks from npz features):
 
 * :mod:`.data.eatd`, :mod:`.data.folds`, :mod:`.data.augment`  EATD reader,
   synthetic corpus, fold recipes and answer-permutation plans (numpy)
 * :mod:`.ops.prng`             bit-exact JAX threefry2x32 streams
 * :mod:`.ops.mel`, :mod:`.ops.netvlad`, :mod:`.frontend.audio`  wav2vlad,
   and the corpus pass that feeds training
-* :mod:`.ops.rnn`              multi-layer GRU with a backend seam
-* :mod:`.ops.rnn_cuda`         the hand-written CUDA GRU forward and
-  backward kernels (``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``) and their
-  autograd Function, built with ``nvcc`` at first use by :mod:`._build`
-* :mod:`.ops.nn`               LayerNorm, dropout and the training losses
-* :mod:`.models.audio_net`     the audio GRU classifier / regressor
+* :mod:`.frontend.text`        the npz reader of the text features
+* :mod:`.ops.rnn`              multi-layer (bi)directional GRU and LSTM
+  with a backend seam
+* :mod:`.ops.rnn_cuda`         the hand-written CUDA GRU and LSTM forward
+  and backward kernels (``csrc/{gru,lstm}_{fwd,bwd}.cu``) and their
+  autograd Functions, built with ``nvcc`` at first use by :mod:`._build`
+* :mod:`.ops.nn`, :mod:`.ops.attention`, :mod:`.ops.initializers`
+  LayerNorm, dropout, the branch losses, additive attention, torch-default
+  and xavier init
+* :mod:`.models.audio_net`, :mod:`.models.text_net`, :mod:`.models.fusion`,
+  :mod:`.models.losses`  the audio GRU and text BiLSTM branches, the
+  fusion net and its MyLoss
 * :mod:`.models.porting`, :mod:`.train.checkpoints`  JAX npz checkpoints
 * :mod:`.eval.metrics`, :mod:`.train.optim`, :mod:`.train.loop`,
   :mod:`.train.trainers`, :mod:`.utils.logging`  the fold loop with its
-  on-device metric gate, and the audio trainers
-* :mod:`.serving.predictors`, :mod:`.cli`  ``Predictor``, ``cli predict``
-  and ``cli train``
+  on-device metric gate, and the six trainers
+* :mod:`.serving.predictors`, :mod:`.cli`  ``Predictor``, ``cli predict``,
+  ``cli train`` and ``cli pipeline``
 """
 
 __version__ = "0.1.0"

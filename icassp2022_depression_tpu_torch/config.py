@@ -1,13 +1,11 @@
 """Configuration dataclasses (port of :mod:`icassp2022_depression_tpu.config`).
 
-The dataclasses are framework-neutral, so the fields and the audio presets
+The dataclasses are framework-neutral, so the fields and the six presets
 are copied verbatim from the JAX package.  The one difference is the set
-of values ``RNNConfig.rnn_backend`` takes: ``"auto"`` (the CUDA kernel for
-CUDA tensors, the plain torch recurrence for CPU tensors), ``"torch"`` or
-``"cuda"`` — see :func:`.ops.rnn.resolve_backend`.
-
-Only the presets of the ported slice are here (``audio_clf``,
-``audio_reg``); the text and fusion presets arrive with their slices.
+of values ``RNNConfig.rnn_backend`` / ``FusionConfig.rnn_backend`` take:
+``"auto"`` (the CUDA kernels for CUDA tensors, the plain torch recurrence
+for CPU tensors), ``"torch"`` or ``"cuda"`` — see
+:func:`.ops.rnn.resolve_backend`.
 """
 
 from __future__ import annotations
@@ -66,6 +64,8 @@ class GateConfig:
     mae_ceiling: float = 8.5
     train_mae_ceiling: float = 13.0
     f1_tie_update: bool = True
+    #: branch trainers require ``train_acc > 0.9*n`` (strict); the clf
+    #: fusion trainer uses ``>=`` (``fuse_net_whole.py:513``)
     train_acc_strict: bool = True
 
 
@@ -79,6 +79,32 @@ class TrainerConfig:
     loss: str = "ce"
     seed: int = 0
     track: str = "classification"  # "classification" | "regression"
+
+
+@dataclass(frozen=True)
+class FusionConfig:
+    """Fusion-net specific knobs (clf: ``fuse_net_whole.py:398-411``;
+    reg: ``Regression/fuse_net.py:36-49``)."""
+
+    audio_embed_size: int = 256
+    text_embed_size: int = 1024
+    audio_hidden_dims: int = 256
+    text_hidden_dims: int = 128
+    rnn_layers: int = 2
+    dropout: float = 0.3
+    num_classes: int = 2
+    #: clf fusion trains only fc_final.weight (``fuse_net_whole.py:590-593``);
+    #: reg fusion fine-tunes everything (``Regression/fuse_net.py:578-583``)
+    train_all_params: bool = False
+    #: reg fusion applies sigmoid modal attention in forward
+    #: (``Regression/fuse_net.py:345-351``); clf fusion does not
+    modal_attention: bool = False
+    #: audio branch layer-norm: clf fusion has it (``fuse_net_whole.py:360``),
+    #: reg fusion does not (``Regression/fuse_net.py:338``)
+    audio_layernorm: bool = True
+    head_activation: str = "softmax"
+    #: recurrence implementation (see RNNConfig.rnn_backend)
+    rnn_backend: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -139,6 +165,35 @@ AUDIO_CLF = TrainerConfig(
     batch_size=8, epochs=170, loss="ce", track="classification",
 )
 
+TEXT_CLF = TrainerConfig(
+    # Classification/text_bilstm_whole.py:247-258
+    model=RNNConfig(
+        num_classes=2, dropout=0.5, rnn_layers=2, embedding_size=1024,
+        hidden_dims=128, bidirectional=True, cell="lstm",
+        input_layernorm=False, pooling="attention", head_activation="softmax",
+        init="xavier", head_input_dropout=False,
+    ),
+    optimizer=OptimizerConfig(name="adamw", learning_rate=1e-5),
+    gate=GateConfig(f1_floor=0.5, train_acc_frac=0.9),
+    batch_size=4, epochs=150, loss="ce", track="classification",
+)
+
+FUSE_CLF = FusionConfig(
+    # Classification/fuse_net_whole.py:398-411
+    audio_embed_size=256, text_embed_size=1024, audio_hidden_dims=256,
+    text_hidden_dims=128, rnn_layers=2, dropout=0.3, num_classes=2,
+    train_all_params=False, modal_attention=False, audio_layernorm=True,
+    head_activation="softmax",
+)
+
+FUSE_CLF_TRAINER = TrainerConfig(
+    model=RNNConfig(num_classes=2, dropout=0.3),
+    optimizer=OptimizerConfig(name="adam", learning_rate=8e-6, weight_decay=0.0),
+    gate=GateConfig(f1_floor=0.61, train_acc_frac=0.9,
+                    f1_tie_update=False, train_acc_strict=False),
+    batch_size=2, epochs=100, loss="myloss_ce", track="classification",
+)
+
 AUDIO_REG = TrainerConfig(
     # Regression/audio_bilstm_perm.py:32-43
     model=RNNConfig(
@@ -152,9 +207,46 @@ AUDIO_REG = TrainerConfig(
     batch_size=2, epochs=120, loss="l1", track="regression",
 )
 
+TEXT_REG = TrainerConfig(
+    # Regression/text_bilstm_perm.py:24-35
+    model=RNNConfig(
+        num_classes=1, dropout=0.5, rnn_layers=2, embedding_size=1024,
+        hidden_dims=128, bidirectional=True, cell="lstm",
+        input_layernorm=False, pooling="attention", head_activation="relu",
+        init="xavier", head_input_dropout=True,
+    ),
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-5, weight_decay=0.0),
+    gate=GateConfig(mae_ceiling=8.5, train_mae_ceiling=13.0),
+    batch_size=2, epochs=110, loss="smooth_l1", track="regression",
+)
+
+FUSE_REG = FusionConfig(
+    # Regression/fuse_net.py:36-49
+    audio_embed_size=256, text_embed_size=1024, audio_hidden_dims=256,
+    text_hidden_dims=128, rnn_layers=2, dropout=0.5, num_classes=1,
+    train_all_params=True, modal_attention=True, audio_layernorm=False,
+    head_activation="relu",
+)
+
+FUSE_REG_TRAINER = TrainerConfig(
+    model=RNNConfig(num_classes=1, dropout=0.5),
+    optimizer=OptimizerConfig(name="adam", learning_rate=8e-5, weight_decay=0.0),
+    gate=GateConfig(mae_ceiling=8.2, train_mae_ceiling=13.0),
+    batch_size=4, epochs=150, loss="myloss_smooth_l1", track="regression",
+)
+
 PRESETS = {
     "audio_clf": AUDIO_CLF,
+    "text_clf": TEXT_CLF,
+    "fuse_clf": FUSE_CLF_TRAINER,
     "audio_reg": AUDIO_REG,
+    "text_reg": TEXT_REG,
+    "fuse_reg": FUSE_REG_TRAINER,
+}
+
+FUSION_PRESETS = {
+    "fuse_clf": FUSE_CLF,
+    "fuse_reg": FUSE_REG,
 }
 
 

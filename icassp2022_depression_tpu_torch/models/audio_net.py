@@ -65,13 +65,8 @@ class AudioNet(nn.Module):
 
     @staticmethod
     def _linear(in_features: int, out_features: int, generator, device):
-        lin = nn.Linear(in_features, out_features, device=device)
-        p = initializers.torch_linear(out_features, in_features, generator,
-                                      device=device)
-        with torch.no_grad():
-            lin.weight.copy_(p["w"])
-            lin.bias.copy_(p["b"])
-        return lin
+        return initializers.linear_module(in_features, out_features, "torch",
+                                          generator, device)
 
     def features(self, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:

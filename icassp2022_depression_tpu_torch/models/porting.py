@@ -1,13 +1,15 @@
-"""JAX param trees <-> the port's ``state_dict()`` (port of the audio half
-of :mod:`icassp2022_depression_tpu.models.porting`).
+"""JAX param trees <-> the port's ``state_dict()`` (port of the
+state-dict mappers of :mod:`icassp2022_depression_tpu.models.porting`; the
+reference ``.pt`` loaders are not ported yet).
 
-The JAX package keeps torch's tensor layouts, and
-``porting.audio_net_to_state_dict`` / ``rnn_to_state_dict``
-(``models/porting.py:339-371`` there) name them as the reference modules
-do.  :func:`audio_net_state_dict_from_jax` is that mapping on this side,
-so ``AudioNet.load_state_dict(sd, strict=True)`` is the bridge between
-the two packages; :func:`audio_net_tree_from_state_dict` is its inverse,
-for writing JAX-layout npz checkpoints from the port.
+The JAX package keeps torch's tensor layouts, and its
+``porting.{audio_net,text_net,fusion}_to_state_dict`` / ``rnn_to_state_dict``
+(``models/porting.py:339-401`` there) name them as the reference modules
+do.  The ``*_state_dict_from_jax`` functions are that mapping on this side,
+so ``load_state_dict(sd, strict=True)`` on :class:`AudioNet`,
+:class:`TextNet` or :class:`FusionNet` is the bridge between the two
+packages; the ``*_tree_from_state_dict`` functions are their inverses, for
+writing JAX-layout npz checkpoints from the port.
 
 A tree may be nested (``{"rnn": [{"fwd": {...}}], "fc1": {...}}``, with
 list indices as ints or as the string keys :func:`..train.checkpoints.load`
@@ -21,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from icassp2022_depression_tpu_torch.config import RNNConfig
+from icassp2022_depression_tpu_torch.config import FusionConfig, RNNConfig
 
 _RNN_NAMES = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
               ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
@@ -69,6 +71,38 @@ def rnn_state_dict_from_jax(layers, prefix: str, num_layers: int) -> dict:
     return out
 
 
+def _linears_from_jax(tree: Mapping, names) -> dict:
+    """``(prefix, key, bias)`` triples -> ``{prefix}.weight`` (and
+    ``.bias``) from ``tree[key]["w"]`` / ``["b"]``."""
+    out = {}
+    for prefix, key, bias in names:
+        out[f"{prefix}.weight"] = _t(tree[key]["w"])
+        if bias:
+            out[f"{prefix}.bias"] = _t(tree[key]["b"])
+    return out
+
+
+def _arr(sd: Mapping, name: str) -> np.ndarray:
+    return sd[name].detach().cpu().numpy().astype(np.float32)
+
+
+def _linear_tree(sd: Mapping, prefix: str, bias: bool = True) -> dict:
+    out = {"w": _arr(sd, f"{prefix}.weight")}
+    if bias:
+        out["b"] = _arr(sd, f"{prefix}.bias")
+    return out
+
+
+def rnn_tree_from_state_dict(sd: Mapping, prefix: str, num_layers: int,
+                             bidirectional: bool) -> list:
+    """Inverse of :func:`rnn_state_dict_from_jax`."""
+    dirs = (("fwd", ""), ("bwd", "_reverse"))[:2 if bidirectional else 1]
+    return [{d: {short: _arr(sd, f"{prefix}.{long}_l{k}{suffix}")
+                 for short, long in _RNN_NAMES}
+             for d, suffix in dirs}
+            for k in range(num_layers)]
+
+
 def audio_net_state_dict_from_jax(tree: Mapping, cfg: RNNConfig) -> dict:
     """JAX ``audio_net`` params -> :class:`..models.audio_net.AudioNet`
     state dict (float32 tensors on the CPU)."""
@@ -76,36 +110,89 @@ def audio_net_state_dict_from_jax(tree: Mapping, cfg: RNNConfig) -> dict:
     i1, i2 = _head_indices(cfg)
     out = rnn_state_dict_from_jax(tree["rnn"], "lstm_net_audio",
                                   cfg.rnn_layers)
-    for prefix, key in (("attention_layer.0", "attn"),
-                        (f"fc_audio.{i1}", "fc1"), (f"fc_audio.{i2}", "fc2")):
-        out[f"{prefix}.weight"] = _t(tree[key]["w"])
-        out[f"{prefix}.bias"] = _t(tree[key]["b"])
+    out.update(_linears_from_jax(tree, (
+        ("attention_layer.0", "attn", True), (f"fc_audio.{i1}", "fc1", True),
+        (f"fc_audio.{i2}", "fc2", True))))
     if cfg.input_layernorm:
-        out["ln.weight"] = _t(tree["ln"]["w"])
-        out["ln.bias"] = _t(tree["ln"]["b"])
+        out.update(_linears_from_jax(tree, (("ln", "ln", True),)))
     return out
 
 
 def audio_net_tree_from_state_dict(sd: Mapping, cfg: RNNConfig) -> dict:
     """Inverse of :func:`audio_net_state_dict_from_jax`: a state dict ->
     the JAX package's nested param tree of numpy arrays."""
-    def arr(name):
-        return sd[name].detach().cpu().numpy().astype(np.float32)
-
     i1, i2 = _head_indices(cfg)
-    dirs = (("fwd", ""), ("bwd", "_reverse"))[:2 if cfg.bidirectional else 1]
     tree = {
-        "rnn": [{d: {short: arr(f"lstm_net_audio.{long}_l{k}{suffix}")
-                     for short, long in _RNN_NAMES}
-                 for d, suffix in dirs}
-                for k in range(cfg.rnn_layers)],
-        "attn": {"w": arr("attention_layer.0.weight"),
-                 "b": arr("attention_layer.0.bias")},
-        "fc1": {"w": arr(f"fc_audio.{i1}.weight"),
-                "b": arr(f"fc_audio.{i1}.bias")},
-        "fc2": {"w": arr(f"fc_audio.{i2}.weight"),
-                "b": arr(f"fc_audio.{i2}.bias")},
+        "rnn": rnn_tree_from_state_dict(sd, "lstm_net_audio", cfg.rnn_layers,
+                                        cfg.bidirectional),
+        "attn": _linear_tree(sd, "attention_layer.0"),
+        "fc1": _linear_tree(sd, f"fc_audio.{i1}"),
+        "fc2": _linear_tree(sd, f"fc_audio.{i2}"),
     }
     if cfg.input_layernorm:
-        tree["ln"] = {"w": arr("ln.weight"), "b": arr("ln.bias")}
+        tree["ln"] = _linear_tree(sd, "ln")
+    return tree
+
+
+def text_net_state_dict_from_jax(tree: Mapping, cfg: RNNConfig) -> dict:
+    """JAX ``text_net`` params -> :class:`..models.text_net.TextNet` state
+    dict (the names of ``porting.text_net_to_state_dict``, ``ln1``/``ln2``
+    included)."""
+    tree = _nest(tree)
+    i1, i2 = _head_indices(cfg)
+    out = rnn_state_dict_from_jax(tree["rnn"], "lstm_net", cfg.rnn_layers)
+    out.update(_linears_from_jax(tree, (
+        ("attention_layer.0", "attn", True), (f"fc_out.{i1}", "fc1", True),
+        (f"fc_out.{i2}", "fc2", True), ("ln1", "ln1", True),
+        ("ln2", "ln2", True))))
+    return out
+
+
+def text_net_tree_from_state_dict(sd: Mapping, cfg: RNNConfig) -> dict:
+    """Inverse of :func:`text_net_state_dict_from_jax`."""
+    i1, i2 = _head_indices(cfg)
+    return {
+        "rnn": rnn_tree_from_state_dict(sd, "lstm_net", cfg.rnn_layers,
+                                        cfg.bidirectional),
+        "attn": _linear_tree(sd, "attention_layer.0"),
+        "fc1": _linear_tree(sd, f"fc_out.{i1}"),
+        "fc2": _linear_tree(sd, f"fc_out.{i2}"),
+        "ln1": _linear_tree(sd, "ln1"),
+        "ln2": _linear_tree(sd, "ln2"),
+    }
+
+
+def fusion_state_dict_from_jax(tree: Mapping, cfg: FusionConfig) -> dict:
+    """JAX ``fusion`` params -> :class:`..models.fusion.FusionNet` state
+    dict (the names of ``porting.fusion_to_state_dict``)."""
+    tree = _nest(tree)
+    text, audio = tree["text"], tree["audio"]
+    out = rnn_state_dict_from_jax(text["rnn"], "lstm_net", cfg.rnn_layers)
+    out.update(rnn_state_dict_from_jax(audio["rnn"], "lstm_net_audio",
+                                       cfg.rnn_layers))
+    out.update(_linears_from_jax(text, (("attention_layer.0", "attn", True),
+                                        ("fc_out.1", "fc", True))))
+    out.update(_linears_from_jax(audio, (("fc_audio.1", "fc", True),)))
+    out.update(_linears_from_jax(tree, (("modal_attn", "modal_attn", False),
+                                        ("fc_final.0", "fc_final", False))))
+    if cfg.audio_layernorm:
+        out.update(_linears_from_jax(audio, (("ln", "ln", True),)))
+    return out
+
+
+def fusion_tree_from_state_dict(sd: Mapping, cfg: FusionConfig) -> dict:
+    """Inverse of :func:`fusion_state_dict_from_jax`."""
+    tree = {
+        "text": {"attn": _linear_tree(sd, "attention_layer.0"),
+                 "rnn": rnn_tree_from_state_dict(sd, "lstm_net",
+                                                 cfg.rnn_layers, True),
+                 "fc": _linear_tree(sd, "fc_out.1")},
+        "audio": {"rnn": rnn_tree_from_state_dict(sd, "lstm_net_audio",
+                                                  cfg.rnn_layers, False),
+                  "fc": _linear_tree(sd, "fc_audio.1")},
+        "modal_attn": _linear_tree(sd, "modal_attn", bias=False),
+        "fc_final": _linear_tree(sd, "fc_final.0", bias=False),
+    }
+    if cfg.audio_layernorm:
+        tree["audio"]["ln"] = _linear_tree(sd, "ln")
     return tree

@@ -1,21 +1,22 @@
-"""Multi-layer, bidirectional GRU (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
+"""Multi-layer, bidirectional GRU and LSTM (port of
+:mod:`icassp2022_depression_tpu.ops.rnn`).
 
 * The input projection ``x @ W_ih^T + b_ih`` for all time steps is one
   ``torch.matmul`` outside the recurrence, as in the JAX package
   (``rnn_pallas.py:981-983``).
 * The recurrence goes through one backend seam, :func:`resolve_backend`,
-  and one autograd Function, :class:`.rnn_cuda.GRUSequence`: ``"cuda"``
-  runs the hand-written forward and backward kernels of :mod:`.rnn_cuda`,
+  and one autograd Function per cell, :class:`.rnn_cuda.GRUSequence` and
+  :class:`.rnn_cuda.LSTMSequence`: ``"cuda"`` runs the hand-written
+  forward and backward kernels of :mod:`.rnn_cuda`,
   ``"torch"`` the plain PyTorch loops beside them, ``"auto"`` picks the
   kernels for CUDA tensors and the plain loops for CPU tensors.  The
   kernels take any batch size and sequence length, so the TPU package's
   VMEM-fit guards (and its streamed kernels) have no counterpart here.
-* Parameters keep torch's layout (row-stacked ``[3H, D]`` matrices in gate
-  order r, z, n), and :class:`RNN` registers them under ``nn.GRU``'s
-  names, so reference checkpoints load tensor for tensor.  ``nn.GRU``
-  itself is not used: cuDNN must not run the recurrence.
-
-The LSTM cell arrives with the text slice.
+* Parameters keep torch's layout (row-stacked ``[G*H, D]`` matrices in
+  gate order r, z, n for the GRU and i, f, g, o for the LSTM), and
+  :class:`RNN` registers them under ``nn.GRU``'s / ``nn.LSTM``'s names, so
+  reference checkpoints load tensor for tensor.  ``nn.GRU`` and ``nn.LSTM``
+  themselves are not used: cuDNN must not run the recurrence.
 """
 
 from __future__ import annotations
@@ -33,12 +34,12 @@ BACKENDS = ("auto", "torch", "cuda")
 
 
 def _check_cell(cell: str) -> None:
-    if cell == "lstm":
-        raise NotImplementedError(
-            "cell='lstm' (the text branch and its LSTM kernels) arrives with "
-            "the text slice of the port")
-    if cell != "gru":
+    if cell not in GATES:
         raise ValueError(f"unknown cell {cell!r}")
+
+
+_INITS = {"torch": initializers.torch_rnn_layer,
+          "xavier": initializers.xavier_rnn_layer}
 
 
 def init_params(cell: str, input_size: int, hidden: int, num_layers: int,
@@ -47,19 +48,18 @@ def init_params(cell: str, input_size: int, hidden: int, num_layers: int,
                 dtype=torch.float32, device=None) -> list:
     """Parameter list over layers; each layer is a dict with direction keys
     ``fwd`` (and ``bwd`` when bidirectional) of
-    ``{w_ih, w_hh, b_ih, b_hh}``."""
+    ``{w_ih, w_hh, b_ih, b_hh}``; ``init`` is "torch" (``nn.GRU`` /
+    ``nn.LSTM`` defaults) or "xavier" (the text model's scheme)."""
     _check_cell(cell)
-    if init != "torch":
-        raise NotImplementedError(
-            f"init={init!r}: the xavier scheme of the text model arrives "
-            "with the text slice of the port")
+    if init not in _INITS:
+        raise ValueError(f"unknown init {init!r}")
     num_dirs = 2 if bidirectional else 1
     layers = []
     for layer in range(num_layers):
         in_size = input_size if layer == 0 else hidden * num_dirs
         layers.append({
-            d: initializers.torch_rnn_layer(GATES[cell], hidden, in_size,
-                                            generator, dtype, device)
+            d: _INITS[init](GATES[cell], hidden, in_size, generator, dtype,
+                            device)
             for d in ("fwd", "bwd")[:num_dirs]})
     return layers
 
@@ -78,30 +78,56 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
+def _sequence_inputs(p: dict, x: torch.Tensor, reverse: bool):
+    """The hoisted input projection ``xp [T, B, G*H]`` (time-reversed for
+    the backward direction) and the recurrent weights in the kernels'
+    layout."""
+    if reverse:
+        x = torch.flip(x, dims=(1,))
+    xp = torch.matmul(x, p["w_ih"].t()) + p["b_ih"]
+    return (xp.transpose(0, 1).contiguous(), p["w_hh"].t().contiguous(),
+            p["b_hh"].reshape(1, -1))
+
+
+def _batch_first(ys: torch.Tensor, reverse: bool) -> torch.Tensor:
+    ys = ys.transpose(0, 1)
+    return torch.flip(ys, dims=(1,)) if reverse else ys
+
+
 def gru_layer(p: dict, x: torch.Tensor, reverse: bool = False,
               backend: str = "auto"):
     """One GRU direction.  ``p``: {w_ih [3H, D], w_hh [3H, H], b_ih [3H],
     b_hh [3H]}; x: [B, T, D].  Returns (ys [B, T, H], h_last [B, H])."""
     backend = resolve_backend(backend, x)
-    if reverse:
-        x = torch.flip(x, dims=(1,))
-    xp = torch.matmul(x, p["w_ih"].t()) + p["b_ih"]
-    xp = xp.transpose(0, 1).contiguous()                  # [T, B, 3H]
-    w_hh_t = p["w_hh"].t().contiguous()
-    b_hh = p["b_hh"].reshape(1, -1)
     # "torch": the plain forward and backward, no kernel on any device
-    ys = rnn_cuda.GRUSequence.apply(xp, w_hh_t, b_hh, backend == "torch")
-    h_last = ys[-1]
-    ys = ys.transpose(0, 1)
-    if reverse:
-        ys = torch.flip(ys, dims=(1,))
-    return ys, h_last
+    ys = rnn_cuda.GRUSequence.apply(*_sequence_inputs(p, x, reverse),
+                                    backend == "torch")
+    return _batch_first(ys, reverse), ys[-1]
+
+
+def lstm_layer(p: dict, x: torch.Tensor, reverse: bool = False,
+               backend: str = "auto"):
+    """One LSTM direction (``rnn_pallas.lstm_layer``).  ``p``: {w_ih
+    [4H, D], w_hh [4H, H], b_ih [4H], b_hh [4H]}; x: [B, T, D].  Returns
+    (ys [B, T, H], h_last [B, H], c_last [B, H])."""
+    backend = resolve_backend(backend, x)
+    ys, cs = rnn_cuda.LSTMSequence.apply(*_sequence_inputs(p, x, reverse),
+                                         backend == "torch")
+    return _batch_first(ys, reverse), ys[-1], cs[-1]
+
+
+def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,
+                   backend: str):
+    if cell == "gru":
+        ys, h_last = gru_layer(p, x, reverse, backend)
+        return ys, h_last, None
+    return lstm_layer(p, x, reverse, backend)
 
 
 def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         dropout: float = 0.0, train: bool = False,
         generator: Optional[torch.Generator] = None, backend: str = "auto"):
-    """Multi-layer (bi)directional GRU.
+    """Multi-layer (bi)directional GRU or LSTM.
 
     Args:
       params: list from :func:`init_params` (or :meth:`RNN.layers`).
@@ -111,30 +137,32 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
       backend: "auto" | "torch" | "cuda" (see :func:`resolve_backend`).
 
     Returns:
-      (output [B, T, H * num_dirs], h_n [B, num_layers * num_dirs, H] in
-      torch's order, None for the GRU's absent c_n)
+      (output [B, T, H * num_dirs], h_n [B, num_layers * num_dirs, H] and
+      c_n (the LSTM's, same layout; None for the GRU) in torch's order:
+      layer 0 forward, layer 0 backward, layer 1 forward, ...)
     """
     _check_cell(cell)
-    h_finals = []
+    h_finals, c_finals = [], []
     y = x
     for layer_idx, layer in enumerate(params):
-        ys_f, h_f = gru_layer(layer["fwd"], y, False, backend)
-        h_finals.append(h_f)
-        if "bwd" in layer:
-            ys_b, h_b = gru_layer(layer["bwd"], y, True, backend)
-            h_finals.append(h_b)
-            y = torch.cat([ys_f, ys_b], dim=-1)
-        else:
-            y = ys_f
+        outs = []
+        for dirn in ("fwd", "bwd")[:len(layer)]:
+            ys, h_last, c_last = _run_direction(layer[dirn], y, cell,
+                                                dirn == "bwd", backend)
+            outs.append(ys)
+            h_finals.append(h_last)
+            c_finals.append(c_last)
+        y = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
         if train and dropout > 0.0 and layer_idx < len(params) - 1:
             y = _dropout(y, dropout, True, generator)
-    return y, torch.stack(h_finals, dim=1), None
+    c_n = torch.stack(c_finals, dim=1) if cell == "lstm" else None
+    return y, torch.stack(h_finals, dim=1), c_n
 
 
 class RNN(nn.Module):
-    """Multi-layer GRU whose parameters carry ``nn.GRU``'s names
-    (``weight_ih_l{k}[_reverse]``, ``weight_hh_l{k}``, ``bias_ih_l{k}``,
-    ``bias_hh_l{k}``), run through :func:`rnn`."""
+    """Multi-layer GRU or LSTM whose parameters carry ``nn.GRU``'s /
+    ``nn.LSTM``'s names (``weight_ih_l{k}[_reverse]``, ``weight_hh_l{k}``,
+    ``bias_ih_l{k}``, ``bias_hh_l{k}``), run through :func:`rnn`."""
 
     _NAMES = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
               "b_hh": "bias_hh"}

@@ -1,5 +1,6 @@
-"""The GRU recurrence and its backward as hand-written CUDA kernels
-(counterpart of :mod:`icassp2022_depression_tpu.ops.rnn_pallas`, GRU half).
+"""The GRU and LSTM recurrences and their backwards as hand-written CUDA
+kernels (counterpart of :mod:`icassp2022_depression_tpu.ops.rnn_pallas`,
+GRU and LSTM halves; the ELMo LSTMP kernels are not ported yet).
 
 :func:`gru_sequence` keeps the JAX function's contract:
 ``xp [T, B, 3H]`` (input projections), ``w_hh_t [H, 3H]``,
@@ -7,15 +8,21 @@
 state, torch gate order r, z, n.  :func:`gru_sequence_bwd` is the custom
 VJP of the JAX package (``_bwd_rule``): ``(xp, w_hh_t, b_hh, ys, dys) ->
 (dxp, dw_hh_t, db_hh)``.  :class:`GRUSequence` ties the two together for
-autograd.
+autograd.  :func:`lstm_sequence` (``xp [T, B, 4H] -> (ys, cs)``, gate order
+i, f, g, o), :func:`lstm_sequence_bwd` (``_lstm_bwd_rule``: ``(xp, w_hh_t,
+b_hh, ys, cs, dys, dcs) -> (dxp, dw_hh_t, db_hh)``, with a cotangent for
+every step's cell state) and :class:`LSTMSequence` are the LSTM's.
 
 * On CUDA tensors the wrappers launch ``gru_seq_fwd_f32``
-  (``csrc/gru_fwd.cu``) and ``gru_seq_bwd_f32`` (``csrc/gru_bwd.cu``),
-  built with ``nvcc`` at first use (see :mod:`.._build`), on the current
-  stream, and add one to :data:`LAUNCHES` / :data:`BWD_LAUNCHES`.  They
-  never fall back to the plain versions: a build or launch failure raises.
-* On CPU tensors they run the plain versions, :func:`gru_sequence_torch`
-  and :func:`gru_sequence_bwd_torch`, which are the kernels' oracles.
+  (``csrc/gru_fwd.cu``), ``gru_seq_bwd_f32`` (``csrc/gru_bwd.cu``),
+  ``lstm_seq_fwd_f32`` (``csrc/lstm_fwd.cu``) and ``lstm_seq_bwd_f32``
+  (``csrc/lstm_bwd.cu``), built with ``nvcc`` at first use (see
+  :mod:`.._build`), on the current stream, and add one to
+  :data:`LAUNCHES`, :data:`BWD_LAUNCHES`, :data:`LSTM_LAUNCHES` and
+  :data:`LSTM_BWD_LAUNCHES`.  They never fall back to the plain versions:
+  a build or launch failure raises.
+* On CPU tensors they run the plain versions (``*_torch``), which are the
+  kernels' oracles.
 
 Importing this module needs no ``nvcc``.
 """
@@ -32,11 +39,17 @@ from icassp2022_depression_tpu_torch import _build
 LAUNCHES = 0
 #: backward kernel launches made by :func:`gru_sequence_bwd`
 BWD_LAUNCHES = 0
+#: LSTM forward kernel launches made by :func:`lstm_sequence`
+LSTM_LAUNCHES = 0
+#: LSTM backward kernel launches made by :func:`lstm_sequence_bwd`
+LSTM_BWD_LAUNCHES = 0
 
 #: each source's C entry: (symbol, pointer arguments before T, B, H and
 #: the stream)
 _ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4),
-            "gru_bwd": ("gru_seq_bwd_f32", 9)}
+            "gru_bwd": ("gru_seq_bwd_f32", 9),
+            "lstm_fwd": ("lstm_seq_fwd_f32", 5),
+            "lstm_bwd": ("lstm_seq_bwd_f32", 10)}
 _fns: dict = {}
 
 
@@ -123,11 +136,12 @@ def _check(tensors: dict, shapes: dict) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _dims(xp: torch.Tensor):
-    if xp.dim() != 3 or xp.shape[-1] % 3:
-        raise ValueError(f"xp must be [T, B, 3H], got {tuple(xp.shape)}")
+def _dims(xp: torch.Tensor, gates: int = 3):
+    if xp.dim() != 3 or xp.shape[-1] % gates:
+        raise ValueError(f"xp must be [T, B, {gates}H], got "
+                         f"{tuple(xp.shape)}")
     t_steps, batch, g = xp.shape
-    return t_steps, batch, g // 3
+    return t_steps, batch, g // gates
 
 
 def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
@@ -223,4 +237,170 @@ class GRUSequence(torch.autograd.Function):
         # autograd hands dys over as a view through gru_layer's transpose
         bwd = gru_sequence_bwd_torch if ctx.plain else gru_sequence_bwd
         dxp, dw, db = bwd(xp, w_hh_t, b_hh, ys, dys.contiguous())
+        return dxp, dw, db.reshape(b_hh.shape), None
+
+
+def _lstm_gates(gp: torch.Tensor, hidden: int):
+    i = torch.sigmoid(gp[:, :hidden])
+    f = torch.sigmoid(gp[:, hidden:2 * hidden])
+    g = torch.tanh(gp[:, 2 * hidden:3 * hidden])
+    o = torch.sigmoid(gp[:, 3 * hidden:])
+    return i, f, g, o
+
+
+def lstm_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
+                        b_hh: torch.Tensor):
+    """Plain PyTorch LSTM recurrence, the forward kernel's reference.
+    Returns (ys, cs), each [T, B, H]."""
+    t_steps, batch, g = xp.shape
+    hidden = g // 4
+    b_hh = b_hh.reshape(g)
+    h = xp.new_zeros((batch, hidden))
+    c = xp.new_zeros((batch, hidden))
+    ys, cs = [], []
+    for t in range(t_steps):
+        i, f, gg, o = _lstm_gates(xp[t] + torch.matmul(h, w_hh_t) + b_hh,
+                                  hidden)
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
+        ys.append(h)
+        cs.append(c)
+    if not ys:
+        empty = xp.new_zeros((0, batch, hidden))
+        return empty, empty.clone()
+    return torch.stack(ys), torch.stack(cs)
+
+
+def lstm_sequence_bwd_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
+                            b_hh: torch.Tensor, ys: torch.Tensor,
+                            cs: torch.Tensor, dys: torch.Tensor,
+                            dcs: torch.Tensor):
+    """Plain PyTorch LSTM backward, the backward kernel's reference: the
+    reverse loop of ``rnn_pallas._lstm_bwd_kernel``, recomputing the gates
+    from ``ys``/``cs`` and adding ``dcs[t]`` to each step's cell-state
+    cotangent.  Returns (dxp [T, B, 4H], dw_hh_t [H, 4H], db_hh [1, 4H])."""
+    t_steps, batch, g = xp.shape
+    hidden = g // 4
+    b = b_hh.reshape(g)
+    zeros = xp.new_zeros((batch, hidden))
+    dh_carry, dc_carry = zeros, zeros
+    dw = xp.new_zeros((hidden, g))
+    db = xp.new_zeros((g,))
+    dxp = [None] * t_steps
+    for t in reversed(range(t_steps)):
+        h_prev = ys[t - 1] if t > 0 else zeros
+        c_prev = cs[t - 1] if t > 0 else zeros
+        i, f, gg, o = _lstm_gates(xp[t] + torch.matmul(h_prev, w_hh_t) + b,
+                                  hidden)
+        tanh_c = torch.tanh(cs[t])
+        dh = dys[t] + dh_carry
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc_carry + dcs[t]
+        dgates = torch.cat([dc * gg * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - gg * gg),
+                            dh * tanh_c * o * (1.0 - o)], dim=1)
+        dxp[t] = dgates
+        dh_carry = torch.matmul(dgates, w_hh_t.t())
+        dc_carry = dc * f
+        dw = dw + torch.matmul(h_prev.t(), dgates)
+        db = db + dgates.sum(dim=0)
+    dxp = torch.stack(dxp) if t_steps else xp.new_zeros(xp.shape)
+    return dxp, dw, db.reshape(1, g)
+
+
+def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
+                  b_hh: torch.Tensor):
+    """xp [T, B, 4H], w_hh_t [H, 4H], b_hh [1, 4H] (or [4H]) -> (ys, cs),
+    each [T, B, H].  As :func:`gru_sequence`, a CUDA input that requires
+    grad raises: gradients go through :class:`LSTMSequence`."""
+    if xp.device.type == "cpu":
+        return lstm_sequence_torch(xp, w_hh_t, b_hh)
+    if xp.device.type != "cuda":
+        raise ValueError(f"lstm_sequence: unsupported device {xp.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xp, w_hh_t, b_hh)):
+        raise ValueError("lstm_sequence: inputs require grad; call "
+                         "LSTMSequence.apply for a differentiable result")
+    t_steps, batch, hidden = _dims(xp, 4)
+    g = 4 * hidden
+    _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh},
+           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
+            "b_hh": [(1, g), (g,)]})
+    ys = torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+                     device=xp.device)
+    cs = torch.empty_like(ys)
+    if ys.numel() == 0:
+        return ys, cs
+    fn = _kernel("lstm_fwd")
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+                 ys.data_ptr(), cs.data_ptr(), t_steps, batch, hidden,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_fwd_f32 launch failed: cudaError {err}")
+    global LSTM_LAUNCHES
+    LSTM_LAUNCHES += 1
+    return ys, cs
+
+
+def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
+                      b_hh: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
+                      dys: torch.Tensor, dcs: torch.Tensor):
+    """The LSTM backward kernel's wrapper: (dxp [T, B, 4H], dw_hh_t [H, 4H],
+    db_hh [1, 4H]) of ``(ys, cs) = lstm_sequence(xp, w_hh_t, b_hh)`` given
+    ``dys``, ``dcs [T, B, H]``."""
+    if xp.device.type == "cpu":
+        return lstm_sequence_bwd_torch(xp, w_hh_t, b_hh, ys, cs, dys, dcs)
+    if xp.device.type != "cuda":
+        raise ValueError(f"lstm_sequence_bwd: unsupported device {xp.device}")
+    t_steps, batch, hidden = _dims(xp, 4)
+    g = 4 * hidden
+    states = [(t_steps, batch, hidden)]
+    _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh, "ys": ys, "cs": cs,
+            "dys": dys, "dcs": dcs},
+           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
+            "b_hh": [(1, g), (g,)], "ys": states, "cs": states,
+            "dys": states, "dcs": states})
+    dxp = torch.empty_like(xp)
+    dw = torch.empty((hidden, g), dtype=torch.float32, device=xp.device)
+    db = torch.empty((1, g), dtype=torch.float32, device=xp.device)
+    if xp.numel() == 0:
+        return dxp, dw.zero_(), db.zero_()
+    fn = _kernel("lstm_bwd")
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+                 ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+                 dcs.data_ptr(), dxp.data_ptr(), dw.data_ptr(),
+                 db.data_ptr(), t_steps, batch, hidden, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_bwd_f32 launch failed: cudaError {err}")
+    global LSTM_BWD_LAUNCHES
+    LSTM_BWD_LAUNCHES += 1
+    return dxp, dw, db
+
+
+class LSTMSequence(torch.autograd.Function):
+    """``(ys, cs) = LSTM(xp, w_hh_t, b_hh)`` with the kernels' backward
+    (``jax.custom_vjp`` of ``rnn_pallas.lstm_sequence`` on this side).
+    Autograd hands zeros for an output nobody used (``cs`` when ``c_n`` is
+    not read), so ``dcs`` always reaches the backward, and a used ``c_n``
+    gets its exact gradient.  ``plain`` as in :class:`GRUSequence`."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh_t, b_hh, plain: bool = False):
+        fwd = lstm_sequence_torch if plain else lstm_sequence
+        ys, cs = fwd(xp, w_hh_t, b_hh)
+        ctx.save_for_backward(xp, w_hh_t, b_hh, ys, cs)
+        ctx.plain = plain
+        return ys, cs
+
+    @staticmethod
+    def backward(ctx, dys, dcs):
+        xp, w_hh_t, b_hh, ys, cs = ctx.saved_tensors
+        # views through lstm_layer's transpose and slices: make them dense
+        bwd = lstm_sequence_bwd_torch if ctx.plain else lstm_sequence_bwd
+        dxp, dw, db = bwd(xp, w_hh_t, b_hh, ys, cs, dys.contiguous(),
+                          dcs.contiguous())
         return dxp, dw, db.reshape(b_hh.shape), None

@@ -11,8 +11,10 @@ padded to a power of two, as in the JAX package, and runs under
 ``torch.inference_mode()``.  On a card the GRU recurrence runs in the
 hand-written CUDA kernel (``rnn_backend="auto"``).
 
-Not ported yet: text and fusion tasks (text slice), the VGGish embedder,
-reference ``.pt`` checkpoints, the DAIC predictor and the HTTP transport.
+Not ported yet: serving the text and fusion tasks (the port trains them,
+but a served request needs the text frontend, ``ROADMAP.md`` Queue 1,
+item 13), the VGGish embedder, reference ``.pt`` checkpoints, the DAIC
+predictor and the HTTP transport.
 """
 
 from __future__ import annotations
@@ -61,8 +63,9 @@ def _check_task(task: str) -> None:
         return
     if task in TASKS:
         raise NotImplementedError(
-            f"task {task!r}: the text and fusion models arrive with the "
-            "text slice of the port")
+            f"task {task!r}: serving the text and fusion models needs the "
+            "text frontend, which arrives with the text-frontend slice of "
+            "the port (ROADMAP.md Queue 1, item 13)")
     raise ValueError(f"task must be one of {TASKS}, got {task!r}")
 
 

@@ -101,3 +101,19 @@ def audio_clf_name(embedding_size: int, hidden_dims: int, f1: float,
 
 def audio_reg_name(embedding_size: int, hidden_dims: int, mae: float) -> str:
     return f"gru_vlad{embedding_size}_{hidden_dims}_{mae:.2f}"
+
+
+def text_clf_name(hidden_dims: int, f1: float, fold: int) -> str:
+    return f"BiLSTM_{hidden_dims}_{f1:.2f}_{fold}"
+
+
+def fuse_clf_name(f1: float, fold: int) -> str:
+    return f"fuse_{f1:.2f}_{fold}"
+
+
+def text_reg_name(hidden_dims: int, mae: float) -> str:
+    return f"BiLSTM_{hidden_dims}_{mae:.2f}"
+
+
+def fuse_reg_name(mae: float) -> str:
+    return f"fuse_{mae:.2f}"

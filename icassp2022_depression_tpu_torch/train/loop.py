@@ -196,16 +196,35 @@ def init_best(track: str, model: nn.Module, device) -> dict:
     return best
 
 
+def model_fns(model: nn.Module, loss_fn: Callable):
+    """:func:`run_fold`'s ``(train_loss, eval_fn)`` for a one-input model:
+    ``loss_fn(pred, y, mask)`` on ``model(xs[0], generator)``, and the
+    eval forward ``model(xs[0])``."""
+    def train_loss(xs, y, mask, generator):
+        pred = model(xs[0], generator)
+        return loss_fn(pred, y, mask), pred
+
+    def eval_fn(xs):
+        return model(xs[0])
+
+    return train_loss, eval_fn
+
+
 def run_fold(model: nn.Module, optimizer: torch.optim.Optimizer,
-             loss_fn: Callable, data: FoldData, track: str, gate: GateConfig,
-             epochs: int, generator: Optional[torch.Generator] = None):
+             train_loss: Callable, eval_fn: Callable, data: FoldData,
+             track: str, gate: GateConfig, epochs: int,
+             generator: Optional[torch.Generator] = None):
     """Train one fold in place, the counterpart of the JAX package's
-    ``make_fold_runner(...)(params, opt_state, data, key)``.
+    ``make_fold_runner(train_loss, eval_fn, ...)(params, opt_state, data,
+    key)``.
 
     Runs ``epochs - 1`` epochs (the reference's ``range(1, epochs)``) of
-    consecutive minibatches, ``loss_fn(pred, y, mask)`` on the train-mode
-    forward (dropout from ``generator``), then a full-batch eval of the
-    test split and the metric gate.  Returns ``(best, logs, step_losses)``
+    consecutive minibatches, each a step on ``train_loss(xs, y, mask,
+    generator) -> (loss, pred)`` with ``model`` in train mode (dropout from
+    ``generator``), then ``eval_fn(data.test_x)`` in eval mode without a
+    graph and the metric gate.  ``model`` holds every parameter (its
+    ``state_dict()`` is what the gate keeps); ``optimizer`` may carry state
+    in from an earlier fold.  Returns ``(best, logs, step_losses)``
     on the host: ``best`` holds the gated metrics as floats and, under
     ``"params"``, the gated state dict on the device; ``logs`` one array
     per metric over the epochs, ``"steps"`` the optimizer steps of each;
@@ -234,15 +253,16 @@ def run_fold(model: nn.Module, optimizer: torch.optim.Optimizer,
         losses, preds = [], []
         for i in range(n_steps):
             optimizer.zero_grad(set_to_none=True)
-            pred = model(data.train_x[0][i], generator)
-            loss = loss_fn(pred, data.train_y[i], data.train_mask[i])
+            loss, pred = train_loss(tuple(x[i] for x in data.train_x),
+                                    data.train_y[i], data.train_mask[i],
+                                    generator)
             loss.backward()
             optimizer.step()
             losses.append(loss.detach())
             preds.append(pred.detach())
         model.eval()
         with torch.no_grad():
-            test_pred = model(data.test_x[0])
+            test_pred = eval_fn(data.test_x)
         losses = torch.stack(losses)
         preds = torch.stack(preds)
         if clf:

@@ -113,19 +113,26 @@ def test_backend_seam():
 
 
 def test_lstm_and_xavier_name_the_text_slice():
-    with pytest.raises(NotImplementedError, match="text slice"):
-        trnn.init_params("lstm", 4, 8, 1, False)
-    with pytest.raises(NotImplementedError, match="text slice"):
-        trnn.init_params("gru", 4, 8, 1, False, init="xavier")
-    with pytest.raises(NotImplementedError, match="text slice"):
-        trnn.rnn([], torch.zeros(1, 3, 4), "lstm")
+    """The text slice's cell and init exist; unknown ones still raise."""
+    layers = trnn.init_params("lstm", 4, 8, 2, True, init="xavier")
+    assert [sorted(layer) for layer in layers] == [["bwd", "fwd"]] * 2
+    assert tuple(layers[1]["bwd"]["w_ih"].shape) == (32, 16)
+    y, h_n, c_n = trnn.rnn(layers, torch.zeros(1, 3, 4), "lstm")
+    assert tuple(y.shape) == (1, 3, 16)
+    assert tuple(h_n.shape) == tuple(c_n.shape) == (1, 4, 8)
+    with pytest.raises(ValueError, match="unknown cell"):
+        trnn.init_params("rnn", 4, 8, 1, False)
+    with pytest.raises(ValueError, match="unknown init"):
+        trnn.init_params("gru", 4, 8, 1, False, init="orthogonal")
+    with pytest.raises(ValueError, match="unknown cell"):
+        trnn.rnn([], torch.zeros(1, 3, 4), "rnn")
 
 
 def test_kernel_module_imports_without_building():
     """Importing the kernel module and the builder compiles nothing; the
     library path is keyed by the source and lies in the ignored _build/."""
     assert rnn_cuda._fns == {}
-    for name in ("gru_fwd", "gru_bwd"):
+    for name in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd"):
         assert name not in _build._loaded
         so = _build.library_path(name)
         assert so.parent == _build.BUILD_DIR

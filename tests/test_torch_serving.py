@@ -102,7 +102,7 @@ def test_predictor_cache_batching_and_empty_request(tmp_path):
 
 def test_predictor_names_missing_slices(tmp_path):
     for task in ("text_clf", "fuse_reg"):
-        with pytest.raises(NotImplementedError, match="text slice"):
+        with pytest.raises(NotImplementedError, match="item 13"):
             tpredictors.model_config(task)
     with pytest.raises(ValueError, match="task must be one of"):
         tpredictors.model_config("video_clf")

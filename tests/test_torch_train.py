@@ -315,8 +315,10 @@ def _oracle_run(data, gate, epochs=2):
     model = _Oracle()
     opt = toptim.build(tconfig.AUDIO_REG.optimizer, model)
     loss = ttrainers._branch_fns(tconfig.AUDIO_CLF)
-    best, logs, step_losses = tloop.run_fold(model, opt, loss, data,
-                                             "classification", gate, epochs)
+    best, logs, step_losses = tloop.run_fold(model, opt,
+                                             *tloop.model_fns(model, loss),
+                                             data, "classification", gate,
+                                             epochs)
     return model, opt, best, logs, step_losses
 
 
@@ -580,7 +582,7 @@ def test_cli_train_corpus_writes_artifacts(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--task", "text_clf"], "text slice"),
+    (["--task", "text_clf", "--corpus", "x"], "item 13"),
     (["--task", "audio_clf", "--vmap-folds"], "item 19"),
     (["--task", "audio_clf", "--resume-dir", "x"], "item 19"),
     (["--task", "audio_reg", "--fold-parallel"], "multi-GPU"),
