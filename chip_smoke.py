@@ -1,51 +1,79 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``icassp2022_depression_tpu_torch``)
-on one NVIDIA GPU: the serving path of the audio model, and the training
-paths of both tracks (audio and text branches and their fusion), at full
-width.
+on one NVIDIA GPU: serving of the audio, text and fusion models, the text
+frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), and the
+training paths of both tracks, at full width.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the exit code is nonzero):
 
 1. setup: require CUDA, print the card's name and power limit, turn TF32
-   off, build the four kernels from ``icassp2022_depression_tpu_torch/csrc``
-   (GRU and LSTM, forward and backward) with ``nvcc``, one compiler process
-   per source, started together, and print the build time and the
+   off, build the six kernels from ``icassp2022_depression_tpu_torch/csrc``
+   (GRU, LSTM and LSTMP, forward and backward) with ``nvcc``, one compiler
+   process per source, started together, and print the build time and the
    compiler's reports;
 2. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes of the paths below, a ragged shape and one the JAX package would
    stream ((256, 16, H)): outputs and dxp within 1e-5, dw and db within
    1e-5 of their largest magnitude, reruns bitwise equal, the LSTM
-   backward with a nonzero cell-state cotangent; timed with CUDA events;
-   the forward wrappers must refuse a CUDA input that requires grad;
-3. serving: a synthetic EATD corpus, a full-width ``audio_clf`` with seeded
-   random weights saved as a JAX-layout npz, ``cli predict`` for one
-   speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers, the
-   GRU forward kernel launched twice per forward; outputs equal (1e-5) to
-   the plain recurrence's and, for ``cli predict``, to the CPU's;
-4. training: a synthetic corpus of 24 + 12 speakers, its wav2vlad features
-   extracted on the card and written with seeded synthetic text features
-   ([N, 3, 1024], shifted by label; the ELMo frontend is not ported yet) as
-   a JAX-layout npz root.  Counted, each with every kernel counter zeroed
-   just before and read just after: ``cli pipeline --track clf`` at the
-   full recipes (audio_clf 170, text_clf 150, fuse_clf 100 epochs, 3
-   folds each), ``cli train --task audio_clf --corpus`` and ``cli
-   pipeline --track reg`` (folds cut to the corpus) at 20 epochs.  Per
-   stage the launches must be exact (audio: 2 GRU forwards per step and
-   eval, 2 GRU backwards per step; text: 4 LSTM forwards per step and
-   eval, 4 LSTM backwards per step; fusion: 4 LSTM and 2 GRU forwards per
-   step and per fold, and no backward kernel at all), the metrics finite
-   and every gated fold's artifacts written.  Comparisons, not counted:
-   5-epoch ``audio_clf``, ``audio_reg``, ``text_clf`` and ``fuse_clf``
-   folds through the kernels against the plain recurrence on the card
-   with the same dropout masks, and ``audio_clf`` and ``text_clf`` folds
-   with dropout 0 on the card against the CPU (per-step losses within
-   1e-5, relative to the largest loss for the L1 loss on SDS scores;
-   final params within 1e-5 of the largest |param|);
-5. timing: warm ``predict_batch`` latency at 1 and 8 speakers; the wall
-   time of each pipeline stage; an ``audio_clf`` and a ``text_clf`` train
-   step split into forward, backward and optimizer.
+   backward with a nonzero cell-state cotangent; the LSTMP kernels at
+   (T, B, C, P) = (32, 128, 4096, 512), (16, 8, 4096, 512),
+   (48, 104, 4096, 512) and (7, 3, 384, 128) with both +-3 clips engaged
+   and at (128, 24, 4096, 512) with the weights at ``init_lstmp``'s bounds
+   (eight served speakers' long transcripts), the backward fed the plain
+   forward's residuals, every output within 1e-5 of its largest
+   magnitude; beside each, a reading of how far the plain float32 loop and
+   the kernel are from the plain loop in float64, and the same reading at
+   a recurrent gain of 3/sqrt(P), where float32 itself parts from float64
+   (not checked); the LSTM forward at the stand-in text
+   encoder's H = 512; timed with CUDA events, beside the nearest PyTorch
+   call (cuDNN ``nn.GRU`` / ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``); the
+   forward wrappers must refuse a CUDA input that requires grad;
+3. audio serving: a synthetic EATD corpus, a full-width ``audio_clf`` with
+   seeded random weights saved as a JAX-layout npz, ``cli predict`` for
+   one speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers,
+   the GRU forward kernel launched twice per forward; outputs equal (1e-5)
+   to the plain recurrence's and, for ``cli predict``, to the CPU's;
+4. a seeded converted-ELMo bundle at the zhs geometry (6784 chars, char-CNN
+   to 512, biLM C = 4096, P = 512, 2 layers), drawn on the card with the
+   port's threefry and written with the port's ``save_npz``;
+5. text and training: a synthetic corpus of 24 + 12 speakers; counted,
+   each with every kernel counter zeroed just before and read just after:
+   ``cli extract-text`` with the bundle (``--segmenter fallback``; exactly
+   4 LSTMP forward launches per sentence batch), whose npz features feed
+   ``cli pipeline --track clf`` at the full recipes (audio_clf 170,
+   text_clf 150, fuse_clf 100 epochs, 3 folds each), ``cli train --task
+   audio_clf --corpus`` and ``cli pipeline --track reg --corpus`` (both
+   modalities extracted on the card; folds cut to the corpus) at 20
+   epochs with the gates open, so that every fold saves and every text
+   and fusion sidecar is checked to name the bundle.  Per stage the
+   launches must be exact (audio: 2 GRU forwards
+   per step and eval, 2 GRU backwards per step; text: 4 LSTM forwards per
+   step and eval, 4 LSTM backwards per step; fusion: 4 LSTM and 2 GRU
+   forwards per step and per fold, and no backward kernel at all), the
+   metrics finite and every gated fold's artifacts written, naming the
+   bundle.  Not counted: the extracted features of 3 speakers against the
+   same bundle on the CPU (1e-5 of the largest magnitude); 5-epoch
+   ``audio_clf``, ``audio_reg``, ``text_clf`` and ``fuse_clf`` folds
+   through the kernels against the plain recurrence on the card with the
+   same dropout masks, and ``audio_clf`` and ``text_clf`` folds with
+   dropout 0 on the card against the CPU (per-step losses within 1e-5,
+   relative to the largest loss for the L1 loss on SDS scores; final
+   params within 1e-5 of the largest |param|);
+6. text serving: full-width seeded ``fuse_clf`` and ``text_clf``
+   checkpoints whose sidecars name the bundle (``ICASSP_ELMO_WEIGHTS``
+   points at it): counted ``cli predict`` for one speaker (equal to the
+   CPU's within 1e-5) and ``Predictor.predict_batch`` (``fuse_clf``) at 1
+   and 8 speakers with transcripts of 20-120 CJK characters from a seeded
+   vocabulary, exact launches per request, no LSTMP backward on any main
+   path; not counted: the 8 speakers' results and text features against
+   the same predictor on the CPU (1e-5);
+7. timing: warm ``predict_batch`` latency (audio at 1 and 8 speakers,
+   fusion at 1 and 8); the wall time of extraction and of each pipeline
+   stage; an ``audio_clf`` and a ``text_clf`` train step split into
+   forward, backward and optimizer; each kernel's bound (the larger of its
+   float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
@@ -76,20 +104,39 @@ BATCHES = (1, 3, 8)
 #: (its backward working set, ~35 MB, exceeds `_pallas_fits`' 12 MB)
 BWD_SHAPES = ((3, 8, 256), (3, 2, 256), (3, 24, 256), (7, 3, 200),
               (256, 16, 256))
-BWD_TIMED = ((3, 8, 256), (3, 2, 256))
+BWD_TIMED = ((3, 8, 256), (3, 2, 256), (256, 16, 256))
 #: the LSTM at the text model's H = 128: the training batches (text_clf 4,
 #: text_reg and fuse_clf 2), an eval split, a ragged shape, and one the JAX
 #: package would stream
 LSTM_SHAPES = ((3, 4, 128), (3, 2, 128), (3, 24, 128), (7, 3, 100),
                (256, 16, 128))
-LSTM_TIMED = ((3, 4, 128), (3, 2, 128))
+LSTM_TIMED = ((3, 4, 128), (3, 2, 128), (256, 16, 128))
+#: the LSTMP cell (T, B, C, P, weights) at the zhs geometry.  "clips":
+#: weights scaled so that both +-3 clips engage, at the extraction batch,
+#: one served speaker, a ragged large batch, and a small ragged shape;
+#: "init": the bounds ``init_lstmp`` draws from (the seeded bundle's), at
+#: the rows and steps of eight served speakers' long transcripts (24
+#: sentences of up to 122 tokens)
+LSTMP_SHAPES = ((32, 128, 4096, 512, "clips"), (16, 8, 4096, 512, "clips"),
+                (48, 104, 4096, 512, "clips"), (7, 3, 384, 128, "clips"),
+                (128, 24, 4096, 512, "init"))
+LSTMP_TIMED = ((32, 128, 4096, 512), (16, 8, 4096, 512),
+               (128, 24, 4096, 512))
+#: a reading, not a check: the "clips" weights with a recurrent gain of
+#: 3/sqrt(P), where the float32 recurrence itself parts from float64
+LSTMP_GAIN3 = (32, 128, 4096, 512, "gain3")
+#: the stand-in text encoder's LSTM (H = 512): rows of one served speaker
+#: and of an extraction batch
+STANDIN_LSTM_SHAPES = ((16, 8, 512), (16, 112, 512))
+#: the data sheet's peaks of one H100 SXM at 700 W (fp32 without tensor
+#: cores, HBM3), for each kernel's bound
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 TRAIN_TOL = 1e-5
 COMPARE_EPOCHS = 5
 #: epochs of the runs cut to keep the script short (cli train --corpus and
 #: the reg pipeline); the clf pipeline runs the full recipes
 REDUCED_EPOCHS = 20
-#: per-dimension shift of the synthetic text features by label (+-)
-TEXT_SHIFT = 0.1
 
 
 def fail(msg: str) -> None:
@@ -433,20 +480,285 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
     return worst, timings
 
 
+def _lstmp_inputs(torch, gen, t, b, c, p, weights):
+    """(xp4, w_h_t3, b3, w_p_t) for one LSTMP check.  "clips" and "gain3":
+    xp4 normal with std 2, the input and forget gates opened by a bias of
+    +2 so the cell grows, and a large W_p (6/sqrt(C)): both clips engage;
+    the recurrent gain is 0.5/sqrt(P) ("clips") or 3/sqrt(P) ("gain3").
+    "init": W_h, W_p uniform within 1/sqrt(P), 1/sqrt(C) and b = 0, as
+    ``init_lstmp`` draws them, and xp4 standard normal."""
+    gain = {"clips": 0.5, "gain3": 3.0, "init": 1.0}[weights]
+    xp4 = torch.randn((t, b, 4, c), generator=gen)
+    w_h = (torch.rand((p, 4, c), generator=gen) * 2 - 1) * gain / p ** 0.5
+    if weights == "init":
+        b3 = torch.zeros((1, 4, c))
+        w_p = (torch.rand((c, p), generator=gen) * 2 - 1) / c ** 0.5
+    else:
+        xp4 = xp4 * 2
+        b3 = torch.rand((1, 4, c), generator=gen) - 0.5
+        b3[:, :2] += 2.0
+        w_p = (torch.rand((c, p), generator=gen) * 2 - 1) * 6 / c ** 0.5
+    return tuple(a.cuda() for a in (xp4, w_h, b3, w_p))
+
+
+def _rel(got, ref) -> float:
+    """max over the outputs of max|got - ref| / max|ref|."""
+    return max(((g - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(got, ref))
+
+
+def _f64_reading(torch, rnn_cuda, fwd_in, got, ref) -> tuple:
+    """(plain float32, kernel) distances from the plain recurrence run in
+    float64 on the same inputs, relative to its largest magnitudes."""
+    exact = rnn_cuda.lstmp_sequence_torch(*(a.double() for a in fwd_in))
+    exact = tuple(e.float() for e in exact)
+    return _rel(ref, exact), _rel(got, exact)
+
+
+def lstmp_kernel_phase(torch, rnn_cuda, card: str):
+    """Both LSTMP kernels against their plain versions at the zhs geometry
+    (``LSTMP_SHAPES``); the backward against the plain backward fed the
+    same forward residuals (a value within rounding of a clip may fall on
+    either side in the two forwards).  Outputs within KERNEL_TOL of their
+    largest magnitude, reruns bitwise equal; at the "clips" shapes both
+    clips must engage.  Beside each check, a reading: how far the plain
+    float32 loop and the kernel are from the plain loop in float64, and
+    the same at ``LSTMP_GAIN3``.  Returns the worst absolute errors, the
+    (kernel, plain) ms at the timed shapes and the float64 readings."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst_abs = {"fwd": 0.0, "bwd": 0.0}
+    gen = torch.Generator().manual_seed(4)
+    timings, readings = {}, {}
+    for t, b, c, p, weights in LSTMP_SHAPES:
+        shape = (t, b, c, p)
+        fwd_in = _lstmp_inputs(torch, gen, t, b, c, p, weights)
+        xp4, w_h, b3, w_p = fwd_in
+        dys = torch.randn((t, b, p), generator=gen).cuda()
+        dcpre = torch.randn((t, b, c), generator=gen).cuda()
+        got = rnn_cuda.lstmp_sequence(*fwd_in)
+        again = rnn_cuda.lstmp_sequence(*fwd_in)
+        ref = rnn_cuda.lstmp_sequence_torch(*fwd_in)
+        bwd_in = fwd_in + ref[:3] + (dys, dcpre)
+        bgot = rnn_cuda.lstmp_sequence_bwd(*bwd_in)
+        bagain = rnn_cuda.lstmp_sequence_bwd(*bwd_in)
+        bref = rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in)
+        torch.cuda.synchronize()
+        for g, want in zip(got + bgot, ((t, b, p), (t, b, p), (t, b, c),
+                                        (t, b, c), (t, b, 4, c), (t, b, p))):
+            if tuple(g.shape) != want or not torch.isfinite(g).all():
+                fail(f"LSTMP kernel output at {shape} is malformed")
+        clipped = (ref[2].abs().max().item() > 3.0,
+                   ref[1].abs().max().item() > 3.0)
+        if weights == "clips" and not all(clipped):
+            fail(f"LSTMP clips not engaged at {shape}: {clipped}")
+        fwd, bwd = _rel(got, ref), _rel(bgot, bref)
+        same = all(torch.equal(a, c_) for a, c_ in
+                   zip(got + bgot, again + bagain))
+        readings[shape] = _f64_reading(torch, rnn_cuda, fwd_in, got, ref)
+        print(f"kernel lstmp_fwd/lstmp_bwd T={t} B={b} C={c} P={p} "
+              f"({weights} weights): max|d (ys, hpre, cpre, hf)| = "
+              f"{fwd:.3e}, max|d (dgates, dhpre)| = {bwd:.3e} (tol "
+              f"{KERNEL_TOL} of max|ref|), cell / projection clip engaged "
+              f"{clipped}, dcpre nonzero, rerun bitwise equal: {same}; "
+              f"reading: plain float32 / kernel vs plain float64 "
+              f"{readings[shape][0]:.3e} / {readings[shape][1]:.3e}")
+        if not (fwd <= KERNEL_TOL and bwd <= KERNEL_TOL and same):
+            fail(f"LSTMP kernels disagree with their plain versions at "
+                 f"{shape}: fwd {fwd}, bwd {bwd}, rerun {same}")
+        worst["fwd"] = max(worst["fwd"], fwd)
+        worst["bwd"] = max(worst["bwd"], bwd)
+        for k, gs, rs in (("fwd", got, ref), ("bwd", bgot, bref)):
+            worst_abs[k] = max([worst_abs[k]] + [(g - r).abs().max().item()
+                                                 for g, r in zip(gs, rs)])
+        if shape in LSTMP_TIMED:
+            pairs = {
+                "fwd": (lambda: rnn_cuda.lstmp_sequence(*fwd_in),
+                        lambda: rnn_cuda.lstmp_sequence_torch(*fwd_in)),
+                "bwd": (lambda: rnn_cuda.lstmp_sequence_bwd(*bwd_in),
+                        lambda: rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in))}
+            timings[shape] = {}
+            for k, (kern, plain) in pairs.items():
+                kern(), plain()
+                timings[shape][k] = (event_ms(kern, 5, torch),
+                                     event_ms(plain, 5, torch))
+                ms, pms = timings[shape][k]
+                print(f"timing lstmp_{k} T={t} B={b} C={c} P={p}: cuda "
+                      f"kernel {ms:.4f} ms, plain torch {pms:.4f} ms "
+                      f"(median of 5, CUDA events) [{card}]")
+    try:
+        rnn_cuda.lstmp_sequence(xp4.clone().requires_grad_(), w_h, b3, w_p)
+    except ValueError:
+        pass
+    else:
+        fail("lstmp_sequence returned a detached result for an input that "
+             "requires grad")
+    *shape, weights = LSTMP_GAIN3
+    fwd_in = _lstmp_inputs(torch, gen, *shape, weights)
+    got = rnn_cuda.lstmp_sequence(*fwd_in)
+    ref = rnn_cuda.lstmp_sequence_torch(*fwd_in)
+    r32, rk = _f64_reading(torch, rnn_cuda, fwd_in, got, ref)
+    readings[tuple(shape) + (weights,)] = (r32, rk)
+    print(f"reading lstmp_fwd T={shape[0]} B={shape[1]} C={shape[2]} "
+          f"P={shape[3]} (gain3 weights, not checked): kernel vs plain "
+          f"float32 {_rel(got, ref):.3e}; plain float32 / kernel vs plain "
+          f"float64 {r32:.3e} / {rk:.3e} (of max|ref|)")
+    print(f"lstmp kernels: worst max|d| relative {worst}, absolute "
+          f"{worst_abs}")
+    return worst_abs, timings, readings
+
+
+def standin_lstm_phase(torch, rnn_cuda, card: str) -> dict:
+    """The LSTM forward kernel at the stand-in text encoder's H = 512
+    against its plain version; returns the (kernel, plain) ms per shape."""
+    gen = torch.Generator().manual_seed(5)
+    timings = {}
+    for t, b, h in STANDIN_LSTM_SHAPES:
+        xp = torch.randn((t, b, 4 * h), generator=gen).cuda()
+        w = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
+             * h ** -0.5).cuda()
+        bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
+                * h ** -0.5).cuda()
+        got = rnn_cuda.lstm_sequence(xp, w, bias)
+        ref = rnn_cuda.lstm_sequence_torch(xp, w, bias)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        if not err <= KERNEL_TOL:
+            fail(f"LSTM kernel disagrees at the stand-in's {(t, b, h)}: "
+                 f"{err}")
+        ms = event_ms(lambda: rnn_cuda.lstm_sequence(xp, w, bias), 20, torch)
+        plain = event_ms(lambda: rnn_cuda.lstm_sequence_torch(xp, w, bias),
+                         20, torch)
+        timings[(t, b, h)] = (ms, plain)
+        print(f"kernel lstm_fwd T={t} B={b} H={h} (the stand-in encoder): "
+              f"max|d| = {err:.3e} (tol {KERNEL_TOL}); cuda kernel "
+              f"{ms:.4f} ms, plain torch {plain:.4f} ms (median of 20, CUDA "
+              f"events) [{card}]")
+    return timings
+
+
+def library_phase(torch, card: str) -> dict:
+    """The nearest PyTorch call to each kernel, timed as a yardstick and
+    used nowhere in the port: cuDNN's ``nn.GRU`` / ``nn.LSTM`` (they also
+    do the input projection the kernels take ready-made) and
+    ``nn.LSTM(proj_size=...)`` for the LSTMP cell (no +-3 clips).  The
+    backwards are ``torch.autograd.grad`` of the forward's output with
+    respect to the input and the weights."""
+    (t1, b1, c1, p1), (t2, b2, c2, p2), (t3, b3, c3, p3) = LSTMP_TIMED
+    shapes = {"gru_fwd": ("gru",) + BWD_TIMED[0] + (None,),
+              "gru_bwd": ("gru",) + BWD_TIMED[0] + (None,),
+              "gru_bwd_streamed": ("gru",) + BWD_TIMED[-1] + (None,),
+              "lstm_fwd": ("lstm",) + LSTM_TIMED[0] + (None,),
+              "lstm_bwd": ("lstm",) + LSTM_TIMED[0] + (None,),
+              "lstm_bwd_streamed": ("lstm",) + LSTM_TIMED[-1] + (None,),
+              "lstmp_fwd": ("lstm", t1, b1, c1, p1),
+              "lstmp_bwd": ("lstm", t1, b1, c1, p1),
+              "lstmp_fwd_b8": ("lstm", t2, b2, c2, p2),
+              "lstmp_fwd_t128": ("lstm", t3, b3, c3, p3)}
+    out = {}
+    for name, (cell, t, b, h, proj) in shapes.items():
+        d = proj or h
+        kw = {"proj_size": proj} if proj else {}
+        mod = (torch.nn.GRU(d, h) if cell == "gru"
+               else torch.nn.LSTM(d, h, **kw)).cuda()
+        x = torch.randn((t, b, d), device="cuda", requires_grad=True)
+        if "bwd" in name:
+            y, _ = mod(x)
+            dy = torch.randn_like(y)
+            wrt = [x, *mod.parameters()]
+
+            def fn():
+                torch.autograd.grad(y, wrt, dy, retain_graph=True)
+        else:
+            def fn():
+                with torch.no_grad():
+                    mod(x)
+        fn()
+        out[name] = event_ms(fn, 10, torch)
+        print(f"timing library {name}: torch.nn.{cell.upper()}"
+              f"({d}, {h}{f', proj_size={proj}' if proj else ''}) "
+              f"{'backward' if 'bwd' in name else 'forward'} at T={t} B={b}: "
+              f"{out[name]:.4f} ms (median of 10, CUDA events; cuDNN, "
+              f"input projection included"
+              f"{', no clips' if proj else ''}) [{card}]")
+    return out
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the fp32 peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rnn_bounds(cell: str, t: int, b: int, h: int) -> dict:
+    """The GRU's or LSTM's forward and backward bounds at (T, B, H): the
+    recurrent products' flops (the backward recomputes the gates, carries
+    the state and reduces dW), each input read once and each output
+    written once, in float32."""
+    g = (3 if cell == "gru" else 4) * h
+    states = 1 if cell == "gru" else 2          # ys (+ cs)
+    return {
+        "fwd": bound(2 * t * b * h * g,
+                     4 * (t * b * g + h * g + g + states * t * b * h)),
+        "bwd": bound(3 * 2 * t * b * h * g,
+                     4 * (2 * t * b * g + 2 * h * g + 2 * g
+                          + 2 * states * t * b * h))}
+
+
+def lstmp_bounds(t: int, b: int, c: int, p: int) -> dict:
+    """The LSTMP kernels' bounds at (T, B, C, P): forward 2 T B (4CP + CP)
+    flops over xp4, the weights, ys, hpre, cpre and hf; backward (the
+    kernel's part) 2 T B (9 C P) flops over xp4, the weights, ys, hpre,
+    dys, dhpre, cpre, dcpre and dgates."""
+    weights = 4 * c * p + 4 * c + c * p
+    return {
+        "fwd": bound(2 * t * b * 5 * c * p,
+                     4 * (t * b * 4 * c + weights + 2 * t * b * p
+                          + 2 * t * b * c)),
+        "bwd": bound(2 * t * b * 9 * c * p,
+                     4 * (2 * t * b * 4 * c + weights + 4 * t * b * p
+                          + 2 * t * b * c))}
+
+
+def print_bounds(card: str, timings: dict) -> None:
+    """A bound line for every timed shape: ``timings`` maps (name, shape)
+    to the kernel's ms."""
+    for (name, shape), ms in timings.items():
+        cell, direction = name.split("_")
+        b_ms, by = (lstmp_bounds(*shape) if cell == "lstmp"
+                    else rnn_bounds(cell, *shape))[direction]
+        print(f"bound {name} at {shape}: {b_ms:.6f} ms ({by}) against "
+              f"{ms:.4f} ms measured, {b_ms / ms:.4f} of the bound "
+              f"[{card}]")
+
+
+def kernel_bounds() -> dict:
+    """Each kernel's bound at the shape its JSON entry is timed at."""
+    gru, lstm = (rnn_bounds("gru", *TIMED_SHAPES[0]),
+                 rnn_bounds("lstm", *LSTM_TIMED[0]))
+    lstmp = lstmp_bounds(*LSTMP_TIMED[0])
+    return {"gru_fwd": gru["fwd"], "gru_bwd": rnn_bounds(
+                "gru", *BWD_TIMED[0])["bwd"],
+            "lstm_fwd": lstm["fwd"], "lstm_bwd": lstm["bwd"],
+            "lstmp_fwd": lstmp["fwd"], "lstmp_bwd": lstmp["bwd"]}
+
+
+COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
+            "lstm_fwd": "LSTM_LAUNCHES", "lstm_bwd": "LSTM_BWD_LAUNCHES",
+            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES"}
+
+
 def _counts(rnn_cuda) -> dict:
-    return {"gru_fwd": rnn_cuda.LAUNCHES, "gru_bwd": rnn_cuda.BWD_LAUNCHES,
-            "lstm_fwd": rnn_cuda.LSTM_LAUNCHES,
-            "lstm_bwd": rnn_cuda.LSTM_BWD_LAUNCHES}
+    return {k: getattr(rnn_cuda, v) for k, v in COUNTERS.items()}
 
 
 def _set_counts(rnn_cuda, counts: dict) -> None:
-    rnn_cuda.LAUNCHES, rnn_cuda.BWD_LAUNCHES = (counts["gru_fwd"],
-                                                counts["gru_bwd"])
-    rnn_cuda.LSTM_LAUNCHES, rnn_cuda.LSTM_BWD_LAUNCHES = (
-        counts["lstm_fwd"], counts["lstm_bwd"])
+    for k, v in COUNTERS.items():
+        setattr(rnn_cuda, v, counts[k])
 
 
-ZERO = {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+ZERO = {k: 0 for k in COUNTERS}
 
 
 def expected_launches(task: str, steps: int, evals: int, folds: int) -> dict:
@@ -472,43 +784,69 @@ def _check_launches(task: str, got: dict, steps: int, evals: int,
         fail(f"{task} launched {got}, expected {want}")
 
 
-def write_npz_root(root: Path, feats, sds, clf, seed: int = 3) -> None:
-    """``Features/{AudioWhole,TextWhole}`` in the JAX package's npz layout:
-    the audio from the port's own extraction, the text [N, 3, 1024] drawn
-    from a seeded normal with a label-dependent shift (the ELMo frontend
-    is not ported yet), and an extraction_meta.json naming that."""
+def write_audio_npz(root: Path, feats, sds, clf) -> None:
+    """``Features/AudioWhole`` in the JAX package's npz layout, from the
+    port's own extraction."""
     import numpy as np
 
     audio = root / "Features" / "AudioWhole"
-    text = root / "Features" / "TextWhole"
     audio.mkdir(parents=True)
-    text.mkdir(parents=True)
     xa = feats.cpu().numpy()[:, :, None, :]
-    rng = np.random.default_rng(seed)
-    xt = (rng.standard_normal((len(clf), 3, 1024), dtype=np.float32)
-          + np.float32(TEXT_SHIFT) * (2 * clf - 1)[:, None, None]
-          ).astype(np.float32)
     for track, y in (("clf", clf), ("reg", sds)):
         np.savez(audio / f"whole_samples_{track}_256.npz", xa)
         np.savez(audio / f"whole_labels_{track}_256.npz", y)
-        np.savez(text / f"whole_samples_{track}_avg.npz", xt)
-        np.savez(text / f"whole_labels_{track}_avg.npz", y)
-    (text / "extraction_meta.json").write_text(json.dumps(
-        {"embedder": f"synthetic-normal-seed{seed}", "segmenter": None}))
+
+
+def seeded_bundle(torch, path: Path, corpus_chars: str, seed: int = 11):
+    """A converted-ELMo bundle at the zhs geometry (6784 chars, char-CNN
+    filters (1,32)...(7,1024), 2 highways, 512 out; biLM C = 4096,
+    P = 512, 2 layers, +-3 clips) with weights drawn from ``seed`` by the
+    port's threefry on the card, written by the port's ``save_npz``.  The
+    char lexicon is the specials, ``corpus_chars`` and then CJK code points
+    from U+4E00 up to the vocabulary size.  Returns (path, the lexicon's
+    characters)."""
+    from icassp2022_depression_tpu_torch.models import char_cnn, elmo
+    from icassp2022_depression_tpu_torch.models import elmo_pretrained as ep
+    from icassp2022_depression_tpu_torch.ops import prng
+
+    ccfg = char_cnn.CharCnnConfig()
+    lcfg = elmo.ElmoLstmpConfig(vocab_size=1)
+    chars = list(dict.fromkeys(corpus_chars))
+    code = 0x4E00
+    while len(chars) < ccfg.n_chars - 6:
+        if chr(code) not in chars:
+            chars.append(chr(code))
+        code += 1
+    lexicon = {tok: i for i, tok in enumerate(
+        [ep.PAD, ep.OOV, ep.BOS, ep.EOS, ep.BOW, ep.EOW] + chars)}
+    enc = elmo.init_lstmp_encoder(prng.prng_key(seed + 1, "cuda"), lcfg)
+    pe = ep.PretrainedElmo(ccfg, lcfg,
+                           char_cnn.init(prng.prng_key(seed, "cuda"), ccfg),
+                           {"layers": enc["layers"]}, lexicon, None)
+    ep.save_npz(path, pe)
+    return path, chars
+
+
+def bundle_id(path: Path) -> str:
+    return f"elmo_bundle:{path.name}:{path.stat().st_size}"
 
 
 PIPELINE_TASKS = {"clf": ("audio_clf", "text_clf", "fuse_clf"),
                   "reg": ("audio_reg", "text_reg", "fuse_reg")}
 
 
-def pipeline_run(torch, root: Path, track: str, card: str,
-                 fold_cfg=None) -> dict:
-    """``cli pipeline --track <track>`` on the npz root, counted: every
-    kernel counter is zeroed just before and read just after, and each
-    stage's launches and wall time are recorded by wrapping its trainer
-    (``fold_cfg``, when given, is passed to the reg trainers).  Checks the
-    launches of each stage, the metrics, the summary line and every gated
-    fold's artifacts; returns the launches and the stage wall times."""
+def pipeline_run(torch, root: Path, track: str, card: str, embedder: str,
+                 fold_cfg=None, extra_argv=(), outside=None,
+                 all_gated: bool = False) -> dict:
+    """``cli pipeline --track <track> [extra_argv]`` on ``root``, counted:
+    every kernel counter is zeroed just before and read just after, and
+    each stage's launches and wall time are recorded by wrapping its
+    trainer (``fold_cfg``, when given, is passed to the reg trainers).
+    Checks the launches of each stage and, outside the trainers,
+    ``outside`` (the text extraction of a ``--corpus`` run), the metrics,
+    the summary line, every gated fold's artifacts and that the text and
+    fusion sidecars name ``embedder`` (with ``all_gated``, every fold must
+    have gated); returns the launches and the stage wall times."""
     from icassp2022_depression_tpu_torch import cli
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
     from icassp2022_depression_tpu_torch.train import checkpoints, trainers
@@ -539,7 +877,7 @@ def pipeline_run(torch, root: Path, track: str, card: str,
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["pipeline", "--track", track, "--root",
-                           str(root), "--device", "cuda"])
+                           str(root), "--device", "cuda", *extra_argv])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         total = _counts(rnn_cuda)
@@ -572,6 +910,9 @@ def pipeline_run(torch, root: Path, track: str, card: str,
                         int(sum(r["steps"] for r in epochs)), len(epochs),
                         len(bests))
         gated = [r for r in bests if r["epoch"] >= 0]
+        if all_gated and len(gated) != len(bests):
+            fail(f"{task}: {len(gated)} of {len(bests)} folds gated with "
+                 "the gates open")
         for r in gated:
             for f in _artifacts(checkpoints, model, task, r):
                 if not f.is_file():
@@ -579,12 +920,17 @@ def pipeline_run(torch, root: Path, track: str, card: str,
             if not task.startswith("audio"):
                 meta = checkpoints.load_meta(
                     next(iter(_artifacts(checkpoints, model, task, r))))
-                if not meta.get("text_embedder", "").startswith("synthetic"):
-                    fail(f"{task} sidecar lacks the text provenance: {meta}")
+                if meta.get("text_embedder") != embedder:
+                    fail(f"{task} sidecar names another embedder: {meta}")
+        named = ("" if task.startswith("audio") or not gated
+                 else f", their sidecars name {embedder}")
         print(f"  {task}: {len(gated)} of 3 folds gated, their artifacts "
-              f"written; wall {stages[task][0]:.2f} s [{card}]")
-    if total != {k: sum(st[1][k] for st in stages.values()) for k in total}:
-        fail(f"launches outside the trainers: {total}, stages {stages}")
+              f"written{named}; wall {stages[task][0]:.2f} s [{card}]")
+    outside = dict(ZERO, **(outside or {}))
+    if total != {k: outside[k] + sum(st[1][k] for st in stages.values())
+                 for k in total}:
+        fail(f"launches outside the trainers: {total}, stages {stages}, "
+             f"expected {outside} outside")
     print(f"cli pipeline --track {track}: wall {wall:.2f} s, launches "
           f"{total} [{card}]")
     return {"launches": total, "wall_s": wall,
@@ -726,35 +1072,102 @@ def step_split(torch, tcfg, data, card: str, what: str,
     return split
 
 
-def train_phase(torch, card: str):
-    """The training paths, counted (the clf pipeline at the full recipes,
-    ``cli train --corpus`` and the reg pipeline at reduced epochs), then
-    the comparisons and timings.  Returns the counted launches."""
+def extract_text_run(torch, card: str, corpus: Path, out: Path,
+                     bundle: Path) -> dict:
+    """``cli extract-text`` of ``corpus`` with the seeded bundle on the
+    card, counted: exactly 2 layers x 2 directions of ``lstmp_fwd`` per
+    sentence batch of 128 and nothing else.  Checks the npz files and the
+    provenance sidecar, then holds the card's pooled features of the first
+    speakers against the same bundle on the CPU (not counted).  Returns
+    the launches, the wall time and the card-vs-CPU difference."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+    from icassp2022_depression_tpu_torch.models import elmo_pretrained as ep
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+    texts = [sp.texts for sp in eatd.iter_speakers(corpus, read_text=True)]
+    n_batches = -(-3 * len(texts) // 128)
+    buf = io.StringIO()
+    _set_counts(rnn_cuda, ZERO)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["extract-text", "--root", str(corpus), "--out",
+                       str(out), "--elmo-weights", str(bundle),
+                       "--segmenter", "fallback", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts(rnn_cuda)
+    if rc != 0:
+        fail(f"cli extract-text returned {rc}")
+    want = dict(ZERO, lstmp_fwd=4 * n_batches)
+    print(f"cli extract-text: {buf.getvalue().strip()}; {3 * len(texts)} "
+          f"answers in {n_batches} batch(es), kernel launches {got}; wall "
+          f"{wall:.2f} s [{card}]")
+    if got != want:
+        fail(f"cli extract-text launched {got}, expected {want}")
+    feats = np.load(out / "whole_samples_clf_avg.npz")["arr_0"]
+    if feats.shape != (len(texts), 3, 1024) or not np.isfinite(feats).all():
+        fail(f"extract-text features malformed: {feats.shape}")
+    labels = np.load(out / "whole_labels_clf_avg.npz")["arr_0"]
+    means = [feats[labels == k].reshape(-1, feats.shape[-1]).mean(0)
+             for k in (0, 1)]
+    print(f"extract-text class separation: |mean(depressed) - "
+          f"mean(not)| / |mean(not)| = "
+          f"{np.linalg.norm(means[1] - means[0]) / np.linalg.norm(means[0]):.4e}"
+          f", max per-dimension gap {np.abs(means[1] - means[0]).max():.4e}")
+    meta = json.loads((out / "extraction_meta.json").read_text())
+    if meta["embedder"] != bundle_id(bundle) or \
+            meta["segmenter"] != "fallback":
+        fail(f"extraction_meta.json: {meta}")
+    pe_cpu = ep.load_npz(bundle, "cpu")
+    n = 3
+    cpu = pe_cpu.embed_sentences([tfe.tokenize(t, "fallback")
+                                  for ts in texts[:n] for t in ts]).numpy()
+    card_rows = feats[:n].reshape(3 * n, -1)
+    err = float(np.abs(card_rows - cpu).max() / np.abs(cpu).max())
+    print(f"extract-text pooled features of {n} speakers, card vs CPU: "
+          f"max|d| = {err:.3e} of max|CPU| (tol {SLICE_TOL})")
+    if not err <= SLICE_TOL:
+        fail(f"extract-text on the card differs from the CPU: {err}")
+    return {"launches": got, "wall_s": wall, "cpu_err": err}
+
+
+def train_phase(torch, card: str, corpus: Path, bundle: Path):
+    """The training paths, counted (``cli extract-text`` with the seeded
+    bundle, the clf pipeline at the full recipes on its features, ``cli
+    train --corpus`` and ``cli pipeline --track reg --corpus`` at reduced
+    epochs), then the comparisons and timings.  Returns the counted
+    launches."""
     from icassp2022_depression_tpu_torch import cli
     from icassp2022_depression_tpu_torch import config as C
-    from icassp2022_depression_tpu_torch.data import eatd, folds
+    from icassp2022_depression_tpu_torch.data import folds
     from icassp2022_depression_tpu_torch.frontend import audio as afe
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
     from icassp2022_depression_tpu_torch.train import trainers
 
     launches = dict(ZERO)
+    embedder = bundle_id(bundle)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        corpus = Path(tmp) / "corpus"
-        eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
-                                   seconds=(2.0, 12.0), seed=1)
         t0 = time.perf_counter()
         feats, sds, clf = afe.extract_eatd_device(corpus, device="cuda")
         torch.cuda.synchronize()
         extract_s = time.perf_counter() - t0
         root = Path(tmp) / "npz"
-        write_npz_root(root, feats, sds, clf)
+        write_audio_npz(root, feats, sds, clf)
         print(f"extract_eatd_device: {feats.shape[0]} speakers "
-              f"({int(clf.sum())} depressed), {extract_s:.2f} s; npz root "
-              f"written (text features synthetic, shift {TEXT_SHIFT}) "
-              f"[{card}]")
+              f"({int(clf.sum())} depressed), {extract_s:.2f} s; audio npz "
+              f"written [{card}]")
 
-        # -- main path: cli pipeline --track clf at the full recipes ------
-        clf_run = pipeline_run(torch, root, "clf", card)
+        # -- main path: cli extract-text, then the clf pipeline on its
+        # features at the full recipes ---------------------------------
+        text = extract_text_run(torch, card, corpus,
+                                root / "Features" / "TextWhole", bundle)
+        for k, v in text["launches"].items():
+            launches[k] += v
+        clf_run = pipeline_run(torch, root, "clf", card, embedder)
         for k, v in clf_run["launches"].items():
             launches[k] += v
 
@@ -792,14 +1205,24 @@ def train_phase(torch, card: str):
                   f"{REDUCED_EPOCHS} epochs: wall {corpus_wall:.2f} s "
                   f"(extraction + folds) [{card}]")
 
-            # -- cli pipeline --track reg, reduced epochs ----------------
+            # -- cli pipeline --track reg, reduced epochs, gates open:
+            # every fold saves, so the sidecars of the text and fusion
+            # checkpoints trained on the --corpus extraction are checked
             for n in ("AUDIO_REG", "TEXT_REG", "FUSE_REG_TRAINER"):
-                setattr(C, n, C.replace(full[n], epochs=REDUCED_EPOCHS + 1))
+                setattr(C, n, C.replace(
+                    full[n], epochs=REDUCED_EPOCHS + 1,
+                    gate=C.replace(full[n].gate, mae_ceiling=1e9,
+                                   train_mae_ceiling=1e9)))
             cut = C.FoldConfig.sds_threshold
             n_dep, n_non = int((sds >= cut).sum()), int((sds < cut).sum())
             fold_cfg = C.FoldConfig(reg_test_dep=n_dep // 3,
                                     reg_test_non=n_non // 3)
-            reg_run = pipeline_run(torch, root, "reg", card, fold_cfg)
+            reg_run = pipeline_run(
+                torch, Path(tmp) / "reg", "reg", card, embedder, fold_cfg,
+                ["--corpus", str(corpus), "--elmo-weights", str(bundle),
+                 "--segmenter", "fallback"],
+                {"lstmp_fwd": text["launches"]["lstmp_fwd"]},
+                all_gated=True)
             for k, v in reg_run["launches"].items():
                 launches[k] += v
         finally:
@@ -890,8 +1313,166 @@ def train_phase(torch, card: str):
                                         "text_clf")}
         _set_counts(rnn_cuda, counted)
     return launches, {"clf": clf_run, "reg": reg_run, "extract_s": extract_s,
-                      "corpus_wall_s": corpus_wall, "split": split,
-                      "cmp": cmp}
+                      "text": text, "corpus_wall_s": corpus_wall,
+                      "split": split, "cmp": cmp}
+
+
+def _transcripts(rng, chars, n: int) -> list:
+    """n speakers' 3 answers of 20-120 CJK characters each."""
+    return [["".join(rng.choice(chars, int(rng.integers(20, 121))))
+             for _ in range(3)] for _ in range(n)]
+
+
+def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
+    """Serving ``fuse_clf`` and ``text_clf`` through the text frontend on
+    the card, with full-width seeded checkpoints whose sidecars name the
+    bundle (found through ``ICASSP_ELMO_WEIGHTS``, as a user sets it).
+    Counted: ``cli predict`` of one speaker per task, then
+    ``Predictor.predict_batch`` (``fuse_clf``) at 1 and 8 speakers with
+    seeded transcripts, each with exact launches (4 ``lstmp_fwd`` per
+    sentence batch, the fusion's 4 LSTM and 2 GRU forwards, no backward).
+    Not counted: the same ``cli predict`` and the 8 speakers'
+    ``predict_batch`` and text features on the CPU, which must agree, and
+    the warm latencies.  Returns the launches and the latencies."""
+    import os
+
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.models.text_net import TextNet
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    launches = dict(ZERO)
+    per_request = {"fuse_clf": dict(ZERO, lstmp_fwd=4, lstm_fwd=4,
+                                    gru_fwd=2),
+                   "text_clf": dict(ZERO, lstmp_fwd=4, lstm_fwd=4)}
+    before_env = os.environ.get("ICASSP_ELMO_WEIGHTS")
+    os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+            root = Path(tmp) / "corpus"
+            eatd.make_synthetic_corpus(root, n_data=6, n_validation=2,
+                                       seconds=(2.0, 12.0), seed=4)
+            meta = {"text_embedder": bundle_id(bundle),
+                    "text_segmenter": "fallback", "note": "seeded weights"}
+            gen = torch.Generator().manual_seed(6)
+            ckpts = {
+                "fuse_clf": checkpoints.save(
+                    Path(tmp) / "fuse_clf", porting.fusion_tree_from_state_dict(
+                        FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF),
+                    dict(meta, task="fuse_clf")),
+                "text_clf": checkpoints.save(
+                    Path(tmp) / "text_clf", porting.text_net_tree_from_state_dict(
+                        TextNet(C.TEXT_CLF.model, gen).state_dict(),
+                        C.TEXT_CLF.model), dict(meta, task="text_clf"))}
+            sp = eatd.load_speaker(root, "Data", 1)
+            for task, ckpt in ckpts.items():
+                buf = io.StringIO()
+                _set_counts(rnn_cuda, ZERO)
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli.main(["predict", "--task", task, "--ckpt",
+                                   str(ckpt), "--root", str(root),
+                                   "--speaker", "Data/1", "--device",
+                                   "cuda"])
+                torch.cuda.synchronize()
+                got = _counts(rnn_cuda)
+                if rc != 0:
+                    fail(f"cli predict --task {task} returned {rc}")
+                out = json.loads(buf.getvalue().strip().splitlines()[-1])
+                print(f"cli predict --task {task} Data/1: {json.dumps(out)} "
+                      f"(kernel launches {got})")
+                if got != per_request[task]:
+                    fail(f"cli predict --task {task} launched {got}, "
+                         f"expected {per_request[task]}")
+                check_results([out], 1, f"cli predict {task}")
+                for k, v in got.items():
+                    launches[k] += v
+                with contextlib.redirect_stderr(io.StringIO()):
+                    cpu = Predictor.from_checkpoint(ckpt, task, device="cpu")
+                kw = {"texts": sp.texts}
+                if task == "fuse_clf":
+                    kw.update(waveforms=sp.waveforms,
+                              sample_rates=sp.sample_rates,
+                              ordinal_base=3 * eatd.corpus_position(
+                                  root, "Data", 1))
+                d = compare([out], [cpu.predict_speaker(**kw)],
+                            f"cli predict {task} vs CPU")
+                print(f"cli predict --task {task} vs the same predictor on "
+                      f"the CPU: max|dprob| = {d:.3e} (tol {SLICE_TOL})")
+
+            # -- Predictor.predict_batch, fuse_clf, 1 and 8 speakers --------
+            speakers = list(eatd.iter_speakers(root, read_text=False))
+            rng = np.random.default_rng(7)
+            with contextlib.redirect_stderr(io.StringIO()):
+                predictor = Predictor.from_checkpoint(
+                    ckpts["fuse_clf"], "fuse_clf", device="cuda",
+                    feature_cache_entries=0)
+            latency, served = {}, {}
+            for n in (1, 8):
+                req = ([s.waveforms for s in speakers[:n]],
+                       [s.sample_rates for s in speakers[:n]],
+                       _transcripts(rng, chars, n))
+                _set_counts(rnn_cuda, ZERO)
+                res = predictor.predict_batch(*req)
+                torch.cuda.synchronize()
+                got = _counts(rnn_cuda)
+                print(f"predict_batch fuse_clf {n} speakers: kernel launches "
+                      f"{got}")
+                if got != per_request["fuse_clf"]:
+                    fail(f"predict_batch({n}) fuse_clf launched {got}")
+                check_results(res, n, f"predict_batch fuse_clf ({n})")
+                served[n] = (req, res)
+                for k, v in got.items():
+                    launches[k] += v
+                counted = _counts(rnn_cuda)
+                times = []
+                for _ in range(6):
+                    t0 = time.perf_counter()
+                    predictor.predict_batch(*req)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                latency[n] = statistics.median(times[1:])
+                _set_counts(rnn_cuda, counted)
+                n_chars = sum(len(t) for ts in req[2] for t in ts)
+                print(f"timing predict_batch fuse_clf {n} speakers "
+                      f"({n_chars} transcript characters, features not "
+                      f"cached): median {latency[n]:.2f} ms of 5 warm "
+                      f"(host clock) [{card}]")
+
+            # -- the 8 speakers' long transcripts (T up to 128) on the
+            # CPU, not counted: results and text features equal ----------
+            counted = _counts(rnn_cuda)
+            req, res = served[8]
+            with contextlib.redirect_stderr(io.StringIO()):
+                cpu = Predictor.from_checkpoint(
+                    ckpts["fuse_clf"], "fuse_clf", device="cpu",
+                    feature_cache_entries=0)
+            d = compare(res, cpu.predict_batch(*req),
+                        "predict_batch fuse_clf (8) vs CPU")
+            want = cpu.text_features(req[2])
+            err = float(np.abs(predictor.text_features(req[2]) - want).max()
+                        / np.abs(want).max())
+            _set_counts(rnn_cuda, counted)
+            print(f"predict_batch fuse_clf 8 speakers vs the same predictor "
+                  f"on the CPU: max|dprob| = {d:.3e} (tol {SLICE_TOL}); "
+                  f"text features max|d| = {err:.3e} of max|CPU| (tol "
+                  f"{SLICE_TOL})")
+            if not err <= SLICE_TOL:
+                fail(f"served text features on the card differ from the "
+                     f"CPU's: {err}")
+    finally:
+        if before_env is None:
+            os.environ.pop("ICASSP_ELMO_WEIGHTS", None)
+        else:
+            os.environ["ICASSP_ELMO_WEIGHTS"] = before_env
+    return launches, latency
 
 
 def main() -> int:
@@ -907,6 +1488,7 @@ def main() -> int:
     if Path(pkg.__file__).resolve().parent.parent != HERE:
         fail(f"imported the port from {pkg.__file__}, not from {HERE}")
     from icassp2022_depression_tpu_torch import _build
+    from icassp2022_depression_tpu_torch.data import eatd
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
 
     t_start = time.perf_counter()
@@ -917,7 +1499,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd")
+    names = tuple(COUNTERS)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(so.name for so in libs)} in "
@@ -928,40 +1510,79 @@ def main() -> int:
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
     lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
+    lstmp_err, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda,
+                                                   card)
+    standin_times = standin_lstm_phase(torch, rnn_cuda, card)
+    library = library_phase(torch, card)
     serve_launches, _ = slice_phase(torch, card)
-    launches, train = train_phase(torch, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+        corpus = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
+                                   seconds=(2.0, 12.0), seed=1)
+        corpus_chars = "".join(
+            ch for sp in eatd.iter_speakers(corpus, read_text=True)
+            for t in sp.texts for ch in t if not ch.isspace())
+        t0 = time.perf_counter()
+        bundle, chars = seeded_bundle(torch, Path(tmp) / "elmo_zhs_seeded.npz",
+                                      corpus_chars)
+        print(f"seeded zhs-geometry ELMo bundle {bundle.name}: "
+              f"{bundle.stat().st_size / 2**20:.1f} MiB, drawn on the card "
+              f"and written in {time.perf_counter() - t0:.2f} s [{card}]")
+        launches, train = train_phase(torch, card, corpus, bundle)
+        text_launches, text_latency = text_serving_phase(torch, card, bundle,
+                                                         chars)
     launches["gru_fwd"] += serve_launches
+    for k, v in text_launches.items():
+        launches[k] += v
+    if launches["lstmp_bwd"] != 0:
+        fail(f"a main path launched the LSTMP backward: {launches}")
     if "jax" in sys.modules:
         fail("jax was imported")
     for task, wall in {**train["clf"]["stage_s"],
                        **train["reg"]["stage_s"]}.items():
         print(f"timing pipeline stage {task}: {wall:.2f} s wall [{card}]")
+    print(f"timing cli extract-text (108 answers, one batch of 112 rows): "
+          f"{train['text']['wall_s']:.2f} s wall [{card}]")
     print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 
-    ms, plain_ms = kernel_times[(3, 8, 256)]
-    bwd_ms, bwd_plain_ms = bwd_times[(3, 8, 256)]
-    lstm_fwd_ms, lstm_fwd_plain = lstm_times[(3, 4, 128)]["fwd"]
-    lstm_bwd_ms, lstm_bwd_plain = lstm_times[(3, 4, 128)]["bwd"]
+    print_bounds(card, {
+        **{("gru_fwd", k): v[0] for k, v in kernel_times.items()},
+        **{("gru_bwd", k): v[0] for k, v in bwd_times.items()},
+        **{(f"lstm_{d}", k): v[d][0] for k, v in lstm_times.items()
+           for d in ("fwd", "bwd")},
+        **{("lstm_fwd", k): v[0] for k, v in standin_times.items()},
+        **{(f"lstmp_{d}", k): v[d][0] for k, v in lstmp_times.items()
+           for d in ("fwd", "bwd")}})
+    bounds = kernel_bounds()
+    timed = {
+        "gru_fwd": (kernel_times[TIMED_SHAPES[0]], err, "gru_fwd"),
+        "gru_bwd": (bwd_times[BWD_TIMED[0]], bwd_err, "gru_bwd"),
+        "lstm_fwd": (lstm_times[LSTM_TIMED[0]]["fwd"], lstm_err["fwd"],
+                     "lstm_fwd"),
+        "lstm_bwd": (lstm_times[LSTM_TIMED[0]]["bwd"], lstm_err["bwd"],
+                     "lstm_bwd"),
+        "lstmp_fwd": (lstmp_times[LSTMP_TIMED[0]]["fwd"], lstmp_err["fwd"],
+                      "lstmp_fwd"),
+        "lstmp_bwd": (lstmp_times[LSTMP_TIMED[0]]["bwd"], lstmp_err["bwd"],
+                      "lstmp_bwd"),
+    }
     src = "icassp2022_depression_tpu_torch/csrc"
     pallas = "icassp2022_depression_tpu/ops/rnn_pallas.py"
-    print(json.dumps({"kernels": [
-        {"name": "gru_fwd", "route": "cuda", "source": f"{src}/gru_fwd.cu",
-         "replaces": f"{pallas}:149",
-         "launches": launches["gru_fwd"], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms},
-        {"name": "gru_bwd", "route": "cuda", "source": f"{src}/gru_bwd.cu",
-         "replaces": f"{pallas}:38 (+:174)",
-         "launches": launches["gru_bwd"], "max_abs_err": bwd_err,
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-        {"name": "lstm_fwd", "route": "cuda", "source": f"{src}/lstm_fwd.cu",
-         "replaces": f"{pallas}:346",
-         "launches": launches["lstm_fwd"], "max_abs_err": lstm_err["fwd"],
-         "ms": lstm_fwd_ms, "plain_ms": lstm_fwd_plain},
-        {"name": "lstm_bwd", "route": "cuda", "source": f"{src}/lstm_bwd.cu",
-         "replaces": f"{pallas}:868 (+:377)",
-         "launches": launches["lstm_bwd"], "max_abs_err": lstm_err["bwd"],
-         "ms": lstm_bwd_ms, "plain_ms": lstm_bwd_plain}]}))
+    replaces = {"gru_fwd": f"{pallas}:149", "gru_bwd": f"{pallas}:38 (+:174)",
+                "lstm_fwd": f"{pallas}:346",
+                "lstm_bwd": f"{pallas}:868 (+:377)",
+                "lstmp_fwd": f"{pallas}:562", "lstmp_bwd": f"{pallas}:609"}
+    entries = []
+    for name, ((ms, plain_ms), max_err, lib) in timed.items():
+        bound_ms, bound_by = bounds[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"{src}/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library[lib]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,8 @@ A source is compiled at its first use in a process::
          -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``_build/`` beside this file (listed in ``.gitignore``), keyed by a
-hash of the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited kernel is rebuilt and an unchanged one is reused.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
 then on ``PATH``, then in ``/usr/local/cuda/bin``.  A missing compiler or
 a failed build raises: there is no fallback to a plain version.  The
 compiler's report (``-Xptxas=-v``: registers, shared memory, spills) is
@@ -57,6 +57,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where :func:`load` builds ``csrc/<name>.cu``."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -2,30 +2,39 @@
 :mod:`icassp2022_depression_tpu.cli`, the subcommands of the ported slices).
 
   python -m icassp2022_depression_tpu_torch.cli synth-corpus --root ./corpus
+  python -m icassp2022_depression_tpu_torch.cli extract-text --root ./corpus \\
+      --elmo-weights elmo_zhs.npz
   python -m icassp2022_depression_tpu_torch.cli train --task audio_clf \\
-      --root ./corpus --corpus ./corpus --device cuda
+      --root ./corpus --corpus ./corpus
   python -m icassp2022_depression_tpu_torch.cli train --task text_clf \\
-      --root ./corpus --device cuda
+      --root ./corpus
   python -m icassp2022_depression_tpu_torch.cli pipeline --track clf \\
-      --root ./corpus --device cuda
-  python -m icassp2022_depression_tpu_torch.cli predict --task audio_clf \\
+      --root ./corpus [--corpus ./corpus]
+  python -m icassp2022_depression_tpu_torch.cli predict --task fuse_clf \\
       --ckpt ckpt.npz --root ./corpus --speaker Data/1
+
+Every subcommand that computes runs on ``--device`` (default ``cuda``); on
+a machine without a card it raises unless ``--device cpu`` is given.
 
 ``train`` writes what the JAX CLI's ``train`` writes: the gated-best
 checkpoints (npz + JSON sidecar, and ``train_idxs_{f1:.2f}_{fold}.npy`` for
 classification) under ``<model-dir>/ClassificationWhole/{Audio,Text}`` or
 ``<model-dir>/Regression/{Audio,Text}{fold}``, the per-epoch metrics in
 ``<model-dir>/<task>_metrics.jsonl``, and one ``fold k: {...}`` line per
-fold.  The audio tasks train from ``--corpus`` (wav2vlad on the device) or
-from ``<root>/Features/AudioWhole``; the text tasks from the npz features
-under ``<root>/Features/TextWhole`` (the JAX package's ``extract-text``
-layout).  ``pipeline`` runs a track's three trainers (audio, text, then the
-fusion from each fold's gated branches) on those npz features, writes
-their checkpoints (``.../Fuse`` and ``Regression/Fuse{fold}`` for the
-fusion) and ``<model-dir>/pipeline_<track>_metrics.jsonl``, and ends with
-a JSON line of the per-fold gated metrics.  ``predict`` prints one JSON
-line with the JAX CLI's fields: the result dict, ``speaker`` and
-``true_sds``.
+fold.  The tasks train from ``--corpus`` (wav2vlad audio or ELMo text
+features extracted on the device, no npz) or from the npz features under
+``<root>/Features/AudioWhole`` / ``<root>/Features/TextWhole``.
+``extract-text`` writes the latter for text (the JAX package's
+``extract-text`` layout and ``extraction_meta.json``).  ``pipeline`` runs
+a track's three trainers (audio, text, then the fusion from each fold's
+gated branches) on the npz features or, with ``--corpus``, on both
+modalities extracted on the device, writes their checkpoints
+(``.../Fuse`` and ``Regression/Fuse{fold}`` for the fusion) and
+``<model-dir>/pipeline_<track>_metrics.jsonl``, and ends with a JSON line
+of the per-fold gated metrics.  ``predict`` prints one JSON line with the
+JAX CLI's fields: the result dict, ``speaker`` and ``true_sds``; the text
+and fusion tasks embed the speaker's transcripts with the embedder that
+``ICASSP_ELMO_WEIGHTS`` names (else the seeded stand-in).
 """
 
 from __future__ import annotations
@@ -53,6 +62,13 @@ def cmd_synth_corpus(args):
     print(f"synthetic EATD-shaped corpus written to {args.root}")
 
 
+def _device(args) -> torch.device:
+    """``--device``; its default, ``cuda``, is the first card, and raises,
+    naming ``--device cpu``, when there is none."""
+    return default_device() if args.device == "cuda" \
+        else torch.device(args.device)
+
+
 def cmd_predict(args):
     """Serve a prediction for one corpus speaker from a checkpoint."""
     from icassp2022_depression_tpu_torch.data import eatd
@@ -61,22 +77,52 @@ def cmd_predict(args):
     sp = eatd.load_speaker(Path(args.root), split, int(number))
     if sp is None:
         raise SystemExit(f"speaker {args.speaker} not found under {args.root}")
-    p = Predictor.from_checkpoint(args.ckpt, args.task, device=args.device)
-    # corpus-position ordinal base -> NetVLAD features identical to the
-    # training-time extraction of this speaker
-    result = p.predict_speaker(
-        waveforms=sp.waveforms, sample_rates=sp.sample_rates,
-        ordinal_base=3 * eatd.corpus_position(Path(args.root), split,
-                                              int(number)))
+    kw = {"device": _device(args)}
+    # default: from_checkpoint adopts the sidecar's segmenter
+    if args.segmenter:
+        kw["segmenter"] = args.segmenter
+    if args.embed_seed is not None:
+        kw["seed"] = args.embed_seed
+    p = Predictor.from_checkpoint(args.ckpt, args.task, **kw)
+    call = {}
+    if not args.task.startswith("text"):
+        # corpus-position ordinal base -> NetVLAD features identical to the
+        # training-time extraction of this speaker
+        call.update(waveforms=sp.waveforms, sample_rates=sp.sample_rates,
+                    ordinal_base=3 * eatd.corpus_position(
+                        Path(args.root), split, int(number)))
+    if not args.task.startswith("audio"):
+        call.update(texts=sp.texts)
+    result = p.predict_speaker(**call)
     result["speaker"] = args.speaker
     result["true_sds"] = sp.sds
     print(json.dumps(result))
     return 0
 
 
-#: the text frontend (segmenters, ELMo) that extracts text features from a
-#: corpus on the fly
-_TEXT_FRONTEND = "the text-frontend slice (ROADMAP.md Queue 1, item 13)"
+def _reject_text_modes(args) -> None:
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    _reject((("--elmo-stateful", args.elmo_stateful, tfe.STATEFUL_ITEM),
+             ("--elmo-tp", args.elmo_tp > 1, tfe.TP_ITEM)))
+
+
+def cmd_extract_text(args):
+    """EATD text features -> ``<out>`` (default ``<root>/Features/
+    TextWhole``) in the JAX package's layout."""
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    _reject_text_modes(args)
+    root = Path(args.root)
+    out = Path(args.out) if args.out else root / "Features" / "TextWhole"
+    feats, _, _ = tfe.extract_eatd(root, out_dir=out, seed=args.seed,
+                                   elmo_weights=args.elmo_weights,
+                                   segmenter=args.segmenter,
+                                   device=_device(args))
+    print(f"text features {feats.shape} -> {out}")
+    return 0
+
+
 _TRAINER_REST = "the rest of the JAX trainer (ROADMAP.md Queue 1, item 19)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP.md Queue 1, item 18)"
 
@@ -92,8 +138,6 @@ def _reject(options) -> None:
 
 def _reject_unported(args) -> None:
     _reject((
-        ("--corpus with a text task",
-         bool(args.corpus) and args.task.startswith("text"), _TEXT_FRONTEND),
         ("--resume-dir/--chunk-epochs",
          args.resume_dir is not None or args.chunk_epochs is not None,
          _TRAINER_REST),
@@ -138,14 +182,43 @@ def _text_meta(text_dir: Path):
     return extras
 
 
-def _device(args) -> torch.device:
-    return torch.device(args.device) if args.device else default_device()
+def _warn_stale_text_artifacts(text_dir: Path) -> None:
+    """A ``--corpus`` run extracts the text anew; say so when
+    ``extract-text`` artifacts (maybe of another embedder) lie unused."""
+    if (text_dir / "whole_samples_clf_avg.npz").exists():
+        print("--corpus: ignoring the existing extract-text artifacts in "
+              f"{text_dir} - text features are re-extracted on the fly "
+              "with THIS command's --seed/--segmenter/--elmo-weights "
+              "(drop --corpus to train on the persisted npz instead)",
+              file=sys.stderr)
+
+
+def _corpus_text(args, text_dir: Path, device):
+    """The corpus's text features on ``device`` and the checkpoint sidecar
+    extras naming their embedder and segmenter."""
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    _warn_stale_text_artifacts(text_dir)
+    x, sds, clf, meta = tfe.extract_eatd_device(
+        Path(args.corpus), seed=args.seed, elmo_weights=args.elmo_weights,
+        segmenter=args.segmenter, device=device)
+    _require_speakers(sds, args.corpus)
+    return x, sds, clf, {"text_embedder": meta["embedder"],
+                         "text_segmenter": meta["segmenter"]}
+
+
+def _require_speakers(sds, corpus) -> None:
+    if len(sds) == 0:
+        raise SystemExit(
+            f"--corpus {corpus}: no speakers found; expected the EATD "
+            "layout Data/<n>/ and/or ValidationData/<n>/ with "
+            "{positive,neutral,negative}_out.wav and new_label.txt")
 
 
 def cmd_train(args):
-    """Train one branch task's 3 folds: audio from a corpus (``--corpus``,
-    the features stay on the device) or from the npz features under
-    ``<root>/Features/AudioWhole``; text from ``<root>/Features/TextWhole``."""
+    """Train one branch task's 3 folds from a corpus (``--corpus``: wav2vlad
+    or ELMo features extracted on the device) or from the npz features
+    under ``<root>/Features/{AudioWhole,TextWhole}``."""
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import folds
     from icassp2022_depression_tpu_torch.frontend import audio as afe
@@ -164,18 +237,18 @@ def cmd_train(args):
     # resolved at call time, so a changed preset is what trains
     tcfg = getattr(C, args.task.upper())
     text_kw = {}
-    if args.task.startswith("text"):
+    if args.task.startswith("text") and args.corpus:
+        x, sds, clf_targets, text_kw["meta_extras"] = _corpus_text(
+            args, text_dir, device)
+        y = clf_targets if track == "clf" else sds
+    elif args.task.startswith("text"):
         _require_features(text_dir, "text")
         x, y = tfe.load_features(text_dir, track)
         text_kw["meta_extras"] = _text_meta(text_dir)
     elif args.corpus:
         x, sds, clf_targets = afe.extract_eatd_device(Path(args.corpus),
                                                       device=device)
-        if len(sds) == 0:
-            raise SystemExit(
-                f"--corpus {args.corpus}: no speakers found; expected the "
-                "EATD layout Data/<n>/ and/or ValidationData/<n>/ with "
-                "{positive,neutral,negative}_out.wav and new_label.txt")
+        _require_speakers(sds, args.corpus)
         y = clf_targets if track == "clf" else sds
     else:
         _require_features(audio_dir, "audio")
@@ -216,8 +289,9 @@ def _warn_ungated(named_results) -> None:
 
 
 def cmd_pipeline(args):
-    """A whole track from the npz features: the audio and text branch
-    trainers, then the fusion from each fold's gated branch params."""
+    """A whole track from the npz features, or with ``--corpus`` from both
+    modalities extracted on the device: the audio and text branch trainers,
+    then the fusion from each fold's gated branch params."""
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import folds
     from icassp2022_depression_tpu_torch.frontend import audio as afe
@@ -226,19 +300,25 @@ def cmd_pipeline(args):
     from icassp2022_depression_tpu_torch.utils.logging import MetricsLogger
 
     _reject((
-        ("--corpus/--elmo-weights/--segmenter",
-         bool(args.corpus) or args.elmo_weights != "auto"
-         or args.segmenter != "auto", _TEXT_FRONTEND),
         ("--vmap-folds", args.vmap_folds, _TRAINER_REST),
         ("--fold-parallel", args.fold_parallel, _MULTI_GPU)))
     device = _device(args)
     root = Path(args.root)
     audio_dir, text_dir = _features_dirs(root)
     model_dir = Path(args.model_dir) if args.model_dir else root / "Model"
-    _require_features(audio_dir, "audio")
-    _require_features(text_dir, "text")
+    if args.corpus:
+        xa, sds, clf = afe.extract_eatd_device(Path(args.corpus),
+                                                device=device)
+        _require_speakers(sds, args.corpus)
+        xt, _, _, text_meta = _corpus_text(args, text_dir, device)
+        ya = yt = clf if args.track == "clf" else sds
+    else:
+        _require_features(audio_dir, "audio")
+        _require_features(text_dir, "text")
+        text_meta = _text_meta(text_dir)
+        xa, ya = afe.load_features(audio_dir, args.track)
+        xt, yt = tfe.load_features(text_dir, args.track)
     logger = MetricsLogger(model_dir / f"pipeline_{args.track}_metrics.jsonl")
-    text_meta = _text_meta(text_dir)
 
     def _lr(tcfg):
         if not args.lr:
@@ -246,8 +326,6 @@ def cmd_pipeline(args):
         return C.replace(tcfg, optimizer=C.replace(tcfg.optimizer,
                                                    learning_rate=args.lr))
 
-    xa, ya = afe.load_features(audio_dir, args.track)
-    xt, yt = tfe.load_features(text_dir, args.track)
     kw = dict(seed=args.seed, device=device)
     if args.track == "clf":
         out = model_dir / "ClassificationWhole"
@@ -291,6 +369,10 @@ def cmd_pipeline(args):
     return 0
 
 
+_DEVICE_HELP = ("torch device (default cuda; without a card this raises "
+                "unless --device cpu is given)")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="icassp2022_depression_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -303,6 +385,25 @@ def build_parser():
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=cmd_synth_corpus)
 
+    sp = sub.add_parser("extract-text", help="EATD text features")
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--out")
+    sp.add_argument("--seed", type=int, default=0,
+                    help="seed of the stand-in encoder (no bundle)")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="converted ELMoForManyLangs bundle (npz); 'auto' "
+                         "takes ICASSP_ELMO_WEIGHTS when set, '' the seeded "
+                         "stand-in")
+    sp.add_argument("--segmenter", default="auto",
+                    help="Chinese word segmenter: auto (jieba when "
+                         "installed, else fallback), jieba, fallback, "
+                         "pkuseg, thulac, hanlp")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    # the JAX CLI's options that later slices bring (see _reject_text_modes)
+    sp.add_argument("--elmo-stateful", action="store_true")
+    sp.add_argument("--elmo-tp", type=int, default=0)
+    sp.set_defaults(fn=cmd_extract_text)
+
     sp = sub.add_parser("train", help="train one branch task's 3 folds")
     sp.add_argument("--task", required=True,
                     choices=["audio_clf", "text_clf", "audio_reg",
@@ -313,12 +414,14 @@ def build_parser():
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--verbose", action="store_true")
     sp.add_argument("--corpus",
-                    help="audio tasks: extract wav2vlad features from this "
-                         "EATD corpus dir and train on them where they lie "
-                         "(no npz)")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda if a card is "
-                         "present, else cpu)")
+                    help="extract the task's features (wav2vlad audio or "
+                         "ELMo text) from this EATD corpus dir and train on "
+                         "them where they lie (no npz)")
+    sp.add_argument("--segmenter", default="auto",
+                    help="with --corpus on text tasks: see extract-text")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="with --corpus on text tasks: see extract-text")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     # the JAX CLI's options that later slices bring (see _reject_unported)
     sp.add_argument("--audio-dim", type=int, default=256)
     sp.add_argument("--resume-dir")
@@ -328,8 +431,7 @@ def build_parser():
     sp.add_argument("--data-parallel", type=int, default=1)
     sp.set_defaults(fn=cmd_train)
 
-    sp = sub.add_parser("pipeline", help="a whole track incl. fusion, "
-                                         "from the npz features")
+    sp = sub.add_parser("pipeline", help="a whole track incl. fusion")
     sp.add_argument("--track", required=True, choices=["clf", "reg"])
     sp.add_argument("--root", required=True)
     sp.add_argument("--model-dir")
@@ -338,13 +440,15 @@ def build_parser():
     sp.add_argument("--lr", type=float, default=None,
                     help="override every trainer's learning rate (default: "
                          "the reference values)")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda if a card is "
-                         "present, else cpu)")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.add_argument("--corpus",
+                    help="extract both modalities from this EATD corpus dir "
+                         "on the device instead of reading npz features")
+    sp.add_argument("--segmenter", default="auto",
+                    help="with --corpus: see extract-text")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="with --corpus: see extract-text")
     # the JAX CLI's options that later slices bring (see cmd_pipeline)
-    sp.add_argument("--corpus")
-    sp.add_argument("--segmenter", default="auto")
-    sp.add_argument("--elmo-weights", default="auto")
     sp.add_argument("--vmap-folds", action="store_true")
     sp.add_argument("--fold-parallel", action="store_true")
     sp.set_defaults(fn=cmd_pipeline)
@@ -355,9 +459,13 @@ def build_parser():
     sp.add_argument("--ckpt", required=True)
     sp.add_argument("--speaker", required=True,
                     help="e.g. Data/5 or ValidationData/12")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda if a card is "
-                         "present, else cpu)")
+    sp.add_argument("--segmenter", default=None,
+                    help="override the text segmenter (default: adopt the "
+                         "one recorded by the checkpoint's training "
+                         "features)")
+    sp.add_argument("--embed-seed", type=int, default=None,
+                    help="seed of the stand-in text encoder (default 0)")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     sp.set_defaults(fn=cmd_predict)
     return p
 

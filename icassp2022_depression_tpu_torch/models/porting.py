@@ -11,6 +11,12 @@ so ``load_state_dict(sd, strict=True)`` on :class:`AudioNet`,
 packages; the ``*_tree_from_state_dict`` functions are their inverses, for
 writing JAX-layout npz checkpoints from the port.
 
+The text frontend's encoders (the char-CNN, the LSTMP biLM and the
+stand-in BiLSTM, :mod:`.char_cnn` / :mod:`.elmo`) keep the JAX package's
+param trees as they are, dicts and lists of tensors;
+:func:`elmo_tree_from_jax` carries such a tree across.  The bundle npz
+(:func:`.elmo_pretrained.save_npz`) is the other bridge.
+
 A tree may be nested (``{"rnn": [{"fwd": {...}}], "fc1": {...}}``, with
 list indices as ints or as the string keys :func:`..train.checkpoints.load`
 gives) or flat with '/'-joined keys (``"rnn/0/fwd/w_ih"``).
@@ -196,3 +202,21 @@ def fusion_tree_from_state_dict(sd: Mapping, cfg: FusionConfig) -> dict:
     if cfg.audio_layernorm:
         tree["audio"]["ln"] = _linear_tree(sd, "ln")
     return tree
+
+
+def elmo_tree_from_jax(tree):
+    """A JAX text-encoder param tree (``char_cnn.init``,
+    ``elmo.init_lstmp_encoder``, ``elmo.init``, or a converted bundle's
+    ``cc_params`` / ``enc_params``; numpy or jax arrays, nested or with
+    '/'-joined keys, list indices as ints or digit strings) -> the same
+    tree of float32 CPU tensors, lists restored."""
+    if isinstance(tree, Mapping):
+        tree = _nest(tree)
+        keys = list(tree)
+        if keys and all(str(k).isdigit() for k in keys):
+            return [elmo_tree_from_jax(_item(tree, i))
+                    for i in range(len(keys))]
+        return {k: elmo_tree_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [elmo_tree_from_jax(v) for v in tree]
+    return _t(tree)

@@ -84,25 +84,54 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+#: counters per threefry pass of :func:`random_bits`: a larger draw (an
+#: embedding table of millions of entries) runs in slices of this many, so
+#: the cipher's int64 temporaries stay bounded
+_BITS_CHUNK = 1 << 22
+
+
+def _bits(k1, k2, start: int, stop: int) -> torch.Tensor:
+    idx = torch.arange(start, stop, dtype=torch.int64, device=k1.device)
+    o1, o2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return o1 ^ o2
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits`` (32-bit, partitionable): keys [..., 2] ->
     int64 tensor [..., *shape] of uint32 values."""
     shape = tuple(shape)
-    hi, lo = _counters(math.prod(shape), key.device)
-    o1, o2 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
-    return (o1 ^ o2).reshape(key.shape[:-1] + shape)
+    n = math.prod(shape)
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    if n <= _BITS_CHUNK:
+        return _bits(k1, k2, 0, n).reshape(key.shape[:-1] + shape)
+    out = torch.empty(key.shape[:-1] + (n,), dtype=torch.int64,
+                      device=key.device)
+    for start in range(0, n, _BITS_CHUNK):
+        stop = min(n, start + _BITS_CHUNK)
+        out[..., start:stop] = _bits(k1, k2, start, stop)
+    return out.reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits become the
-    mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval)."""
+    mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval).
+    XLA fuses the scale and shift into one FMA.  Where the float32 span is
+    a power of two (``normal``'s), the product is exact and a float32
+    multiply and add round as the FMA does; otherwise the product of two
+    float32 values is exact in float64, so one float64 multiply-add
+    rounded once to float32 gives its bits."""
     bits = random_bits(key, shape)
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    span = float(np.float32(maxval) - np.float32(minval))
+    if span > 0 and math.frexp(span)[0] == 0.5:
+        scaled = floats * (hi - lo) + lo
+    else:
+        scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function")

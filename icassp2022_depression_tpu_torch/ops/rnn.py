@@ -1,5 +1,5 @@
-"""Multi-layer, bidirectional GRU and LSTM (port of
-:mod:`icassp2022_depression_tpu.ops.rnn`).
+"""Multi-layer, bidirectional GRU and LSTM, and the ELMo biLM's LSTM with
+projection (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
 
 * The input projection ``x @ W_ih^T + b_ih`` for all time steps is one
   ``torch.matmul`` outside the recurrence, as in the JAX package
@@ -9,9 +9,12 @@
   :class:`.rnn_cuda.LSTMSequence`: ``"cuda"`` runs the hand-written
   forward and backward kernels of :mod:`.rnn_cuda`,
   ``"torch"`` the plain PyTorch loops beside them, ``"auto"`` picks the
-  kernels for CUDA tensors and the plain loops for CPU tensors.  The
-  kernels take any batch size and sequence length, so the TPU package's
-  VMEM-fit guards (and its streamed kernels) have no counterpart here.
+  kernels for CUDA tensors and the plain loops for CPU tensors.
+  :func:`lstmp_layer` takes the same seam to
+  :class:`.rnn_cuda.LSTMPSequence`.  The kernels take any batch size,
+  sequence length and geometry, so the TPU package's VMEM-fit guards
+  (``_pallas_fits``, ``_lstmp_pallas_fits``) and its streamed kernels have
+  no counterpart here.
 * Parameters keep torch's layout (row-stacked ``[G*H, D]`` matrices in
   gate order r, z, n for the GRU and i, f, g, o for the LSTM), and
   :class:`RNN` registers them under ``nn.GRU``'s / ``nn.LSTM``'s names, so
@@ -26,7 +29,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from icassp2022_depression_tpu_torch.ops import initializers, rnn_cuda
+from icassp2022_depression_tpu_torch.ops import initializers, prng, rnn_cuda
 from icassp2022_depression_tpu_torch.ops.nn import dropout as _dropout
 
 GATES = {"gru": 3, "lstm": 4}
@@ -114,6 +117,55 @@ def lstm_layer(p: dict, x: torch.Tensor, reverse: bool = False,
     ys, cs = rnn_cuda.LSTMSequence.apply(*_sequence_inputs(p, x, reverse),
                                          backend == "torch")
     return _batch_first(ys, reverse), ys[-1], cs[-1]
+
+
+def init_lstmp(key: torch.Tensor, input_size: int, cell: int,
+               proj: int) -> dict:
+    """One LSTMP direction drawn from the threefry ``key`` exactly as the
+    JAX package's ``init_lstmp`` draws it (same split and bounds), on the
+    key's device: {w_x [4C, In], w_h [4C, P], b [4C] (zeros), w_p [P, C]}."""
+    k1, k2, k3 = prng.split(key, 3)
+
+    def uni(k, shape, bound):
+        return prng.uniform(k, shape, -bound, bound)
+
+    return {"w_x": uni(k1, (4 * cell, input_size), 1.0 / input_size ** 0.5),
+            "w_h": uni(k2, (4 * cell, proj), 1.0 / proj ** 0.5),
+            "b": torch.zeros((4 * cell,), dtype=torch.float32,
+                             device=key.device),
+            "w_p": uni(k3, (proj, cell), 1.0 / cell ** 0.5)}
+
+
+def lstmp_layer(p: dict, x: torch.Tensor, reverse: bool = False,
+                cell_clip: float = 3.0, proj_clip: float = 3.0,
+                backend: str = "auto"):
+    """LSTM with projection, the ELMo biLM cell (allennlp
+    ``LstmCellWithProjection``; ``rnn.lstmp_layer`` / ``rnn_pallas.
+    lstmp_layer_streamed`` in the JAX package): gate order i, f, g, o, the
+    cell clipped to +-``cell_clip`` and the projected state to
+    +-``proj_clip`` (0: no clip), zero initial state.  ``p``: {w_x [4C, In]
+    (no bias), w_h [4C, P], b [4C], w_p [P, C]}; x: [B, T, In].  The input
+    projection is one ``torch.matmul`` outside the recurrence
+    (``rnn_pallas.py:841-842``).  Returns (ys [B, T, P], h_last [B, P],
+    c_last [B, C])."""
+    backend = resolve_backend(backend, x)
+    if reverse:
+        x = torch.flip(x, dims=(1,))
+    b, t_steps, _ = x.shape
+    p_dim, c_dim = p["w_p"].shape
+    xp = torch.matmul(x, p["w_x"].t())
+    xp4 = xp.transpose(0, 1).reshape(t_steps, b, 4, c_dim).contiguous()
+    w_h_t3 = p["w_h"].t().reshape(p_dim, 4, c_dim).contiguous()
+    ys, cs_pre = rnn_cuda.LSTMPSequence.apply(
+        xp4, w_h_t3, p["b"].reshape(1, 4, c_dim), p["w_p"].t().contiguous(),
+        cell_clip, proj_clip, backend == "torch")
+    c_last = cs_pre[-1].clamp(-cell_clip, cell_clip) if cell_clip \
+        else cs_pre[-1]
+    h_last = ys[-1]
+    ys = ys.transpose(0, 1)
+    if reverse:
+        ys = torch.flip(ys, dims=(1,))
+    return ys, h_last, c_last
 
 
 def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,

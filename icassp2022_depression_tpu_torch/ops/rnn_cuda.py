@@ -1,6 +1,5 @@
-"""The GRU and LSTM recurrences and their backwards as hand-written CUDA
-kernels (counterpart of :mod:`icassp2022_depression_tpu.ops.rnn_pallas`,
-GRU and LSTM halves; the ELMo LSTMP kernels are not ported yet).
+"""The GRU, LSTM and LSTMP recurrences and their backwards as hand-written
+CUDA kernels (counterpart of :mod:`icassp2022_depression_tpu.ops.rnn_pallas`).
 
 :func:`gru_sequence` keeps the JAX function's contract:
 ``xp [T, B, 3H]`` (input projections), ``w_hh_t [H, 3H]``,
@@ -12,14 +11,24 @@ autograd.  :func:`lstm_sequence` (``xp [T, B, 4H] -> (ys, cs)``, gate order
 i, f, g, o), :func:`lstm_sequence_bwd` (``_lstm_bwd_rule``: ``(xp, w_hh_t,
 b_hh, ys, cs, dys, dcs) -> (dxp, dw_hh_t, db_hh)``, with a cotangent for
 every step's cell state) and :class:`LSTMSequence` are the LSTM's.
+:func:`lstmp_sequence` (the ELMo biLM cell, ``_lstmp_stream_fwd``: ``xp4
+[T, B, 4, C]``, ``w_h_t3 [P, 4, C]``, ``b3 [1, 4, C]``, ``w_p_t [C, P]`` ->
+``(ys, hpre [T, B, P], cpre, hf [T, B, C])``), :func:`lstmp_sequence_bwd`
+(the kernel half of ``_lstmp_stream_bwd_rule``: -> ``(dgates [T, B, 4, C],
+dhpre [T, B, P])``) and :class:`LSTMPSequence` (``lstmp_sequence_streamed``'s
+custom VJP, the weight gradients as three products over ``T*B`` outside
+the kernel, as the JAX rule computes them) are the LSTMP's.
 
 * On CUDA tensors the wrappers launch ``gru_seq_fwd_f32``
   (``csrc/gru_fwd.cu``), ``gru_seq_bwd_f32`` (``csrc/gru_bwd.cu``),
-  ``lstm_seq_fwd_f32`` (``csrc/lstm_fwd.cu``) and ``lstm_seq_bwd_f32``
-  (``csrc/lstm_bwd.cu``), built with ``nvcc`` at first use (see
-  :mod:`.._build`), on the current stream, and add one to
-  :data:`LAUNCHES`, :data:`BWD_LAUNCHES`, :data:`LSTM_LAUNCHES` and
-  :data:`LSTM_BWD_LAUNCHES`.  They never fall back to the plain versions:
+  ``lstm_seq_fwd_f32`` (``csrc/lstm_fwd.cu``), ``lstm_seq_bwd_f32``
+  (``csrc/lstm_bwd.cu``), ``lstmp_seq_fwd_f32`` (``csrc/lstmp_fwd.cu``) and
+  ``lstmp_seq_bwd_f32`` (``csrc/lstmp_bwd.cu``), built with ``nvcc`` at
+  first use (see :mod:`.._build`), on the current stream, and add one to
+  :data:`LAUNCHES`, :data:`BWD_LAUNCHES`, :data:`LSTM_LAUNCHES`,
+  :data:`LSTM_BWD_LAUNCHES`, :data:`LSTMP_LAUNCHES` and
+  :data:`LSTMP_BWD_LAUNCHES` (one per call of the C entry, which loops over
+  the T steps itself).  They never fall back to the plain versions:
   a build or launch failure raises.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
@@ -30,6 +39,7 @@ Importing this module needs no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,23 +53,29 @@ BWD_LAUNCHES = 0
 LSTM_LAUNCHES = 0
 #: LSTM backward kernel launches made by :func:`lstm_sequence_bwd`
 LSTM_BWD_LAUNCHES = 0
+#: LSTMP forward launches made by :func:`lstmp_sequence`
+LSTMP_LAUNCHES = 0
+#: LSTMP backward launches made by :func:`lstmp_sequence_bwd`
+LSTMP_BWD_LAUNCHES = 0
 
-#: each source's C entry: (symbol, pointer arguments before T, B, H and
-#: the stream)
-_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4),
-            "gru_bwd": ("gru_seq_bwd_f32", 9),
-            "lstm_fwd": ("lstm_seq_fwd_f32", 5),
-            "lstm_bwd": ("lstm_seq_bwd_f32", 10)}
+#: each source's C entry: (symbol, pointer arguments, int arguments, float
+#: arguments), then the stream
+_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 3, 0),
+            "gru_bwd": ("gru_seq_bwd_f32", 9, 3, 0),
+            "lstm_fwd": ("lstm_seq_fwd_f32", 5, 3, 0),
+            "lstm_bwd": ("lstm_seq_bwd_f32", 10, 3, 0),
+            "lstmp_fwd": ("lstmp_seq_fwd_f32", 8, 4, 2),
+            "lstmp_bwd": ("lstmp_seq_bwd_f32", 15, 4, 2)}
 _fns: dict = {}
 
 
 def _kernel(name: str):
     """The C entry of ``csrc/<name>.cu``, built and bound at first use."""
     if name not in _fns:
-        symbol, n_ptrs = _ENTRIES[name]
+        symbol, n_ptrs, n_ints, n_floats = _ENTRIES[name]
         fn = getattr(_build.load(name), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -122,11 +138,12 @@ def gru_sequence_bwd_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
 
 
 def _check(tensors: dict, shapes: dict) -> None:
-    """Device, dtype, shape and contiguity checks before a launch."""
-    device = tensors["xp"].device
+    """Device, dtype, shape and contiguity checks before a launch (the
+    first tensor names the device)."""
+    first, device = next((k, t.device) for k, t in tensors.items())
     for name, t in tensors.items():
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, xp on {device}")
+            raise ValueError(f"{name} is on {t.device}, {first} on {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) not in shapes[name]:
@@ -404,3 +421,237 @@ class LSTMSequence(torch.autograd.Function):
         dxp, dw, db = bwd(xp, w_hh_t, b_hh, ys, cs, dys.contiguous(),
                           dcs.contiguous())
         return dxp, dw, db.reshape(b_hh.shape), None
+
+
+def _clip(x: torch.Tensor, clip: float) -> torch.Tensor:
+    return x.clamp(-clip, clip) if clip else x
+
+
+def _clip_mask(x: torch.Tensor, clip: float) -> torch.Tensor:
+    """1 where the clip passes the gradient (inclusive bounds, as
+    ``rnn_pallas.py:630-632``), everywhere when ``clip`` is 0."""
+    if not clip:
+        return torch.ones_like(x)
+    return ((x >= -clip) & (x <= clip)).to(x.dtype)
+
+
+def _lstmp_gates(gp: torch.Tensor):
+    """gp [B, 4, C] -> i, f, g, o, each [B, C]."""
+    return (torch.sigmoid(gp[:, 0]), torch.sigmoid(gp[:, 1]),
+            torch.tanh(gp[:, 2]), torch.sigmoid(gp[:, 3]))
+
+
+def lstmp_sequence_torch(xp4: torch.Tensor, w_h_t3: torch.Tensor,
+                         b3: torch.Tensor, w_p_t: torch.Tensor,
+                         cell_clip: float = 3.0, proj_clip: float = 3.0):
+    """Plain PyTorch LSTMP recurrence, the forward kernel's reference
+    (``rnn_pallas._lstmp_stream_fwd_kernel``).  Returns (ys, hpre [T, B, P],
+    cpre, hf [T, B, C]): the clipped projected states, the projections
+    before the clip, the cell states before the clip and
+    ``o * tanh(clip(c))``."""
+    t_steps, batch, _, c_dim = xp4.shape
+    p_dim = w_h_t3.shape[0]
+    w_h = w_h_t3.reshape(p_dim, 4 * c_dim)
+    b = b3.reshape(4 * c_dim)
+    h = xp4.new_zeros((batch, p_dim))
+    c = xp4.new_zeros((batch, c_dim))
+    outs = ([], [], [], [])
+    for t in range(t_steps):
+        gp = xp4[t].reshape(batch, 4 * c_dim) + torch.matmul(h, w_h) + b
+        i, f, g, o = _lstmp_gates(gp.reshape(batch, 4, c_dim))
+        c_pre = f * c + i * g
+        c = _clip(c_pre, cell_clip)
+        hf = o * torch.tanh(c)
+        hp = torch.matmul(hf, w_p_t)
+        h = _clip(hp, proj_clip)
+        for acc, v in zip(outs, (h, hp, c_pre, hf)):
+            acc.append(v)
+    if not t_steps:
+        return (xp4.new_zeros((0, batch, p_dim)),
+                xp4.new_zeros((0, batch, p_dim)),
+                xp4.new_zeros((0, batch, c_dim)),
+                xp4.new_zeros((0, batch, c_dim)))
+    return tuple(torch.stack(v) for v in outs)
+
+
+def lstmp_sequence_bwd_torch(xp4: torch.Tensor, w_h_t3: torch.Tensor,
+                             b3: torch.Tensor, w_p_t: torch.Tensor,
+                             ys: torch.Tensor, hpre: torch.Tensor,
+                             cpre: torch.Tensor, dys: torch.Tensor,
+                             dcpre: torch.Tensor, cell_clip: float = 3.0,
+                             proj_clip: float = 3.0):
+    """Plain PyTorch LSTMP backward, the backward kernel's reference: the
+    reverse walk of ``rnn_pallas._lstmp_stream_bwd_kernel`` through both
+    clips, the gates recomputed from ``ys[t-1]`` and ``clip(cpre[t-1])``.
+    Returns (dgates [T, B, 4, C], dhpre [T, B, P])."""
+    t_steps, batch, _, c_dim = xp4.shape
+    p_dim = w_h_t3.shape[0]
+    w_h = w_h_t3.reshape(p_dim, 4 * c_dim)
+    b = b3.reshape(4 * c_dim)
+    dh_carry = xp4.new_zeros((batch, p_dim))
+    dc_carry = xp4.new_zeros((batch, c_dim))
+    zeros_c = xp4.new_zeros((batch, c_dim))
+    dgates = [None] * t_steps
+    dhpre = [None] * t_steps
+    for t in reversed(range(t_steps)):
+        dhp = (dys[t] + dh_carry) * _clip_mask(hpre[t], proj_clip)
+        dhpre[t] = dhp
+        d_hf = torch.matmul(dhp, w_p_t.t())
+        h_prev = ys[t - 1] if t > 0 else xp4.new_zeros((batch, p_dim))
+        c_prev = _clip(cpre[t - 1], cell_clip) if t > 0 else zeros_c
+        gp = xp4[t].reshape(batch, 4 * c_dim) + torch.matmul(h_prev, w_h) + b
+        i, f, g, o = _lstmp_gates(gp.reshape(batch, 4, c_dim))
+        tanh_c = torch.tanh(_clip(cpre[t], cell_clip))
+        ds_o = d_hf * tanh_c * o * (1.0 - o)
+        dc = ((d_hf * o * (1.0 - tanh_c * tanh_c) + dc_carry)
+              * _clip_mask(cpre[t], cell_clip) + dcpre[t])
+        dg = torch.stack([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                          dc * i * (1.0 - g * g), ds_o], dim=1)
+        dgates[t] = dg
+        dh_carry = torch.matmul(dg.reshape(batch, 4 * c_dim), w_h.t())
+        dc_carry = dc * f
+    if not t_steps:
+        return xp4.new_zeros(xp4.shape), xp4.new_zeros((0, batch, p_dim))
+    return torch.stack(dgates), torch.stack(dhpre)
+
+
+def lstmp_weight_grads(dgates: torch.Tensor, dhpre: torch.Tensor,
+                       ys: torch.Tensor, hf: torch.Tensor):
+    """(dw_h_t3 [P, 4, C], db3 [1, 4, C], dw_p_t [C, P]) from the kernel's
+    cotangents: three products over the T*B rows, outside the kernel as in
+    ``rnn_pallas._lstmp_stream_bwd_rule`` (``:793-800``)."""
+    ys_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    dw_h_t3 = torch.einsum("tbgc,tbp->pgc", dgates, ys_prev)
+    db3 = dgates.sum(dim=(0, 1)).unsqueeze(0)
+    dw_p_t = torch.einsum("tbp,tbc->cp", dhpre, hf)
+    return dw_h_t3, db3, dw_p_t
+
+
+def _lstmp_dims(xp4: torch.Tensor, w_h_t3: torch.Tensor):
+    if xp4.dim() != 4 or xp4.shape[2] != 4 or w_h_t3.dim() != 3:
+        raise ValueError(f"xp4 must be [T, B, 4, C] and w_h_t3 [P, 4, C], "
+                         f"got {tuple(xp4.shape)}, {tuple(w_h_t3.shape)}")
+    t_steps, batch, _, c_dim = xp4.shape
+    return t_steps, batch, c_dim, w_h_t3.shape[0]
+
+
+def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
+                   b3: torch.Tensor, w_p_t: torch.Tensor,
+                   cell_clip: float = 3.0, proj_clip: float = 3.0):
+    """xp4 [T, B, 4, C], w_h_t3 [P, 4, C], b3 [1, 4, C] (or [4, C]),
+    w_p_t [C, P] -> (ys, hpre [T, B, P], cpre, hf [T, B, C]).  As
+    :func:`gru_sequence`, a CUDA input that requires grad raises: gradients
+    go through :class:`LSTMPSequence`."""
+    if xp4.device.type == "cpu":
+        return lstmp_sequence_torch(xp4, w_h_t3, b3, w_p_t, cell_clip,
+                                    proj_clip)
+    if xp4.device.type != "cuda":
+        raise ValueError(f"lstmp_sequence: unsupported device {xp4.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xp4, w_h_t3, b3, w_p_t)):
+        raise ValueError("lstmp_sequence: inputs require grad; call "
+                         "LSTMPSequence.apply for a differentiable result")
+    t_steps, batch, c_dim, p_dim = _lstmp_dims(xp4, w_h_t3)
+    _check({"xp4": xp4, "w_h_t3": w_h_t3, "b3": b3, "w_p_t": w_p_t},
+           {"xp4": [(t_steps, batch, 4, c_dim)], "w_h_t3": [(p_dim, 4, c_dim)],
+            "b3": [(1, 4, c_dim), (4, c_dim)], "w_p_t": [(c_dim, p_dim)]})
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=xp4.device)
+    ys, hpre = new((t_steps, batch, p_dim)), new((t_steps, batch, p_dim))
+    cpre, hf = new((t_steps, batch, c_dim)), new((t_steps, batch, c_dim))
+    if ys.numel() == 0 or cpre.numel() == 0:
+        return ys.zero_(), hpre.zero_(), cpre.zero_(), hf.zero_()
+    fn = _kernel("lstmp_fwd")
+    with torch.cuda.device(xp4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp4.data_ptr(), w_h_t3.data_ptr(), b3.data_ptr(),
+                 w_p_t.data_ptr(), ys.data_ptr(), hpre.data_ptr(),
+                 cpre.data_ptr(), hf.data_ptr(), t_steps, batch, c_dim,
+                 p_dim, float(cell_clip), float(proj_clip), stream)
+    if err != 0:
+        raise RuntimeError(f"lstmp_seq_fwd_f32 launch failed: cudaError {err}")
+    global LSTMP_LAUNCHES
+    LSTMP_LAUNCHES += 1
+    return ys, hpre, cpre, hf
+
+
+def lstmp_sequence_bwd(xp4: torch.Tensor, w_h_t3: torch.Tensor,
+                       b3: torch.Tensor, w_p_t: torch.Tensor,
+                       ys: torch.Tensor, hpre: torch.Tensor,
+                       cpre: torch.Tensor, dys: torch.Tensor,
+                       dcpre: torch.Tensor, cell_clip: float = 3.0,
+                       proj_clip: float = 3.0):
+    """The LSTMP backward kernel's wrapper: (dgates [T, B, 4, C], dhpre
+    [T, B, P]) of ``lstmp_sequence(xp4, w_h_t3, b3, w_p_t)`` given its
+    residuals and the cotangents ``dys [T, B, P]``, ``dcpre [T, B, C]``."""
+    if xp4.device.type == "cpu":
+        return lstmp_sequence_bwd_torch(xp4, w_h_t3, b3, w_p_t, ys, hpre,
+                                        cpre, dys, dcpre, cell_clip,
+                                        proj_clip)
+    if xp4.device.type != "cuda":
+        raise ValueError(f"lstmp_sequence_bwd: unsupported device "
+                         f"{xp4.device}")
+    t_steps, batch, c_dim, p_dim = _lstmp_dims(xp4, w_h_t3)
+    proj, cells = [(t_steps, batch, p_dim)], [(t_steps, batch, c_dim)]
+    _check({"xp4": xp4, "w_h_t3": w_h_t3, "b3": b3, "w_p_t": w_p_t,
+            "ys": ys, "hpre": hpre, "cpre": cpre, "dys": dys,
+            "dcpre": dcpre},
+           {"xp4": [(t_steps, batch, 4, c_dim)], "w_h_t3": [(p_dim, 4, c_dim)],
+            "b3": [(1, 4, c_dim), (4, c_dim)], "w_p_t": [(c_dim, p_dim)],
+            "ys": proj, "hpre": proj, "cpre": cells, "dys": proj,
+            "dcpre": cells})
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=xp4.device)
+    dgates = new(xp4.shape)
+    dhpre = new((t_steps, batch, p_dim))
+    if dgates.numel() == 0 or dhpre.numel() == 0:
+        return dgates.zero_(), dhpre.zero_()
+    # scratch: the two carries and the transposed weights
+    dh_carry, dc_carry = new((batch, p_dim)), new((batch, c_dim))
+    w_p, w_h_t = new((p_dim, c_dim)), new((4 * c_dim, p_dim))
+    fn = _kernel("lstmp_bwd")
+    with torch.cuda.device(xp4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp4.data_ptr(), w_h_t3.data_ptr(), b3.data_ptr(),
+                 w_p_t.data_ptr(), ys.data_ptr(), hpre.data_ptr(),
+                 cpre.data_ptr(), dys.data_ptr(), dcpre.data_ptr(),
+                 dgates.data_ptr(), dhpre.data_ptr(), dh_carry.data_ptr(),
+                 dc_carry.data_ptr(), w_p.data_ptr(), w_h_t.data_ptr(),
+                 t_steps, batch, c_dim, p_dim, float(cell_clip),
+                 float(proj_clip), stream)
+    if err != 0:
+        raise RuntimeError(f"lstmp_seq_bwd_f32 launch failed: cudaError {err}")
+    global LSTMP_BWD_LAUNCHES
+    LSTMP_BWD_LAUNCHES += 1
+    return dgates, dhpre
+
+
+class LSTMPSequence(torch.autograd.Function):
+    """``(ys, cs_pre) = LSTMP(xp4, w_h_t3, b3, w_p_t)`` with the kernels'
+    backward (``jax.custom_vjp`` of ``rnn_pallas.lstmp_sequence_streamed``
+    on this side): ``ys [T, B, P]`` are the clipped projected states,
+    ``cs_pre [T, B, C]`` the cell states before the clip
+    (``clip(cs_pre[-1])`` is the final cell state).  The backward's kernel
+    gives (dgates, dhpre); the weight gradients are
+    :func:`lstmp_weight_grads`.  ``plain`` as in :class:`GRUSequence`."""
+
+    @staticmethod
+    def forward(ctx, xp4, w_h_t3, b3, w_p_t, cell_clip: float = 3.0,
+                proj_clip: float = 3.0, plain: bool = False):
+        fwd = lstmp_sequence_torch if plain else lstmp_sequence
+        ys, hpre, cpre, hf = fwd(xp4, w_h_t3, b3, w_p_t, cell_clip,
+                                 proj_clip)
+        ctx.save_for_backward(xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, hf)
+        ctx.clips = (cell_clip, proj_clip)
+        ctx.plain = plain
+        return ys, cpre
+
+    @staticmethod
+    def backward(ctx, dys, dcpre):
+        xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, hf = ctx.saved_tensors
+        bwd = lstmp_sequence_bwd_torch if ctx.plain else lstmp_sequence_bwd
+        dgates, dhpre = bwd(xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre,
+                            dys.contiguous(), dcpre.contiguous(), *ctx.clips)
+        dw_h_t3, db3, dw_p_t = lstmp_weight_grads(dgates, dhpre, ys, hf)
+        return (dgates, dw_h_t3, db3.reshape(b3.shape), dw_p_t, None, None,
+                None)

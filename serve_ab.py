@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Warm ``Predictor.predict_batch`` latency of the port's ``audio_clf``
+serving on one GPU, for one or more checkouts of this repository, each in
+a process of its own, in the order given (e.g. parent, change, change,
+parent, to compare two commits on one card):
+
+    python3 serve_ab.py PARENT_DIR . . PARENT_DIR
+
+Each process imports ``icassp2022_depression_tpu_torch`` from its
+checkout, builds that checkout's GRU kernel, writes a synthetic corpus of
+8 + 4 speakers (seed 0, answers of 2-12 s) and a full-width ``audio_clf``
+checkpoint with seeded random weights, and times ``predict_batch`` at 1
+and 8 speakers with features not cached: 3 warm-up calls, then the median
+of 20 calls on the host clock, each ending in a device sync.  Prints the
+card's name and power limit, one JSON line per run, then per checkout
+the median and quartiles of its runs' latencies, and the largest
+difference of the 8 speakers' probabilities between the runs.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPS = 20
+
+
+def one(checkout: Path) -> dict:
+    sys.path.insert(0, str(checkout))
+    import torch
+
+    import icassp2022_depression_tpu_torch as pkg
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
+        raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
+    cfg = C.AUDIO_CLF.model
+    out = {"checkout": str(checkout)}
+    with tempfile.TemporaryDirectory(prefix="serve_ab_") as tmp:
+        root = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(root, n_data=8, n_validation=4,
+                                   seconds=(2.0, 12.0), seed=0)
+        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
+        ckpt = checkpoints.save(
+            Path(tmp) / "audio_clf",
+            porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
+            {"task": "audio_clf"})
+        speakers = list(eatd.iter_speakers(root, read_text=False))
+        predictor = Predictor.from_checkpoint(ckpt, "audio_clf",
+                                              device="cuda",
+                                              feature_cache_entries=0)
+        for n in (1, 8):
+            req = ([s.waveforms for s in speakers[:n]],
+                   [s.sample_rates for s in speakers[:n]])
+            for _ in range(3):
+                res = predictor.predict_batch(*req)
+            times = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                predictor.predict_batch(*req)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"ms_{n}"] = statistics.median(times)
+            out[f"min_ms_{n}"] = min(times)
+        out["probs_8"] = [r["probs"] for r in res]
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one(Path(argv[1]))))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or not argv:
+        print("serve_ab: needs a CUDA card and at least one checkout",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    runs = []
+    for checkout in argv:
+        proc = subprocess.run([sys.executable, __file__, "--one", checkout],
+                              capture_output=True, text=True, check=True)
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        r = runs[-1]
+        print(json.dumps({k: v for k, v in r.items() if k != "probs_8"}
+                         | {"card": card}))
+    for checkout in dict.fromkeys(argv):
+        mine = [r for r in runs if r["checkout"] == checkout]
+        summary = {"checkout": checkout, "runs": len(mine), "card": card}
+        for n in (1, 8):
+            ms = sorted(r[f"ms_{n}"] for r in mine)
+            summary[f"median_ms_{n}"] = statistics.median(ms)
+            if len(ms) > 1:
+                q = statistics.quantiles(ms, n=4)
+                summary[f"quartiles_ms_{n}"] = [q[0], q[2]]
+        print(json.dumps(summary))
+    worst = max(abs(a - b) for r in runs
+                for pa, pb in zip(r["probs_8"], runs[0]["probs_8"])
+                for a, b in zip(pa, pb))
+    print(f"max |dprob| of the 8 speakers across checkouts: {worst:.3e}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -372,9 +372,11 @@ def test_cli_train_text_reads_npz_features(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--corpus", "x"], "item 13"),
-    (["--segmenter", "jieba"], "item 13"),
-    (["--elmo-weights", "w.npz"], "item 13"),
+    # the text-frontend options are ported: they pass to the next check
+    (["--corpus", "x", "--device", "cpu"], "no speakers found"),
+    (["--segmenter", "jieba", "--device", "cpu"], "audio features not found"),
+    (["--elmo-weights", "w.npz", "--device", "cpu"],
+     "audio features not found"),
     (["--vmap-folds"], "item 19"),
     (["--fold-parallel"], "item 18"),
 ])

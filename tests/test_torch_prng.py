@@ -68,6 +68,27 @@ def test_uniform_close():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("chunk", [8, 35, 1 << 22])
+def test_random_bits_chunked_exact(chunk, monkeypatch):
+    """A draw of more counters than a pass holds runs in slices."""
+    monkeypatch.setattr(prng, "_BITS_CHUNK", chunk)
+    key = jax.random.split(jax.random.PRNGKey(4), 3)[1]
+    tkey = prng.split(prng.prng_key(4), 3)[1]
+    np.testing.assert_array_equal(prng.random_bits(tkey, (5, 7)).numpy(),
+                                  _bits(jax.random.bits(key, (5, 7))))
+
+
+@pytest.mark.parametrize("minval,maxval", [(-2.0, 3.0), (-0.125, 0.125),
+                                           (-0.0441941738, 0.0441941738)])
+def test_scaled_uniform_exact(minval, maxval):
+    """Scaled ranges bit for bit: a power-of-two span in float32, any
+    other through the float64 multiply-add."""
+    key = jax.random.PRNGKey(5)
+    got = prng.uniform(prng.prng_key(5), (64, 3), minval, maxval)
+    want = jax.random.uniform(key, (64, 3), jnp.float32, minval, maxval)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("seed", [0, 8])
 def test_normal_close(seed):
     key = jax.random.fold_in(jax.random.PRNGKey(seed), 21)

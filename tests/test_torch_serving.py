@@ -101,9 +101,9 @@ def test_predictor_cache_batching_and_empty_request(tmp_path):
 
 
 def test_predictor_names_missing_slices(tmp_path):
-    for task in ("text_clf", "fuse_reg"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tpredictors.model_config(task)
+    # the text and fusion tasks are served since the text-frontend slice
+    assert tpredictors.model_config("text_clf") == tconfig.TEXT_CLF.model
+    assert tpredictors.model_config("fuse_reg") == tconfig.FUSE_REG
     with pytest.raises(ValueError, match="task must be one of"):
         tpredictors.model_config("video_clf")
     _, tp = _pair(tmp_path, "audio_clf")
@@ -142,13 +142,15 @@ def test_cli_predict_matches_jax_cli(tmp_path, capsys):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports in a fresh interpreter without
-    pulling in jax (the JAX package's __init__ imports jax)."""
+    """Every module of the port and ``chip_smoke.py`` import in a fresh
+    interpreter without pulling in jax or the JAX package (whose __init__
+    imports jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import icassp2022_depression_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'icassp2022_depression_tpu']\n"
         "assert not bad, bad\n"
