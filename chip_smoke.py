@@ -4,7 +4,12 @@ on one NVIDIA GPU: serving of the audio, text and fusion models, the text
 frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), and the
 training paths of both tracks, at full width.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # everything, ends with the ok line
+    python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
+
+``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
+and timings, the LSTMP profile and the LSTMP yardsticks, prints their
+lines and stops: the quick loop for work on those kernels.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -28,8 +33,13 @@ Phases (each raises on failure, so the exit code is nonzero):
    a recurrent gain of 3/sqrt(P), where float32 itself parts from float64
    (not checked); the LSTM forward at the stand-in text
    encoder's H = 512; timed with CUDA events, beside the nearest PyTorch
-   call (cuDNN ``nn.GRU`` / ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``); the
-   forward wrappers must refuse a CUDA input that requires grad;
+   call (cuDNN ``nn.GRU`` / ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both
+   directions, and ``nn.LSTM(512, 512)`` at the stand-in's (16, 8)); the
+   forward wrappers must refuse a CUDA input that requires grad; one
+   LSTMP forward call at (16, 8) and at (128, 24) under ``torch.profiler``,
+   its device time split by kernel name and the gaps between launches;
+   the LSTMP forward beside its plain loop, cuDNN and its bound at each
+   timed shape;
 3. audio serving: a synthetic EATD corpus, a full-width ``audio_clf`` with
    seeded random weights saved as a JAX-layout npz, ``cli predict`` for
    one speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers,
@@ -122,6 +132,9 @@ LSTMP_SHAPES = ((32, 128, 4096, 512, "clips"), (16, 8, 4096, 512, "clips"),
                 (128, 24, 4096, 512, "init"))
 LSTMP_TIMED = ((32, 128, 4096, 512), (16, 8, 4096, 512),
                (128, 24, 4096, 512))
+#: the served shapes whose LSTMP forward is profiled: one call's device
+#: time split by kernel name, and the gaps between its launches
+LSTMP_PROFILED = ((16, 8, 4096, 512), (128, 24, 4096, 512))
 #: a reading, not a check: the "clips" weights with a recurrent gain of
 #: 3/sqrt(P), where the float32 recurrence itself parts from float64
 LSTMP_GAIN3 = (32, 128, 4096, 512, "gain3")
@@ -607,6 +620,69 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
     return worst_abs, timings, readings
 
 
+def _kernel_short_name(name: str) -> str:
+    """``void (anonymous namespace)::kernel<T>(args)`` -> ``kernel``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+    return name.split(" ")[-1]
+
+
+def lstmp_profile_phase(torch, rnn_cuda, card: str) -> dict:
+    """One ``lstmp_sequence`` call at each ``LSTMP_PROFILED`` shape
+    (``init_lstmp``-scale weights) under ``torch.profiler``, after a warm
+    call: the device time of each kernel name (launches that overlap, as
+    programmatic dependent launches do, count in full for each), and the
+    gaps, the span from the first kernel's start to the last one's end
+    less the time some kernel ran.  Returns {shape: {"span_us", "busy_us",
+    "gap_us", "kernels": {name: (us, count)}}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    for shape in LSTMP_PROFILED:
+        fwd_in = _lstmp_inputs(torch, gen, *shape, "init")
+        rnn_cuda.lstmp_sequence(*fwd_in)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rnn_cuda.lstmp_sequence(*fwd_in)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            print(f"profile lstmp_fwd at {shape}: the profiler recorded no "
+                  f"device events, split not measured [{card}]")
+            continue
+        start = min(e.time_range.start for e in kernels)
+        end = max(e.time_range.end for e in kernels)
+        by_name: dict = {}
+        for e in kernels:
+            name = _kernel_short_name(e.name)
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + e.time_range.elapsed_us(), n + 1)
+        busy, reach = 0.0, start    # the union of the kernels' intervals
+        for e in sorted(kernels, key=lambda e: e.time_range.start):
+            busy += max(0.0, e.time_range.end - max(reach,
+                                                    e.time_range.start))
+            reach = max(reach, e.time_range.end)
+        split = {"span_us": end - start, "busy_us": busy,
+                 "gap_us": end - start - busy, "kernels": by_name}
+        out[shape] = split
+        steps = shape[0]
+        print(f"profile lstmp_fwd T={shape[0]} B={shape[1]} C={shape[2]} "
+              f"P={shape[3]}: span {split['span_us']:.1f} us "
+              f"({split['span_us'] / steps:.2f} us a step), some kernel "
+              f"running {busy:.1f} us, gaps {split['gap_us']:.1f} us "
+              f"({split['gap_us'] / max(split['span_us'], 1e-9):.3f} of the "
+              f"span); " + ", ".join(
+                  f"{k} {us:.1f} us in {n} launches "
+                  f"({us / n:.2f} us each)" for k, (us, n) in
+                  sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+              + f" (torch.profiler) [{card}]")
+    return out
+
+
 def standin_lstm_phase(torch, rnn_cuda, card: str) -> dict:
     """The LSTM forward kernel at the stand-in text encoder's H = 512
     against its plain version; returns the (kernel, plain) ms per shape."""
@@ -636,26 +712,33 @@ def standin_lstm_phase(torch, rnn_cuda, card: str) -> dict:
     return timings
 
 
-def library_phase(torch, card: str) -> dict:
+def library_phase(torch, card: str, only: str = "") -> dict:
     """The nearest PyTorch call to each kernel, timed as a yardstick and
     used nowhere in the port: cuDNN's ``nn.GRU`` / ``nn.LSTM`` (they also
     do the input projection the kernels take ready-made) and
     ``nn.LSTM(proj_size=...)`` for the LSTMP cell (no +-3 clips).  The
     backwards are ``torch.autograd.grad`` of the forward's output with
-    respect to the input and the weights."""
+    respect to the input and the weights.  ``only``: the names that start
+    with it."""
     (t1, b1, c1, p1), (t2, b2, c2, p2), (t3, b3, c3, p3) = LSTMP_TIMED
     shapes = {"gru_fwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd_streamed": ("gru",) + BWD_TIMED[-1] + (None,),
               "lstm_fwd": ("lstm",) + LSTM_TIMED[0] + (None,),
+              "lstm_fwd_standin": ("lstm",) + STANDIN_LSTM_SHAPES[0]
+              + (None,),
               "lstm_bwd": ("lstm",) + LSTM_TIMED[0] + (None,),
               "lstm_bwd_streamed": ("lstm",) + LSTM_TIMED[-1] + (None,),
               "lstmp_fwd": ("lstm", t1, b1, c1, p1),
               "lstmp_bwd": ("lstm", t1, b1, c1, p1),
               "lstmp_fwd_b8": ("lstm", t2, b2, c2, p2),
-              "lstmp_fwd_t128": ("lstm", t3, b3, c3, p3)}
+              "lstmp_bwd_b8": ("lstm", t2, b2, c2, p2),
+              "lstmp_fwd_t128": ("lstm", t3, b3, c3, p3),
+              "lstmp_bwd_t128": ("lstm", t3, b3, c3, p3)}
     out = {}
     for name, (cell, t, b, h, proj) in shapes.items():
+        if not name.startswith(only):
+            continue
         d = proj or h
         kw = {"proj_size": proj} if proj else {}
         mod = (torch.nn.GRU(d, h) if cell == "gru"
@@ -681,6 +764,22 @@ def library_phase(torch, card: str) -> dict:
               f"input projection included"
               f"{', no clips' if proj else ''}) [{card}]")
     return out
+
+
+def lstmp_summary(card: str, lstmp_times: dict, library: dict) -> None:
+    """The LSTMP forward at each timed shape beside the plain loop, cuDNN's
+    ``nn.LSTM(proj_size=P)`` (no clips) and its bound."""
+    lib = dict(zip(LSTMP_TIMED, ("lstmp_fwd", "lstmp_fwd_b8",
+                                 "lstmp_fwd_t128")))
+    for shape in LSTMP_TIMED:
+        ms, plain = lstmp_times[shape]["fwd"]
+        b_ms, by = lstmp_bounds(*shape)["fwd"]
+        cudnn = library[lib[shape]]
+        print(f"lstmp_fwd at (T, B, C, P) = {shape}: kernel {ms:.4f} ms, "
+              f"plain loop {plain:.4f} ms, cuDNN {cudnn:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}); {plain / ms:.2f}x the plain loop's "
+              f"speed, {cudnn / ms:.2f}x cuDNN's, {b_ms / ms:.4f} of the "
+              f"bound [{card}]")
 
 
 def bound(flops: float, nbytes: float):
@@ -1475,7 +1574,14 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
     return launches, latency
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=["lstmp"],
+                    help="lstmp: build the LSTMP kernels, run their checks, "
+                         "profile and yardsticks, and stop (no ok line)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1499,7 +1605,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = tuple(COUNTERS)
+    names = (("lstmp_fwd", "lstmp_bwd") if args.only == "lstmp"
+             else tuple(COUNTERS))
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(so.name for so in libs)} in "
@@ -1507,13 +1614,23 @@ def main() -> int:
     for name in names:
         print(_build.build_log(name).strip())
 
+    if args.only == "lstmp":
+        _, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda, card)
+        lstmp_profile_phase(torch, rnn_cuda, card)
+        lstmp_summary(card, lstmp_times,
+                      library_phase(torch, card, only="lstmp"))
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
     lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
     lstmp_err, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda,
                                                    card)
+    lstmp_profile_phase(torch, rnn_cuda, card)
     standin_times = standin_lstm_phase(torch, rnn_cuda, card)
     library = library_phase(torch, card)
+    lstmp_summary(card, lstmp_times, library)
     serve_launches, _ = slice_phase(torch, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
         corpus = Path(tmp) / "corpus"

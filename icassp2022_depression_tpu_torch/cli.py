@@ -34,7 +34,8 @@ modalities extracted on the device, writes their checkpoints
 of the per-fold gated metrics.  ``predict`` prints one JSON line with the
 JAX CLI's fields: the result dict, ``speaker`` and ``true_sds``; the text
 and fusion tasks embed the speaker's transcripts with the embedder that
-``ICASSP_ELMO_WEIGHTS`` names (else the seeded stand-in).
+``ICASSP_ELMO_WEIGHTS`` names, else ``~/.cache/icassp2022_tpu/elmo_zhs.npz``
+when present (else the seeded stand-in).
 """
 
 from __future__ import annotations
@@ -392,8 +393,9 @@ def build_parser():
                     help="seed of the stand-in encoder (no bundle)")
     sp.add_argument("--elmo-weights", default="auto",
                     help="converted ELMoForManyLangs bundle (npz); 'auto' "
-                         "takes ICASSP_ELMO_WEIGHTS when set, '' the seeded "
-                         "stand-in")
+                         "takes ICASSP_ELMO_WEIGHTS when set, else "
+                         "~/.cache/icassp2022_tpu/elmo_zhs.npz when present, "
+                         "else the seeded stand-in; '' the seeded stand-in")
     sp.add_argument("--segmenter", default="auto",
                     help="Chinese word segmenter: auto (jieba when "
                          "installed, else fallback), jieba, fallback, "

@@ -1,11 +1,11 @@
-// Pieces shared by lstmp_fwd.cu and lstmp_bwd.cu (Hopper, sm_90a, fp32).
+// Pieces of lstmp_bwd.cu (Hopper, sm_90a, fp32); lstmp_fwd.cu takes only
+// the thread count and the scalar helpers.
 //
-// `rowmat_kernel` is the step's "rows times a tall matrix" product of the
-// LSTMP cell: out[b, p] = sum_k A[b, k] W[k, p] for a few rows b (the batch)
-// and a long contraction k (the C = 4096 cells in the forward projection,
-// the 4C = 16384 gate columns in the backward's carry).  `lstmp_gates` is
-// the gate product of both files: a [GM rows x GC cells x 4 gates] tile of
-// h . W_h over the P projection dims.
+// `rowmat_kernel` is the backward step's "rows times a tall matrix"
+// product: out[b, p] = sum_k A[b, k] W[k, p] for a few rows b (the batch)
+// and a long contraction k (the 4C = 16384 gate columns of its carry).
+// `stage_gates` / `accumulate_gates` are its gate product: a [GM rows x GC
+// cells x 4 gates] tile of h . W_h over the P projection dims.
 //
 // Both sum in a fixed order (no atomics), so a rerun is bitwise equal.
 

@@ -27,6 +27,7 @@ from icassp2022_depression_tpu_torch.config import FoldConfig, FrontendConfig
 from icassp2022_depression_tpu_torch.data import eatd
 from icassp2022_depression_tpu_torch.ops import mel, netvlad
 from icassp2022_depression_tpu_torch.utils import shapes
+from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
 def _bucket_length(n: int, min_len: int = 16384) -> int:
@@ -72,15 +73,16 @@ def extract_batch(waveforms: Sequence[np.ndarray], sample_rates: Sequence[int],
                   cfg: FrontendConfig = FrontendConfig(),
                   start_ordinal: int = 0,
                   ordinals: Optional[Sequence[int]] = None,
-                  device="cpu") -> torch.Tensor:
+                  device=None) -> torch.Tensor:
     """wav2vlad over variable-length utterances -> [N, output_dim] float32
-    on ``device``, in input order.
+    on ``device`` (None: the first card, :func:`..utils.device.
+    resolve_device`), in input order.
 
     NetVLAD weights are keyed per utterance ordinal: consecutive from
     ``start_ordinal``, or explicit via ``ordinals``.  Empty waveforms get
     the reference's silence fallback (``audio_features_whole.py:105-109``).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     n = len(waveforms)
     waveforms = [np.asarray(w) if len(w)
                  else eatd.silence_fallback(sr, cfg.silence_amplitude,
@@ -136,16 +138,17 @@ def _corpus_utterances(root: Path, max_id: int):
 def extract_eatd_device(root: Path, cfg: FrontendConfig = FrontendConfig(),
                         max_id: int = eatd.MAX_SPEAKER_ID,
                         sds_threshold: float = FoldConfig.sds_threshold,
-                        device="cpu"):
+                        device=None):
     """The fused corpus pass that feeds training (``cli train --corpus``):
     one corpus read, and the [N, 3, output_dim] features stay on
-    ``device`` for the trainers, which gather their folds there.  Same
-    math and ordinals as the JAX package's ``extract_eatd``; no npz
-    artifacts.  Labels are host arrays.
+    ``device`` (None: the first card) for the trainers, which gather their
+    folds there.  Same math and ordinals as the JAX package's
+    ``extract_eatd``; no npz artifacts.  Labels are host arrays.
 
     Returns (features [N, 3, output_dim] on ``device``, sds_targets [N]
     float32, clf_targets [N] int64).
     """
+    device = resolve_device(device)
     waveforms, rates, sds, _ = _corpus_utterances(root, max_id)
     flat = extract_batch(waveforms, rates, cfg, device=device)
     feats = flat.reshape(len(sds), 3, cfg.netvlad_output_dim)

@@ -168,9 +168,9 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
 
     Resolution order, as in the JAX package: explicit ``params`` (+
     ``cfg``) win ("explicit-params"); else a converted bundle
-    (``elmo_weights`` path, or ``"auto"``: ``ICASSP_ELMO_WEIGHTS``) loaded
-    onto ``device`` ("elmo_bundle:<name>:<bytes>"); else the seeded
-    stand-in drawn on ``device`` ("prng:seed=S", or "prng-lstmp:seed=S"
+    (``elmo_weights`` path, or ``"auto"``: ``ICASSP_ELMO_WEIGHTS``, then
+    ``~/.cache/icassp2022_tpu/elmo_zhs.npz``) loaded onto ``device``
+    ("elmo_bundle:<name>:<bytes>"); else the seeded stand-in drawn on ``device`` ("prng:seed=S", or "prng-lstmp:seed=S"
     for an :class:`..models.elmo.ElmoLstmpConfig`), with a stderr banner.
     Explicit ``params`` are moved to ``device``; ``device`` None is the
     first card (:func:`..utils.device.default_device`).

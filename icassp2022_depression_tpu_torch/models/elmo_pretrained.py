@@ -328,9 +328,13 @@ def load_npz(path, device="cpu") -> PretrainedElmo:
 
 
 def default_weights_path() -> Optional[Path]:
-    """The bundle named by ``ICASSP_ELMO_WEIGHTS``, or None when unset or
-    missing."""
+    """The bundle ``elmo_weights="auto"`` resolves to, in the JAX package's
+    order: ``ICASSP_ELMO_WEIGHTS``, then ``~/.cache/icassp2022_tpu/
+    elmo_zhs.npz``.  None when neither exists."""
     env = os.environ.get("ICASSP_ELMO_WEIGHTS")
     if env and Path(env).exists():
         return Path(env)
+    cached = Path.home() / ".cache" / "icassp2022_tpu" / "elmo_zhs.npz"
+    if cached.exists():
+        return cached
     return None

@@ -64,7 +64,7 @@ _ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 3, 0),
             "gru_bwd": ("gru_seq_bwd_f32", 9, 3, 0),
             "lstm_fwd": ("lstm_seq_fwd_f32", 5, 3, 0),
             "lstm_bwd": ("lstm_seq_bwd_f32", 10, 3, 0),
-            "lstmp_fwd": ("lstmp_seq_fwd_f32", 8, 4, 2),
+            "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
             "lstmp_bwd": ("lstmp_seq_bwd_f32", 15, 4, 2)}
 _fns: dict = {}
 
@@ -535,6 +535,29 @@ def _lstmp_dims(xp4: torch.Tensor, w_h_t3: torch.Tensor):
     return t_steps, batch, c_dim, w_h_t3.shape[0]
 
 
+def lstmp_fwd_plan(batch: int, c_dim: int, p_dim: int) -> dict:
+    """How ``csrc/lstmp_fwd.cu`` splits one step: ``cells`` per slab and
+    ``rows`` per tile (one of the tiles its C entry compiles), ``slabs`` =
+    ceil(C / cells) x ``row_tiles`` = ceil(B / rows) blocks, and the shape
+    of the partial-projection scratch, ``[slabs, B, P]``.
+
+    Up to 64 rows the slabs are 32 cells wide (128 blocks at C = 4096) and
+    the rows are split into at most 32-row tiles padded to a multiple of 8;
+    above, 64 x 64 tiles (128 blocks at B = 128, where the flops bound
+    the step).  The scratch is B / cells times ``w_p_t``'s size: at most
+    twice it for B <= 128."""
+    def cdiv(a: int, b: int) -> int:
+        return -(-a // b)
+
+    if batch > 64:
+        cells, rows = 64, 64
+    else:
+        cells, rows = 32, 8 * cdiv(cdiv(batch, cdiv(batch, 32)), 8)
+    slabs = cdiv(c_dim, cells)
+    return {"cells": cells, "rows": rows, "slabs": slabs,
+            "row_tiles": cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
+
+
 def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
                    b3: torch.Tensor, w_p_t: torch.Tensor,
                    cell_clip: float = 3.0, proj_clip: float = 3.0):
@@ -555,19 +578,26 @@ def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
     _check({"xp4": xp4, "w_h_t3": w_h_t3, "b3": b3, "w_p_t": w_p_t},
            {"xp4": [(t_steps, batch, 4, c_dim)], "w_h_t3": [(p_dim, 4, c_dim)],
             "b3": [(1, 4, c_dim), (4, c_dim)], "w_p_t": [(c_dim, p_dim)]})
+    if c_dim % 4 or p_dim % 4:
+        raise ValueError(f"lstmp_sequence: the kernel takes C and P in "
+                         f"multiples of 4 (16-byte copies), got C={c_dim}, "
+                         f"P={p_dim}")
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=xp4.device)
     ys, hpre = new((t_steps, batch, p_dim)), new((t_steps, batch, p_dim))
     cpre, hf = new((t_steps, batch, c_dim)), new((t_steps, batch, c_dim))
     if ys.numel() == 0 or cpre.numel() == 0:
         return ys.zero_(), hpre.zero_(), cpre.zero_(), hf.zero_()
+    plan = lstmp_fwd_plan(batch, c_dim, p_dim)
+    part = new(plan["scratch"])
     fn = _kernel("lstmp_fwd")
     with torch.cuda.device(xp4.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp4.data_ptr(), w_h_t3.data_ptr(), b3.data_ptr(),
                  w_p_t.data_ptr(), ys.data_ptr(), hpre.data_ptr(),
-                 cpre.data_ptr(), hf.data_ptr(), t_steps, batch, c_dim,
-                 p_dim, float(cell_clip), float(proj_clip), stream)
+                 cpre.data_ptr(), hf.data_ptr(), part.data_ptr(), t_steps,
+                 batch, c_dim, p_dim, plan["cells"], plan["rows"],
+                 float(cell_clip), float(proj_clip), stream)
     if err != 0:
         raise RuntimeError(f"lstmp_seq_fwd_f32 launch failed: cudaError {err}")
     global LSTMP_LAUNCHES

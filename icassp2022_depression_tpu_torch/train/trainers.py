@@ -50,6 +50,7 @@ from icassp2022_depression_tpu_torch.ops.nn import (
     smooth_l1_loss,
 )
 from icassp2022_depression_tpu_torch.train import checkpoints, loop, optim
+from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
 def _fold_seed(seed: int, fold: int) -> int:
@@ -168,12 +169,13 @@ def _intlist(a):
 
 def _features(features, device) -> torch.Tensor:
     """The pristine [N, 3, D] features as a float32 tensor on ``device``
-    (default: where a tensor already lies, else the CPU)."""
+    (None: where a tensor already lies, else the first card, raising
+    without one: :func:`..utils.device.resolve_device`)."""
     if isinstance(features, torch.Tensor):
         return features.to(device if device is not None else
                            features.device, torch.float32)
     return torch.as_tensor(np.asarray(features, np.float32),
-                           device=device if device is not None else "cpu")
+                           device=resolve_device(device))
 
 
 def _plan_fold_datas(feature_arrays, plans, batch_size):
@@ -266,7 +268,8 @@ def train_audio_clf(features, targets: np.ndarray,
                     fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                     init_params_per_fold=None):
     """3-fold audio GRU classifier.  ``features``: [N, 3, 256], numpy or a
-    tensor (trained where it lies unless ``device`` says otherwise)."""
+    tensor (trained where it lies unless ``device`` says otherwise; numpy
+    features with ``device`` None go to the first card)."""
     return _clf_branch("audio_clf", features, targets, train_folds_idx,
                        tcfg, out_dir, seed, fold_cfg, device,
                        init_params_per_fold)

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Warm ``Predictor.predict_batch`` latency of the port's ``audio_clf``
-serving on one GPU, for one or more checkouts of this repository, each in
-a process of its own, in the order given (e.g. parent, change, change,
-parent, to compare two commits on one card):
+"""Warm ``Predictor.predict_batch`` latency of the port's serving on one
+GPU, for one or more checkouts of this repository, each in a process of
+its own, in the order given (e.g. parent, change, change, parent, to
+compare two commits on one card):
 
     python3 serve_ab.py PARENT_DIR . . PARENT_DIR
+    python3 serve_ab.py --task fuse_clf PARENT_DIR . . PARENT_DIR
 
 Each process imports ``icassp2022_depression_tpu_torch`` from its
-checkout, builds that checkout's GRU kernel, writes a synthetic corpus of
-8 + 4 speakers (seed 0, answers of 2-12 s) and a full-width ``audio_clf``
-checkpoint with seeded random weights, and times ``predict_batch`` at 1
-and 8 speakers with features not cached: 3 warm-up calls, then the median
-of 20 calls on the host clock, each ending in a device sync.  Prints the
-card's name and power limit, one JSON line per run, then per checkout
-the median and quartiles of its runs' latencies, and the largest
+checkout, builds that checkout's kernels, writes a synthetic corpus of
+8 + 4 speakers (seed 0, answers of 2-12 s) and a full-width checkpoint of
+``--task`` (``audio_clf``, the default, ``fuse_clf`` or ``text_clf``) with
+seeded random weights, and times ``predict_batch`` at 1 and 8 speakers
+with features not cached: 3 warm-up calls, then the median of 20 calls on
+the host clock, each ending in a device sync.  The text tasks embed with
+a zhs-geometry ELMo bundle that the checkout's ``chip_smoke.seeded_bundle``
+draws on the card (the same weights in every checkout), named by
+``ICASSP_ELMO_WEIGHTS``, and serve 3 transcripts of 20-120 CJK characters
+per speaker from a seeded vocabulary (up to 128 tokens a sentence).
+Prints the card's name and power limit, one JSON line per run, then per
+checkout the median and quartiles of its runs' latencies, and the largest
 difference of the 8 speakers' probabilities between the runs.
 """
 
@@ -30,38 +36,79 @@ from pathlib import Path
 REPS = 20
 
 
-def one(checkout: Path) -> dict:
+def _checkpoint(torch, task: str, tmp: Path, chars: str):
+    """A full-width ``task`` checkpoint with seeded weights; for the text
+    tasks also the seeded bundle (set as ``ICASSP_ELMO_WEIGHTS``) and the
+    characters its lexicon holds."""
+    import os
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.models.text_net import TextNet
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    if task == "audio_clf":
+        cfg = C.AUDIO_CLF.model
+        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
+        return checkpoints.save(
+            tmp / task,
+            porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
+            {"task": task}), None
+    import chip_smoke
+
+    bundle, lexicon = chip_smoke.seeded_bundle(
+        torch, tmp / "elmo_zhs_seeded.npz", chars)
+    os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
+    meta = {"task": task, "text_embedder": chip_smoke.bundle_id(bundle),
+            "text_segmenter": "fallback"}
+    gen = torch.Generator().manual_seed(6)
+    if task == "fuse_clf":
+        tree = porting.fusion_tree_from_state_dict(
+            FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF)
+    else:
+        tree = porting.text_net_tree_from_state_dict(
+            TextNet(C.TEXT_CLF.model, gen).state_dict(), C.TEXT_CLF.model)
+    return checkpoints.save(tmp / task, tree, meta), lexicon
+
+
+def one(checkout: Path, task: str) -> dict:
     sys.path.insert(0, str(checkout))
+    import contextlib
+    import io
+
+    import numpy as np
     import torch
 
     import icassp2022_depression_tpu_torch as pkg
-    from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import eatd
-    from icassp2022_depression_tpu_torch.models import porting
-    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
     from icassp2022_depression_tpu_torch.serving.predictors import Predictor
-    from icassp2022_depression_tpu_torch.train import checkpoints
 
     if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
         raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
-    cfg = C.AUDIO_CLF.model
-    out = {"checkout": str(checkout)}
+    out = {"checkout": str(checkout), "task": task}
     with tempfile.TemporaryDirectory(prefix="serve_ab_") as tmp:
         root = Path(tmp) / "corpus"
         eatd.make_synthetic_corpus(root, n_data=8, n_validation=4,
                                    seconds=(2.0, 12.0), seed=0)
-        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
-        ckpt = checkpoints.save(
-            Path(tmp) / "audio_clf",
-            porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
-            {"task": "audio_clf"})
+        chars = "".join(ch for sp in eatd.iter_speakers(root, read_text=True)
+                        for t in sp.texts for ch in t if not ch.isspace())
+        ckpt, lexicon = _checkpoint(torch, task, Path(tmp), chars)
         speakers = list(eatd.iter_speakers(root, read_text=False))
-        predictor = Predictor.from_checkpoint(ckpt, "audio_clf",
-                                              device="cuda",
-                                              feature_cache_entries=0)
+        with contextlib.redirect_stderr(io.StringIO()):
+            predictor = Predictor.from_checkpoint(ckpt, task, device="cuda",
+                                                  feature_cache_entries=0)
+        rng = np.random.default_rng(7)
         for n in (1, 8):
             req = ([s.waveforms for s in speakers[:n]],
                    [s.sample_rates for s in speakers[:n]])
+            if task == "text_clf":
+                req = (None, None)
+            if lexicon is not None:
+                req += ([["".join(rng.choice(lexicon,
+                                             int(rng.integers(20, 121))))
+                          for _ in range(3)] for _ in range(n)],)
             for _ in range(3):
                 res = predictor.predict_batch(*req)
             times = []
@@ -78,8 +125,14 @@ def one(checkout: Path) -> dict:
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(Path(argv[1]))))
+        print(json.dumps(one(Path(argv[1]), argv[2])))
         return 0
+    task = "audio_clf"
+    if argv[:1] == ["--task"]:
+        task, argv = argv[1], argv[2:]
+    if task not in ("audio_clf", "fuse_clf", "text_clf"):
+        print(f"serve_ab: unknown task {task}", file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available() or not argv:
@@ -93,15 +146,17 @@ def main(argv) -> int:
     print(card)
     runs = []
     for checkout in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", checkout],
-                              capture_output=True, text=True, check=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", checkout,
+                               task], capture_output=True, text=True,
+                              check=True)
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         r = runs[-1]
         print(json.dumps({k: v for k, v in r.items() if k != "probs_8"}
                          | {"card": card}))
     for checkout in dict.fromkeys(argv):
         mine = [r for r in runs if r["checkout"] == checkout]
-        summary = {"checkout": checkout, "runs": len(mine), "card": card}
+        summary = {"checkout": checkout, "task": task, "runs": len(mine),
+                   "card": card}
         for n in (1, 8):
             ms = sorted(r[f"ms_{n}"] for r in mine)
             summary[f"median_ms_{n}"] = statistics.median(ms)

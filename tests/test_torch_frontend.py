@@ -105,7 +105,7 @@ def test_extract_batch_close():
     want = jaudio.extract_batch(waves, srs, jconfig.FrontendConfig(**SMALL),
                                 ordinals=ordinals)
     got = taudio.extract_batch(waves, srs, tconfig.FrontendConfig(**SMALL),
-                               ordinals=ordinals)
+                               ordinals=ordinals, device="cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == (7, 32)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
@@ -117,10 +117,12 @@ def test_extract_batch_start_ordinal_and_order():
     want = jaudio.extract_batch(waves, [16000] * 3,
                                 jconfig.FrontendConfig(**SMALL),
                                 start_ordinal=6)
-    got = taudio.extract_batch(waves, [16000] * 3, cfg, start_ordinal=6)
+    got = taudio.extract_batch(waves, [16000] * 3, cfg, start_ordinal=6,
+                               device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     # one utterance alone gets the same features as inside the batch
-    alone = taudio.extract_batch(waves[1:2], [16000], cfg, ordinals=[7])
+    alone = taudio.extract_batch(waves[1:2], [16000], cfg, ordinals=[7],
+                                 device="cpu")
     np.testing.assert_allclose(alone[0].numpy(), got[1].numpy(), rtol=0,
                                atol=1e-6)
 
@@ -167,3 +169,48 @@ def test_extract_eatd_device_and_load_features_match_jax(tmp_path):
     for a, b in zip(taudio.load_features(out, "clf"),
                     jaudio.load_features(out, "clf")):
         np.testing.assert_array_equal(a, b)
+
+
+def _no_device_calls(tmp_path):
+    """Each entry point that takes ``device`` and puts host data somewhere,
+    called without one: the audio frontend's two and the six trainers."""
+    from icassp2022_depression_tpu_torch.train import trainers
+
+    x = np.zeros((6, 3, 8), np.float32)
+    y = np.array([0, 1] * 3)
+    idx = [np.arange(4)]
+    return {
+        "extract_batch": lambda: taudio.extract_batch(
+            [np.ones(400)], [16000], tconfig.FrontendConfig(**SMALL)),
+        "extract_eatd_device": lambda: taudio.extract_eatd_device(tmp_path),
+        "train_audio_clf": lambda: trainers.train_audio_clf(x, y, idx),
+        "train_text_clf": lambda: trainers.train_text_clf(x, y, idx),
+        "train_audio_reg": lambda: trainers.train_audio_reg(x, y, y, y),
+        "train_text_reg": lambda: trainers.train_text_reg(x, y, y, y),
+        "train_fuse_clf": lambda: trainers.train_fuse_clf(x, x, y, idx, []),
+        "train_fuse_reg": lambda: trainers.train_fuse_reg(x, x, y, y, y, []),
+    }
+
+
+@pytest.mark.parametrize("entry", ["extract_batch", "extract_eatd_device",
+                                   "train_audio_clf", "train_text_clf",
+                                   "train_audio_reg", "train_text_reg",
+                                   "train_fuse_clf", "train_fuse_reg"])
+def test_entry_points_without_a_device_raise_without_a_card(entry, tmp_path,
+                                                           monkeypatch):
+    """No ``device`` and no card: the entry point raises, naming ``--device
+    cpu``, instead of running on the CPU unasked.  Whether there is a card
+    is decided here, at run time: the test takes it away."""
+    teatd.make_synthetic_corpus(tmp_path, 1, 1, seconds=0.2, seed=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        _no_device_calls(tmp_path)[entry]()
+
+
+def test_trainers_keep_a_tensor_where_it_lies():
+    """A tensor's own device wins when the trainers are given none."""
+    from icassp2022_depression_tpu_torch.train import trainers
+
+    x = torch.zeros((2, 3, 4), dtype=torch.float64)
+    got = trainers._features(x, None)
+    assert got.device.type == "cpu" and got.dtype == torch.float32

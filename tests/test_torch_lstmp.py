@@ -197,3 +197,65 @@ def test_init_lstmp_draws_the_jax_weights():
     for k in NAMES:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("b,c,p", [(8, 4096, 512), (24, 4096, 512),
+                                   (128, 4096, 512), (104, 4096, 512),
+                                   (3, 384, 128)])
+def test_lstmp_fwd_plan_covers_every_cell_once(b, c, p):
+    """The forward kernel's split (``rnn_cuda.lstmp_fwd_plan``): a tile the
+    C entry compiles, slabs and row tiles that cover every cell and row
+    exactly once, 128 blocks at the zhs width, and a partial scratch
+    ``[slabs, B, P]`` within twice ``w_p_t``'s size."""
+    import re
+
+    from icassp2022_depression_tpu_torch import _build
+
+    compiled = {tuple(map(int, m)) for m in re.findall(
+        r"^  LSTMP_FWD_TILE\((\d+), (\d+)\)$",
+        (_build.CSRC / "lstmp_fwd.cu").read_text(), re.M)}
+    assert len(compiled) == 5
+    plan = rnn_cuda.lstmp_fwd_plan(b, c, p)
+    cells, rows = plan["cells"], plan["rows"]
+    assert (cells, rows) in compiled
+    cover_c, cover_b = np.zeros(c, int), np.zeros(b, int)
+    for s in range(plan["slabs"]):
+        assert s * cells < c                 # no empty slab
+        cover_c[s * cells:(s + 1) * cells] += 1
+    for r in range(plan["row_tiles"]):
+        assert r * rows < b                  # no empty row tile
+        cover_b[r * rows:(r + 1) * rows] += 1
+    assert (cover_c == 1).all() and (cover_b == 1).all()
+    assert plan["scratch"] == (plan["slabs"], b, p)
+    assert np.prod(plan["scratch"]) <= 2 * c * p
+    if c == 4096:
+        assert plan["slabs"] * plan["row_tiles"] == 128
+
+
+def _c_entry_args(source: str, symbol: str) -> tuple:
+    """(pointers, ints, floats) before the stream in a C entry's
+    signature."""
+    import re
+
+    sig = re.search(symbol + r"\(([^)]*)\)", source).group(1)
+    params = [a.strip() for a in sig.split(",")]
+    assert params[-1] == "void* stream", params
+    pointers = sum("*" in a for a in params[:-1])
+    ints = sum(a.startswith("int ") for a in params[:-1])
+    floats = sum(a.startswith("float ") for a in params[:-1])
+    assert pointers + ints + floats == len(params) - 1, params
+    return pointers, ints, floats
+
+
+@pytest.mark.parametrize("name", sorted(rnn_cuda._ENTRIES))
+def test_c_entry_signatures_match_the_bindings(name):
+    """Each ``_ENTRIES`` binding names the argument counts of its C entry
+    in ``csrc/<name>.cu`` (ctypes would pass a mismatched call silently);
+    the LSTMP forward takes the partial scratch and the tile."""
+    from icassp2022_depression_tpu_torch import _build
+
+    symbol, *counts = rnn_cuda._ENTRIES[name]
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    assert _c_entry_args(source, symbol) == tuple(counts)
+    if name == "lstmp_fwd":
+        assert tuple(counts) == (9, 6, 2)

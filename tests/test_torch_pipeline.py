@@ -112,7 +112,8 @@ def test_train_text_clf_matches_jax_trainer(tmp_path):
                                 init_params_per_fold=jparams)
     got = ttrainers.train_text_clf(
         xt, clf, train_idx, tcfg=tcfg, out_dir=tmp_path,
-        init_params_per_fold=[to_sd(p) for p in jparams], meta_extras=META)
+        init_params_per_fold=[to_sd(p) for p in jparams], meta_extras=META,
+        device="cpu")
     _assert_results(got, want, to_sd)
     assert all(g["best"]["epoch"] >= 0 for g in got)
     for r in got:
@@ -145,7 +146,8 @@ def test_train_text_reg_matches_jax_trainer(tmp_path):
     got = ttrainers.train_text_reg(
         xt, sds, dep, non, tcfg=tcfg, out_dir=tmp_path,
         fold_cfg=tconfig.FoldConfig(**REG_FOLDS),
-        init_params_per_fold=[to_sd(p) for p in jparams], meta_extras=META)
+        init_params_per_fold=[to_sd(p) for p in jparams], meta_extras=META,
+        device="cpu")
     _assert_results(got, want, to_sd)
     for r in got:
         name = tckpt.text_reg_name(H, r["best"]["mae"])
@@ -191,11 +193,12 @@ def test_train_fuse_clf_matches_jax_trainer_and_carries_folds(tmp_path):
     got = ttrainers.train_fuse_clf(xa, xt, clf, train_idx, tb, fcfg=tf,
                                    tcfg=tt, out_dir=tmp_path,
                                    init_params_per_fold=[init],
-                                   meta_extras=META)
+                                   meta_extras=META, device="cpu")
     _assert_results(got, want, to_sd)
     alone = ttrainers.train_fuse_clf(xa, xt, clf, train_idx[1:2], tb[1:2],
                                      fcfg=tf, tcfg=tt,
-                                     init_params_per_fold=[init])
+                                     init_params_per_fold=[init],
+                                     device="cpu")
     assert np.abs(alone[0]["step_losses"]
                   - got[1]["step_losses"]).max() > 100 * TRAJ_TOL
     for r in got:
@@ -227,7 +230,7 @@ def test_train_fuse_reg_matches_jax_trainer(tmp_path):
                                    tcfg=tt, out_dir=tmp_path,
                                    fold_cfg=tconfig.FoldConfig(**REG_FOLDS),
                                    init_params_per_fold=init,
-                                   meta_extras=META)
+                                   meta_extras=META, device="cpu")
     _assert_results(got, want,
                     lambda p: tporting.fusion_state_dict_from_jax(p, tf))
     for r in got:

@@ -118,6 +118,30 @@ def test_make_embedder_ids_and_vectors_match_jax(bundle):
                                rtol=0, atol=ATOL)
 
 
+def test_auto_weights_find_the_cached_bundle_as_jax_does(bundle, tmp_path,
+                                                        monkeypatch):
+    """``elmo_weights="auto"`` with ``ICASSP_ELMO_WEIGHTS`` unset and the
+    bundle cached at ``~/.cache/icassp2022_tpu/elmo_zhs.npz`` (written by
+    the port's ``save_npz``): both packages resolve it, with the same id
+    and the same vectors."""
+    from icassp2022_depression_tpu_torch.models import elmo_pretrained as tpre
+
+    cached = tmp_path / ".cache" / "icassp2022_tpu" / "elmo_zhs.npz"
+    cached.parent.mkdir(parents=True)
+    tpre.save_npz(cached, tpre.load_npz(bundle, "cpu"))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("ICASSP_ELMO_WEIGHTS", raising=False)
+    assert tpre.default_weights_path() == jpre.default_weights_path() \
+        == cached
+    sents = [ttext.tokenize(t, "fallback") for t in TEXTS]
+    tfn, tdim, tid = ttext.make_embedder(with_id=True, device="cpu")
+    jfn, jdim, jid = jtext.make_embedder(with_id=True)
+    assert (tid, tdim) == (jid, jdim)
+    assert tid == f"elmo_bundle:elmo_zhs.npz:{cached.stat().st_size}"
+    np.testing.assert_allclose(tfn(sents).numpy(), np.asarray(jfn(sents)),
+                               rtol=0, atol=ATOL)
+
+
 def _extract_both(corpus, tmp_path, capsys, extra):
     jout, tout = tmp_path / "jax", tmp_path / "port"
     argv = ["extract-text", "--root", str(corpus), "--segmenter",

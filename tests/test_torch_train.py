@@ -488,7 +488,7 @@ def test_train_audio_clf_matches_jax_trainer():
     want = jtrainers._run_folds(jaudio_net, jcfg, jdatas, 0,
                                 init_params_per_fold=jparams)
     got = ttrainers.train_audio_clf(feats, clf, train_idx, tcfg=tcfg,
-                                    init_params_per_fold=init)
+                                    init_params_per_fold=init, device="cpu")
     _assert_trainer_results(got, want, tcfg, init)
     assert all(g["best"]["epoch"] >= 0 for g in got)
     assert got[0]["step_losses"].shape == (4, got[0]["logs"]["steps"][0])
@@ -516,7 +516,8 @@ def test_train_audio_reg_matches_jax_trainer(tmp_path):
                                 init_params_per_fold=jparams)
     got = ttrainers.train_audio_reg(
         feats, sds, dep, non, tcfg=tcfg, out_dir=tmp_path,
-        fold_cfg=tconfig.FoldConfig(**fold_cfg), init_params_per_fold=init)
+        fold_cfg=tconfig.FoldConfig(**fold_cfg), init_params_per_fold=init,
+        device="cpu")
     _assert_trainer_results(got, want, tcfg, init)
     # the gated checkpoints load in the JAX package, in its layout
     for r in got:
