@@ -6,10 +6,14 @@ training paths of both tracks, at full width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
+    python3 chip_smoke.py --only lstm   # the LSTM kernels alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings, the LSTMP profile and the LSTMP yardsticks, prints their
-lines and stops: the quick loop for work on those kernels.
+lines and stops: the quick loop for work on those kernels.  ``--only
+lstm`` does the same for the two LSTM sources: phase 2's LSTM checks and
+timings at the text model's H = 128 and at the stand-in encoder's H = 512
+(both routes of the forward), its profile and its cuDNN yardsticks.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -31,15 +35,19 @@ Phases (each raises on failure, so the exit code is nonzero):
    magnitude; beside each, a reading of how far the plain float32 loop and
    the kernel are from the plain loop in float64, and the same reading at
    a recurrent gain of 3/sqrt(P), where float32 itself parts from float64
-   (not checked); the LSTM forward at the stand-in text
-   encoder's H = 512; timed with CUDA events, beside the nearest PyTorch
-   call (cuDNN ``nn.GRU`` / ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both
-   directions, and ``nn.LSTM(512, 512)`` at the stand-in's (16, 8)); the
-   forward wrappers must refuse a CUDA input that requires grad; one
-   LSTMP forward call at (16, 8) and at (128, 24) under ``torch.profiler``,
-   its device time split by kernel name and the gaps between launches;
-   the LSTMP forward beside its plain loop, cuDNN and its bound at each
-   timed shape;
+   (not checked); the LSTM forward through both of its routes (one
+   launch, or one launch a step) at every LSTM shape and at the stand-in
+   text encoder's H = 512 ((T, B) = (16, 8), (128, 24), (16, 112),
+   (128, 488)), within 1e-5, reruns bitwise equal; timed with CUDA
+   events, beside the nearest PyTorch call (cuDNN ``nn.GRU`` /
+   ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both directions, and
+   ``nn.LSTM(512, 512)`` at every stand-in shape); the forward wrappers
+   must refuse a CUDA input that requires grad; one LSTMP forward call at
+   (16, 8) and at (128, 24), and one LSTM forward call at the stand-in's
+   (16, 8) and (128, 488), under ``torch.profiler``, device time split by
+   kernel name and the gaps between launches; the LSTMP forward and the
+   stand-in's LSTM forward beside the plain loop, cuDNN and the bound at
+   each timed shape;
 3. audio serving: a synthetic EATD corpus, a full-width ``audio_clf`` with
    seeded random weights saved as a JAX-layout npz, ``cli predict`` for
    one speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers,
@@ -78,9 +86,15 @@ Phases (each raises on failure, so the exit code is nonzero):
    and 8 speakers with transcripts of 20-120 CJK characters from a seeded
    vocabulary, exact launches per request, no LSTMP backward on any main
    path; not counted: the 8 speakers' results and text features against
-   the same predictor on the CPU (1e-5);
+   the same predictor on the CPU (1e-5); then ``text_clf`` and
+   ``fuse_clf`` through the seeded stand-in encoder (``elmo_weights=None``,
+   the path without a bundle) at 1 and 8 speakers, counted: 8
+   ``lstm_fwd`` per request (the stand-in's 4 and the text model's 4);
+   not counted: the 8 speakers' ``text_clf`` results and text features
+   against the CPU (1e-5);
 7. timing: warm ``predict_batch`` latency (audio at 1 and 8 speakers,
-   fusion at 1 and 8); the wall time of extraction and of each pipeline
+   fusion at 1 and 8, and the stand-in's ``text_clf`` and ``fuse_clf`` at
+   1 and 8); the wall time of extraction and of each pipeline
    stage; an ``audio_clf`` and a ``text_clf`` train step split into
    forward, backward and optimizer; each kernel's bound (the larger of its
    float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s).
@@ -138,9 +152,14 @@ LSTMP_PROFILED = ((16, 8, 4096, 512), (128, 24, 4096, 512))
 #: a reading, not a check: the "clips" weights with a recurrent gain of
 #: 3/sqrt(P), where the float32 recurrence itself parts from float64
 LSTMP_GAIN3 = (32, 128, 4096, 512, "gain3")
-#: the stand-in text encoder's LSTM (H = 512): rows of one served speaker
-#: and of an extraction batch
-STANDIN_LSTM_SHAPES = ((16, 8, 512), (16, 112, 512))
+#: the stand-in text encoder's LSTM (H = 512), the text path of every run
+#: without an ELMo bundle: one served speaker, eight served speakers' long
+#: transcripts, the extraction batch of this script's corpus, and EATD's
+#: 486 answers in one 512-sentence chunk
+STANDIN_LSTM_SHAPES = ((16, 8, 512), (128, 24, 512), (16, 112, 512),
+                       (128, 488, 512))
+#: the stand-in shapes whose LSTM forward is profiled
+STANDIN_PROFILED = ((16, 8, 512), (128, 488, 512))
 #: the data sheet's peaks of one H100 SXM at 700 W (fp32 without tensor
 #: cores, HBM3), for each kernel's bound
 PEAK_FP32_FLOPS = 67e12
@@ -416,9 +435,56 @@ def bwd_kernel_phase(torch, rnn_cuda, card: str):
     return worst, timings
 
 
+def lstm_routes(torch, rnn_cuda, args, ref, shape) -> dict:
+    """The LSTM forward through each route of ``lstm_fwd_plan`` (the step
+    route only where H is a multiple of 4) against the plain ``ref``:
+    {route: (max|d (ys, cs)|, rerun bitwise equal)}, failing past
+    KERNEL_TOL or on a rerun that differs."""
+    t, b, h = shape
+    out = {}
+    for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]:
+        plan = rnn_cuda.lstm_fwd_plan(b, h, route)
+        got = rnn_cuda.lstm_sequence(*args, plan=plan)
+        again = rnn_cuda.lstm_sequence(*args, plan=plan)
+        torch.cuda.synchronize()
+        for g in got:
+            if tuple(g.shape) != shape or not torch.isfinite(g).all():
+                fail(f"LSTM kernel ({route}) output at {shape} is malformed")
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        if not (err <= KERNEL_TOL and same):
+            fail(f"LSTM kernel ({route} route) disagrees with its plain "
+                 f"version at {shape}: {err}, rerun bitwise equal {same}")
+        out[route] = (err, same)
+    return out
+
+
+def turns_ms(torch, fns: dict, reps: int) -> dict:
+    """Median ms of each ``fns`` entry over ``reps`` single calls, the
+    entries' calls taken in turns (one warm call each first), so that a
+    slow spell of the host falls on all of them alike."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(event_ms(fn, 1, torch))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def _route_fns(rnn_cuda, args, shape) -> dict:
+    """{route: call} of the LSTM forward through each route at ``shape``
+    (the step route only where H is a multiple of 4)."""
+    t, b, h = shape
+    return {route: (lambda plan=rnn_cuda.lstm_fwd_plan(b, h, route):
+                    rnn_cuda.lstm_sequence(*args, plan=plan))
+            for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]}
+
+
 def lstm_kernel_phase(torch, rnn_cuda, card: str):
     """Both LSTM kernels against their plain versions, the backward with a
-    nonzero cell-state cotangent; returns the worst errors and the
+    nonzero cell-state cotangent, the forward through both of its routes
+    (timed in turns at every shape); returns the worst errors and the
     (kernel, plain) ms of each at the timed shapes."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator().manual_seed(2)
@@ -445,12 +511,18 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
                 fail(f"LSTM kernel output at {(t, b, h)} is malformed")
         fwd = max((ys - ref_ys).abs().max().item(),
                   (cs - ref_cs).abs().max().item())
+        routes = lstm_routes(torch, rnn_cuda, args[:3], (ref_ys, ref_cs),
+                             (t, b, h))
+        fwd = max([fwd] + [e for e, _ in routes.values()])
         bwd = (got[0] - ref[0]).abs().max().item()
         rel = [((g - r).abs().max() / r.abs().max()).item()
                for g, r in zip(got[1:], ref[1:])]
         same = all(torch.equal(a, c) for a, c in zip(got, again))
         print(f"kernel lstm_fwd/lstm_bwd T={t} B={b} H={h}: max|d ys|, "
-              f"|d cs| = {fwd:.3e}, max|d dxp| = {bwd:.3e} (tol "
+              f"|d cs| = {fwd:.3e} (routes "
+              + ", ".join(f"{r} {e:.3e}, rerun bitwise equal {sm}"
+                          for r, (e, sm) in routes.items())
+              + f"), max|d dxp| = {bwd:.3e} (tol "
               f"{KERNEL_TOL}), dw rel {rel[0]:.3e}, db rel {rel[1]:.3e} (tol "
               f"{KERNEL_TOL} of max|ref|), dcs nonzero, rerun bitwise equal: "
               f"{same}")
@@ -490,6 +562,15 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
             print(f"timing lstm_{k} T={shape[0]} B={shape[1]} H={shape[2]}: "
                   f"cuda kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
                   f"(median of 50, CUDA events) [{card}]")
+    for shape in LSTM_SHAPES:
+        by_route = turns_ms(
+            torch, _route_fns(rnn_cuda, inputs[shape][:3], shape), 50)
+        print(f"timing lstm_fwd routes T={shape[0]} B={shape[1]} "
+              f"H={shape[2]}: " + ", ".join(
+                  f"{r} {ms:.4f} ms" for r, ms in by_route.items())
+              + f" (the plan takes "
+              f"{rnn_cuda.lstm_fwd_plan(shape[1], shape[2])['route']}; "
+              f"median of 50 in turns, CUDA events) [{card}]")
     return worst, timings
 
 
@@ -627,89 +708,147 @@ def _kernel_short_name(name: str) -> str:
     return name.split(" ")[-1]
 
 
-def lstmp_profile_phase(torch, rnn_cuda, card: str) -> dict:
-    """One ``lstmp_sequence`` call at each ``LSTMP_PROFILED`` shape
-    (``init_lstmp``-scale weights) under ``torch.profiler``, after a warm
-    call: the device time of each kernel name (launches that overlap, as
-    programmatic dependent launches do, count in full for each), and the
-    gaps, the span from the first kernel's start to the last one's end
-    less the time some kernel ran.  Returns {shape: {"span_us", "busy_us",
-    "gap_us", "kernels": {name: (us, count)}}}."""
+def profile_split(torch, fn, label: str, steps: int, card: str):
+    """``fn()`` once under ``torch.profiler`` after a warm call: the device
+    time of each kernel name (launches that overlap, as programmatic
+    dependent launches do, count in full for each), and the gaps, the span
+    from the first kernel's start to the last one's end less the time some
+    kernel ran.  Returns {"span_us", "busy_us", "gap_us", "kernels": {name:
+    (us, count)}}, or None when the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a short call's trace now and then comes empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    else:
+        print(f"profile {label}: the profiler recorded no device events in "
+              f"3 tries, split not measured [{card}]")
+        return None
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        name = _kernel_short_name(e.name)
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy, reach = 0.0, start    # the union of the kernels' intervals
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        busy += max(0.0, e.time_range.end - max(reach, e.time_range.start))
+        reach = max(reach, e.time_range.end)
+    split = {"span_us": end - start, "busy_us": busy,
+             "gap_us": end - start - busy, "kernels": by_name}
+    print(f"profile {label}: span {split['span_us']:.1f} us "
+          f"({split['span_us'] / steps:.2f} us a step), some kernel "
+          f"running {busy:.1f} us, gaps {split['gap_us']:.1f} us "
+          f"({split['gap_us'] / max(split['span_us'], 1e-9):.3f} of the "
+          f"span); " + ", ".join(
+              f"{k} {us:.1f} us in {n} launches ({us / n:.2f} us each)"
+              for k, (us, n) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0]))
+          + f" (torch.profiler) [{card}]")
+    return split
+
+
+def lstmp_profile_phase(torch, rnn_cuda, card: str) -> dict:
+    """One ``lstmp_sequence`` call at each ``LSTMP_PROFILED`` shape
+    (``init_lstmp``-scale weights) split by :func:`profile_split`."""
     gen = torch.Generator().manual_seed(8)
     out = {}
     for shape in LSTMP_PROFILED:
         fwd_in = _lstmp_inputs(torch, gen, *shape, "init")
-        rnn_cuda.lstmp_sequence(*fwd_in)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            rnn_cuda.lstmp_sequence(*fwd_in)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            print(f"profile lstmp_fwd at {shape}: the profiler recorded no "
-                  f"device events, split not measured [{card}]")
-            continue
-        start = min(e.time_range.start for e in kernels)
-        end = max(e.time_range.end for e in kernels)
-        by_name: dict = {}
-        for e in kernels:
-            name = _kernel_short_name(e.name)
-            us, n = by_name.get(name, (0.0, 0))
-            by_name[name] = (us + e.time_range.elapsed_us(), n + 1)
-        busy, reach = 0.0, start    # the union of the kernels' intervals
-        for e in sorted(kernels, key=lambda e: e.time_range.start):
-            busy += max(0.0, e.time_range.end - max(reach,
-                                                    e.time_range.start))
-            reach = max(reach, e.time_range.end)
-        split = {"span_us": end - start, "busy_us": busy,
-                 "gap_us": end - start - busy, "kernels": by_name}
-        out[shape] = split
-        steps = shape[0]
-        print(f"profile lstmp_fwd T={shape[0]} B={shape[1]} C={shape[2]} "
-              f"P={shape[3]}: span {split['span_us']:.1f} us "
-              f"({split['span_us'] / steps:.2f} us a step), some kernel "
-              f"running {busy:.1f} us, gaps {split['gap_us']:.1f} us "
-              f"({split['gap_us'] / max(split['span_us'], 1e-9):.3f} of the "
-              f"span); " + ", ".join(
-                  f"{k} {us:.1f} us in {n} launches "
-                  f"({us / n:.2f} us each)" for k, (us, n) in
-                  sorted(by_name.items(), key=lambda kv: -kv[1][0]))
-              + f" (torch.profiler) [{card}]")
+        t, b, c, p = shape
+        out[shape] = profile_split(
+            torch, lambda: rnn_cuda.lstmp_sequence(*fwd_in),
+            f"lstmp_fwd T={t} B={b} C={c} P={p}", t, card)
     return out
 
 
-def standin_lstm_phase(torch, rnn_cuda, card: str) -> dict:
+def _standin_inputs(torch, gen, t, b, h):
+    """(xp, w_hh_t, b_hh) at the stand-in's scale: xp standard normal, the
+    weights uniform within 1/sqrt(H), as ``elmo.init`` draws them."""
+    xp = torch.randn((t, b, 4 * h), generator=gen)
+    w = (torch.rand((h, 4 * h), generator=gen) * 2 - 1) * h ** -0.5
+    bias = (torch.rand((1, 4 * h), generator=gen) * 2 - 1) * h ** -0.5
+    return tuple(a.cuda() for a in (xp, w, bias))
+
+
+def lstm_profile_phase(torch, rnn_cuda, card: str) -> dict:
+    """One ``lstm_sequence`` call at each ``STANDIN_PROFILED`` shape split
+    by :func:`profile_split`."""
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for t, b, h in STANDIN_PROFILED:
+        args = _standin_inputs(torch, gen, t, b, h)
+        out[(t, b, h)] = profile_split(
+            torch, lambda: rnn_cuda.lstm_sequence(*args),
+            f"lstm_fwd T={t} B={b} H={h} (the stand-in encoder)", t, card)
+    return out
+
+
+def standin_lstm_phase(torch, rnn_cuda, card: str) -> tuple:
     """The LSTM forward kernel at the stand-in text encoder's H = 512
-    against its plain version; returns the (kernel, plain) ms per shape."""
+    (``STANDIN_LSTM_SHAPES``) against its plain version through both
+    routes: within KERNEL_TOL, a rerun bitwise equal.  Then both routes,
+    the plain loop and cuDNN's ``nn.LSTM(512, 512)`` (a yardstick used
+    nowhere, input projection included) timed in turns.  Returns the
+    (kernel, plain) ms per shape (the kernel through the route the plan
+    takes), cuDNN's ms and the worst error."""
     gen = torch.Generator().manual_seed(5)
-    timings = {}
+    timings, cudnn, worst = {}, {}, 0.0
     for t, b, h in STANDIN_LSTM_SHAPES:
-        xp = torch.randn((t, b, 4 * h), generator=gen).cuda()
-        w = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
-             * h ** -0.5).cuda()
-        bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
-                * h ** -0.5).cuda()
-        got = rnn_cuda.lstm_sequence(xp, w, bias)
-        ref = rnn_cuda.lstm_sequence_torch(xp, w, bias)
-        torch.cuda.synchronize()
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        if not err <= KERNEL_TOL:
-            fail(f"LSTM kernel disagrees at the stand-in's {(t, b, h)}: "
-                 f"{err}")
-        ms = event_ms(lambda: rnn_cuda.lstm_sequence(xp, w, bias), 20, torch)
-        plain = event_ms(lambda: rnn_cuda.lstm_sequence_torch(xp, w, bias),
-                         20, torch)
-        timings[(t, b, h)] = (ms, plain)
+        shape = (t, b, h)
+        args = _standin_inputs(torch, gen, t, b, h)
+        ref = rnn_cuda.lstm_sequence_torch(*args)
+        routes = lstm_routes(torch, rnn_cuda, args, ref, shape)
+        worst = max([worst] + [e for e, _ in routes.values()])
+        lstm = torch.nn.LSTM(h, h).cuda()
+        x = torch.randn((t, b, h), generator=gen).cuda()
+
+        def library():
+            with torch.no_grad():
+                lstm(x)
+
+        reps = 20 if t * b <= 4096 else 5
+        ms = turns_ms(torch, {
+            **_route_fns(rnn_cuda, args, shape),
+            "plain": lambda: rnn_cuda.lstm_sequence_torch(*args),
+            "cudnn": library}, reps)
+        plan = rnn_cuda.lstm_fwd_plan(b, h)
+        timings[shape] = (ms[plan["route"]], ms["plain"])
+        cudnn[shape] = ms["cudnn"]
         print(f"kernel lstm_fwd T={t} B={b} H={h} (the stand-in encoder): "
-              f"max|d| = {err:.3e} (tol {KERNEL_TOL}); cuda kernel "
-              f"{ms:.4f} ms, plain torch {plain:.4f} ms (median of 20, CUDA "
+              f"max|d (ys, cs)| " + ", ".join(
+                  f"{r} {e:.3e} (rerun bitwise equal {sm})"
+                  for r, (e, sm) in routes.items())
+              + f" (tol {KERNEL_TOL}); the plan {plan}; routes " + ", ".join(
+                  f"{r} {ms[r]:.4f} ms" for r in routes)
+              + f", plain torch {ms['plain']:.4f} ms, cuDNN "
+              f"{ms['cudnn']:.4f} ms (median of {reps} in turns, CUDA "
               f"events) [{card}]")
-    return timings
+    return timings, cudnn, worst
+
+
+def standin_summary(card: str, standin_times: dict, cudnn: dict) -> None:
+    """The LSTM forward at each stand-in shape beside the plain loop,
+    cuDNN's ``nn.LSTM(512, 512)`` and its bound."""
+    for shape in STANDIN_LSTM_SHAPES:
+        ms, plain = standin_times[shape]
+        b_ms, by = rnn_bounds("lstm", *shape)["fwd"]
+        print(f"lstm_fwd at the stand-in's (T, B, H) = {shape}: kernel "
+              f"{ms:.4f} ms, plain loop {plain:.4f} ms, cuDNN "
+              f"{cudnn[shape]:.4f} ms, bound {b_ms:.6f} ms ({by}); "
+              f"{plain / ms:.2f}x the plain loop's speed, "
+              f"{cudnn[shape] / ms:.2f}x cuDNN's, {b_ms / ms:.4f} of the "
+              f"bound [{card}]")
 
 
 def library_phase(torch, card: str, only: str = "") -> dict:
@@ -725,8 +864,6 @@ def library_phase(torch, card: str, only: str = "") -> dict:
               "gru_bwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd_streamed": ("gru",) + BWD_TIMED[-1] + (None,),
               "lstm_fwd": ("lstm",) + LSTM_TIMED[0] + (None,),
-              "lstm_fwd_standin": ("lstm",) + STANDIN_LSTM_SHAPES[0]
-              + (None,),
               "lstm_bwd": ("lstm",) + LSTM_TIMED[0] + (None,),
               "lstm_bwd_streamed": ("lstm",) + LSTM_TIMED[-1] + (None,),
               "lstmp_fwd": ("lstm", t1, b1, c1, p1),
@@ -1574,13 +1711,120 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
     return launches, latency
 
 
+def standin_serving_phase(torch, card: str) -> tuple:
+    """Serving ``text_clf`` and ``fuse_clf`` through the seeded stand-in
+    text encoder (``elmo_weights=None``: the path of every machine without
+    an ELMo bundle), full-width seeded checkpoints.  Counted:
+    ``Predictor.predict_batch`` at 1 and 8 speakers with seeded
+    transcripts, each with exact launches (the stand-in's 2 layers x 2
+    directions of ``lstm_fwd`` and the text model's 4, the fusion's 2 GRU
+    forwards, no backward).  Not counted: the warm latencies, and the 8
+    speakers' ``text_clf`` results and text features against the same
+    predictor on the CPU.  Returns the launches and the latencies."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.models.text_net import TextNet
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    launches = dict(ZERO)
+    per_request = {"fuse_clf": dict(ZERO, lstm_fwd=8, gru_fwd=2),
+                   "text_clf": dict(ZERO, lstm_fwd=8)}
+    latency = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_standin_") as tmp:
+        root = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(root, n_data=8, n_validation=2,
+                                   seconds=(2.0, 12.0), seed=4)
+        speakers = list(eatd.iter_speakers(root, read_text=True))
+        chars = sorted({ch for sp in speakers for t in sp.texts for ch in t
+                        if not ch.isspace()})
+        meta = {"text_embedder": "prng:seed=0", "text_segmenter": "fallback",
+                "note": "seeded weights"}
+        gen = torch.Generator().manual_seed(6)
+        trees = {"fuse_clf": porting.fusion_tree_from_state_dict(
+                     FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF),
+                 "text_clf": porting.text_net_tree_from_state_dict(
+                     TextNet(C.TEXT_CLF.model, gen).state_dict(),
+                     C.TEXT_CLF.model)}
+        rng = np.random.default_rng(8)
+        texts = _transcripts(rng, chars, 8)
+        for task, tree in trees.items():
+            ckpt = checkpoints.save(Path(tmp) / task, tree,
+                                    dict(meta, task=task))
+            with contextlib.redirect_stderr(io.StringIO()):
+                predictor = Predictor.from_checkpoint(
+                    ckpt, task, device="cuda", feature_cache_entries=0,
+                    elmo_weights=None)
+            if predictor.embedder_id != "prng:seed=0":
+                fail(f"{task} served with {predictor.embedder_id}, not the "
+                     f"stand-in")
+            for n in (1, 8):
+                req = (None, None, texts[:n])
+                if task == "fuse_clf":
+                    req = ([sp.waveforms for sp in speakers[:n]],
+                           [sp.sample_rates for sp in speakers[:n]],
+                           texts[:n])
+                _set_counts(rnn_cuda, ZERO)
+                res = predictor.predict_batch(*req)
+                torch.cuda.synchronize()
+                got = _counts(rnn_cuda)
+                print(f"predict_batch {task} {n} speakers (stand-in "
+                      f"encoder): kernel launches {got}")
+                if got != per_request[task]:
+                    fail(f"predict_batch({n}) {task} with the stand-in "
+                         f"launched {got}, expected {per_request[task]}")
+                check_results(res, n, f"predict_batch {task} stand-in ({n})")
+                for k, v in got.items():
+                    launches[k] += v
+                counted = _counts(rnn_cuda)
+                times = []
+                for _ in range(6):
+                    t0 = time.perf_counter()
+                    predictor.predict_batch(*req)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                latency[(task, n)] = statistics.median(times[1:])
+                _set_counts(rnn_cuda, counted)
+                n_chars = sum(len(t) for ts in texts[:n] for t in ts)
+                print(f"timing predict_batch {task} {n} speakers (stand-in "
+                      f"encoder, {n_chars} transcript characters, features "
+                      f"not cached): median {latency[(task, n)]:.2f} ms of 5 "
+                      f"warm (host clock) [{card}]")
+            if task == "text_clf":
+                counted = _counts(rnn_cuda)
+                with contextlib.redirect_stderr(io.StringIO()):
+                    cpu = Predictor.from_checkpoint(
+                        ckpt, task, device="cpu", feature_cache_entries=0,
+                        elmo_weights=None)
+                d = compare(res, cpu.predict_batch(*req),
+                            "predict_batch text_clf stand-in (8) vs CPU")
+                want = cpu.text_features(texts)
+                err = float(np.abs(predictor.text_features(texts) - want)
+                            .max() / np.abs(want).max())
+                _set_counts(rnn_cuda, counted)
+                print(f"predict_batch text_clf 8 speakers (stand-in encoder) "
+                      f"vs the same predictor on the CPU: max|dprob| = "
+                      f"{d:.3e} (tol {SLICE_TOL}); text features max|d| = "
+                      f"{err:.3e} of max|CPU| (tol {SLICE_TOL})")
+                if not err <= SLICE_TOL:
+                    fail(f"stand-in text features on the card differ from "
+                         f"the CPU's: {err}")
+    return launches, latency
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["lstmp"],
-                    help="lstmp: build the LSTMP kernels, run their checks, "
-                         "profile and yardsticks, and stop (no ok line)")
+    ap.add_argument("--only", choices=["lstm", "lstmp"],
+                    help="lstm / lstmp: build the LSTM / LSTMP kernels, run "
+                         "their checks, profile and yardsticks, and stop "
+                         "(no ok line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1605,7 +1849,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = (("lstmp_fwd", "lstmp_bwd") if args.only == "lstmp"
+    names = ((f"{args.only}_fwd", f"{args.only}_bwd") if args.only
              else tuple(COUNTERS))
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
@@ -1622,15 +1866,27 @@ def main(argv=None) -> int:
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
+    if args.only == "lstm":
+        lstm_kernel_phase(torch, rnn_cuda, card)
+        standin_times, cudnn, _ = standin_lstm_phase(torch, rnn_cuda, card)
+        lstm_profile_phase(torch, rnn_cuda, card)
+        library_phase(torch, card, only="lstm_fwd")
+        standin_summary(card, standin_times, cudnn)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
     lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
     lstmp_err, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda,
                                                    card)
     lstmp_profile_phase(torch, rnn_cuda, card)
-    standin_times = standin_lstm_phase(torch, rnn_cuda, card)
+    standin_times, cudnn, standin_err = standin_lstm_phase(torch, rnn_cuda,
+                                                           card)
+    lstm_profile_phase(torch, rnn_cuda, card)
     library = library_phase(torch, card)
     lstmp_summary(card, lstmp_times, library)
+    standin_summary(card, standin_times, cudnn)
     serve_launches, _ = slice_phase(torch, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
         corpus = Path(tmp) / "corpus"
@@ -1648,9 +1904,10 @@ def main(argv=None) -> int:
         launches, train = train_phase(torch, card, corpus, bundle)
         text_launches, text_latency = text_serving_phase(torch, card, bundle,
                                                          chars)
+    standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
-        launches[k] += v
+        launches[k] += v + standin_launches[k]
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if "jax" in sys.modules:
@@ -1675,8 +1932,8 @@ def main(argv=None) -> int:
     timed = {
         "gru_fwd": (kernel_times[TIMED_SHAPES[0]], err, "gru_fwd"),
         "gru_bwd": (bwd_times[BWD_TIMED[0]], bwd_err, "gru_bwd"),
-        "lstm_fwd": (lstm_times[LSTM_TIMED[0]]["fwd"], lstm_err["fwd"],
-                     "lstm_fwd"),
+        "lstm_fwd": (lstm_times[LSTM_TIMED[0]]["fwd"],
+                     max(lstm_err["fwd"], standin_err), "lstm_fwd"),
         "lstm_bwd": (lstm_times[LSTM_TIMED[0]]["bwd"], lstm_err["bwd"],
                      "lstm_bwd"),
         "lstmp_fwd": (lstmp_times[LSTMP_TIMED[0]]["fwd"], lstmp_err["fwd"],

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from icassp2022_depression_tpu_torch.models import char_cnn, elmo
+from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 #: upstream create_one_batch reads ('<eow>', '<bow>', ...) into
 #: (bow_id, eow_id, ...): markers swapped, reproduced for fidelity
@@ -306,9 +307,11 @@ def save_npz(path, pe: PretrainedElmo) -> None:
     np.savez(path, __meta__=np.asarray(json.dumps(meta)), **arrays)
 
 
-def load_npz(path, device="cpu") -> PretrainedElmo:
-    """Read a bundle written by either package; parameters on
-    ``device``."""
+def load_npz(path, device=None) -> PretrainedElmo:
+    """Read a bundle written by either package; parameters on ``device``
+    (default: the card, and an error without one, as
+    :func:`..utils.device.resolve_device` decides)."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
         flat = {k: z[k] for k in z.files if k != "__meta__"}

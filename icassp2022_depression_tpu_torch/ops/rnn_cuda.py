@@ -62,7 +62,7 @@ LSTMP_BWD_LAUNCHES = 0
 #: arguments), then the stream
 _ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 3, 0),
             "gru_bwd": ("gru_seq_bwd_f32", 9, 3, 0),
-            "lstm_fwd": ("lstm_seq_fwd_f32", 5, 3, 0),
+            "lstm_fwd": ("lstm_seq_fwd_f32", 5, 5, 0),
             "lstm_bwd": ("lstm_seq_bwd_f32", 10, 3, 0),
             "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
             "lstmp_bwd": ("lstmp_seq_bwd_f32", 15, 4, 2)}
@@ -325,11 +325,58 @@ def lstm_sequence_bwd_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
     return dxp, dw, db.reshape(1, g)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: the step route's tiles (cells, rows) that ``csrc/lstm_fwd.cu`` compiles
+LSTM_FWD_TILES = ((4, 8), (4, 16), (4, 24), (4, 32), (32, 16), (32, 64))
+
+
+def lstm_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
+    """How ``csrc/lstm_fwd.cu`` runs one call: ``route`` "sequence" (one
+    launch, one block per row walking all T steps) or "step" (one launch a
+    step, ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B /
+    ``rows``) blocks, a tile of :data:`LSTM_FWD_TILES`).
+
+    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
+    copies), else "sequence": measured on an H100, the two routes' calls
+    taken in turns (``chip_smoke.py``, ``PERF.md`` section 6), the
+    step route was the faster at every shape of a main path, so there is
+    no crossover to set: 0.04-0.09 against 0.06-0.10 ms at the text
+    model's training and eval shapes (T, B, H) = (3, 2..24, 128), 0.70-1.32
+    against 2.83-2.96 ms at (256, 16, 128), 0.12-0.27 against 2.86-3.04
+    ms at the stand-in's (16, 8, 512), in four runs (only at a ragged
+    (7, 3, 100) the one-launch kernel was ahead, in two of them, by up to
+    0.016 ms).  One launch does not make up for each block re-reading all
+    of W_hh every step.
+
+    Step tiles: up to 64 rows, 4-cell slabs (128 blocks at H = 512) and the
+    rows in at most 32-row tiles padded to a multiple of 8; up to 128 rows,
+    32 x 16 tiles (112 blocks at B = 112); above, 32 x 64 tiles (128 blocks
+    at B = 488, where the flops bound the step)."""
+    if route == "auto":
+        route = "sequence" if hidden % 4 else "step"
+    if route == "sequence":
+        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
+                "row_tiles": batch}
+    if route != "step" or hidden % 4:
+        raise ValueError(f"lstm_fwd_plan: no route {route!r} for H={hidden}")
+    if batch <= 64:
+        cells, rows = 4, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
+    else:
+        cells, rows = 32, 16 if batch <= 128 else 64
+    return {"route": route, "cells": cells, "rows": rows,
+            "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows)}
+
+
 def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
-                  b_hh: torch.Tensor):
+                  b_hh: torch.Tensor, plan: dict | None = None):
     """xp [T, B, 4H], w_hh_t [H, 4H], b_hh [1, 4H] (or [4H]) -> (ys, cs),
-    each [T, B, H].  As :func:`gru_sequence`, a CUDA input that requires
-    grad raises: gradients go through :class:`LSTMSequence`."""
+    each [T, B, H].  ``plan``: a :func:`lstm_fwd_plan` for the kernel, by
+    default the one it picks for (B, H).  As :func:`gru_sequence`, a CUDA
+    input that requires grad raises: gradients go through
+    :class:`LSTMSequence`."""
     if xp.device.type == "cpu":
         return lstm_sequence_torch(xp, w_hh_t, b_hh)
     if xp.device.type != "cuda":
@@ -348,12 +395,14 @@ def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
     cs = torch.empty_like(ys)
     if ys.numel() == 0:
         return ys, cs
+    if plan is None:
+        plan = lstm_fwd_plan(batch, hidden)
     fn = _kernel("lstm_fwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
                  ys.data_ptr(), cs.data_ptr(), t_steps, batch, hidden,
-                 stream)
+                 plan["cells"], plan["rows"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_seq_fwd_f32 launch failed: cudaError {err}")
     global LSTM_LAUNCHES
@@ -546,16 +595,13 @@ def lstmp_fwd_plan(batch: int, c_dim: int, p_dim: int) -> dict:
     above, 64 x 64 tiles (128 blocks at B = 128, where the flops bound
     the step).  The scratch is B / cells times ``w_p_t``'s size: at most
     twice it for B <= 128."""
-    def cdiv(a: int, b: int) -> int:
-        return -(-a // b)
-
     if batch > 64:
         cells, rows = 64, 64
     else:
-        cells, rows = 32, 8 * cdiv(cdiv(batch, cdiv(batch, 32)), 8)
-    slabs = cdiv(c_dim, cells)
+        cells, rows = 32, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
+    slabs = _cdiv(c_dim, cells)
     return {"cells": cells, "rows": rows, "slabs": slabs,
-            "row_tiles": cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
+            "row_tiles": _cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
 
 
 def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,

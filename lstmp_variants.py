@@ -58,17 +58,21 @@ VARIANTS = {
 }
 
 
-def build(name: str):
+def compile_variant(source: Path, name: str, replacements, out: Path):
+    """``source`` with each (text, replacement) of ``replacements`` applied
+    (failing if one does not apply), built with the package's ``nvcc``
+    flags into ``out/lib<name>.so``: (the library, the compiler's register
+    and spill lines)."""
     from icassp2022_depression_tpu_torch import _build
 
-    src = (CSRC / "lstmp_fwd.cu").read_text()
-    for old, new in VARIANTS[name]:
+    src = source.read_text()
+    for old, new in replacements:
         if old not in src:
             raise RuntimeError(f"variant {name}: {old!r} not in the source")
         src = src.replace(old, new)
-    cu = OUT / f"{name}.cu"
+    cu = out / f"{name}.cu"
     cu.write_text(src)
-    so = OUT / f"lib{name}.so"
+    so = out / f"lib{name}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
                            str(so), str(cu)], capture_output=True, text=True)
     if proc.returncode:
@@ -78,6 +82,10 @@ def build(name: str):
               + proc.stderr.splitlines()
               if "registers" in line or "spill" in line]
     return so, report
+
+
+def build(name: str):
+    return compile_variant(CSRC / "lstmp_fwd.cu", name, VARIANTS[name], OUT)
 
 
 def main(argv) -> int:

@@ -6,6 +6,8 @@ compare two commits on one card):
 
     python3 serve_ab.py PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --task fuse_clf PARENT_DIR . . PARENT_DIR
+    python3 serve_ab.py --task text_clf --standin PARENT_DIR . . PARENT_DIR
+    python3 serve_ab.py --lstm PARENT_DIR . . PARENT_DIR
 
 Each process imports ``icassp2022_depression_tpu_torch`` from its
 checkout, builds that checkout's kernels, writes a synthetic corpus of
@@ -18,9 +20,18 @@ a zhs-geometry ELMo bundle that the checkout's ``chip_smoke.seeded_bundle``
 draws on the card (the same weights in every checkout), named by
 ``ICASSP_ELMO_WEIGHTS``, and serve 3 transcripts of 20-120 CJK characters
 per speaker from a seeded vocabulary (up to 128 tokens a sentence).
+With ``--standin`` they embed with the seeded stand-in encoder instead
+(``elmo_weights=None``, the text path of a machine without a bundle), and
+the vocabulary is the corpus's characters.
 Prints the card's name and power limit, one JSON line per run, then per
 checkout the median and quartiles of its runs' latencies, and the largest
 difference of the 8 speakers' probabilities between the runs.
+
+``--lstm`` times the checkout's LSTM forward kernel instead
+(``rnn_cuda.lstm_sequence`` with the checkout's own choice of route) at
+``LSTM_AB_SHAPES``, the text model's and the stand-in encoder's, on the
+same seeded inputs in every checkout: CUDA events, the median of 50 calls
+(10 above 4096 rows x steps), after 3 warm-up calls.
 """
 
 from __future__ import annotations
@@ -34,12 +45,51 @@ import time
 from pathlib import Path
 
 REPS = 20
+#: (T, B, H): the text model's training shapes and one the JAX package
+#: would stream (chip_smoke.LSTM_TIMED), then the stand-in encoder's
+#: (chip_smoke.STANDIN_LSTM_SHAPES)
+LSTM_AB_SHAPES = ((3, 4, 128), (3, 2, 128), (256, 16, 128), (16, 8, 512),
+                  (128, 24, 512), (16, 112, 512), (128, 488, 512))
 
 
-def _checkpoint(torch, task: str, tmp: Path, chars: str):
+def lstm_times(checkout: Path) -> dict:
+    """ms of the checkout's ``lstm_sequence`` at each ``LSTM_AB_SHAPES``."""
+    sys.path.insert(0, str(checkout))
+    import torch
+
+    import icassp2022_depression_tpu_torch as pkg
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+    if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
+        raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
+    out = {"checkout": str(checkout), "task": "lstm_fwd"}
+    gen = torch.Generator().manual_seed(5)
+    for t, b, h in LSTM_AB_SHAPES:
+        xp = torch.randn((t, b, 4 * h), generator=gen).cuda()
+        w = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
+             * h ** -0.5).cuda()
+        bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
+                * h ** -0.5).cuda()
+        for _ in range(3):
+            rnn_cuda.lstm_sequence(xp, w, bias)
+        times = []
+        for _ in range(50 if t * b <= 4096 else 10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rnn_cuda.lstm_sequence(xp, w, bias)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"ms_{t}x{b}x{h}"] = statistics.median(times)
+    return out
+
+
+def _checkpoint(torch, task: str, tmp: Path, chars: str, standin: bool):
     """A full-width ``task`` checkpoint with seeded weights; for the text
-    tasks also the seeded bundle (set as ``ICASSP_ELMO_WEIGHTS``) and the
-    characters its lexicon holds."""
+    tasks also the characters to draw transcripts from, and unless
+    ``standin``, the seeded bundle (set as ``ICASSP_ELMO_WEIGHTS``) whose
+    lexicon holds them."""
     import os
 
     from icassp2022_depression_tpu_torch import config as C
@@ -56,13 +106,18 @@ def _checkpoint(torch, task: str, tmp: Path, chars: str):
             tmp / task,
             porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
             {"task": task}), None
-    import chip_smoke
+    if standin:
+        lexicon = sorted(set(chars))
+        meta = {"task": task, "text_embedder": "prng:seed=0",
+                "text_segmenter": "fallback"}
+    else:
+        import chip_smoke
 
-    bundle, lexicon = chip_smoke.seeded_bundle(
-        torch, tmp / "elmo_zhs_seeded.npz", chars)
-    os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
-    meta = {"task": task, "text_embedder": chip_smoke.bundle_id(bundle),
-            "text_segmenter": "fallback"}
+        bundle, lexicon = chip_smoke.seeded_bundle(
+            torch, tmp / "elmo_zhs_seeded.npz", chars)
+        os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
+        meta = {"task": task, "text_embedder": chip_smoke.bundle_id(bundle),
+                "text_segmenter": "fallback"}
     gen = torch.Generator().manual_seed(6)
     if task == "fuse_clf":
         tree = porting.fusion_tree_from_state_dict(
@@ -73,7 +128,7 @@ def _checkpoint(torch, task: str, tmp: Path, chars: str):
     return checkpoints.save(tmp / task, tree, meta), lexicon
 
 
-def one(checkout: Path, task: str) -> dict:
+def one(checkout: Path, task: str, standin: bool) -> dict:
     sys.path.insert(0, str(checkout))
     import contextlib
     import io
@@ -87,18 +142,20 @@ def one(checkout: Path, task: str) -> dict:
 
     if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
         raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
-    out = {"checkout": str(checkout), "task": task}
+    out = {"checkout": str(checkout), "task": task, "standin": standin}
     with tempfile.TemporaryDirectory(prefix="serve_ab_") as tmp:
         root = Path(tmp) / "corpus"
         eatd.make_synthetic_corpus(root, n_data=8, n_validation=4,
                                    seconds=(2.0, 12.0), seed=0)
         chars = "".join(ch for sp in eatd.iter_speakers(root, read_text=True)
                         for t in sp.texts for ch in t if not ch.isspace())
-        ckpt, lexicon = _checkpoint(torch, task, Path(tmp), chars)
+        ckpt, lexicon = _checkpoint(torch, task, Path(tmp), chars, standin)
         speakers = list(eatd.iter_speakers(root, read_text=False))
+        kw = {"elmo_weights": None} if standin else {}
         with contextlib.redirect_stderr(io.StringIO()):
             predictor = Predictor.from_checkpoint(ckpt, task, device="cuda",
-                                                  feature_cache_entries=0)
+                                                  feature_cache_entries=0,
+                                                  **kw)
         rng = np.random.default_rng(7)
         for n in (1, 8):
             req = ([s.waveforms for s in speakers[:n]],
@@ -125,13 +182,22 @@ def one(checkout: Path, task: str) -> dict:
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(Path(argv[1]), argv[2])))
+        print(json.dumps(one(Path(argv[1]), argv[2], argv[3] == "standin")))
         return 0
+    if argv[:1] == ["--one-lstm"]:
+        print(json.dumps(lstm_times(Path(argv[1]))))
+        return 0
+    lstm = argv[:1] == ["--lstm"]
+    argv = argv[1:] if lstm else argv
     task = "audio_clf"
     if argv[:1] == ["--task"]:
         task, argv = argv[1], argv[2:]
-    if task not in ("audio_clf", "fuse_clf", "text_clf"):
-        print(f"serve_ab: unknown task {task}", file=sys.stderr)
+    standin = argv[:1] == ["--standin"]
+    argv = argv[1:] if standin else argv
+    if task not in ("audio_clf", "fuse_clf", "text_clf") or (
+            standin and task == "audio_clf"):
+        print(f"serve_ab: unknown task {task}, or --standin without a text "
+              f"task", file=sys.stderr)
         return 1
     import torch
 
@@ -146,17 +212,26 @@ def main(argv) -> int:
     print(card)
     runs = []
     for checkout in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", checkout,
-                               task], capture_output=True, text=True,
-                              check=True)
+        cmd = (["--one-lstm", checkout] if lstm else
+               ["--one", checkout, task, "standin" if standin else "bundle"])
+        proc = subprocess.run([sys.executable, __file__, *cmd],
+                              capture_output=True, text=True, check=True)
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         r = runs[-1]
         print(json.dumps({k: v for k, v in r.items() if k != "probs_8"}
                          | {"card": card}))
+    if lstm:
+        for checkout in dict.fromkeys(argv):
+            mine = [r for r in runs if r["checkout"] == checkout]
+            print(json.dumps({"checkout": checkout, "task": "lstm_fwd",
+                              "runs": len(mine), "card": card} | {
+                k: statistics.median(r[k] for r in mine)
+                for k in mine[0] if k.startswith("ms_")}))
+        return 0
     for checkout in dict.fromkeys(argv):
         mine = [r for r in runs if r["checkout"] == checkout]
-        summary = {"checkout": checkout, "task": task, "runs": len(mine),
-                   "card": card}
+        summary = {"checkout": checkout, "task": task, "standin": standin,
+                   "runs": len(mine), "card": card}
         for n in (1, 8):
             ms = sorted(r[f"ms_{n}"] for r in mine)
             summary[f"median_ms_{n}"] = statistics.median(ms)

@@ -191,12 +191,24 @@ def _ids(seed, rows, t, vocab):
     return ids, lengths
 
 
-@pytest.mark.parametrize("kind", ["standin", "lstmp"])
+@pytest.mark.parametrize("kind", ["standin", "lstmp", "standin_full"])
 def test_encoders_match_jax(kind):
     """Both hashed-id encoders on ragged rows, the JAX weights carried
-    across by :func:`porting.elmo_tree_from_jax`."""
+    across by :func:`porting.elmo_tree_from_jax`.  ``standin_full``: the
+    stand-in at its default widths (embed 256, hidden 512, 2 layers), the
+    encoder a text path runs without an ELMo bundle, on 8 rows of up to 16
+    tokens."""
     ids, lengths = _ids(1, 5, 7, 50)
-    if kind == "standin":
+    if kind == "standin_full":
+        jcfg, cfg = jelmo.ElmoConfig(), elmo.ElmoConfig()
+        ids, lengths = _ids(2, 8, 16, cfg.vocab_size)
+        params = jelmo.init(jax.random.PRNGKey(5), jcfg)
+        want = jelmo.encode(params, jnp.asarray(ids), jnp.asarray(lengths),
+                            jcfg)
+        got = elmo.encode(porting.elmo_tree_from_jax(params),
+                          torch.from_numpy(ids).long(),
+                          torch.from_numpy(lengths).long(), cfg)
+    elif kind == "standin":
         jcfg = jelmo.ElmoConfig(vocab_size=50, embed_dim=12, hidden=8)
         cfg = elmo.ElmoConfig(vocab_size=50, embed_dim=12, hidden=8)
         params = jelmo.init(jax.random.PRNGKey(3), jcfg)
@@ -253,7 +265,7 @@ def test_bundle_cross_loads(model_dir, tmp_path):
     tpre.save_npz(tmp_path / "port.npz", pe)
     jpre.save_npz(tmp_path / "jax.npz", je)
     from_port = jpre.load_npz(tmp_path / "port.npz")
-    from_jax = tpre.load_npz(tmp_path / "jax.npz")
+    from_jax = tpre.load_npz(tmp_path / "jax.npz", "cpu")
     assert from_port.char_cfg == je.char_cfg
     assert from_port.lstmp_cfg == je.lstmp_cfg
     assert from_jax.char_cfg == pe.char_cfg
@@ -266,6 +278,15 @@ def test_bundle_cross_loads(model_dir, tmp_path):
     _tree_close(from_jax.enc_params, je.enc_params, exact=True)
     _tree_close(from_jax.embed_sentences(SENTS),
                 np.asarray(from_port.embed_sentences(SENTS)))
+
+
+def test_load_npz_defaults_to_the_card(model_dir, tmp_path, monkeypatch):
+    """Without a device, ``load_npz`` takes the card, and without a card it
+    raises, naming the CPU option, instead of returning CPU tensors."""
+    tpre.save_npz(tmp_path / "b.npz", tpre.convert_model_dir(model_dir))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tpre.load_npz(tmp_path / "b.npz")
 
 
 def test_default_weights_path_reads_the_env(tmp_path, monkeypatch):

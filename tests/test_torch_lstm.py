@@ -185,3 +185,51 @@ def test_lstm_wrappers_use_plain_versions_on_cpu():
         trnn.lstm_layer({"w_ih": torch.zeros(32, 4), "w_hh": w,
                          "b_ih": torch.zeros(32), "b_hh": torch.zeros(32)},
                         torch.zeros(2, 3, 4), backend="cuda")
+
+
+@pytest.mark.parametrize("b,h", [(8, 512), (24, 512), (112, 512),
+                                 (488, 512), (3, 512), (48, 512), (200, 512),
+                                 (4, 128), (2, 128), (24, 128), (16, 128),
+                                 (3, 100), (8, 102)])
+def test_lstm_fwd_plan_covers_every_cell_once(b, h):
+    """The forward kernel's plan (``rnn_cuda.lstm_fwd_plan``): at the
+    stand-in's H = 512 (served, extraction and ragged batches) and the text
+    model's H = 128 (training, eval and streamed batches) a step tile that
+    the C entry compiles, slabs and row tiles that cover every cell and row
+    exactly once, at least 100 blocks at the stand-in's served and
+    extraction shapes; at an H the 16-byte copies cannot take, the
+    one-launch route, one block per row."""
+    import re
+
+    from icassp2022_depression_tpu_torch import _build
+
+    compiled = {tuple(map(int, m)) for m in re.findall(
+        r"^  LSTM_FWD_TILE\((\d+), (\d+), \d+\)$",
+        (_build.CSRC / "lstm_fwd.cu").read_text(), re.M)}
+    assert compiled == set(rnn_cuda.LSTM_FWD_TILES)
+    plan = rnn_cuda.lstm_fwd_plan(b, h)
+    if h % 4:
+        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
+                        "slabs": 1, "row_tiles": b}
+        return
+    assert plan["route"] == "step"
+    cells, rows = plan["cells"], plan["rows"]
+    assert (cells, rows) in compiled
+    cover_h, cover_b = np.zeros(h, int), np.zeros(b, int)
+    for s in range(plan["slabs"]):
+        assert s * cells < h                 # no empty slab
+        cover_h[s * cells:(s + 1) * cells] += 1
+    for r in range(plan["row_tiles"]):
+        assert r * rows < b                  # no empty row tile
+        cover_b[r * rows:(r + 1) * rows] += 1
+    assert (cover_h == 1).all() and (cover_b == 1).all()
+    if h == 512 and b in (8, 24, 112, 488):
+        assert plan["slabs"] * plan["row_tiles"] >= 100
+    assert rnn_cuda.lstm_fwd_plan(b, h, "sequence")["route"] == "sequence"
+
+
+def test_lstm_fwd_plan_refuses_what_no_route_takes():
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.lstm_fwd_plan(8, 102, "step")
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.lstm_fwd_plan(8, 512, "persistent")
