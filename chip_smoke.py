@@ -7,13 +7,18 @@ training paths of both tracks, at full width.
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
     python3 chip_smoke.py --only lstm   # the LSTM kernels alone, no ok line
+    python3 chip_smoke.py --only gru    # the GRU kernels alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings, the LSTMP profile and the LSTMP yardsticks, prints their
 lines and stops: the quick loop for work on those kernels.  ``--only
 lstm`` does the same for the two LSTM sources: phase 2's LSTM checks and
 timings at the text model's H = 128 and at the stand-in encoder's H = 512
-(both routes of the forward), its profile and its cuDNN yardsticks.
+(both routes of the forward and of the backward), the profiles of the
+forward and of the backward at (256, 16, 128), and the cuDNN yardsticks.
+``--only gru`` does the same for the two GRU sources: the forward's and
+both backward routes' checks and timings, the backward's profile at
+(3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -38,13 +43,19 @@ Phases (each raises on failure, so the exit code is nonzero):
    (not checked); the LSTM forward through both of its routes (one
    launch, or one launch a step) at every LSTM shape and at the stand-in
    text encoder's H = 512 ((T, B) = (16, 8), (128, 24), (16, 112),
-   (128, 488)), within 1e-5, reruns bitwise equal; timed with CUDA
+   (128, 488)), and the GRU and LSTM backwards through both of theirs
+   (two launches, or one a step between a gate recompute and a weight
+   product) at every GRU and LSTM shape, within 1e-5, reruns bitwise
+   equal, the backward's routes, plain loop and cuDNN timed in turns at
+   each timed shape with its bound; timed with CUDA
    events, beside the nearest PyTorch call (cuDNN ``nn.GRU`` /
    ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both directions, and
    ``nn.LSTM(512, 512)`` at every stand-in shape); the forward wrappers
    must refuse a CUDA input that requires grad; one LSTMP forward call at
-   (16, 8) and at (128, 24), and one LSTM forward call at the stand-in's
-   (16, 8) and (128, 488), under ``torch.profiler``, device time split by
+   (16, 8) and at (128, 24), one LSTM forward call at the stand-in's
+   (16, 8) and (128, 488), one GRU backward call at (3, 8, 256) and
+   (256, 16, 256) and one LSTM backward call at (256, 16, 128), under
+   ``torch.profiler``, device time split by
    kernel name and the gaps between launches; the LSTMP forward and the
    stand-in's LSTM forward beside the plain loop, cuDNN and the bound at
    each timed shape;
@@ -160,6 +171,10 @@ STANDIN_LSTM_SHAPES = ((16, 8, 512), (128, 24, 512), (16, 112, 512),
                        (128, 488, 512))
 #: the stand-in shapes whose LSTM forward is profiled
 STANDIN_PROFILED = ((16, 8, 512), (128, 488, 512))
+#: the backward calls profiled: the GRU at the audio_clf training shape and
+#: at one the JAX package would stream, the LSTM at the streamed shape
+GRU_BWD_PROFILED = ((3, 8, 256), (256, 16, 256))
+LSTM_BWD_PROFILED = ((256, 16, 128),)
 #: the data sheet's peaks of one H100 SXM at 700 W (fp32 without tensor
 #: cores, HBM3), for each kernel's bound
 PEAK_FP32_FLOPS = 67e12
@@ -378,40 +393,25 @@ def slice_phase(torch, card: str):
 
 
 def bwd_kernel_phase(torch, rnn_cuda, card: str):
-    """The backward kernel against its plain version; returns the worst
-    |d dxp| and the (kernel, plain) ms at the timed shapes."""
+    """The GRU backward kernel through both routes against its plain
+    version at every ``BWD_SHAPES`` entry; then, at each ``BWD_TIMED``
+    shape, both routes, the plain loop and cuDNN timed in turns.  Returns
+    the worst |d dxp| and the (kernel through the plan's route, plain) ms
+    at the timed shapes."""
     worst = 0.0
     gen = torch.Generator().manual_seed(1)
     inputs = {}
     for t, b, h in BWD_SHAPES:
-        bound = h ** -0.5
-        xp = torch.randn((t, b, 3 * h), generator=gen).cuda()
-        w = ((torch.rand((h, 3 * h), generator=gen) * 2 - 1) * bound).cuda()
-        bias = ((torch.rand((1, 3 * h), generator=gen) * 2 - 1)
-                * bound).cuda()
-        ys = rnn_cuda.gru_sequence_torch(xp, w, bias)
-        dys = torch.randn((t, b, h), generator=gen).cuda()
-        got = rnn_cuda.gru_sequence_bwd(xp, w, bias, ys, dys)
-        ref = rnn_cuda.gru_sequence_bwd_torch(xp, w, bias, ys, dys)
-        again = rnn_cuda.gru_sequence_bwd(xp, w, bias, ys, dys)
-        torch.cuda.synchronize()
-        shapes = ((t, b, 3 * h), (h, 3 * h), (1, 3 * h))
-        for g, want in zip(got, shapes):
-            if tuple(g.shape) != want or not torch.isfinite(g).all():
-                fail(f"backward kernel output at {(t, b, h)} is malformed")
-        err = (got[0] - ref[0]).abs().max().item()
-        rel = [((g - r).abs().max() / r.abs().max()).item()
-               for g, r in zip(got[1:], ref[1:])]
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
-        print(f"kernel gru_bwd T={t} B={b} H={h}: max|d dxp| = {err:.3e} "
-              f"(tol {KERNEL_TOL}), dw rel {rel[0]:.3e}, db rel "
-              f"{rel[1]:.3e} (tol {KERNEL_TOL} of max|ref|), rerun "
-              f"bitwise equal: {same}")
-        if not (err <= KERNEL_TOL and max(rel) <= KERNEL_TOL and same):
-            fail(f"GRU backward kernel disagrees with its plain version "
-                 f"at {(t, b, h)}: dxp {err}, dw/db {rel}, rerun {same}")
-        worst = max(worst, err)
-        inputs[(t, b, h)] = (xp, w, bias, ys, dys)
+        args = _bwd_inputs(torch, rnn_cuda, gen, "gru", t, b, h)
+        ref = rnn_cuda.gru_sequence_bwd_torch(*args)
+        routes = bwd_routes(torch, rnn_cuda, "gru", args, ref, (t, b, h))
+        print(f"kernel gru_bwd T={t} B={b} H={h}: " + ", ".join(
+            f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun bitwise "
+            f"equal {same}" for r, (e, rel, same) in routes.items())
+              + f" (tol {KERNEL_TOL}; dw, db of max|ref|)")
+        worst = max([worst] + [e for e, _, _ in routes.values()])
+        inputs[(t, b, h)] = args
+    xp, w, bias = inputs[BWD_SHAPES[-1]][:3]
     try:
         rnn_cuda.gru_sequence(xp.clone().requires_grad_(), w, bias)
     except ValueError:
@@ -419,20 +419,85 @@ def bwd_kernel_phase(torch, rnn_cuda, card: str):
     else:
         fail("gru_sequence returned a detached result for an input that "
              "requires grad")
-    timings = {}
-    for shape in BWD_TIMED:
-        args = inputs[shape]
-        for _ in range(5):
-            rnn_cuda.gru_sequence_bwd(*args)
-            rnn_cuda.gru_sequence_bwd_torch(*args)
-        ms = event_ms(lambda: rnn_cuda.gru_sequence_bwd(*args), 50, torch)
-        plain = event_ms(lambda: rnn_cuda.gru_sequence_bwd_torch(*args), 50,
-                         torch)
-        timings[shape] = (ms, plain)
-        print(f"timing gru_bwd T={shape[0]} B={shape[1]} H={shape[2]}: "
-              f"cuda kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
-              f"(median of 50, CUDA events) [{card}]")
+    timings = {shape: bwd_turns(torch, rnn_cuda, "gru", inputs[shape], shape,
+                                card) for shape in BWD_TIMED}
     return worst, timings
+
+
+def bwd_routes(torch, rnn_cuda, cell: str, args, ref, shape) -> dict:
+    """The GRU or LSTM backward through each route of its plan (the step
+    route only where H is a multiple of 4) against the plain ``ref``:
+    {route: (max|d dxp|, max of dw, db's error relative to their largest
+    magnitude, rerun bitwise equal)}, failing past KERNEL_TOL or on a rerun
+    that differs."""
+    t, b, h = shape
+    g = (3 if cell == "gru" else 4) * h
+    plan_fn, bwd, _ = _bwd_fns(rnn_cuda, cell)
+    out = {}
+    for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]:
+        plan = plan_fn(b, h, route, steps=t)
+        got = bwd(*args, plan=plan)
+        again = bwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        for x, want in zip(got, ((t, b, g), (h, g), (1, g))):
+            if tuple(x.shape) != want or not torch.isfinite(x).all():
+                fail(f"{cell}_bwd ({route}) output at {shape} is malformed")
+        err = (got[0] - ref[0]).abs().max().item()
+        rel = max(((x - r).abs().max() / r.abs().max()).item()
+                  for x, r in zip(got[1:], ref[1:]))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not (err <= KERNEL_TOL and rel <= KERNEL_TOL and same):
+            fail(f"{cell} backward kernel ({route} route) disagrees with its "
+                 f"plain version at {shape}: dxp {err}, dw/db {rel}, rerun "
+                 f"bitwise equal {same}")
+        out[route] = (err, rel, same)
+    return out
+
+
+def _bwd_fns(rnn_cuda, cell: str) -> tuple:
+    """(plan, kernel wrapper, plain backward) of the GRU or LSTM."""
+    if cell == "gru":
+        return (rnn_cuda.gru_bwd_plan, rnn_cuda.gru_sequence_bwd,
+                rnn_cuda.gru_sequence_bwd_torch)
+    return (rnn_cuda.lstm_bwd_plan, rnn_cuda.lstm_sequence_bwd,
+            rnn_cuda.lstm_sequence_bwd_torch)
+
+
+def cudnn_bwd(torch, cell: str, t: int, b: int, h: int):
+    """A call of cuDNN's backward at (T, B, H): ``torch.autograd.grad``
+    through ``nn.GRU(h, h)`` / ``nn.LSTM(h, h)`` with respect to the input
+    and the weights (a yardstick used nowhere in the port)."""
+    mod = (torch.nn.GRU(h, h) if cell == "gru" else torch.nn.LSTM(h, h))
+    mod = mod.cuda()
+    x = torch.randn((t, b, h), device="cuda", requires_grad=True)
+    y, _ = mod(x)
+    dy = torch.randn_like(y)
+    wrt = [x, *mod.parameters()]
+    return lambda: torch.autograd.grad(y, wrt, dy, retain_graph=True)
+
+
+def bwd_turns(torch, rnn_cuda, cell: str, args, shape, card: str) -> tuple:
+    """Both routes of the backward, the plain loop and cuDNN at ``shape``,
+    timed in turns; prints them with the bound and returns (the plan's
+    route ms, plain ms)."""
+    t, b, h = shape
+    plan_fn, bwd, plain = _bwd_fns(rnn_cuda, cell)
+    fns = {route: (lambda plan=plan_fn(b, h, route, steps=t):
+                   bwd(*args, plan=plan))
+           for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]}
+    fns["plain"] = lambda: plain(*args)
+    fns["cudnn"] = cudnn_bwd(torch, cell, t, b, h)
+    reps = 50 if t * b <= 512 else 20
+    ms = turns_ms(torch, fns, reps)
+    route = plan_fn(b, h, steps=t)["route"]
+    b_ms, by = rnn_bounds(cell, t, b, h)["bwd"]
+    print(f"timing {cell}_bwd T={t} B={b} H={h}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; the plan takes {route}; bound {b_ms:.6f} ms ({by}), "
+          f"{b_ms / ms[route]:.4f} of it; cuDNN {ms['cudnn'] / ms[route]:.2f}x "
+          f"the kernel's time (median of {reps} in turns, CUDA events) "
+          f"[{card}]")
+    return ms[route], ms["plain"]
 
 
 def lstm_routes(torch, rnn_cuda, args, ref, shape) -> dict:
@@ -482,10 +547,12 @@ def _route_fns(rnn_cuda, args, shape) -> dict:
 
 
 def lstm_kernel_phase(torch, rnn_cuda, card: str):
-    """Both LSTM kernels against their plain versions, the backward with a
-    nonzero cell-state cotangent, the forward through both of its routes
-    (timed in turns at every shape); returns the worst errors and the
-    (kernel, plain) ms of each at the timed shapes."""
+    """Both LSTM kernels against their plain versions, each through both of
+    its routes, the backward with a nonzero cell-state cotangent (the
+    forward's routes timed in turns at every shape, the backward's routes,
+    the plain loop and cuDNN at the timed shapes); returns the worst errors
+    and the (kernel through the plan's route, plain) ms of each at the
+    timed shapes."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator().manual_seed(2)
     inputs = {}
@@ -500,37 +567,31 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
         ys, cs = rnn_cuda.lstm_sequence(xp, w, bias)
         ref_ys, ref_cs = rnn_cuda.lstm_sequence_torch(xp, w, bias)
         args = (xp, w, bias, ref_ys, ref_cs, dys, dcs)
-        got = rnn_cuda.lstm_sequence_bwd(*args)
-        again = rnn_cuda.lstm_sequence_bwd(*args)
-        ref = rnn_cuda.lstm_sequence_bwd_torch(*args)
         torch.cuda.synchronize()
-        for g, want in zip((ys, cs) + got,
-                           ((t, b, h), (t, b, h), (t, b, 4 * h),
-                            (h, 4 * h), (1, 4 * h))):
-            if tuple(g.shape) != want or not torch.isfinite(g).all():
+        for g in (ys, cs):
+            if tuple(g.shape) != (t, b, h) or not torch.isfinite(g).all():
                 fail(f"LSTM kernel output at {(t, b, h)} is malformed")
         fwd = max((ys - ref_ys).abs().max().item(),
                   (cs - ref_cs).abs().max().item())
         routes = lstm_routes(torch, rnn_cuda, args[:3], (ref_ys, ref_cs),
                              (t, b, h))
         fwd = max([fwd] + [e for e, _ in routes.values()])
-        bwd = (got[0] - ref[0]).abs().max().item()
-        rel = [((g - r).abs().max() / r.abs().max()).item()
-               for g, r in zip(got[1:], ref[1:])]
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        by_route_bwd = bwd_routes(torch, rnn_cuda, "lstm", args,
+                                 rnn_cuda.lstm_sequence_bwd_torch(*args),
+                                 (t, b, h))
+        bwd = max(e for e, _, _ in by_route_bwd.values())
         print(f"kernel lstm_fwd/lstm_bwd T={t} B={b} H={h}: max|d ys|, "
               f"|d cs| = {fwd:.3e} (routes "
               + ", ".join(f"{r} {e:.3e}, rerun bitwise equal {sm}"
                           for r, (e, sm) in routes.items())
-              + f"), max|d dxp| = {bwd:.3e} (tol "
-              f"{KERNEL_TOL}), dw rel {rel[0]:.3e}, db rel {rel[1]:.3e} (tol "
-              f"{KERNEL_TOL} of max|ref|), dcs nonzero, rerun bitwise equal: "
-              f"{same}")
-        if not (fwd <= KERNEL_TOL and bwd <= KERNEL_TOL
-                and max(rel) <= KERNEL_TOL and same):
-            fail(f"LSTM kernels disagree with their plain versions at "
-                 f"{(t, b, h)}: fwd {fwd}, dxp {bwd}, dw/db {rel}, rerun "
-                 f"{same}")
+              + "); backward routes " + ", ".join(
+                  f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun "
+                  f"bitwise equal {same}"
+                  for r, (e, rel, same) in by_route_bwd.items())
+              + f" (tol {KERNEL_TOL}; dw, db of max|ref|), dcs nonzero")
+        if not fwd <= KERNEL_TOL:
+            fail(f"LSTM forward kernel disagrees with its plain version at "
+                 f"{(t, b, h)}: {fwd}")
         worst["fwd"] = max(worst["fwd"], fwd)
         worst["bwd"] = max(worst["bwd"], bwd)
         inputs[(t, b, h)] = args
@@ -547,21 +608,14 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
         for _ in range(5):
             rnn_cuda.lstm_sequence(*args[:3])
             rnn_cuda.lstm_sequence_torch(*args[:3])
-            rnn_cuda.lstm_sequence_bwd(*args)
-            rnn_cuda.lstm_sequence_bwd_torch(*args)
-        timings[shape] = {
-            "fwd": (event_ms(lambda: rnn_cuda.lstm_sequence(*args[:3]), 50,
-                             torch),
-                    event_ms(lambda: rnn_cuda.lstm_sequence_torch(*args[:3]),
-                             50, torch)),
-            "bwd": (event_ms(lambda: rnn_cuda.lstm_sequence_bwd(*args), 50,
-                             torch),
-                    event_ms(lambda: rnn_cuda.lstm_sequence_bwd_torch(*args),
-                             50, torch))}
-        for k, (ms, plain) in timings[shape].items():
-            print(f"timing lstm_{k} T={shape[0]} B={shape[1]} H={shape[2]}: "
-                  f"cuda kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
-                  f"(median of 50, CUDA events) [{card}]")
+        fwd = (event_ms(lambda: rnn_cuda.lstm_sequence(*args[:3]), 50, torch),
+               event_ms(lambda: rnn_cuda.lstm_sequence_torch(*args[:3]), 50,
+                        torch))
+        print(f"timing lstm_fwd T={shape[0]} B={shape[1]} H={shape[2]}: "
+              f"cuda kernel {fwd[0]:.4f} ms, plain torch {fwd[1]:.4f} ms "
+              f"(median of 50, CUDA events) [{card}]")
+        timings[shape] = {"fwd": fwd, "bwd": bwd_turns(
+            torch, rnn_cuda, "lstm", args, shape, card)}
     for shape in LSTM_SHAPES:
         by_route = turns_ms(
             torch, _route_fns(rnn_cuda, inputs[shape][:3], shape), 50)
@@ -794,6 +848,39 @@ def lstm_profile_phase(torch, rnn_cuda, card: str) -> dict:
     return out
 
 
+def _bwd_inputs(torch, rnn_cuda, gen, cell: str, t: int, b: int,
+                h: int) -> tuple:
+    """The backward's arguments at (T, B, H): xp standard normal, the
+    weights uniform within 1/sqrt(H), the plain forward's states, and
+    standard normal cotangents (``dcs`` too for the LSTM)."""
+    g = (3 if cell == "gru" else 4) * h
+    xp = torch.randn((t, b, g), generator=gen).cuda()
+    w = ((torch.rand((h, g), generator=gen) * 2 - 1) * h ** -0.5).cuda()
+    bias = ((torch.rand((1, g), generator=gen) * 2 - 1) * h ** -0.5).cuda()
+    dys = torch.randn((t, b, h), generator=gen).cuda()
+    if cell == "gru":
+        return xp, w, bias, rnn_cuda.gru_sequence_torch(xp, w, bias), dys
+    dcs = torch.randn((t, b, h), generator=gen).cuda()
+    ys, cs = rnn_cuda.lstm_sequence_torch(xp, w, bias)
+    return xp, w, bias, ys, cs, dys, dcs
+
+
+def bwd_profile_phase(torch, rnn_cuda, card: str, cells=("gru", "lstm")):
+    """One backward call at each ``GRU_BWD_PROFILED`` /
+    ``LSTM_BWD_PROFILED`` shape split by :func:`profile_split`."""
+    gen = torch.Generator().manual_seed(10)
+    out = {}
+    for cell in cells:
+        fn = _bwd_fns(rnn_cuda, cell)[1]
+        for t, b, h in (GRU_BWD_PROFILED if cell == "gru"
+                        else LSTM_BWD_PROFILED):
+            args = _bwd_inputs(torch, rnn_cuda, gen, cell, t, b, h)
+            out[(cell, t, b, h)] = profile_split(
+                torch, lambda: fn(*args), f"{cell}_bwd T={t} B={b} H={h}",
+                t, card)
+    return out
+
+
 def standin_lstm_phase(torch, rnn_cuda, card: str) -> tuple:
     """The LSTM forward kernel at the stand-in text encoder's H = 512
     (``STANDIN_LSTM_SHAPES``) against its plain version through both
@@ -851,14 +938,14 @@ def standin_summary(card: str, standin_times: dict, cudnn: dict) -> None:
               f"bound [{card}]")
 
 
-def library_phase(torch, card: str, only: str = "") -> dict:
+def library_phase(torch, card: str, only=("",)) -> dict:
     """The nearest PyTorch call to each kernel, timed as a yardstick and
     used nowhere in the port: cuDNN's ``nn.GRU`` / ``nn.LSTM`` (they also
     do the input projection the kernels take ready-made) and
     ``nn.LSTM(proj_size=...)`` for the LSTMP cell (no +-3 clips).  The
     backwards are ``torch.autograd.grad`` of the forward's output with
     respect to the input and the weights.  ``only``: the names that start
-    with it."""
+    with it (a prefix, or a tuple of prefixes)."""
     (t1, b1, c1, p1), (t2, b2, c2, p2), (t3, b3, c3, p3) = LSTMP_TIMED
     shapes = {"gru_fwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd": ("gru",) + BWD_TIMED[0] + (None,),
@@ -1821,10 +1908,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["lstm", "lstmp"],
-                    help="lstm / lstmp: build the LSTM / LSTMP kernels, run "
-                         "their checks, profile and yardsticks, and stop "
-                         "(no ok line)")
+    ap.add_argument("--only", choices=["gru", "lstm", "lstmp"],
+                    help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
+                         "kernels, run their checks, profiles and "
+                         "yardsticks, and stop (no ok line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1866,11 +1953,20 @@ def main(argv=None) -> int:
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
+    if args.only == "gru":
+        kernel_phase(torch, rnn_cuda, card)
+        bwd_kernel_phase(torch, rnn_cuda, card)
+        bwd_profile_phase(torch, rnn_cuda, card, ("gru",))
+        library_phase(torch, card, only="gru")
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
     if args.only == "lstm":
         lstm_kernel_phase(torch, rnn_cuda, card)
         standin_times, cudnn, _ = standin_lstm_phase(torch, rnn_cuda, card)
         lstm_profile_phase(torch, rnn_cuda, card)
-        library_phase(torch, card, only="lstm_fwd")
+        bwd_profile_phase(torch, rnn_cuda, card, ("lstm",))
+        library_phase(torch, card, only=("lstm_fwd", "lstm_bwd"))
         standin_summary(card, standin_times, cudnn)
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
@@ -1884,6 +1980,7 @@ def main(argv=None) -> int:
     standin_times, cudnn, standin_err = standin_lstm_phase(torch, rnn_cuda,
                                                            card)
     lstm_profile_phase(torch, rnn_cuda, card)
+    bwd_profile_phase(torch, rnn_cuda, card)
     library = library_phase(torch, card)
     lstmp_summary(card, lstmp_times, library)
     standin_summary(card, standin_times, cudnn)

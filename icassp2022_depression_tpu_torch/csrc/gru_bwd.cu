@@ -5,8 +5,8 @@
 // `_bwd_rule` at :108-128) and its streamed twin `_gru_stream_bwd_kernel`
 // (:174-219, launched by `_stream_bwd_rule` at :275-307).  The TPU needed
 // the streamed twin only because the single-block kernel keeps all T steps
-// in VMEM; a CUDA block walks any T in a loop with O(H) shared memory, so
-// this one kernel is the counterpart of both.
+// in VMEM; neither route here keeps more than one step on chip, so this
+// file is the counterpart of both.
 //
 // Same contract: zero initial state, torch gate order r, z, n, the gates
 // recomputed from the saved hidden states (recompute, not store).  Walking
@@ -20,40 +20,76 @@
 //   carry    = dh z + [ds_r, ds_z, dhn] . w_hh_t^T
 //   dW_hh^T += h_prev^T [ds_r, ds_z, dhn];  db_hh += sum_b [ds_r, ds_z, dhn]
 //
+// dxp carries ds_n, while the carry and dW take dhn = ds_n r: the two gate
+// vectors differ in their third part, and [ds_r, ds_z, dhn] is kept apart
+// in `dgates_h`.
+//
 // Layouts: xp, dxp, dgates_h [T, B, 3H]; w_hh_t, dw [H, 3H] (W_hh
 // transposed); b_hh, db [3H]; ys, dys [T, B, H]; all contiguous.
 //
-// Design.  Two launches on one stream.
-//   1. `gru_bwd_recurrence_kernel`: one block per batch row walks all T
-//      steps in reverse, as the forward kernel does.  h_prev, hp, the carry
-//      and the step's [ds_r, ds_z, dhn] live in shared memory (8H floats).
-//      hp is one column per thread (neighbouring threads read neighbouring
-//      columns of w_hh_t, so the loads coalesce).  The carry product
-//      reads row k of w_hh_t for output k: one warp per k, lanes over the
-//      3H columns, a shuffle reduction.  It writes dxp and the per-step
-//      [ds_r, ds_z, dhn] into the dgates_h scratch.
-//   2. `gru_bwd_weights_kernel`: dW_hh^T[k, j] = sum_{t,b} h_prev[t,b,k]
-//      dgates_h[t,b,j] and db_hh[j] = sum_{t,b} dgates_h[t,b,j], one thread
-//      per output, summed in a fixed (t, b) order with no atomics, so
-//      reruns are bitwise equal.
+// What bounds it.  A step does 4 B H 3H flops (the gate recompute and the
+// carry product) and the weight gradient 2 B H 3H more: 6 T B H 3H for the
+// call, 0.072 ms of fp32 FMAs at (T, B, H) = (256, 16, 256), 0.0004 ms at
+// audio_clf's training shape (3, 8, 256), where the bytes (0.0005 ms) bound
+// it.  Only the carry product is sequential in t, so the step's latency
+// bounds the call: each step must spread w_hh_t (768 KB at H = 256) and its
+// B x 3H carry operand over many SMs and finish.
 //
-// What bounds it.  As in the forward (gru_fwd.cu), w_hh_t is 768 KB at
-// H = 256, more than one block's shared memory, so every step of every
-// block reads it through L2 twice (hp and the carry): B SMs of 132 busy,
-// each streaming 1.5 MB per step.  At the training shapes (T = 3, B = 2..8)
-// launch latency and the L2 bandwidth of those few SMs bound it, not the
-// 4 * 3H^2 flops per row per step.  The weight reduction reads dgates_h
-// H times over (from L2) and is small at T * B = 24.
+// Two routes, chosen by the caller (`ops/rnn_cuda.py::gru_bwd_plan`):
 //
-// What would do better (later work): split the 3H columns of w_hh_t over a
-// thread-block cluster so each block keeps its slice in shared memory and
-// exchanges h_prev and the carry through distributed shared memory; and
-// fold the weight reduction into a tiled product (wgmma) over the T * B
-// rows once T * B is large.
+// "sequence" (`gru_bwd_recurrence_kernel` + `gru_bwd_weights_kernel`,
+//   cells = rows = 0): two launches.  One block per batch row walks all T
+//   steps in reverse, h_prev, hp, the carry and the step's [ds_r, ds_z,
+//   dhn] in shared memory (8H floats); hp one column per thread, the carry
+//   product a warp per output over the 3H columns.  Every block reads all
+//   of w_hh_t through L2 twice a step in dependent loops over H and 3H, so
+//   only B SMs work and a step takes tens of us.  Then one thread per dW /
+//   db output sums over the T B rows in order.  It takes any H.
+//
+// "step" (rnn_bwd_step.cuh and `gru_bwd_step_kernel<CS, BM>`): T + 2
+//   launches (T + 3 with a split weight product):
+//   1. `gates_kernel<false>`: hp for every step at once, [T B, 3H] =
+//      [0; ys[0:T-1]] . w_hh_t + b_hh (kept apart from xp: the n gate needs
+//      hn on its own), a tiled 64 x 64 product;
+//   2. one launch a step, t = T-1 ... 0: a grid of (H / CS cell slabs) x
+//      (B / BM row tiles); a block owns the three gate columns g H + c of
+//      its CS cells for its rows.  It streams rows c of w_hh_t (CS x 3H
+//      floats, contiguous) and its rows of dgates_h[t+1] through a
+//      `cp.async` ring, the first stages of W before `griddepcontrol.wait`,
+//      and computes the carry's product part, sum_j dgates_h[t+1][rows, j]
+//      w_hh_t[c, j] (32 / CS groups of 8 CS threads over the columns, their
+//      sums added in group order in shared memory), adds the direct part
+//      dh[t+1] z[t+1] of its own cells (kept in a [B, H] scratch between
+//      launches), then runs the gate backward of its cells from hp[t],
+//      xp[t], ys[t-1] and dys[t] (the last three read before the wait:
+//      they are the call's inputs), writing dxp[t], dgates_h[t] and dh z;
+//   3. `dw_kernel` (+ `dw_finish_kernel`): dW^T = Hprev^T dgates_h over the
+//      T B rows, split into a fixed number of parts for occupancy and the
+//      parts added in order, db from the same tiles.
+//   Every launch after the first may start while the one before it runs
+//   (programmatic dependent launch); a block lets the next launch start
+//   as soon as its wait returns.  Each step block asks for 120 KB of
+//   shared memory, so no two share an SM.  No atomics, and every sum in a
+//   fixed order: a rerun is bitwise equal.
+//   Tiles (CS, BM): CS = 1, 2 or 4 cells, BM = 8, 16 or 32 rows; the plan
+//   takes 4-cell slabs at H = 256 (64 blocks: each block reads all of
+//   dgates_h[t+1] for its rows, so fewer, wider blocks move less through
+//   L2; `rnn_bwd_tiles.py`).
+//
+// On an H100 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py --only gru`,
+// PERF.md section 6) the step route takes 1.69 ms at (256, 16, 256)
+// against 18.71 for the sequence route and 5.68 for cuDNN's backward, 6.5
+// us a step (5.9 us of step kernel, the launches overlapping).  At
+// audio_clf's training shape (3, 8, 256) a call takes 0.123 ms against
+// 0.364: 27 us of it on the device, 12.7 us of that the gate recompute,
+// whose 64 x 64 tiles give only 12 blocks at T B = 24 rows.
 
 #include <cuda_runtime.h>
 
+#include "rnn_bwd_step.cuh"
+
 namespace {
+
 
 constexpr int kThreads = 256;
 
@@ -162,19 +198,130 @@ __global__ void gru_bwd_weights_kernel(const float* __restrict__ ys,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Route "step": one launch a step, (cell slab x row tile) blocks.
+// ---------------------------------------------------------------------------
+
+// Step t of the walk for the block's CS cells and BM rows.  hp_t, xp_t,
+// dxp_t, dgh_t: [B, 3H] rows of step t; ys_prev: ys[t-1] (nullptr at
+// t = 0); dg_next: dgates_h[t+1] (nullptr at t = T-1, where the carry is
+// 0); dhz [B, H]: dh z of step t+1, read (for t < T-1) and rewritten for
+// the block's own cells.
+template <int CS, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_step_kernel(const float* __restrict__ w_hh_t,
+                    const float* __restrict__ hp_t,
+                    const float* __restrict__ xp_t,
+                    const float* __restrict__ ys_prev,
+                    const float* __restrict__ dys_t,
+                    const float* __restrict__ dg_next,
+                    float* __restrict__ dhz, float* __restrict__ dxp_t,
+                    float* __restrict__ dgh_t, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 3 * H;
+  const int c0 = blockIdx.x * CS, b0 = blockIdx.y * BM;
+  const int b = b0 + threadIdx.x / CS, c = c0 + threadIdx.x % CS;
+  const bool mine = threadIdx.x < BM * CS && b < B && c < H;
+  const size_t at = (size_t)b * H + c, ag = (size_t)b * G + c;
+  // the call's inputs, read before the wait
+  float dy = 0.0f, h_prev = 0.0f, x_r = 0.0f, x_z = 0.0f, x_n = 0.0f;
+  if (mine) {
+    dy = dys_t[at];
+    h_prev = ys_prev != nullptr ? ys_prev[at] : 0.0f;
+    x_r = xp_t[ag];
+    x_z = xp_t[ag + H];
+    x_n = xp_t[ag + 2 * H];
+  }
+  const float prod =
+      rnn_bwd::carry_product<CS, BM>(smem, w_hh_t, dg_next, c0, b0, B, H, G);
+  if (!mine) return;
+  const float r = rnn_bwd::sigmoidf_(x_r + hp_t[ag]);
+  const float z = rnn_bwd::sigmoidf_(x_z + hp_t[ag + H]);
+  const float hn = hp_t[ag + 2 * H];
+  const float n = tanhf(x_n + r * hn);
+  const float carry = dg_next != nullptr ? dhz[at] + prod : 0.0f;
+  const float dh = dy + carry;
+  const float ds_n = dh * (1.0f - z) * (1.0f - n * n);
+  const float ds_r = ds_n * hn * r * (1.0f - r);
+  const float ds_z = dh * (h_prev - n) * z * (1.0f - z);
+  const float dhn = ds_n * r;
+  dxp_t[ag] = ds_r;
+  dxp_t[ag + H] = ds_z;
+  dxp_t[ag + 2 * H] = ds_n;
+  dgh_t[ag] = ds_r;
+  dgh_t[ag + H] = ds_z;
+  dgh_t[ag + 2 * H] = dhn;
+  dhz[at] = dh * z;
+}
+
+template <int CS, int BM>
+cudaError_t run_steps(const float* xp, const float* w_hh_t,
+                      const float* b_hh, const float* ys, const float* dys,
+                      float* dxp, float* dgates_h, float* dw, float* db,
+                      float* hp, float* dhz, float* parts, int T, int B,
+                      int H, int splits, cudaStream_t s) {
+  const int G = 3 * H;
+  cudaLaunchConfig_t step;
+  cudaLaunchAttribute overlap[1];
+  cudaError_t err = rnn_bwd::step_config<CS, BM>(
+      &step, overlap, gru_bwd_step_kernel<CS, BM>, B, H, s);
+  if (err == cudaSuccess)
+    err = rnn_bwd::launch_gates<false>(nullptr, ys, w_hh_t, b_hh, hp, T, B,
+                                       H, G, s);
+  const size_t bh = (size_t)B * H, bg = (size_t)B * G;
+  for (int t = T - 1; t >= 0 && err == cudaSuccess; --t) {
+    err = cudaLaunchKernelEx(
+        &step, gru_bwd_step_kernel<CS, BM>, w_hh_t, hp + t * bg, xp + t * bg,
+        t > 0 ? ys + (t - 1) * bh : nullptr, dys + t * bh,
+        t < T - 1 ? dgates_h + (t + 1) * bg : nullptr, dhz, dxp + t * bg,
+        dgates_h + t * bg, B, H);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (err == cudaSuccess)
+    err = rnn_bwd::launch_weights(ys, dgates_h, dw, db, parts, T, B, H, G,
+                                  splits, s);
+  return err;
+}
+
 }  // namespace
 
 // (dxp, dw, db) = GRU backward of ys = GRU(xp, w_hh_t, b_hh) given dys,
 // launched on `stream` (a cudaStream_t).  `dgates_h` [T, B, 3H] is scratch
-// the caller allocates.  Returns the first failing launch's cudaError_t.
+// the caller allocates.  `cells` = `rows` = 0: the "sequence" route (hp,
+// dhz and parts unused); else the "step" route with a (cells, rows) tile,
+// cells in {1, 2, 4} and rows in {8, 16, 32} (H a multiple of 4), the
+// scratch hp [T, B, 3H] and dhz [B, H], and the weight product split into
+// `splits` parts (parts [splits, H + 1, 3H], unused for one part).
+// Returns the first failing launch's cudaError_t (0 on success),
+// cudaErrorInvalidValue for a tile that is not compiled.
 extern "C" int gru_seq_bwd_f32(const float* xp, const float* w_hh_t,
                                const float* b_hh, const float* ys,
                                const float* dys, float* dxp, float* dgates_h,
-                               float* dw, float* db, int T, int B, int H,
-                               void* stream) {
+                               float* dw, float* db, float* hp, float* dhz,
+                               float* parts, int T, int B, int H, int cells,
+                               int rows, int splits, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || H >= 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cells != 0 || rows != 0) {
+    if (H % 4 || splits < 1) return (int)cudaErrorInvalidValue;
+#define GRU_BWD_TILE(CS, BM)                                               \
+  if (cells == CS && rows == BM)                                           \
+    return (int)run_steps<CS, BM>(xp, w_hh_t, b_hh, ys, dys, dxp,          \
+                                  dgates_h, dw, db, hp, dhz, parts, T, B,  \
+                                  H, splits, s);
+    GRU_BWD_TILE(1, 8)
+    GRU_BWD_TILE(1, 16)
+    GRU_BWD_TILE(1, 32)
+    GRU_BWD_TILE(2, 8)
+    GRU_BWD_TILE(2, 16)
+    GRU_BWD_TILE(2, 32)
+    GRU_BWD_TILE(4, 8)
+    GRU_BWD_TILE(4, 16)
+    GRU_BWD_TILE(4, 32)
+#undef GRU_BWD_TILE
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = (size_t)8 * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -5,9 +5,8 @@
 // `_lstm_bwd_rule` at :935-953) and its streamed twin
 // `_lstm_stream_bwd_kernel` (:377-425, launched by `_lstm_stream_bwd_rule`
 // at :465-501).  The TPU needed the streamed twin only because the
-// single-block kernel keeps all T steps in VMEM; a CUDA block walks any T in
-// a loop with O(H) shared memory, so this one kernel is the counterpart of
-// both.
+// single-block kernel keeps all T steps in VMEM; neither route here keeps
+// more than one step on chip, so this file is the counterpart of both.
 //
 // Same contract: zero initial state, torch gate order i, f, g, o, the gates
 // recomputed from the saved states (recompute, not store), and a cotangent
@@ -27,35 +26,67 @@
 // Layouts: xp, dxp [T, B, 4H]; w_hh_t, dw [H, 4H] (W_hh transposed); b_hh,
 // db [4H]; ys, cs, dys, dcs [T, B, H]; all contiguous.
 //
-// Design: the one of gru_bwd.cu, two launches on one stream.
-//   1. `lstm_bwd_recurrence_kernel`: one block per batch row walks all T
-//      steps in reverse.  h_prev, gp, both carries and the step's dgates
-//      live in shared memory (11H floats).  gp is one column per thread
-//      (neighbouring threads read neighbouring columns of w_hh_t, so the
-//      loads coalesce).  The carry product reads row k of w_hh_t for output
-//      k: one warp per k, lanes over the 4H columns, a shuffle reduction.
-//      dgates goes to dxp, which is all the second launch needs.
-//   2. `lstm_bwd_weights_kernel`: dW_hh^T[k, j] = sum_{t,b} h_prev[t,b,k]
-//      dxp[t,b,j] and db_hh[j] = sum_{t,b} dxp[t,b,j], one thread per
-//      output, summed in a fixed (t, b) order with no atomics, so reruns are
-//      bitwise equal.
+// What bounds it.  A step does 4 B H 4H flops (the gate recompute and the
+// carry product, 2 B H 4H each) and the weight gradient 2 B H 4H more, so
+// the whole call is 6 T B H 4H flops: 0.024 ms of fp32 FMAs at (T, B, H) =
+// (256, 16, 128), 0.00007 ms at the training shape (3, 4, 128).  Only the
+// carry product is sequential in t; the gate recompute and the weight
+// gradient are single products over all T B rows.  So the step's latency
+// bounds the call, as in the forward (lstm_fwd.cu): each step must spread
+// its 4H^2 weights and its B x 4H carry operand over many SMs and finish.
 //
-// What bounds it.  As in the forward (lstm_fwd.cu), w_hh_t is 256 KB at
-// H = 128, just more than one block's shared memory, so every step of every
-// block reads it through L2 twice (gp and the carry): B SMs of 132 busy,
-// each streaming 512 KB per step.  At the training shapes (T = 3, B = 2..4)
-// launch latency and the L2 bandwidth of those few SMs bound it, not the
-// 4 * 4H^2 flops per row per step.  The weight reduction reads dxp H times
-// over (from L2) and is small at T * B = 12.
+// Two routes, chosen by the caller (`ops/rnn_cuda.py::lstm_bwd_plan`):
 //
-// What would do better (later work): keep w_hh_t resident across a
-// two-block cluster (128 KB each) and exchange h_prev and the carry through
-// distributed shared memory; fold the weight reduction into a tiled product
-// (wgmma) over the T * B rows once T * B is large.
+// "sequence" (`lstm_bwd_recurrence_kernel` + `lstm_bwd_weights_kernel`,
+//   cells = rows = 0): two launches.  One block per batch row walks all T
+//   steps in reverse, h_prev, gp, both carries and the step's dgates in
+//   shared memory (11H floats); gp one column per thread, the carry product
+//   a warp per output over the 4H columns.  Every block reads all of
+//   w_hh_t through L2 twice a step in dependent loops over H and 4H, so
+//   only B SMs work and a step takes tens of us.  Then one thread per
+//   dW / db output sums over the T B rows in order.  It takes any H.
+//
+// "step" (rnn_bwd_step.cuh and `lstm_bwd_step_kernel<CS, BM>`): T + 2
+//   launches (T + 3 with a split weight product):
+//   1. `gates_kernel<true>`: gp for every step at once, [T B, 4H] =
+//      xp + [0; ys[0:T-1]] . w_hh_t + b_hh, a tiled 64 x 64 product;
+//   2. one launch a step, t = T-1 ... 0: a grid of (H / CS cell slabs) x
+//      (B / BM row tiles); a block owns all four gate columns g H + c of
+//      its CS cells for its rows.  It streams rows c of w_hh_t (CS x 4H
+//      floats, contiguous) and its rows of dxp[t+1] through a `cp.async`
+//      ring, the first stages of W before `griddepcontrol.wait`, and
+//      computes dh_carry[rows, c] = sum_j dxp[t+1][rows, j] w_hh_t[c, j]
+//      (32 / CS groups of 8 CS threads over the columns, their sums added
+//      in group order in shared memory), then the gate backward of its
+//      cells from gp[t], cs, dys, dcs (read before the wait: they are the
+//      call's inputs) and dc_carry (its own cells, kept in a [B, H]
+//      scratch between launches), writing dxp[t] and dc_carry;
+//   3. `dw_kernel` (+ `dw_finish_kernel`): dW^T = Hprev^T dxp over the
+//      T B rows, split into a fixed number of parts for occupancy and the
+//      parts added in order, db from the same tiles.
+//   Every launch after the first may start while the one before it runs
+//   (programmatic dependent launch); a block lets the next launch start
+//   as soon as its wait returns.  Each step block asks for 120 KB of
+//   shared memory, so no two share an SM.  No atomics, and every sum in a
+//   fixed order: a rerun is bitwise equal.
+//   Tiles (CS, BM): CS = 1, 2 or 4 cells, BM = 8, 16 or 32 rows; the plan
+//   takes 2-cell slabs at H = 128 (64 blocks: each block reads all of
+//   dxp[t+1] for its rows, so fewer, wider blocks move less through L2;
+//   `rnn_bwd_tiles.py`).
+//
+// On an H100 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py --only lstm`,
+// PERF.md section 6) the step route takes 1.14 ms at (256, 16, 128)
+// against 4.65 for the sequence route and 1.80 for cuDNN's backward: a
+// step kernel runs 3.8 us on the device, but the host's launches set the
+// pace (5.9 us a step, a third of the span idle).  At the training shape
+// (3, 4, 128) a call takes 0.135 ms against 0.217, most of it the host.
 
 #include <cuda_runtime.h>
 
+#include "rnn_bwd_step.cuh"
+
 namespace {
+
 
 constexpr int kThreads = 256;
 
@@ -175,20 +206,129 @@ __global__ void lstm_bwd_weights_kernel(const float* __restrict__ ys,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Route "step": one launch a step, (cell slab x row tile) blocks.
+// ---------------------------------------------------------------------------
+
+// Step t of the walk for the block's CS cells and BM rows.  gp_t, dxp_t:
+// [B, 4H] rows of step t; cs_prev: cs[t-1] (nullptr at t = 0); dg_next:
+// dxp[t+1] (nullptr at t = T-1, where both carries are 0); dc_carry [B, H]:
+// read (for t < T-1) and rewritten for the block's own cells.
+template <int CS, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_step_kernel(const float* __restrict__ w_hh_t,
+                     const float* __restrict__ gp_t,
+                     const float* __restrict__ cs_t,
+                     const float* __restrict__ cs_prev,
+                     const float* __restrict__ dys_t,
+                     const float* __restrict__ dcs_t,
+                     const float* __restrict__ dg_next,
+                     float* __restrict__ dc_carry, float* __restrict__ dxp_t,
+                     int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H;
+  const int c0 = blockIdx.x * CS, b0 = blockIdx.y * BM;
+  const int b = b0 + threadIdx.x / CS, c = c0 + threadIdx.x % CS;
+  const bool mine = threadIdx.x < BM * CS && b < B && c < H;
+  const size_t at = (size_t)b * H + c;
+  // the call's inputs, read before the wait
+  float dy = 0.0f, dcs = 0.0f, c_t = 0.0f, c_p = 0.0f;
+  if (mine) {
+    dy = dys_t[at];
+    dcs = dcs_t[at];
+    c_t = cs_t[at];
+    c_p = cs_prev != nullptr ? cs_prev[at] : 0.0f;
+  }
+  const float dh_carry =
+      rnn_bwd::carry_product<CS, BM>(smem, w_hh_t, dg_next, c0, b0, B, H, G);
+  if (!mine) return;
+  const float* gp = gp_t + (size_t)b * G + c;
+  const float i = rnn_bwd::sigmoidf_(gp[0]);
+  const float f = rnn_bwd::sigmoidf_(gp[H]);
+  const float g = tanhf(gp[2 * H]);
+  const float o = rnn_bwd::sigmoidf_(gp[3 * H]);
+  const float tanh_c = tanhf(c_t);
+  const float dh = dy + dh_carry;
+  const float dc = dh * o * (1.0f - tanh_c * tanh_c) +
+                   (dg_next != nullptr ? dc_carry[at] : 0.0f) + dcs;
+  float* dx = dxp_t + (size_t)b * G + c;
+  dx[0] = dc * g * i * (1.0f - i);
+  dx[H] = dc * c_p * f * (1.0f - f);
+  dx[2 * H] = dc * i * (1.0f - g * g);
+  dx[3 * H] = dh * tanh_c * o * (1.0f - o);
+  dc_carry[at] = dc * f;
+}
+
+template <int CS, int BM>
+cudaError_t run_steps(const float* xp, const float* w_hh_t,
+                      const float* b_hh, const float* ys, const float* cs,
+                      const float* dys, const float* dcs, float* dxp,
+                      float* dw, float* db, float* gp, float* dc_carry,
+                      float* parts, int T, int B, int H, int splits,
+                      cudaStream_t s) {
+  const int G = 4 * H;
+  cudaLaunchConfig_t step;
+  cudaLaunchAttribute overlap[1];
+  cudaError_t err = rnn_bwd::step_config<CS, BM>(
+      &step, overlap, lstm_bwd_step_kernel<CS, BM>, B, H, s);
+  if (err == cudaSuccess)
+    err = rnn_bwd::launch_gates<true>(xp, ys, w_hh_t, b_hh, gp, T, B, H, G,
+                                      s);
+  const size_t bh = (size_t)B * H, bg = (size_t)B * G;
+  for (int t = T - 1; t >= 0 && err == cudaSuccess; --t) {
+    err = cudaLaunchKernelEx(
+        &step, lstm_bwd_step_kernel<CS, BM>, w_hh_t, gp + t * bg,
+        cs + t * bh, t > 0 ? cs + (t - 1) * bh : nullptr, dys + t * bh,
+        dcs + t * bh, t < T - 1 ? dxp + (t + 1) * bg : nullptr, dc_carry,
+        dxp + t * bg, B, H);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (err == cudaSuccess)
+    err = rnn_bwd::launch_weights(ys, dxp, dw, db, parts, T, B, H, G, splits,
+                                  s);
+  return err;
+}
+
 }  // namespace
 
 // (dxp, dw, db) = LSTM backward of (ys, cs) = LSTM(xp, w_hh_t, b_hh) given
-// (dys, dcs), launched on `stream` (a cudaStream_t).  Returns the first
-// failing launch's cudaError_t.
+// (dys, dcs), launched on `stream` (a cudaStream_t).  `cells` = `rows` = 0:
+// the "sequence" route (gp, dc_carry and parts unused); else the "step"
+// route with a (cells, rows) tile, cells in {1, 2, 4} and rows in {8, 16,
+// 32} (H a multiple of 4), the scratch gp [T, B, 4H] and dc_carry [B, H],
+// and the weight product split into `splits` parts (parts [splits, H + 1,
+// 4H], unused for one part).  Returns the first failing launch's
+// cudaError_t (0 on success), cudaErrorInvalidValue for a tile that is not
+// compiled.
 extern "C" int lstm_seq_bwd_f32(const float* xp, const float* w_hh_t,
                                 const float* b_hh, const float* ys,
                                 const float* cs, const float* dys,
                                 const float* dcs, float* dxp, float* dw,
-                                float* db, int T, int B, int H,
-                                void* stream) {
+                                float* db, float* gp, float* dc_carry,
+                                float* parts, int T, int B, int H, int cells,
+                                int rows, int splits, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || H >= 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cells != 0 || rows != 0) {
+    if (H % 4 || splits < 1) return (int)cudaErrorInvalidValue;
+#define LSTM_BWD_TILE(CS, BM)                                              \
+  if (cells == CS && rows == BM)                                           \
+    return (int)run_steps<CS, BM>(xp, w_hh_t, b_hh, ys, cs, dys, dcs, dxp, \
+                                  dw, db, gp, dc_carry, parts, T, B, H,    \
+                                  splits, s);
+    LSTM_BWD_TILE(1, 8)
+    LSTM_BWD_TILE(1, 16)
+    LSTM_BWD_TILE(1, 32)
+    LSTM_BWD_TILE(2, 8)
+    LSTM_BWD_TILE(2, 16)
+    LSTM_BWD_TILE(2, 32)
+    LSTM_BWD_TILE(4, 8)
+    LSTM_BWD_TILE(4, 16)
+    LSTM_BWD_TILE(4, 32)
+#undef LSTM_BWD_TILE
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = (size_t)11 * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

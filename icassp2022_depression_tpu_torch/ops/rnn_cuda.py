@@ -30,6 +30,14 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   :data:`LSTMP_BWD_LAUNCHES` (one per call of the C entry, which loops over
   the T steps itself).  They never fall back to the plain versions:
   a build or launch failure raises.
+* The LSTM forward and the GRU and LSTM backwards each have two routes,
+  picked from the shape by :func:`lstm_fwd_plan`, :func:`gru_bwd_plan`
+  and :func:`lstm_bwd_plan` (a ``plan=`` argument overrides it): "sequence",
+  one block per batch row walking all T steps in one launch, and "step",
+  one wide launch a step (cell slabs x row tiles, ``W_hh`` streamed
+  through a ``cp.async`` ring, programmatic dependent launch); the
+  backwards' step route adds one launch that recomputes every step's
+  gates before the walk and one (two) for the weight gradients after it.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
 
@@ -61,9 +69,9 @@ LSTMP_BWD_LAUNCHES = 0
 #: each source's C entry: (symbol, pointer arguments, int arguments, float
 #: arguments), then the stream
 _ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 3, 0),
-            "gru_bwd": ("gru_seq_bwd_f32", 9, 3, 0),
+            "gru_bwd": ("gru_seq_bwd_f32", 12, 6, 0),
             "lstm_fwd": ("lstm_seq_fwd_f32", 5, 5, 0),
-            "lstm_bwd": ("lstm_seq_bwd_f32", 10, 3, 0),
+            "lstm_bwd": ("lstm_seq_bwd_f32", 13, 6, 0),
             "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
             "lstmp_bwd": ("lstmp_seq_bwd_f32", 15, 4, 2)}
 _fns: dict = {}
@@ -197,10 +205,11 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
 
 def gru_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
                      b_hh: torch.Tensor, ys: torch.Tensor,
-                     dys: torch.Tensor):
+                     dys: torch.Tensor, plan: dict | None = None):
     """The backward kernel's wrapper: (dxp [T, B, 3H], dw_hh_t [H, 3H],
     db_hh [1, 3H]) of ``ys = gru_sequence(xp, w_hh_t, b_hh)`` given
-    ``dys [T, B, H]``."""
+    ``dys [T, B, H]``.  ``plan``: a :func:`gru_bwd_plan` for the kernel, by
+    default the one it picks for (T, B, H); a CPU call ignores it."""
     if xp.device.type == "cpu":
         return gru_sequence_bwd_torch(xp, w_hh_t, b_hh, ys, dys)
     if xp.device.type != "cuda":
@@ -216,14 +225,19 @@ def gru_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
     db = torch.empty((1, g), dtype=torch.float32, device=xp.device)
     if xp.numel() == 0:
         return dxp, dw.zero_(), db.zero_()
+    if plan is None:
+        plan = gru_bwd_plan(batch, hidden, steps=t_steps)
     dgates_h = torch.empty_like(xp)
+    xp, w_hh_t, b_hh, ys, dys = _aligned(plan, xp, w_hh_t, b_hh, ys, dys)
+    scratch = _bwd_scratch(plan, xp, hidden)    # hp, dh z, parts
     fn = _kernel("gru_bwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
                  ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(),
                  dgates_h.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 t_steps, batch, hidden, stream)
+                 *_ptrs(scratch), t_steps, batch, hidden, plan["cells"],
+                 plan["rows"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError(f"gru_seq_bwd_f32 launch failed: cudaError {err}")
     global BWD_LAUNCHES
@@ -370,6 +384,98 @@ def lstm_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
             "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows)}
 
 
+#: the backward step route's tiles (cells, rows) that ``csrc/gru_bwd.cu``
+#: and ``csrc/lstm_bwd.cu`` compile
+BWD_TILES = tuple((c, r) for c in (1, 2, 4) for r in (8, 16, 32))
+
+
+def _bwd_plan(name: str, batch: int, hidden: int, route: str,
+              steps: int) -> dict:
+    if route == "auto":
+        route = "sequence" if hidden % 4 else "step"
+    if route == "sequence":
+        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
+                "row_tiles": batch, "splits": 1}
+    if route != "step" or hidden % 4:
+        raise ValueError(f"{name}: no route {route!r} for H={hidden}")
+    cells = 1 if hidden <= 64 else 2 if hidden <= 128 else 4
+    rows = 8 if batch <= 8 else 16 if batch <= 16 else 32
+    # the weight product's T*B rows in parts of about 256 (a multiple of
+    # the kernel's 32-row tiles), at most 64 parts
+    k = steps * batch
+    chunk = 32 * _cdiv(_cdiv(k, min(64, _cdiv(k, 256))), 32)
+    return {"route": route, "cells": cells, "rows": rows,
+            "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows),
+            "splits": _cdiv(k, chunk)}
+
+
+def gru_bwd_plan(batch: int, hidden: int, route: str = "auto", *,
+                 steps: int) -> dict:
+    """How ``csrc/gru_bwd.cu`` runs one call of ``steps`` steps: ``route``
+    "sequence" (two launches, one block per row walking all T steps) or
+    "step" (T + 2 launches: the gate recompute, one launch a step of
+    ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
+    blocks, a tile of :data:`BWD_TILES`, and the weight product over the
+    T*B rows in ``splits`` parts, plus one launch adding them when there is
+    more than one).
+
+    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
+    copies), else "sequence": measured on an H100 (``chip_smoke.py``,
+    both routes' calls taken in turns, ``PERF.md`` section 6), the
+    step route was the faster at every ``BWD_SHAPES`` / ``LSTM_SHAPES``
+    shape, the training shapes at T = 3 included (0.12-0.18 against
+    0.32-0.43 ms for the GRU at (3, 2..8, 256)), so there is no crossover
+    to set; at (256, 16, 256) 1.74 against 18.71 ms.
+
+    Step tiles: slabs of 1 cell up to H = 64, 2 up to 128, else 4 (64
+    slabs at the text model's H = 128 and the audio model's 256):
+    ``rnn_bwd_tiles.py`` timed the three widths in turns, and at (256,
+    16) the 64-slab grid was the fastest (LSTM 0.98 ms against 1.15 with
+    1-cell slabs and 1.05 with 4; GRU 1.45 against 2.81 and 1.51): every
+    block reads all of dG[t+1] for its rows, so fewer, wider blocks move
+    less through L2.  The rows in one tile of 8, 16 or 32 up to B = 32,
+    above in 32-row tiles."""
+    return _bwd_plan("gru_bwd_plan", batch, hidden, route, steps)
+
+
+def lstm_bwd_plan(batch: int, hidden: int, route: str = "auto", *,
+                  steps: int) -> dict:
+    """How ``csrc/lstm_bwd.cu`` runs one call of ``steps`` steps: the
+    routes and tiles of :func:`gru_bwd_plan`, measured the same way.
+
+    "auto" takes "step" wherever H is a multiple of 4, else "sequence":
+    the step route was the faster at every ``LSTM_SHAPES`` shape on an
+    H100 (0.12-0.15 against 0.20-0.22 ms at (3, 2..4, 128); 1.30 against
+    4.60 ms at (256, 16, 128); ``PERF.md`` section 6)."""
+    return _bwd_plan("lstm_bwd_plan", batch, hidden, route, steps)
+
+
+def _aligned(plan: dict, *tensors):
+    """``tensors``, each copied where the step route's 16-byte loads would
+    find it off a 16-byte boundary (a view into another tensor)."""
+    if plan["route"] != "step":
+        return tensors
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
+def _bwd_scratch(plan: dict, xp: torch.Tensor, hidden: int) -> list:
+    """The step route's scratch (None where unused): the gate sums of
+    every step [T, B, G], a carry between steps [B, H], and the weight
+    product's parts [splits, H + 1, G]."""
+    if plan["route"] != "step":
+        return [None] * 3
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=xp.device)
+    t_steps, batch, g = xp.shape
+    return [new((t_steps, batch, g)), new((batch, hidden)),
+            new((plan["splits"], hidden + 1, g)) if plan["splits"] > 1
+            else None]
+
+
+def _ptrs(tensors) -> list:
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
 def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
                   b_hh: torch.Tensor, plan: dict | None = None):
     """xp [T, B, 4H], w_hh_t [H, 4H], b_hh [1, 4H] (or [4H]) -> (ys, cs),
@@ -412,10 +518,13 @@ def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
 
 def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
                       b_hh: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
-                      dys: torch.Tensor, dcs: torch.Tensor):
+                      dys: torch.Tensor, dcs: torch.Tensor,
+                      plan: dict | None = None):
     """The LSTM backward kernel's wrapper: (dxp [T, B, 4H], dw_hh_t [H, 4H],
     db_hh [1, 4H]) of ``(ys, cs) = lstm_sequence(xp, w_hh_t, b_hh)`` given
-    ``dys``, ``dcs [T, B, H]``."""
+    ``dys``, ``dcs [T, B, H]``.  ``plan``: a :func:`lstm_bwd_plan` for the
+    kernel, by default the one it picks for (T, B, H); a CPU call ignores
+    it."""
     if xp.device.type == "cpu":
         return lstm_sequence_bwd_torch(xp, w_hh_t, b_hh, ys, cs, dys, dcs)
     if xp.device.type != "cuda":
@@ -433,13 +542,19 @@ def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
     db = torch.empty((1, g), dtype=torch.float32, device=xp.device)
     if xp.numel() == 0:
         return dxp, dw.zero_(), db.zero_()
+    if plan is None:
+        plan = lstm_bwd_plan(batch, hidden, steps=t_steps)
+    xp, w_hh_t, b_hh, ys, cs, dys, dcs = _aligned(
+        plan, xp, w_hh_t, b_hh, ys, cs, dys, dcs)
+    scratch = _bwd_scratch(plan, xp, hidden)    # gp, dc carry, parts
     fn = _kernel("lstm_bwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
                  ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
                  dcs.data_ptr(), dxp.data_ptr(), dw.data_ptr(),
-                 db.data_ptr(), t_steps, batch, hidden, stream)
+                 db.data_ptr(), *_ptrs(scratch), t_steps, batch, hidden,
+                 plan["cells"], plan["rows"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_seq_bwd_f32 launch failed: cudaError {err}")
     global LSTM_BWD_LAUNCHES

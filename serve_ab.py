@@ -8,6 +8,7 @@ compare two commits on one card):
     python3 serve_ab.py --task fuse_clf PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --task text_clf --standin PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --lstm PARENT_DIR . . PARENT_DIR
+    python3 serve_ab.py --steps PARENT_DIR . . PARENT_DIR
 
 Each process imports ``icassp2022_depression_tpu_torch`` from its
 checkout, builds that checkout's kernels, writes a synthetic corpus of
@@ -32,6 +33,16 @@ difference of the 8 speakers' probabilities between the runs.
 ``LSTM_AB_SHAPES``, the text model's and the stand-in encoder's, on the
 same seeded inputs in every checkout: CUDA events, the median of 50 calls
 (10 above 4096 rows x steps), after 3 warm-up calls.
+
+``--steps`` times an ``audio_clf`` and a ``text_clf`` train step instead,
+with the checkout's ``chip_smoke.step_split`` (forward, backward,
+optimizer and the whole step, CUDA events between the phases, the median
+of 60 steps after 10 warm ones) on the audio features of a synthetic
+corpus of 24 + 12 speakers (seed 1) and seeded standard normal text
+features of the text model's width, and splits one step (forward and
+backward) by kernel name with the checkout's ``chip_smoke.profile_split``
+(``torch.profiler``); ``bwd_us`` is the device time of the recurrence's
+backward kernels in that step.
 """
 
 from __future__ import annotations
@@ -82,6 +93,70 @@ def lstm_times(checkout: Path) -> dict:
             end.synchronize()
             times.append(start.elapsed_time(end))
         out[f"ms_{t}x{b}x{h}"] = statistics.median(times)
+    return out
+
+
+#: the recurrence backward's kernels, by the names ``profile_split`` gives
+#: them, in either route of ``csrc/gru_bwd.cu`` and ``csrc/lstm_bwd.cu``
+BWD_KERNELS = ("gru_bwd_recurrence_kernel", "gru_bwd_weights_kernel",
+               "lstm_bwd_recurrence_kernel", "lstm_bwd_weights_kernel",
+               "gru_bwd_step_kernel", "lstm_bwd_step_kernel", "gates_kernel",
+               "dw_kernel", "dw_finish_kernel")
+
+
+def step_times(checkout: Path) -> dict:
+    """The checkout's train step split and profile (``--steps``)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    sys.path.insert(0, str(checkout))
+    import torch
+
+    import icassp2022_depression_tpu_torch as pkg
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd, folds
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.train import optim, trainers
+
+    if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
+        raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
+    spec = importlib.util.spec_from_file_location(
+        "checkout_chip_smoke", checkout / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="serve_ab_steps_") as tmp:
+        corpus = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
+                                   seconds=(2.0, 12.0), seed=1)
+        feats, _, clf = afe.extract_eatd_device(corpus, device="cuda")
+    train_idx = folds.generate_clf_folds(clf, 3, seed=0)
+    xt = torch.randn((feats.shape[0], 3, 1024),
+                     generator=torch.Generator().manual_seed(0)).cuda()
+    out = {"checkout": str(checkout), "task": "train_steps"}
+    for task, tcfg, x, batch in (("audio_clf", C.AUDIO_CLF, feats, 8),
+                                 ("text_clf", C.TEXT_CLF, xt, 4)):
+        data = trainers._clf_fold_datas([x], clf, train_idx, batch)[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            split = smoke.step_split(torch, tcfg, data, "", task)
+        model = trainers.init_model(tcfg, 0, 1, "cuda").train()
+        opt = optim.build(tcfg.optimizer, model)
+        loss_fn = trainers._branch_fns(tcfg)
+        gen = trainers.dropout_generator(0, 1, "cuda")
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            loss_fn(model(data.train_x[0][0], gen), data.train_y[0],
+                    data.train_mask[0]).backward()
+
+        prof = smoke.profile_split(torch, fwd_bwd, f"{task} forward and "
+                                   f"backward ({checkout})", 1, "")
+        out[task] = {**split, "busy_us": prof and prof["busy_us"],
+                     "bwd_us": prof and sum(
+                         us for k, (us, _) in prof["kernels"].items()
+                         if k in BWD_KERNELS)}
     return out
 
 
@@ -187,8 +262,12 @@ def main(argv) -> int:
     if argv[:1] == ["--one-lstm"]:
         print(json.dumps(lstm_times(Path(argv[1]))))
         return 0
+    if argv[:1] == ["--one-steps"]:
+        print(json.dumps(step_times(Path(argv[1]))))
+        return 0
     lstm = argv[:1] == ["--lstm"]
-    argv = argv[1:] if lstm else argv
+    steps = argv[:1] == ["--steps"]
+    argv = argv[1:] if lstm or steps else argv
     task = "audio_clf"
     if argv[:1] == ["--task"]:
         task, argv = argv[1], argv[2:]
@@ -213,13 +292,27 @@ def main(argv) -> int:
     runs = []
     for checkout in argv:
         cmd = (["--one-lstm", checkout] if lstm else
+               ["--one-steps", checkout] if steps else
                ["--one", checkout, task, "standin" if standin else "bundle"])
         proc = subprocess.run([sys.executable, __file__, *cmd],
                               capture_output=True, text=True, check=True)
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        lines = proc.stdout.strip().splitlines()
+        if steps:   # the profile lines
+            print("\n".join(lines[:-1]))
+        runs.append(json.loads(lines[-1]))
         r = runs[-1]
         print(json.dumps({k: v for k, v in r.items() if k != "probs_8"}
                          | {"card": card}))
+    if steps:
+        for checkout in dict.fromkeys(argv):
+            mine = [r for r in runs if r["checkout"] == checkout]
+            print(json.dumps({"checkout": checkout, "task": "train_steps",
+                              "runs": len(mine), "card": card} | {
+                task: {k: statistics.median(r[task][k] for r in mine)
+                       for k in mine[0][task]
+                       if all(r[task][k] is not None for r in mine)}
+                for task in ("audio_clf", "text_clf")}))
+        return 0
     if lstm:
         for checkout in dict.fromkeys(argv):
             mine = [r for r in runs if r["checkout"] == checkout]

@@ -168,3 +168,71 @@ def test_wrappers_use_plain_versions_on_cpu_and_never_detach():
     with torch.no_grad():
         assert rnn_cuda.gru_sequence(xp.requires_grad_(), w,
                                      bias).grad_fn is None
+
+
+@pytest.mark.parametrize("t,b,h", [(3, 8, 256), (3, 2, 256), (3, 24, 256),
+                                   (256, 16, 256), (7, 3, 200), (3, 40, 256),
+                                   (5, 9, 512), (1, 1, 8), (3, 4, 254)])
+def test_gru_bwd_plan_covers_every_cell_once(t, b, h):
+    """The backward kernel's plan (``rnn_cuda.gru_bwd_plan``): at the audio
+    model's H = 256 (training, eval and streamed shapes), a ragged H and a
+    wide one, a step tile that ``csrc/gru_bwd.cu`` compiles, slabs and row
+    tiles that cover every cell and row exactly once (64 blocks at
+    H = 256 up to 32 rows), and weight-product parts that cover the T*B
+    rows exactly once, none empty, as the C entry cuts them; at an H the
+    16-byte copies cannot take, the one-block-per-row route."""
+    import re
+
+    from icassp2022_depression_tpu_torch import _build
+
+    compiled = {tuple(map(int, m)) for m in re.findall(
+        r"^    GRU_BWD_TILE\((\d+), (\d+)\)$",
+        (_build.CSRC / "gru_bwd.cu").read_text(), re.M)}
+    assert compiled == set(rnn_cuda.BWD_TILES)
+    plan = rnn_cuda.gru_bwd_plan(b, h, steps=t)
+    if h % 4:
+        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
+                        "slabs": 1, "row_tiles": b, "splits": 1}
+        return
+    assert plan["route"] == "step"
+    cells, rows = plan["cells"], plan["rows"]
+    assert (cells, rows) in compiled
+    cover_h, cover_b = np.zeros(h, int), np.zeros(b, int)
+    for s in range(plan["slabs"]):
+        assert s * cells < h                 # no empty slab
+        cover_h[s * cells:(s + 1) * cells] += 1
+    for r in range(plan["row_tiles"]):
+        assert r * rows < b                  # no empty row tile
+        cover_b[r * rows:(r + 1) * rows] += 1
+    assert (cover_h == 1).all() and (cover_b == 1).all()
+    if h == 256 and b <= 32:
+        assert plan["slabs"] * plan["row_tiles"] == 64
+    k, splits = t * b, plan["splits"]
+    chunk = 32 * rnn_cuda._cdiv(rnn_cuda._cdiv(k, splits), 32)  # as in C
+    assert 1 <= splits <= 64 and (splits - 1) * chunk < k <= splits * chunk
+    assert rnn_cuda.gru_bwd_plan(b, h, "sequence", steps=t)["route"] \
+        == "sequence"
+
+
+def test_gru_bwd_plan_refuses_what_no_route_takes():
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.gru_bwd_plan(8, 254, "step", steps=3)
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.gru_bwd_plan(8, 256, "persistent", steps=3)
+
+
+@pytest.mark.parametrize("route", ["step", "sequence", "bogus"])
+def test_gru_bwd_wrapper_takes_plain_backward_on_cpu_whatever_the_plan(
+        route):
+    """On CPU tensors ``gru_sequence_bwd`` runs the plain backward and
+    launches nothing, whatever ``plan`` says."""
+    xp, w, bias, dys = (torch.from_numpy(a) for a in _inputs(3, 3, 2, 8))
+    ys = rnn_cuda.gru_sequence_torch(xp, w, bias)
+    plan = ({"route": "bogus"} if route == "bogus"
+            else rnn_cuda.gru_bwd_plan(2, 8, route, steps=3))
+    before = rnn_cuda.BWD_LAUNCHES
+    got = rnn_cuda.gru_sequence_bwd(xp, w, bias, ys, dys, plan=plan)
+    want = rnn_cuda.gru_sequence_bwd_torch(xp, w, bias, ys, dys)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert rnn_cuda.BWD_LAUNCHES == before

@@ -143,7 +143,8 @@ def test_cli_predict_matches_jax_cli(tmp_path, capsys):
 
 def test_port_imports_without_jax():
     """Every module of the port and the scripts that drive it on the card
-    (``chip_smoke.py``, ``serve_ab.py``, ``lstmp_variants.py``) import in a
+    (``chip_smoke.py``, ``serve_ab.py``, ``lstmp_variants.py``,
+    ``rnn_bwd_tiles.py``) import in a
     fresh interpreter without pulling in jax or the JAX package (whose
     __init__ imports jax)."""
     code = (
@@ -151,7 +152,7 @@ def test_port_imports_without_jax():
         "import icassp2022_depression_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, lstmp_variants, serve_ab\n"
+        "import chip_smoke, lstmp_variants, rnn_bwd_tiles, serve_ab\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'icassp2022_depression_tpu']\n"
         "assert not bad, bad\n"
@@ -167,7 +168,8 @@ def test_port_sources_name_no_jax():
         r"^\s*(import\s+(jax|icassp2022_depression_tpu)\b"
         r"|from\s+(jax|icassp2022_depression_tpu)(\.|\s))", re.M)
     sources = sorted(PKG.rglob("*.py")) + [
-        REPO / f for f in ("chip_smoke.py", "serve_ab.py", "lstmp_variants.py")]
+        REPO / f for f in ("chip_smoke.py", "serve_ab.py", "lstmp_variants.py",
+                           "rnn_bwd_tiles.py")]
     assert len(sources) > 15
     for src in sources:
         assert not pattern.search(src.read_text()), src
