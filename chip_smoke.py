@@ -10,15 +10,19 @@ training paths of both tracks, at full width.
     python3 chip_smoke.py --only gru    # the GRU kernels alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
-and timings, the LSTMP profile and the LSTMP yardsticks, prints their
-lines and stops: the quick loop for work on those kernels.  ``--only
-lstm`` does the same for the two LSTM sources: phase 2's LSTM checks and
-timings at the text model's H = 128 and at the stand-in encoder's H = 512
+and timings (the backward in turns with its plain loop and cuDNN), the
+LSTMP profiles (one forward and one backward call at (16, 8) and (128,
+24)) and the LSTMP yardsticks, prints their lines and stops: the quick
+loop for work on those kernels.  ``--only lstm`` does the same for the
+two LSTM sources: phase 2's LSTM checks and timings at the text model's
+H = 128 and at the stand-in encoder's H = 512
 (both routes of the forward and of the backward), the profiles of the
 forward and of the backward at (256, 16, 128), and the cuDNN yardsticks.
-``--only gru`` does the same for the two GRU sources: the forward's and
-both backward routes' checks and timings, the backward's profile at
-(3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
+``--only gru`` does the same for the two GRU sources: both forward routes'
+and both backward routes' checks and timings, the forward's profiles at
+(3, 8, 256), (3, 100, 256) and (3, 200, 256) (each route alone, and one
+round of the timing turns), the
+backward's at (3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -35,13 +39,19 @@ Phases (each raises on failure, so the exit code is nonzero):
    (T, B, C, P) = (32, 128, 4096, 512), (16, 8, 4096, 512),
    (48, 104, 4096, 512) and (7, 3, 384, 128) with both +-3 clips engaged
    and at (128, 24, 4096, 512) with the weights at ``init_lstmp``'s bounds
-   (eight served speakers' long transcripts), the backward fed the plain
-   forward's residuals, every output within 1e-5 of its largest
-   magnitude; beside each, a reading of how far the plain float32 loop and
+   (eight served speakers' long transcripts), the backward (the gate
+   recompute, then one step launch and one fixed-order reduction a step)
+   fed the plain forward's residuals, every output within 1e-5 of its
+   largest magnitude, and the backward, its plain loop and cuDNN timed in
+   turns at the timed shapes;
+   beside each, a reading of how far the plain float32 loop and
    the kernel are from the plain loop in float64, and the same reading at
    a recurrent gain of 3/sqrt(P), where float32 itself parts from float64
-   (not checked); the LSTM forward through both of its routes (one
-   launch, or one launch a step) at every LSTM shape and at the stand-in
+   (not checked); the GRU forward and the LSTM forward through both of
+   their routes (one launch, or one launch a step) at every GRU shape (an
+   H = 254 that only the one-launch route takes among them; the routes,
+   plain loop and cuDNN ``nn.GRU`` in turns at the timed shapes), at every
+   LSTM shape and at the stand-in
    text encoder's H = 512 ((T, B) = (16, 8), (128, 24), (16, 112),
    (128, 488)), and the GRU and LSTM backwards through both of theirs
    (two launches, or one a step between a gate recompute and a weight
@@ -51,8 +61,11 @@ Phases (each raises on failure, so the exit code is nonzero):
    events, beside the nearest PyTorch call (cuDNN ``nn.GRU`` /
    ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both directions, and
    ``nn.LSTM(512, 512)`` at every stand-in shape); the forward wrappers
-   must refuse a CUDA input that requires grad; one LSTMP forward call at
-   (16, 8) and at (128, 24), one LSTM forward call at the stand-in's
+   must refuse a CUDA input that requires grad; one GRU forward call at
+   (3, 8, 256), (3, 100, 256) and (3, 200, 256) through each route (and
+   tile in question) and one round of its timing turns, one
+   LSTMP forward and one backward call at (16, 8) and at
+   (128, 24), one LSTM forward call at the stand-in's
    (16, 8) and (128, 488), one GRU backward call at (3, 8, 256) and
    (256, 16, 256) and one LSTM backward call at (256, 16, 128), under
    ``torch.profiler``, device time split by
@@ -130,9 +143,17 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-5
 SLICE_TOL = 1e-5
+#: the GRU forward at the audio model's H = 256: serving (1, 3 and 8
+#: speakers' rows; 22 and more speakers give 66 and more rows), training
+#: (batches 8 and 2), an eval split, one the JAX package would stream, a
+#: ragged shape, and an H only the "sequence" route takes
 KERNEL_SHAPES = ((3, 1, 256), (3, 4, 256), (3, 8, 256), (3, 24, 256),
-                 (7, 3, 200))
-TIMED_SHAPES = ((3, 8, 256), (3, 24, 256))
+                 (3, 100, 256), (3, 200, 256), (3, 2, 256), (256, 16, 256),
+                 (7, 3, 200), (3, 4, 254))
+TIMED_SHAPES = ((3, 8, 256), (3, 24, 256), (3, 100, 256), (3, 200, 256))
+#: the GRU forward calls profiled (the audio_clf training shape, and two
+#: batches above 64 rows, where two step tiles are in question)
+GRU_FWD_PROFILED = ((3, 8, 256), (3, 100, 256), (3, 200, 256))
 BATCHES = (1, 3, 8)
 #: the training shapes (audio_clf batch 8, audio_reg batch 2, eval of a
 #: 24-row test split), a ragged one, and one the JAX package would stream
@@ -212,7 +233,25 @@ def event_ms(fn, reps: int, torch) -> float:
     return statistics.median(times)
 
 
+def cudnn_gru_fwd(torch, t: int, b: int, h: int):
+    """A call of cuDNN's ``nn.GRU(h, h)`` forward at (T, B, H), input
+    projection included (a yardstick used nowhere in the port)."""
+    mod = torch.nn.GRU(h, h).cuda()
+    x = torch.randn((t, b, h), device="cuda")
+
+    def fn():
+        with torch.no_grad():
+            mod(x)
+    return fn
+
+
 def kernel_phase(torch, rnn_cuda, card: str):
+    """The GRU forward kernel through each route of its plan against its
+    plain version at every ``KERNEL_SHAPES`` entry (within KERNEL_TOL, a
+    rerun bitwise equal); then, at each ``TIMED_SHAPES`` entry, the calls
+    of :func:`_gru_turn_fns` timed in turns.  Returns
+    the worst error and the (kernel through the plan's route, plain) ms at
+    the timed shapes."""
     worst = 0.0
     gen = torch.Generator().manual_seed(0)
     inputs = {}
@@ -222,33 +261,86 @@ def kernel_phase(torch, rnn_cuda, card: str):
         w = ((torch.rand((h, 3 * h), generator=gen) * 2 - 1) * bound).cuda()
         bias = ((torch.rand((1, 3 * h), generator=gen) * 2 - 1)
                 * bound).cuda()
-        ys = rnn_cuda.gru_sequence(xp, w, bias)
         ref = rnn_cuda.gru_sequence_torch(xp, w, bias)
-        torch.cuda.synchronize()
-        if ys.shape != (t, b, h) or not torch.isfinite(ys).all():
-            fail(f"kernel output at {(t, b, h)} is malformed")
-        err = (ys - ref).abs().max().item()
-        print(f"kernel gru_fwd T={t} B={b} H={h}: max|cuda - plain| = "
-              f"{err:.3e} (tol {KERNEL_TOL})")
-        if not err <= KERNEL_TOL:
-            fail(f"GRU kernel disagrees with its plain version at "
-                 f"{(t, b, h)}: {err}")
-        worst = max(worst, err)
+        errs = {}
+        for route, fn in _route_fns(rnn_cuda, (xp, w, bias), (t, b, h),
+                                    "gru").items():
+            ys, again = fn(), fn()
+            torch.cuda.synchronize()
+            if ys.shape != (t, b, h) or not torch.isfinite(ys).all():
+                fail(f"gru_fwd ({route}) output at {(t, b, h)} is malformed")
+            err = (ys - ref).abs().max().item()
+            same = torch.equal(ys, again)
+            if not (err <= KERNEL_TOL and same):
+                fail(f"GRU kernel ({route} route) disagrees with its plain "
+                     f"version at {(t, b, h)}: {err}, rerun bitwise equal "
+                     f"{same}")
+            errs[route] = (err, same)
+        print(f"kernel gru_fwd T={t} B={b} H={h}: max|cuda - plain| "
+              + ", ".join(f"{r} {e:.3e} (rerun bitwise equal {sm})"
+                          for r, (e, sm) in errs.items())
+              + f" (tol {KERNEL_TOL}; the plan "
+              f"{rnn_cuda.gru_fwd_plan(b, h)})")
+        worst = max([worst] + [e for e, _ in errs.values()])
         inputs[(t, b, h)] = (xp, w, bias)
     timings = {}
     for shape in TIMED_SHAPES:
-        xp, w, bias = inputs[shape]
-        for _ in range(5):
-            rnn_cuda.gru_sequence(xp, w, bias)
-            rnn_cuda.gru_sequence_torch(xp, w, bias)
-        ms = event_ms(lambda: rnn_cuda.gru_sequence(xp, w, bias), 50, torch)
-        plain = event_ms(
-            lambda: rnn_cuda.gru_sequence_torch(xp, w, bias), 50, torch)
-        timings[shape] = (ms, plain)
+        fns = _gru_turn_fns(torch, rnn_cuda, inputs[shape], shape)
+        ms = turns_ms(torch, fns, 50)
+        route = rnn_cuda.gru_fwd_plan(*shape[1:])["route"]
+        b_ms, by = rnn_bounds("gru", *shape)["fwd"]
+        timings[shape] = (ms[route], ms["plain"])
         print(f"timing gru_fwd T={shape[0]} B={shape[1]} H={shape[2]}: "
-              f"cuda kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
-              f"(median of 50, CUDA events) [{card}]")
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; the plan takes {route}; bound {b_ms:.6f} ms ({by}), "
+              f"{b_ms / ms[route]:.4f} of it; cuDNN "
+              f"{ms['cudnn'] / ms[route]:.2f}x the kernel's time (median of "
+              f"50 in turns, CUDA events) [{card}]")
     return worst, timings
+
+
+def _gru_turn_fns(torch, rnn_cuda, args, shape) -> dict:
+    """{name: call} of the GRU forward's timing turns at ``shape``: each
+    route, above 64 rows also the step route through the other step tile
+    in question there ((4, 32), or the LSTM forward's 32-cell tile), the
+    plain loop and cuDNN's ``nn.GRU``."""
+    t, b, h = shape
+    fns = _route_fns(rnn_cuda, args, shape, "gru")
+    if b > 64 and h % 4 == 0:
+        plan = rnn_cuda.gru_fwd_plan(b, h)
+        for cells, rows in ((4, 32), (32, 16 if b <= 128 else 64)):
+            if (cells, rows) != (plan["cells"], plan["rows"]):
+                tile = dict(plan, cells=cells, rows=rows,
+                            slabs=-(-h // cells), row_tiles=-(-b // rows))
+                fns[f"step {cells}x{rows}"] = (
+                    lambda tile=tile: rnn_cuda.gru_sequence(*args, plan=tile))
+    fns["plain"] = lambda: rnn_cuda.gru_sequence_torch(*args)
+    fns["cudnn"] = cudnn_gru_fwd(torch, *shape)
+    return fns
+
+
+def gru_profile_phase(torch, rnn_cuda, card: str) -> dict:
+    """At each ``GRU_FWD_PROFILED`` shape, one ``gru_sequence`` call through
+    each route (above 64 rows also through the other step tile), and one
+    round of :func:`kernel_phase`'s timing turns, split by
+    :func:`profile_split`: each route's and tile's device time, and
+    whether a route's time in the turns is the device's or the host's."""
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for t, b, h in GRU_FWD_PROFILED:
+        xp = torch.randn((t, b, 3 * h), generator=gen).cuda()
+        w = ((torch.rand((h, 3 * h), generator=gen) * 2 - 1)
+             * h ** -0.5).cuda()
+        bias = torch.zeros((1, 3 * h)).cuda()
+        fns = _gru_turn_fns(torch, rnn_cuda, (xp, w, bias), (t, b, h))
+        for name in [k for k in fns if k not in ("plain", "cudnn")]:
+            out[(name, t, b, h)] = profile_split(
+                torch, fns[name], f"gru_fwd ({name}) T={t} B={b} H={h}", t,
+                card)
+        out[("turns", t, b, h)] = profile_split(
+            torch, lambda: [fn() for fn in fns.values()],
+            f"gru_fwd turns ({', '.join(fns)}) T={t} B={b} H={h}", t, card)
+    return out
 
 
 def check_results(results, n: int, what: str) -> None:
@@ -537,12 +629,14 @@ def turns_ms(torch, fns: dict, reps: int) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def _route_fns(rnn_cuda, args, shape) -> dict:
-    """{route: call} of the LSTM forward through each route at ``shape``
-    (the step route only where H is a multiple of 4)."""
+def _route_fns(rnn_cuda, args, shape, cell: str = "lstm") -> dict:
+    """{route: call} of the LSTM (or GRU) forward through each route at
+    ``shape`` (the step route only where H is a multiple of 4)."""
     t, b, h = shape
-    return {route: (lambda plan=rnn_cuda.lstm_fwd_plan(b, h, route):
-                    rnn_cuda.lstm_sequence(*args, plan=plan))
+    plan_fn, fwd = ((rnn_cuda.gru_fwd_plan, rnn_cuda.gru_sequence)
+                    if cell == "gru"
+                    else (rnn_cuda.lstm_fwd_plan, rnn_cuda.lstm_sequence))
+    return {route: (lambda plan=plan_fn(b, h, route): fwd(*args, plan=plan))
             for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]}
 
 
@@ -649,6 +743,18 @@ def _lstmp_inputs(torch, gen, t, b, c, p, weights):
     return tuple(a.cuda() for a in (xp4, w_h, b3, w_p))
 
 
+def cudnn_lstmp_bwd(torch, t: int, b: int, c: int, p: int):
+    """A call of cuDNN's ``nn.LSTM(p, c, proj_size=p)`` backward at (T, B):
+    ``torch.autograd.grad`` to the input and all weights (no clips; a
+    yardstick used nowhere in the port)."""
+    mod = torch.nn.LSTM(p, c, proj_size=p).cuda()
+    x = torch.randn((t, b, p), device="cuda", requires_grad=True)
+    y, _ = mod(x)
+    dy = torch.randn_like(y)
+    wrt = [x, *mod.parameters()]
+    return lambda: torch.autograd.grad(y, wrt, dy, retain_graph=True)
+
+
 def _rel(got, ref) -> float:
     """max over the outputs of max|got - ref| / max|ref|."""
     return max(((g - r).abs().max() / r.abs().max()).item()
@@ -687,9 +793,9 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
         again = rnn_cuda.lstmp_sequence(*fwd_in)
         ref = rnn_cuda.lstmp_sequence_torch(*fwd_in)
         bwd_in = fwd_in + ref[:3] + (dys, dcpre)
+        bref = rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in)
         bgot = rnn_cuda.lstmp_sequence_bwd(*bwd_in)
         bagain = rnn_cuda.lstmp_sequence_bwd(*bwd_in)
-        bref = rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in)
         torch.cuda.synchronize()
         for g, want in zip(got + bgot, ((t, b, p), (t, b, p), (t, b, c),
                                         (t, b, c), (t, b, 4, c), (t, b, p))):
@@ -719,20 +825,27 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
             worst_abs[k] = max([worst_abs[k]] + [(g - r).abs().max().item()
                                                  for g, r in zip(gs, rs)])
         if shape in LSTMP_TIMED:
-            pairs = {
-                "fwd": (lambda: rnn_cuda.lstmp_sequence(*fwd_in),
-                        lambda: rnn_cuda.lstmp_sequence_torch(*fwd_in)),
-                "bwd": (lambda: rnn_cuda.lstmp_sequence_bwd(*bwd_in),
-                        lambda: rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in))}
-            timings[shape] = {}
-            for k, (kern, plain) in pairs.items():
-                kern(), plain()
-                timings[shape][k] = (event_ms(kern, 5, torch),
-                                     event_ms(plain, 5, torch))
-                ms, pms = timings[shape][k]
-                print(f"timing lstmp_{k} T={t} B={b} C={c} P={p}: cuda "
-                      f"kernel {ms:.4f} ms, plain torch {pms:.4f} ms "
-                      f"(median of 5, CUDA events) [{card}]")
+            rnn_cuda.lstmp_sequence(*fwd_in)
+            rnn_cuda.lstmp_sequence_torch(*fwd_in)
+            timings[shape] = {"fwd": (
+                event_ms(lambda: rnn_cuda.lstmp_sequence(*fwd_in), 5, torch),
+                event_ms(lambda: rnn_cuda.lstmp_sequence_torch(*fwd_in), 5,
+                         torch))}
+            ms, pms = timings[shape]["fwd"]
+            print(f"timing lstmp_fwd T={t} B={b} C={c} P={p}: cuda kernel "
+                  f"{ms:.4f} ms, plain torch {pms:.4f} ms (median of 5, "
+                  f"CUDA events) [{card}]")
+            turns = turns_ms(torch, {
+                "kernel": lambda: rnn_cuda.lstmp_sequence_bwd(*bwd_in),
+                "plain": lambda: rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in),
+                "cudnn": cudnn_lstmp_bwd(torch, t, b, c, p)}, 5)
+            timings[shape]["bwd"] = (turns["kernel"], turns["plain"])
+            timings[shape]["bwd_turns"] = turns
+            print(f"timing lstmp_bwd T={t} B={b} C={c} P={p}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in turns.items())
+                  + f" (median of 5 in turns, CUDA events; cuDNN "
+                  f"nn.LSTM({p}, {c}, proj_size={p}) backward, no clips) "
+                  f"[{card}]")
     try:
         rnn_cuda.lstmp_sequence(xp4.clone().requires_grad_(), w_h, b3, w_p)
     except ValueError:
@@ -813,16 +926,23 @@ def profile_split(torch, fn, label: str, steps: int, card: str):
 
 
 def lstmp_profile_phase(torch, rnn_cuda, card: str) -> dict:
-    """One ``lstmp_sequence`` call at each ``LSTMP_PROFILED`` shape
-    (``init_lstmp``-scale weights) split by :func:`profile_split`."""
+    """One ``lstmp_sequence`` call and one ``lstmp_sequence_bwd`` call (the
+    plan's route, fed the forward's residuals) at each ``LSTMP_PROFILED``
+    shape (``init_lstmp``-scale weights) split by :func:`profile_split`."""
     gen = torch.Generator().manual_seed(8)
     out = {}
     for shape in LSTMP_PROFILED:
         fwd_in = _lstmp_inputs(torch, gen, *shape, "init")
         t, b, c, p = shape
-        out[shape] = profile_split(
+        out[("fwd",) + shape] = profile_split(
             torch, lambda: rnn_cuda.lstmp_sequence(*fwd_in),
             f"lstmp_fwd T={t} B={b} C={c} P={p}", t, card)
+        bwd_in = (fwd_in + rnn_cuda.lstmp_sequence(*fwd_in)[:3]
+                  + (torch.randn((t, b, p), generator=gen).cuda(),
+                     torch.randn((t, b, c), generator=gen).cuda()))
+        out[("bwd",) + shape] = profile_split(
+            torch, lambda: rnn_cuda.lstmp_sequence_bwd(*bwd_in),
+            f"lstmp_bwd T={t} B={b} C={c} P={p}", t, card)
     return out
 
 
@@ -1004,6 +1124,18 @@ def lstmp_summary(card: str, lstmp_times: dict, library: dict) -> None:
               f"{b_ms:.4f} ms ({by}); {plain / ms:.2f}x the plain loop's "
               f"speed, {cudnn / ms:.2f}x cuDNN's, {b_ms / ms:.4f} of the "
               f"bound [{card}]")
+        turns = lstmp_times[shape]["bwd_turns"]
+        ms = turns["kernel"]
+        b_ms, by = lstmp_bounds(*shape)["bwd"]
+        t, _, c, p = shape
+        stream_ms = t * 5 * c * p * 4 / PEAK_HBM_BYTES * 1e3
+        print(f"lstmp_bwd at (T, B, C, P) = {shape}: kernel {ms:.4f} ms, "
+              f"plain {turns['plain']:.4f} ms, cuDNN {turns['cudnn']:.4f} ms"
+              f" (in turns); bound {b_ms:.4f} ms ({by}, the weights "
+              f"counted once), {b_ms / ms:.4f} of it; the step walk's "
+              f"weight stream (5CP floats a step from HBM) {stream_ms:.4f} "
+              f"ms; {turns['plain'] / ms:.2f}x the plain loop's speed, "
+              f"{turns['cudnn'] / ms:.2f}x cuDNN's [{card}]")
 
 
 def bound(flops: float, nbytes: float):
@@ -1955,6 +2087,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "gru":
         kernel_phase(torch, rnn_cuda, card)
+        gru_profile_phase(torch, rnn_cuda, card)
         bwd_kernel_phase(torch, rnn_cuda, card)
         bwd_profile_phase(torch, rnn_cuda, card, ("gru",))
         library_phase(torch, card, only="gru")
@@ -1972,6 +2105,7 @@ def main(argv=None) -> int:
               f"[{card}]")
         return 0
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
+    gru_profile_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
     lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
     lstmp_err, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda,

@@ -62,14 +62,21 @@
 #include <cuda_runtime.h>
 
 #include "lstmp_common.cuh"
+#include "ptx.cuh"
 
 namespace {
 
 using lstmp::clipf_;
 using lstmp::kThreads;
+using lstmp::kWarps;
 using lstmp::sigmoidf_;
+using ptx::allow_next_launch;
+using ptx::cp_async16;
+using ptx::cp_async_commit;
+using ptx::cp_async_wait;
+using ptx::lane_of;
+using ptx::wait_previous_launch;
 
-constexpr int kWarps = kThreads / 32;
 constexpr int GK = 16;  // projection dims of W_h (and h) per stage
 constexpr int PC = 64;  // columns of W_p per stage
 
@@ -86,28 +93,6 @@ template <int CS, int BM>
 __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t)(ring_stages<CS>() * stage_floats<CS, BM>() + BM * CS);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
 // The weights of stage i of the block's ring into `slot`: for i < nk the
@@ -156,17 +141,6 @@ __device__ __forceinline__ void load_h(float* slot, int i,
     cp_async16(hs + r * GK + kk, ok ? h_prev + (size_t)b * P + k : h_prev,
                ok);
   }
-}
-
-// Programmatic dependent launch: wait until the previous launch on the
-// stream has finished and its writes are visible (a no-op when this launch
-// did not ask to overlap it), and let the next launch start early.
-__device__ __forceinline__ void wait_previous_launch() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void allow_next_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <int CS, int BM>

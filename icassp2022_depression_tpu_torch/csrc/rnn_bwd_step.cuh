@@ -23,6 +23,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace rnn_bwd {
 
 constexpr int kThreads = 256;
@@ -38,34 +40,11 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Programmatic dependent launch: wait until the previous launch on the
-// stream has finished and its writes are visible (a no-op when this launch
-// did not ask to overlap it), and let the next launch start early.
-__device__ __forceinline__ void wait_previous_launch() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void allow_next_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
+using ptx::allow_next_launch;
+using ptx::cp_async16;
+using ptx::cp_async_commit;
+using ptx::cp_async_wait;
+using ptx::wait_previous_launch;
 
 // ---------------------------------------------------------------------------
 // The step's carry product.

@@ -30,14 +30,19 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   :data:`LSTMP_BWD_LAUNCHES` (one per call of the C entry, which loops over
   the T steps itself).  They never fall back to the plain versions:
   a build or launch failure raises.
-* The LSTM forward and the GRU and LSTM backwards each have two routes,
-  picked from the shape by :func:`lstm_fwd_plan`, :func:`gru_bwd_plan`
-  and :func:`lstm_bwd_plan` (a ``plan=`` argument overrides it): "sequence",
-  one block per batch row walking all T steps in one launch, and "step",
-  one wide launch a step (cell slabs x row tiles, ``W_hh`` streamed
-  through a ``cp.async`` ring, programmatic dependent launch); the
-  backwards' step route adds one launch that recomputes every step's
-  gates before the walk and one (two) for the weight gradients after it.
+* The GRU and LSTM forwards and the GRU and LSTM backwards each have two
+  routes, picked from the shape by :func:`gru_fwd_plan`,
+  :func:`lstm_fwd_plan`, :func:`gru_bwd_plan` and :func:`lstm_bwd_plan` (a
+  ``plan=`` argument overrides it): "sequence", one block per batch row
+  walking all T steps in one launch, and "step", one wide launch a step
+  (cell slabs x row tiles, ``W_hh`` streamed through a ``cp.async`` ring,
+  programmatic dependent launch); the backwards' step route adds one
+  launch that recomputes every step's gates before the walk and one (two)
+  for the weight gradients after it.  The LSTMP forward and backward have
+  one route each, of the same kind (:func:`lstmp_fwd_plan`,
+  :func:`lstmp_bwd_plan`): the backward recomputes every step's gates
+  before the walk and reduces the partial carries in a fixed order after
+  each step.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
 
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -68,12 +74,12 @@ LSTMP_BWD_LAUNCHES = 0
 
 #: each source's C entry: (symbol, pointer arguments, int arguments, float
 #: arguments), then the stream
-_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 3, 0),
+_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 5, 0),
             "gru_bwd": ("gru_seq_bwd_f32", 12, 6, 0),
             "lstm_fwd": ("lstm_seq_fwd_f32", 5, 5, 0),
             "lstm_bwd": ("lstm_seq_bwd_f32", 13, 6, 0),
             "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
-            "lstmp_bwd": ("lstmp_seq_bwd_f32", 15, 4, 2)}
+            "lstmp_bwd": ("lstmp_seq_bwd_f32", 12, 6, 2)}
 _fns: dict = {}
 
 
@@ -170,10 +176,12 @@ def _dims(xp: torch.Tensor, gates: int = 3):
 
 
 def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
-                 b_hh: torch.Tensor) -> torch.Tensor:
+                 b_hh: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
     """xp [T, B, 3H], w_hh_t [H, 3H], b_hh [1, 3H] (or [3H]) -> ys [T, B, H].
-    The kernel's output carries no autograd graph, so a CUDA input that
-    requires grad raises: gradients go through :class:`GRUSequence`."""
+    ``plan``: a :func:`gru_fwd_plan` for the kernel, by default the one it
+    picks for (B, H); a CPU call ignores it.  The kernel's output carries
+    no autograd graph, so a CUDA input that requires grad raises: gradients
+    go through :class:`GRUSequence`."""
     if xp.device.type == "cpu":
         return gru_sequence_torch(xp, w_hh_t, b_hh)
     if xp.device.type != "cuda":
@@ -191,11 +199,15 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
                      device=xp.device)
     if ys.numel() == 0:
         return ys
+    if plan is None:
+        plan = gru_fwd_plan(batch, hidden)
+    xp, w_hh_t, b_hh = _aligned(plan, xp, w_hh_t, b_hh)
     fn = _kernel("gru_fwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-                 ys.data_ptr(), t_steps, batch, hidden, stream)
+                 ys.data_ptr(), t_steps, batch, hidden, plan["cells"],
+                 plan["rows"], stream)
     if err != 0:
         raise RuntimeError(f"gru_seq_fwd_f32 launch failed: cudaError {err}")
     global LAUNCHES
@@ -347,6 +359,49 @@ def _cdiv(a: int, b: int) -> int:
 LSTM_FWD_TILES = ((4, 8), (4, 16), (4, 24), (4, 32), (32, 16), (32, 64))
 
 
+def _fwd_plan(name: str, batch: int, hidden: int, route: str,
+              wide_rows: bool) -> dict:
+    """The forward step routes' plan: 4-cell slabs and the rows in at most
+    32-row tiles padded to a multiple of 8; with ``wide_rows``, above 64
+    rows 32-cell slabs and 16-row (up to 128 rows) or 64-row tiles."""
+    if route == "auto":
+        route = "sequence" if hidden % 4 else "step"
+    if route == "sequence":
+        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
+                "row_tiles": batch}
+    if route != "step" or hidden % 4:
+        raise ValueError(f"{name}: no route {route!r} for H={hidden}")
+    if batch <= 64 or not wide_rows:
+        cells, rows = 4, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
+    else:
+        cells, rows = 32, 16 if batch <= 128 else 64
+    return {"route": route, "cells": cells, "rows": rows,
+            "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows)}
+
+
+#: the GRU forward's step tiles (cells, rows), which ``csrc/gru_fwd.cu``
+#: compiles: the LSTM forward's.  Its plan takes the 4-cell ones; above 64
+#: rows ``chip_smoke.py`` times the 32-cell ones beside them.
+GRU_FWD_TILES = LSTM_FWD_TILES
+
+
+def gru_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
+    """How ``csrc/gru_fwd.cu`` runs one call: ``route`` "sequence" (one
+    launch, one block per row walking all T steps, the first design) or
+    "step" (one launch a step, ``slabs`` = ceil(H / ``cells``) x
+    ``row_tiles`` = ceil(B / ``rows``) blocks, a tile of
+    :data:`GRU_FWD_TILES`).
+
+    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
+    copies), else "sequence".  The step tiles are 4-cell slabs (64 at the
+    audio model's H = 256) and the rows in at most 32-row tiles padded to
+    a multiple of 8, at every B: above 64 rows they beat the LSTM
+    forward's 32-cell tiles, which leave only 8 slabs at H = 256 (on an
+    H100 at (T, B) = (3, 100) and (3, 200), ``chip_smoke.py``'s GRU turns,
+    PERF.md section 6)."""
+    return _fwd_plan("gru_fwd_plan", batch, hidden, route, wide_rows=False)
+
+
 def lstm_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
     """How ``csrc/lstm_fwd.cu`` runs one call: ``route`` "sequence" (one
     launch, one block per row walking all T steps) or "step" (one launch a
@@ -369,19 +424,7 @@ def lstm_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
     rows in at most 32-row tiles padded to a multiple of 8; up to 128 rows,
     32 x 16 tiles (112 blocks at B = 112); above, 32 x 64 tiles (128 blocks
     at B = 488, where the flops bound the step)."""
-    if route == "auto":
-        route = "sequence" if hidden % 4 else "step"
-    if route == "sequence":
-        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
-                "row_tiles": batch}
-    if route != "step" or hidden % 4:
-        raise ValueError(f"lstm_fwd_plan: no route {route!r} for H={hidden}")
-    if batch <= 64:
-        cells, rows = 4, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
-    else:
-        cells, rows = 32, 16 if batch <= 128 else 64
-    return {"route": route, "cells": cells, "rows": rows,
-            "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows)}
+    return _fwd_plan("lstm_fwd_plan", batch, hidden, route, wide_rows=True)
 
 
 #: the backward step route's tiles (cells, rows) that ``csrc/gru_bwd.cu``
@@ -719,6 +762,50 @@ def lstmp_fwd_plan(batch: int, c_dim: int, p_dim: int) -> dict:
             "row_tiles": _cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
 
 
+#: the backward step route's tiles (cells, rows) that ``csrc/lstmp_bwd.cu``
+#: compiles
+LSTMP_BWD_TILES = ((32, 8), (32, 16), (32, 24), (32, 32), (32, 64))
+
+
+def lstmp_bwd_plan(batch: int, c_dim: int, p_dim: int,
+                   route: str = "auto") -> dict:
+    """How ``csrc/lstmp_bwd.cu`` runs one call: 2 T + 1 launches, every
+    step's gate sums in one product before the walk, then one launch a step
+    of ``slabs`` = ceil(C / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
+    blocks, a tile of :data:`LSTMP_BWD_TILES`, each followed by a
+    fixed-order reduction of the partial carries, whose scratch is
+    ``scratch`` = ``[slabs, B, P]``.  ``route`` "auto" is "step", the
+    only route; any other raises.
+
+    The kernels take C and P only in multiples of 4 (16-byte copies), as
+    the forward does: any other raises.  Tiles: 32-cell slabs (128 at the
+    zhs C = 4096), one cell a lane; up to 64 rows, the forward's rule (at
+    most 32-row tiles padded to a multiple of 8: one tile at one to three
+    served speakers); above, 64-row tiles (each row tile streams the
+    weights again: at (T, B) = (32, 128) 8.40 ms against 9.29 with 32-row
+    tiles on an H100, ``rnn_bwd_tiles.py``)."""
+    if route not in ("auto", "step") or c_dim % 4 or p_dim % 4:
+        raise ValueError(f"lstmp_bwd_plan: no route {route!r} for "
+                         f"C={c_dim}, P={p_dim} (the kernel takes C and P in "
+                         f"multiples of 4: 16-byte copies)")
+    if batch <= 64:
+        rows = 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
+    else:
+        rows = 64
+    cells = 32
+    slabs = _cdiv(c_dim, cells)
+    return {"route": "step", "cells": cells, "rows": rows, "slabs": slabs,
+            "row_tiles": _cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
+
+
+def _lstmp_bwd_scratch(plan: dict, batch: int, c_dim: int,
+                       device) -> torch.Tensor:
+    """All the backward's scratch in one allocation, as the C entry cuts
+    it: the carry [B, C], then the partial carries ``plan["scratch"]``."""
+    n = batch * c_dim + math.prod(plan["scratch"])
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
 def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
                    b3: torch.Tensor, w_p_t: torch.Tensor,
                    cell_clip: float = 3.0, proj_clip: float = 3.0):
@@ -771,10 +858,12 @@ def lstmp_sequence_bwd(xp4: torch.Tensor, w_h_t3: torch.Tensor,
                        ys: torch.Tensor, hpre: torch.Tensor,
                        cpre: torch.Tensor, dys: torch.Tensor,
                        dcpre: torch.Tensor, cell_clip: float = 3.0,
-                       proj_clip: float = 3.0):
+                       proj_clip: float = 3.0, plan: dict | None = None):
     """The LSTMP backward kernel's wrapper: (dgates [T, B, 4, C], dhpre
     [T, B, P]) of ``lstmp_sequence(xp4, w_h_t3, b3, w_p_t)`` given its
-    residuals and the cotangents ``dys [T, B, P]``, ``dcpre [T, B, C]``."""
+    residuals and the cotangents ``dys [T, B, P]``, ``dcpre [T, B, C]``.
+    ``plan``: a :func:`lstmp_bwd_plan` for the kernel, by default the one
+    it picks for (B, C, P); a CPU call ignores it."""
     if xp4.device.type == "cpu":
         return lstmp_sequence_bwd_torch(xp4, w_h_t3, b3, w_p_t, ys, hpre,
                                         cpre, dys, dcpre, cell_clip,
@@ -797,19 +886,20 @@ def lstmp_sequence_bwd(xp4: torch.Tensor, w_h_t3: torch.Tensor,
     dhpre = new((t_steps, batch, p_dim))
     if dgates.numel() == 0 or dhpre.numel() == 0:
         return dgates.zero_(), dhpre.zero_()
-    # scratch: the two carries and the transposed weights
-    dh_carry, dc_carry = new((batch, p_dim)), new((batch, c_dim))
-    w_p, w_h_t = new((p_dim, c_dim)), new((4 * c_dim, p_dim))
+    if plan is None:
+        plan = lstmp_bwd_plan(batch, c_dim, p_dim)
+    xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, dys, dcpre = _aligned(
+        plan, xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, dys, dcpre)
+    scratch = _lstmp_bwd_scratch(plan, batch, c_dim, xp4.device)
     fn = _kernel("lstmp_bwd")
     with torch.cuda.device(xp4.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp4.data_ptr(), w_h_t3.data_ptr(), b3.data_ptr(),
                  w_p_t.data_ptr(), ys.data_ptr(), hpre.data_ptr(),
                  cpre.data_ptr(), dys.data_ptr(), dcpre.data_ptr(),
-                 dgates.data_ptr(), dhpre.data_ptr(), dh_carry.data_ptr(),
-                 dc_carry.data_ptr(), w_p.data_ptr(), w_h_t.data_ptr(),
-                 t_steps, batch, c_dim, p_dim, float(cell_clip),
-                 float(proj_clip), stream)
+                 dgates.data_ptr(), dhpre.data_ptr(), scratch.data_ptr(),
+                 t_steps, batch, c_dim, p_dim, plan["cells"], plan["rows"],
+                 float(cell_clip), float(proj_clip), stream)
     if err != 0:
         raise RuntimeError(f"lstmp_seq_bwd_f32 launch failed: cudaError {err}")
     global LSTMP_BWD_LAUNCHES

@@ -4,7 +4,8 @@
 
     python3 lstm_variants.py [VARIANT ...]
 
-Each variant is a copy of the source with a few strings replaced, built
+Each variant is a copy of the source and its headers (the step route's
+body is ``csrc/rnn_fwd_step.cuh``) with a few strings replaced, built
 by ``lstmp_variants.compile_variant`` into ``_checkout/lstm_variants/``
 (listed in ``.gitignore``), one compiler process per variant, started
 together.  Every
@@ -56,8 +57,9 @@ VARIANTS = {
     # the many-row tile at 32 rows: 256 blocks at B = 488, two waves
     "rows32": [("  LSTM_FWD_TILE(32, 64, 1)\n",
                 "  if (cells == 32 && rows == 64)\n"
-                "    return (int)run_steps<32, 32, 1>(xp, w_hh_t, b_hh, ys, "
-                "cs, T, B, H, s);\n")],
+                "    return (int)rnn_fwd::run_steps<LstmCell, 32, 32, 1>("
+                "lstm_fwd_step_kernel<32, 32, 1>, xp, w_hh_t, b_hh, ys, cs, "
+                "T, B, H, s);\n")],
 }
 
 

@@ -4,9 +4,9 @@ one GPU, to find what holds its step back:
 
     python3 lstmp_variants.py [VARIANT ...]
 
-Each variant is a copy of the source with a few strings replaced (the
-script fails if a replacement does not apply), built with the package's
-``nvcc`` flags into ``_checkout/lstmp_variants/`` (listed in
+Each variant is a copy of the source and its headers with a few strings
+replaced (the script fails if a replacement applies nowhere), built with
+the package's ``nvcc`` flags into ``_checkout/lstmp_variants/`` (listed in
 ``.gitignore``), one compiler process per variant, started together.  Every
 variant's C entry is called through ``ctypes`` with the tile that
 ``ops/rnn_cuda.lstmp_fwd_plan`` picks, at (T, B) = (16, 8), (128, 24) and
@@ -59,22 +59,29 @@ VARIANTS = {
 
 
 def compile_variant(source: Path, name: str, replacements, out: Path):
-    """``source`` with each (text, replacement) of ``replacements`` applied
-    (failing if one does not apply), built with the package's ``nvcc``
-    flags into ``out/lib<name>.so``: (the library, the compiler's register
-    and spill lines)."""
+    """``source`` and the headers beside it (``*.cuh``) with each (text,
+    replacement) of ``replacements`` applied wherever the text occurs
+    (failing if it occurs nowhere), written to ``out/<name>/`` and built
+    with the package's ``nvcc`` flags into ``out/<name>/lib<name>.so``:
+    (the library, the compiler's register and spill lines)."""
     from icassp2022_depression_tpu_torch import _build
 
-    src = source.read_text()
+    files = {f.name: f.read_text()
+             for f in (source, *sorted(source.parent.glob("*.cuh")))}
     for old, new in replacements:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        src = src.replace(old, new)
-    cu = out / f"{name}.cu"
-    cu.write_text(src)
-    so = out / f"lib{name}.so"
+        hits = [f for f, src in files.items() if old in src]
+        if not hits:
+            raise RuntimeError(f"variant {name}: {old!r} not in the sources")
+        for f in hits:
+            files[f] = files[f].replace(old, new)
+    where = out / name
+    where.mkdir(parents=True, exist_ok=True)
+    for f, src in files.items():
+        (where / f).write_text(src)
+    so = where / f"lib{name}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(so), str(cu)], capture_output=True, text=True)
+                           str(so), str(where / source.name)],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"variant {name} failed to build:\n"
                            f"{proc.stderr[-3000:]}")
@@ -104,8 +111,6 @@ def main(argv) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "lstmp_common.cuh").write_text(
-        (CSRC / "lstmp_common.cuh").read_text())
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build, names)))
 

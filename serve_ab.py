@@ -7,7 +7,7 @@ compare two commits on one card):
     python3 serve_ab.py PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --task fuse_clf PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --task text_clf --standin PARENT_DIR . . PARENT_DIR
-    python3 serve_ab.py --lstm PARENT_DIR . . PARENT_DIR
+    python3 serve_ab.py --kernels PARENT_DIR . . PARENT_DIR
     python3 serve_ab.py --steps PARENT_DIR . . PARENT_DIR
 
 Each process imports ``icassp2022_depression_tpu_torch`` from its
@@ -28,11 +28,18 @@ Prints the card's name and power limit, one JSON line per run, then per
 checkout the median and quartiles of its runs' latencies, and the largest
 difference of the 8 speakers' probabilities between the runs.
 
-``--lstm`` times the checkout's LSTM forward kernel instead
-(``rnn_cuda.lstm_sequence`` with the checkout's own choice of route) at
-``LSTM_AB_SHAPES``, the text model's and the stand-in encoder's, on the
-same seeded inputs in every checkout: CUDA events, the median of 50 calls
-(10 above 4096 rows x steps), after 3 warm-up calls.
+``--kernels`` times three of the checkout's recurrence kernels instead,
+each with the checkout's own choice of route, on the same seeded inputs
+in every checkout: the LSTM forward (``rnn_cuda.lstm_sequence``) at
+``LSTM_AB_SHAPES``, the text model's and the stand-in encoder's, the GRU
+forward (``gru_sequence``) at ``GRU_AB_SHAPES``, the audio model's, and
+the LSTMP backward (``lstmp_sequence_bwd``, fed the plain forward's
+residuals) at ``LSTMP_AB_SHAPES``, the zhs geometry's: CUDA events, the
+median of 50 calls (10 above 4096 rows x steps; 5 for the LSTMP), after 3
+warm-up calls.  Each run also reports the largest difference of each
+output from the plain version (relative to its largest magnitude for the
+LSTMP) and a digest of its bytes, and the summary says, for each kernel
+and shape, whether the checkouts' outputs are bitwise equal.
 
 ``--steps`` times an ``audio_clf`` and a ``text_clf`` train step instead,
 with the checkout's ``chip_smoke.step_split`` (forward, backward,
@@ -61,10 +68,28 @@ REPS = 20
 #: (chip_smoke.STANDIN_LSTM_SHAPES)
 LSTM_AB_SHAPES = ((3, 4, 128), (3, 2, 128), (256, 16, 128), (16, 8, 512),
                   (128, 24, 512), (16, 112, 512), (128, 488, 512))
+#: (T, B, H): the audio model's serving, training and eval shapes
+#: (chip_smoke.TIMED_SHAPES)
+GRU_AB_SHAPES = ((3, 8, 256), (3, 24, 256), (3, 100, 256), (3, 200, 256))
+#: (T, B, C, P): the zhs biLM's (chip_smoke.LSTMP_TIMED)
+LSTMP_AB_SHAPES = ((32, 128, 4096, 512), (16, 8, 4096, 512),
+                   (128, 24, 4096, 512))
 
 
-def lstm_times(checkout: Path) -> dict:
-    """ms of the checkout's ``lstm_sequence`` at each ``LSTM_AB_SHAPES``."""
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_times(checkout: Path) -> dict:
+    """The checkout's LSTM forward, GRU forward and LSTMP backward at
+    ``LSTM_AB_SHAPES``, ``GRU_AB_SHAPES`` and ``LSTMP_AB_SHAPES``: for each,
+    ``ms_<kernel>_<shape>`` (median of CUDA-event times), ``err_...`` (the
+    largest difference from the plain version) and ``digest_...``."""
     sys.path.insert(0, str(checkout))
     import torch
 
@@ -73,26 +98,57 @@ def lstm_times(checkout: Path) -> dict:
 
     if Path(pkg.__file__).resolve().parent.parent != checkout.resolve():
         raise RuntimeError(f"imported {pkg.__file__}, not from {checkout}")
-    out = {"checkout": str(checkout), "task": "lstm_fwd"}
-    gen = torch.Generator().manual_seed(5)
-    for t, b, h in LSTM_AB_SHAPES:
-        xp = torch.randn((t, b, 4 * h), generator=gen).cuda()
-        w = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
-             * h ** -0.5).cuda()
-        bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
-                * h ** -0.5).cuda()
-        for _ in range(3):
-            rnn_cuda.lstm_sequence(xp, w, bias)
+    out = {"checkout": str(checkout), "task": "kernels"}
+
+    def run(key, fn, plain, reps, rel=False):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        out[f"err_{key}"] = max(
+            ((g - r).abs().max() / (r.abs().max() if rel else 1)).item()
+            for g, r in zip(got, ref))
+        out[f"digest_{key}"] = _digest(got)
+        for _ in range(2):
+            fn()
         times = []
-        for _ in range(50 if t * b <= 4096 else 10):
+        for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            rnn_cuda.lstm_sequence(xp, w, bias)
+            fn()
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        out[f"ms_{t}x{b}x{h}"] = statistics.median(times)
+        out[f"ms_{key}"] = statistics.median(times)
+
+    gen = torch.Generator().manual_seed(5)
+    for gates, shapes, fwd, plain in (
+            (4, LSTM_AB_SHAPES, rnn_cuda.lstm_sequence,
+             rnn_cuda.lstm_sequence_torch),
+            (3, GRU_AB_SHAPES, rnn_cuda.gru_sequence,
+             rnn_cuda.gru_sequence_torch)):
+        for t, b, h in shapes:
+            xp = torch.randn((t, b, gates * h), generator=gen).cuda()
+            w = ((torch.rand((h, gates * h), generator=gen) * 2 - 1)
+                 * h ** -0.5).cuda()
+            bias = ((torch.rand((1, gates * h), generator=gen) * 2 - 1)
+                    * h ** -0.5).cuda()
+            run(f"{'lstm' if gates == 4 else 'gru'}_fwd_{t}x{b}x{h}",
+                lambda: fwd(xp, w, bias), lambda: plain(xp, w, bias),
+                50 if t * b <= 4096 else 10)
+    for t, b, c, p in LSTMP_AB_SHAPES:
+        xp4 = torch.randn((t, b, 4, c), generator=gen)
+        w_h = (torch.rand((p, 4, c), generator=gen) * 2 - 1) / p ** 0.5
+        b3 = (torch.rand((1, 4, c), generator=gen) * 2 - 1) / p ** 0.5
+        w_p = (torch.rand((c, p), generator=gen) * 2 - 1) / c ** 0.5
+        fwd_in = tuple(a.cuda() for a in (xp4, w_h, b3, w_p))
+        args = (fwd_in + rnn_cuda.lstmp_sequence_torch(*fwd_in)[:3]
+                + (torch.randn((t, b, p), generator=gen).cuda(),
+                   torch.randn((t, b, c), generator=gen).cuda()))
+        run(f"lstmp_bwd_{t}x{b}x{c}x{p}",
+            lambda: rnn_cuda.lstmp_sequence_bwd(*args),
+            lambda: rnn_cuda.lstmp_sequence_bwd_torch(*args), 5, rel=True)
     return out
 
 
@@ -259,15 +315,15 @@ def main(argv) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps(one(Path(argv[1]), argv[2], argv[3] == "standin")))
         return 0
-    if argv[:1] == ["--one-lstm"]:
-        print(json.dumps(lstm_times(Path(argv[1]))))
+    if argv[:1] == ["--one-kernels"]:
+        print(json.dumps(kernel_times(Path(argv[1]))))
         return 0
     if argv[:1] == ["--one-steps"]:
         print(json.dumps(step_times(Path(argv[1]))))
         return 0
-    lstm = argv[:1] == ["--lstm"]
+    kernels = argv[:1] == ["--kernels"]
     steps = argv[:1] == ["--steps"]
-    argv = argv[1:] if lstm or steps else argv
+    argv = argv[1:] if kernels or steps else argv
     task = "audio_clf"
     if argv[:1] == ["--task"]:
         task, argv = argv[1], argv[2:]
@@ -291,7 +347,7 @@ def main(argv) -> int:
     print(card)
     runs = []
     for checkout in argv:
-        cmd = (["--one-lstm", checkout] if lstm else
+        cmd = (["--one-kernels", checkout] if kernels else
                ["--one-steps", checkout] if steps else
                ["--one", checkout, task, "standin" if standin else "bundle"])
         proc = subprocess.run([sys.executable, __file__, *cmd],
@@ -313,13 +369,17 @@ def main(argv) -> int:
                        if all(r[task][k] is not None for r in mine)}
                 for task in ("audio_clf", "text_clf")}))
         return 0
-    if lstm:
+    if kernels:
         for checkout in dict.fromkeys(argv):
             mine = [r for r in runs if r["checkout"] == checkout]
-            print(json.dumps({"checkout": checkout, "task": "lstm_fwd",
+            print(json.dumps({"checkout": checkout, "task": "kernels",
                               "runs": len(mine), "card": card} | {
                 k: statistics.median(r[k] for r in mine)
-                for k in mine[0] if k.startswith("ms_")}))
+                for k in mine[0] if k.startswith(("ms_", "err_"))}))
+        keys = [k for k in runs[0] if k.startswith("digest_")]
+        print(json.dumps({"bitwise_equal_across_runs": {
+            k[len("digest_"):]: len({r.get(k) for r in runs}) == 1
+            for k in keys}}))
         return 0
     for checkout in dict.fromkeys(argv):
         mine = [r for r in runs if r["checkout"] == checkout]

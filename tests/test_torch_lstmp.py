@@ -232,6 +232,77 @@ def test_lstmp_fwd_plan_covers_every_cell_once(b, c, p):
         assert plan["slabs"] * plan["row_tiles"] == 128
 
 
+@pytest.mark.parametrize("b,c,p", [(8, 4096, 512), (24, 4096, 512),
+                                   (104, 4096, 512), (128, 4096, 512),
+                                   (3, 384, 128)])
+def test_lstmp_bwd_plan_covers_every_cell_once(b, c, p):
+    """The backward kernel's step route (``rnn_cuda.lstmp_bwd_plan``): a
+    tile the C entry compiles, slabs and row tiles that cover every cell
+    and row exactly once with none empty, 128 slabs at the zhs width, a
+    partial-carry scratch ``[slabs, B, P]``, and one allocation holding
+    the carry [B, C] and the partials, as the C entry cuts it."""
+    import re
+
+    from icassp2022_depression_tpu_torch import _build
+
+    compiled = {tuple(map(int, m)) for m in re.findall(
+        r"^  LSTMP_BWD_TILE\((\d+), (\d+)\)$",
+        (_build.CSRC / "lstmp_bwd.cu").read_text(), re.M)}
+    assert compiled == set(rnn_cuda.LSTMP_BWD_TILES)
+    plan = rnn_cuda.lstmp_bwd_plan(b, c, p)
+    assert plan["route"] == "step"
+    cells, rows = plan["cells"], plan["rows"]
+    assert (cells, rows) in compiled
+    cover_c, cover_b = np.zeros(c, int), np.zeros(b, int)
+    for s in range(plan["slabs"]):
+        assert s * cells < c                 # no empty slab
+        cover_c[s * cells:(s + 1) * cells] += 1
+    for r in range(plan["row_tiles"]):
+        assert r * rows < b                  # no empty row tile
+        cover_b[r * rows:(r + 1) * rows] += 1
+    assert (cover_c == 1).all() and (cover_b == 1).all()
+    assert plan["scratch"] == (plan["slabs"], b, p)
+    if c == 4096:
+        assert plan["slabs"] == 128
+    scratch = rnn_cuda._lstmp_bwd_scratch(plan, b, c, "cpu")
+    assert scratch.numel() == b * c + plan["slabs"] * b * p
+    assert rnn_cuda.lstmp_bwd_plan(b, c, p, "step") == plan
+
+
+def test_lstmp_bwd_plan_refuses_what_no_route_takes():
+    """The kernel's 16-byte copies need C and P in multiples of 4, and
+    "auto" is the step route, the only one (the first design's
+    "sequence" route is gone); an unknown route raises."""
+    for c, p in ((386, 128), (384, 130)):
+        for route in ("step", "auto"):
+            with pytest.raises(ValueError, match="no route"):
+                rnn_cuda.lstmp_bwd_plan(3, c, p, route)
+    for route in ("sequence", "persistent"):
+        with pytest.raises(ValueError, match="no route"):
+            rnn_cuda.lstmp_bwd_plan(8, 4096, 512, route)
+
+
+@pytest.mark.parametrize("plan_of", ["step", "another_shape", "bogus"])
+def test_lstmp_bwd_wrapper_takes_plain_backward_on_cpu_whatever_the_plan(
+        plan_of):
+    """On CPU tensors ``lstmp_sequence_bwd`` runs the plain backward and
+    launches nothing, whatever ``plan`` says: its own shape's plan, the
+    plan of a 128-row batch, or no plan at all."""
+    ins, (dys, dcpre) = _sequence_inputs(13, 4, 2, 16, 8)
+    tt = [torch.from_numpy(a) for a in ins]
+    res = rnn_cuda.lstmp_sequence_torch(*tt)[:3]
+    cot = (torch.from_numpy(dys), torch.from_numpy(dcpre))
+    plan = {"step": rnn_cuda.lstmp_bwd_plan(2, 16, 8),
+            "another_shape": rnn_cuda.lstmp_bwd_plan(128, 4096, 512),
+            "bogus": {"route": "bogus"}}[plan_of]
+    before = rnn_cuda.LSTMP_BWD_LAUNCHES
+    got = rnn_cuda.lstmp_sequence_bwd(*tt, *res, *cot, plan=plan)
+    want = rnn_cuda.lstmp_sequence_bwd_torch(*tt, *res, *cot)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert rnn_cuda.LSTMP_BWD_LAUNCHES == before
+    assert "lstmp_bwd" not in rnn_cuda._fns
+
+
 def _c_entry_args(source: str, symbol: str) -> tuple:
     """(pointers, ints, floats) before the stream in a C entry's
     signature."""

@@ -53,6 +53,71 @@ def test_gru_sequence_wrapper_uses_plain_version_on_cpu():
     assert rnn_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("b,h", [(8, 256), (2, 256), (24, 256), (16, 256),
+                                 (1, 256), (3, 200), (40, 256), (100, 256),
+                                 (200, 256), (9, 512), (1, 8), (4, 254)])
+def test_gru_fwd_plan_covers_every_cell_once(b, h):
+    """The forward kernel's plan (``rnn_cuda.gru_fwd_plan``): at the audio
+    model's H = 256 (serving, training, eval and streamed batches), a
+    ragged H and a wide one, a step tile that ``csrc/gru_fwd.cu`` compiles,
+    slabs and row tiles that cover every cell and row exactly once with
+    none empty (4-cell slabs and at most 32-row tiles at every B: 64 slabs
+    at H = 256); at an H the 16-byte copies cannot take, the
+    one-block-per-row route."""
+    import re
+
+    compiled = {tuple(map(int, m)) for m in re.findall(
+        r"^  GRU_FWD_TILE\((\d+), (\d+), \d+\)$",
+        (_build.CSRC / "gru_fwd.cu").read_text(), re.M)}
+    assert compiled == set(rnn_cuda.GRU_FWD_TILES)
+    plan = rnn_cuda.gru_fwd_plan(b, h)
+    if h % 4:
+        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
+                        "slabs": 1, "row_tiles": b}
+        return
+    assert plan["route"] == "step"
+    cells, rows = plan["cells"], plan["rows"]
+    assert (cells, rows) in compiled
+    cover_h, cover_b = np.zeros(h, int), np.zeros(b, int)
+    for s in range(plan["slabs"]):
+        assert s * cells < h                 # no empty slab
+        cover_h[s * cells:(s + 1) * cells] += 1
+    for r in range(plan["row_tiles"]):
+        assert r * rows < b                  # no empty row tile
+        cover_b[r * rows:(r + 1) * rows] += 1
+    assert (cover_h == 1).all() and (cover_b == 1).all()
+    assert cells == 4 and rows <= 32
+    if h == 256:
+        assert plan["slabs"] == 64
+    assert rnn_cuda.gru_fwd_plan(b, h, "sequence")["route"] == "sequence"
+
+
+def test_gru_fwd_plan_refuses_what_no_route_takes():
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.gru_fwd_plan(8, 254, "step")
+    with pytest.raises(ValueError, match="no route"):
+        rnn_cuda.gru_fwd_plan(8, 256, "persistent")
+
+
+@pytest.mark.parametrize("route", ["step", "sequence", "bogus"])
+def test_gru_sequence_wrapper_takes_plain_forward_on_cpu_whatever_the_plan(
+        route):
+    """On CPU tensors ``gru_sequence`` runs the plain recurrence and
+    launches nothing, whatever ``plan`` says."""
+    rng = np.random.default_rng(4)
+    xp = torch.from_numpy(rng.standard_normal((3, 2, 24)).astype(np.float32))
+    w = torch.from_numpy((rng.uniform(-1, 1, (8, 24)) / np.sqrt(8)
+                          ).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-1, 1, (1, 24)).astype(np.float32))
+    plan = ({"route": "bogus"} if route == "bogus"
+            else rnn_cuda.gru_fwd_plan(2, 8, route))
+    before = rnn_cuda.LAUNCHES
+    assert torch.equal(rnn_cuda.gru_sequence(xp, w, bias, plan=plan),
+                       rnn_cuda.gru_sequence_torch(xp, w, bias))
+    assert rnn_cuda.LAUNCHES == before
+    assert "gru_fwd" not in rnn_cuda._fns
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_layer_matches_pallas_layer(reverse):
     jp, tp = _layers(1, 12, 16, 1, False)
