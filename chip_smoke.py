@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``icassp2022_depression_tpu_torch``)
 on one NVIDIA GPU: serving of the audio, text and fusion models, the text
-frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), and the
-training paths of both tracks, at full width.
+frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), the
+training paths of both tracks, and checking and migration (``cli
+extract-audio``, ``check``, ``export-pt``, reference ``.pt`` checkpoints),
+at full width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
@@ -103,7 +105,28 @@ Phases (each raises on failure, so the exit code is nonzero):
    dropout 0 on the card against the CPU (per-step losses within 1e-5,
    relative to the largest loss for the L1 loss on SDS scores; final
    params within 1e-5 of the largest |param|);
-6. text serving: full-width seeded ``fuse_clf`` and ``text_clf``
+6. checking and migration on phase 5's corpus and checkpoints: counted,
+   ``cli extract-audio`` (no kernel; its clf features bitwise
+   ``extract_eatd_device``'s, 3 speakers the CPU's within 1e-5, and an
+   incremental rerun marks every speaker cached and writes the same npz
+   files), ``cli check --corpus`` on the gated checkpoints of ``cli train
+   --task audio_clf --corpus`` and of the reg pipeline (``audio_reg``,
+   ``text_reg``, ``fuse_reg``), each fold's metrics its trainer's recorded
+   ones (F1, precision and recall within 1e-6, MAE within 1e-5 of the
+   largest target) with exact launches (2 ``gru_fwd`` a fold for audio, 4
+   ``lstm_fwd`` for text, both for the fusion, 4 ``lstmp_fwd`` a batch of
+   128 answers, no backward); not counted, the same checks on the CPU
+   (the same metrics, predictions within 1e-5 of max(1, their largest
+   magnitude)); counted, ``cli export-pt`` of fold 1's ``audio_clf`` and
+   ``fuse_reg`` checkpoints, whole-module pickles of reference-layout
+   modules defined in this script in torch's zipfile and legacy formats,
+   and ``cli check`` and ``cli predict`` on each, equal to the npz's
+   (1e-5); at EATD's size (a synthetic corpus of 83 + 79 speakers), the
+   wall time of ``cli extract-audio`` and of ``cli check --task fuse_clf
+   --corpus`` with the seeded bundle and seeded full-width checkpoints,
+   and, not counted, the device time of each fold's forward at its test
+   split's rows (``torch.profiler``);
+7. text serving: full-width seeded ``fuse_clf`` and ``text_clf``
    checkpoints whose sidecars name the bundle (``ICASSP_ELMO_WEIGHTS``
    points at it): counted ``cli predict`` for one speaker (equal to the
    CPU's within 1e-5) and ``Predictor.predict_batch`` (``fuse_clf``) at 1
@@ -116,7 +139,7 @@ Phases (each raises on failure, so the exit code is nonzero):
    ``lstm_fwd`` per request (the stand-in's 4 and the text model's 4);
    not counted: the 8 speakers' ``text_clf`` results and text features
    against the CPU (1e-5);
-7. timing: warm ``predict_batch`` latency (audio at 1 and 8 speakers,
+8. timing: warm ``predict_batch`` latency (audio at 1 and 8 speakers,
    fusion at 1 and 8, and the stand-in's ``text_clf`` and ``fuse_clf`` at
    1 and 8); the wall time of extraction and of each pipeline
    stage; an ``audio_clf`` and a ``text_clf`` train step split into
@@ -139,6 +162,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 HERE = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-5
@@ -1626,12 +1651,15 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
         for k, v in clf_run["launches"].items():
             launches[k] += v
 
-        # -- cli train --task audio_clf --corpus, reduced epochs -----------
+        # -- cli train --task audio_clf --corpus, reduced epochs, gates
+        # open: every fold saves, for phase 6's cli check ------------------
         full = {n: getattr(C, n) for n in
                 ("AUDIO_CLF", "AUDIO_REG", "TEXT_REG", "FUSE_REG_TRAINER")}
         try:
-            C.AUDIO_CLF = C.replace(full["AUDIO_CLF"],
-                                    epochs=REDUCED_EPOCHS + 1)
+            C.AUDIO_CLF = C.replace(
+                full["AUDIO_CLF"], epochs=REDUCED_EPOCHS + 1,
+                gate=C.replace(full["AUDIO_CLF"].gate, f1_floor=-1.0,
+                               train_acc_frac=0.0, train_acc_strict=False))
             _set_counts(rnn_cuda, ZERO)
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -1654,6 +1682,11 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
             _check_launches("audio_clf (cli train --corpus)", got,
                             int(sum(r["steps"] for r in epochs)),
                             len(epochs), 3)
+            gated = [r for r in records
+                     if r["event"] == "fold_best" and r["epoch"] >= 0]
+            if len(gated) != 3:
+                fail(f"cli train audio_clf --corpus: {len(gated)} of 3 "
+                     "folds gated with the gates open")
             for k, v in got.items():
                 launches[k] += v
             print(f"cli train audio_clf --corpus, 3 folds x "
@@ -1672,14 +1705,16 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
             n_dep, n_non = int((sds >= cut).sum()), int((sds < cut).sum())
             fold_cfg = C.FoldConfig(reg_test_dep=n_dep // 3,
                                     reg_test_non=n_non // 3)
+            # beside the corpus, so that phase 6 checks its checkpoints
             reg_run = pipeline_run(
-                torch, Path(tmp) / "reg", "reg", card, embedder, fold_cfg,
+                torch, corpus.parent / "reg", "reg", card, embedder, fold_cfg,
                 ["--corpus", str(corpus), "--elmo-weights", str(bundle),
                  "--segmenter", "fallback"],
                 {"lstmp_fwd": text["launches"]["lstmp_fwd"]},
                 all_gated=True)
             for k, v in reg_run["launches"].items():
                 launches[k] += v
+            reg_run.update(root=corpus.parent / "reg", fold_cfg=fold_cfg)
         finally:
             for n, v in full.items():
                 setattr(C, n, v)
@@ -2036,6 +2071,462 @@ def standin_serving_phase(torch, card: str) -> tuple:
     return launches, latency
 
 
+class RefAudioBiLSTM(torch.nn.Module):
+    """The reference's audio classifier as it pickles
+    (``Classification/audio_gru_whole.py:24-108`` names, full width).  It
+    is defined only here, so ``torch.save`` of it pickles a class that no
+    other code defines, as a reference user's checkpoint does."""
+
+    def __init__(self, d: int = 256, h: int = 256):
+        super().__init__()
+        nn = torch.nn
+        self.attention_layer = nn.Sequential(nn.Linear(h, h),
+                                             nn.ReLU(inplace=True))
+        self.lstm_net_audio = nn.GRU(d, h, num_layers=2, batch_first=True)
+        self.ln = nn.LayerNorm(d)
+        self.fc_audio = nn.Sequential(
+            nn.Dropout(0.5), nn.Linear(h, h), nn.ReLU(), nn.Dropout(0.5),
+            nn.Linear(h, 2), nn.Softmax(dim=1))
+
+
+class RefFusionReg(torch.nn.Module):
+    """The reference's regression fusion as it pickles
+    (``Regression/fuse_net.py:325-351`` names: no ``ln``, one output)."""
+
+    def __init__(self, ae: int = 256, te: int = 1024, ah: int = 256,
+                 th: int = 128):
+        super().__init__()
+        nn = torch.nn
+        self.attention_layer = nn.Sequential(nn.Linear(th, th),
+                                             nn.ReLU(inplace=True))
+        self.lstm_net = nn.LSTM(te, th, num_layers=2, bidirectional=True)
+        self.fc_out = nn.Sequential(nn.Dropout(0.5), nn.Linear(th, th),
+                                    nn.ReLU(), nn.Dropout(0.5))
+        self.lstm_net_audio = nn.GRU(ae, ah, num_layers=2, batch_first=True)
+        self.fc_audio = nn.Sequential(nn.Dropout(0.5), nn.Linear(ah, ah),
+                                      nn.ReLU(), nn.Dropout(0.5))
+        self.modal_attn = nn.Linear(th + ah, th + ah, bias=False)
+        self.fc_final = nn.Sequential(nn.Linear(th + ah, 1, bias=False),
+                                      nn.ReLU())
+
+
+#: kernel launches of one check fold's forward, by branch
+CHECK_FOLD = {"audio": dict(ZERO, gru_fwd=2), "text": dict(ZERO, lstm_fwd=4),
+              "fuse": dict(ZERO, lstm_fwd=4, gru_fwd=2)}
+
+
+def check_launches(task: str, n_answers: int = 0) -> dict:
+    """A three-fold ``cli check``'s launches: each fold's forward, plus,
+    for the text and fusion tasks with ``--corpus``, the text extraction
+    of ``n_answers`` answers (4 ``lstmp_fwd`` a batch of 128)."""
+    branch = task.split("_")[0]
+    want = {k: 3 * v for k, v in CHECK_FOLD[branch].items()}
+    if branch != "audio" and n_answers:
+        want["lstmp_fwd"] = 4 * -(-n_answers // 128)
+    return want
+
+
+def _fold_ckpt(directory: Path, pattern: str) -> Path:
+    found = sorted(directory.glob(pattern))
+    if len(found) != 1:
+        fail(f"expected one checkpoint {directory}/{pattern}, found {found}")
+    return found[0]
+
+
+def _nan_as_zero(x: float) -> float:
+    """The trainers' gate counts a 0/0 precision (no positive prediction)
+    as 0 on the device, the host's metrics as nan."""
+    return 0.0 if x != x else x
+
+
+def _rows_diff(rows, base) -> float:
+    """The largest difference between two ``cli check`` outputs' numbers
+    (each fold's line and the mean's)."""
+    def numbers(row):
+        return [_nan_as_zero(float(v)) for v in row.get("mean", row).values()]
+    return max(abs(a - b) for ra, rb in zip(rows, base)
+               for a, b in zip(numbers(ra), numbers(rb)))
+
+
+def _output(pred: dict) -> list:
+    return pred["probs"] if "probs" in pred else [pred["sds_score"]]
+
+
+@contextlib.contextmanager
+def _reg_fold_cfg(checking, fold_cfg):
+    """The regression checks on ``fold_cfg`` (the reg pipeline's folds,
+    cut to the corpus), as :func:`pipeline_run` hands it to the
+    trainers."""
+    names = ("check_audio_reg", "check_text_reg", "check_fuse_reg")
+    originals = {n: getattr(checking, n) for n in names}
+
+    def with_cfg(fn):
+        def run(*args, **kwargs):
+            return fn(*args, **dict(kwargs, fold_cfg=fold_cfg))
+        return run
+
+    for n, fn in originals.items():
+        setattr(checking, n, with_cfg(fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(checking, n, fn)
+
+
+class _Counted:
+    """``cli.main`` calls with every kernel counter zeroed just before and
+    read just after; each call's launches must be exactly the expected
+    ones, and they add up in ``launches``."""
+
+    def __init__(self, torch, rnn_cuda):
+        self.torch, self.rnn_cuda = torch, rnn_cuda
+        self.launches = dict(ZERO)
+
+    def __call__(self, argv, want: dict, what: str):
+        """Returns the call's stdout lines and wall time."""
+        from icassp2022_depression_tpu_torch import cli
+
+        argv = [str(a) for a in argv]
+        if argv[0] != "export-pt":      # the one that runs no model
+            argv += ["--device", "cuda"]
+        buf = io.StringIO()
+        _set_counts(self.rnn_cuda, ZERO)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts(self.rnn_cuda)
+        if rc != 0:
+            fail(f"{what} returned {rc}")
+        if got != want:
+            fail(f"{what} launched {got}, expected {want}")
+        for k, v in got.items():
+            self.launches[k] += v
+        return buf.getvalue().strip().splitlines(), wall
+
+
+def check_phase(torch, card: str, corpus: Path, bundle: Path,
+                train: dict) -> dict:
+    """Phase 6, checking and migration on the card: ``cli extract-audio``;
+    ``cli check --corpus`` on phase 5's checkpoints against the metrics
+    their trainers recorded, and the same checks on the CPU; the ``.pt``
+    round trip; the wall times at EATD's size.  Every CLI call is counted
+    with exact launches.  Returns the launches and the timings."""
+    import os
+
+    from icassp2022_depression_tpu_torch.eval import checking
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+    counted = _Counted(torch, rnn_cuda)
+    before_env = os.environ.get("ICASSP_ELMO_WEIGHTS")
+    # cli predict of a fusion .pt finds the bundle as a user's does
+    os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_check_") as tmp, \
+                _reg_fold_cfg(checking, train["reg"]["fold_cfg"]):
+            work = Path(tmp)
+            xa, sds, clf = extract_audio_checks(counted, card, corpus, work)
+            ckpts = check_corpus_checks(counted, card, corpus, bundle, train,
+                                        work, sds)
+            check_card_vs_cpu(torch, rnn_cuda, corpus, bundle, work, ckpts,
+                              xa, sds, clf)
+            pt_round_trip(torch, counted, corpus, work, ckpts)
+            timing = eatd_size_timing(torch, rnn_cuda, counted, card, bundle,
+                                      work)
+    finally:
+        if before_env is None:
+            os.environ.pop("ICASSP_ELMO_WEIGHTS", None)
+        else:
+            os.environ["ICASSP_ELMO_WEIGHTS"] = before_env
+    return dict(timing, launches=counted.launches)
+
+
+def extract_audio_checks(counted, card: str, corpus: Path, work: Path):
+    """``cli extract-audio`` (no kernel of the port): its clf features are
+    ``extract_eatd_device``'s bitwise, 3 speakers the CPU's within
+    SLICE_TOL; an incremental rerun, twice, marks every speaker 'ok' then
+    'cached' and writes the CLI's npz files byte for byte.  Returns the
+    host features and the targets."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+
+    audio_dir = work / "features" / "Features" / "AudioWhole"
+    lines, wall = counted(["extract-audio", "--root", corpus, "--out",
+                           audio_dir], ZERO, "cli extract-audio")
+    print(f"cli extract-audio: {lines[-1]}; wall {wall:.2f} s [{card}]")
+    xa = np.load(audio_dir / "whole_samples_clf_256.npz")["arr_0"][:, :, 0]
+    fused, sds, clf = afe.extract_eatd_device(corpus, device="cuda")
+    if not np.array_equal(xa, fused.cpu().numpy()):
+        fail("extract-audio's clf features differ from extract_eatd_device's")
+    speakers = eatd.load_speakers(corpus)[:3]
+    cpu = afe.extract_batch([w for sp in speakers for w in sp.waveforms],
+                            [r for sp in speakers for r in sp.sample_rates],
+                            ordinals=range(9), device="cpu").numpy()
+    err = float(np.abs(xa[:3].reshape(9, -1) - cpu).max())
+    print(f"extract-audio: clf features bitwise equal to "
+          f"extract_eatd_device's; 3 speakers card vs CPU max|d| = "
+          f"{err:.3e} (tol {SLICE_TOL})")
+    if not err <= SLICE_TOL:
+        fail(f"extract-audio on the card differs from the CPU: {err}")
+    npz = [f"whole_{k}_{t}_256.npz" for k in ("samples", "labels")
+           for t in ("reg", "clf")]
+    inc = work / "incremental"
+    for want in ("ok", "cached"):
+        _, _, _, manifest = afe.extract_eatd(corpus, out_dir=inc,
+                                             incremental=True, device="cuda")
+        status = {m["status"] for m in manifest}
+        same = all((inc / f).read_bytes() == (audio_dir / f).read_bytes()
+                   for f in npz)
+        if status != {want} or not same:
+            fail(f"incremental extract_eatd: statuses {status} (want "
+                 f"{want}), npz files equal to the CLI's: {same}")
+    m_cli = json.loads((audio_dir / "manifest.json").read_text())
+    m_inc = json.loads((inc / "manifest.json").read_text())
+    if (m_inc["min_len_s"], m_inc["max_len_s"]) != \
+            (m_cli["min_len_s"], m_cli["max_len_s"]):
+        fail(f"incremental manifest durations {m_inc} vs {m_cli}")
+    print(f"extract_eatd incremental=True twice: {len(manifest)} speakers "
+          f"'ok' then 'cached', npz files byte-identical to the CLI's, "
+          f"answer lengths {m_cli['min_len_s']:.2f}-"
+          f"{m_cli['max_len_s']:.2f} s kept")
+    return xa, sds, clf
+
+
+def check_corpus_checks(counted, card: str, corpus: Path, bundle: Path,
+                        train: dict, work: Path, sds) -> dict:
+    """``cli check --corpus`` on the gated checkpoints of phase 5's ``cli
+    train --task audio_clf --corpus`` and ``cli pipeline --track reg
+    --corpus`` (the gates open, so each fold saved one): each fold's
+    metrics must be the ones its trainer recorded in the sidecar (F1,
+    precision and recall within 1e-6; MAE within SLICE_TOL of the largest
+    target).  Returns the checkpoints by task."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    ckpts = {"audio_clf": [_fold_ckpt(
+        corpus / "Model" / "ClassificationWhole" / "Audio",
+        f"BiLSTM_gru_vlad256_256_*_{f}.npz") for f in (1, 2, 3)]}
+    reg_dir = train["reg"]["root"] / "Model" / "Regression"
+    for task, sub in (("audio_reg", "Audio"), ("text_reg", "Text"),
+                      ("fuse_reg", "Fuse")):
+        ckpts[task] = [_fold_ckpt(reg_dir / f"{sub}{f}", "*.npz")
+                       for f in (1, 2, 3)]
+    scale = float(np.abs(sds).max())
+    for task, paths in ckpts.items():
+        lines, wall = counted(
+            ["check", "--task", task, "--root", work, "--ckpts", *paths,
+             "--corpus", corpus, "--elmo-weights", bundle, "--segmenter",
+             "fallback"], check_launches(task, 3 * len(sds)),
+            f"cli check --task {task} --corpus")
+        rows = [json.loads(line) for line in lines]
+        print(f"cli check --task {task} --corpus: {json.dumps(rows)}; wall "
+              f"{wall:.2f} s [{card}]")
+        worst = 0.0
+        for row, path in zip(rows[:-1], paths):
+            meta = checkpoints.load_meta(path)
+            if task.endswith("clf"):
+                d = max(abs(_nan_as_zero(row[k]) - meta[k])
+                        for k in ("f1", "precision", "recall"))
+                tol = 1e-6
+            else:
+                d, tol = abs(row["mae"] - meta["mae"]), SLICE_TOL * scale
+            worst = max(worst, d)
+            if not d <= tol:
+                fail(f"check {task} fold {row['fold']}: {row} against the "
+                     f"trainer's {meta} (tol {tol})")
+        print(f"  {task}: every fold's metrics are its trainer's, max|d| = "
+              f"{worst:.3e}")
+    return ckpts
+
+
+def check_card_vs_cpu(torch, rnn_cuda, corpus: Path, bundle: Path,
+                      work: Path, ckpts: dict, xa, sds, clf) -> None:
+    """Not counted: each task's check on the card and on the CPU on the
+    same host features: the same metrics (clf exactly, MAE within
+    SLICE_TOL of the largest target), predictions within SLICE_TOL of
+    max(1, their largest magnitude).  Writes the text features for the
+    ``.pt`` round trip."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.eval import checking
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    before = _counts(rnn_cuda)
+    xt, _, _ = tfe.extract_eatd(
+        corpus, out_dir=work / "features" / "Features" / "TextWhole",
+        elmo_weights=str(bundle), segmenter="fallback", device="cuda")
+    tf_idx = folds.generate_clf_folds(clf, 3, seed=0)
+    dep, non = folds.generate_reg_shuffles(sds, seed=0)
+    runs = {
+        "audio_clf": lambda dev: checking.check_audio_clf(
+            xa, clf, tf_idx, ckpts["audio_clf"], device=dev),
+        "audio_reg": lambda dev: checking.check_audio_reg(
+            xa, sds, dep, non, ckpts["audio_reg"], device=dev),
+        "text_reg": lambda dev: checking.check_text_reg(
+            xt, sds, dep, non, ckpts["text_reg"], device=dev),
+        "fuse_reg": lambda dev: checking.check_fuse_reg(
+            xa, xt, sds, dep, non, ckpts["fuse_reg"], device=dev)}
+    scale = float(np.abs(sds).max())
+    for task, run in runs.items():
+        clf_task = task.endswith("clf")
+        keys = (("precision", "recall", "f1", "accuracy") if clf_task
+                else ("mae", "rmse"))
+        d_pred = d_metric = 0.0
+        for a, b in zip(run("cuda")[0], run("cpu")[0]):
+            ref = max(1.0, float(np.abs(b["predictions"]).max()))
+            d = float(np.abs(a["predictions"] - b["predictions"]).max()) / ref
+            dm = max(abs(_nan_as_zero(a[k]) - _nan_as_zero(b[k]))
+                     for k in keys)
+            d_pred, d_metric = max(d_pred, d), max(d_metric, dm)
+            if not (d <= SLICE_TOL
+                    and dm <= (0.0 if clf_task else SLICE_TOL * scale)):
+                fail(f"check {task} fold {a['fold']}, card vs CPU: "
+                     f"predictions {d} of max(1, max|CPU|), metrics "
+                     f"{[a[k] for k in keys]} vs {[b[k] for k in keys]}")
+        print(f"check {task}, card vs CPU: predictions max|d| = "
+              f"{d_pred:.3e} of max(1, max|CPU|) (tol {SLICE_TOL}), metrics "
+              f"max|d| = {d_metric:.3e}")
+    _set_counts(rnn_cuda, before)
+
+
+def pt_round_trip(torch, counted, corpus: Path, work: Path,
+                  ckpts: dict) -> None:
+    """Counted: ``cli export-pt`` of fold 1's ``audio_clf`` and
+    ``fuse_reg`` checkpoints, then whole-module pickles of the
+    reference-layout modules above loaded with the export, in torch's
+    zipfile and legacy formats; ``cli check`` (fold 1 from each file, on
+    the npz features) and ``cli predict`` (one speaker) must give the
+    npz's metrics and outputs within SLICE_TOL."""
+    pt = work / "pt"
+    pt.mkdir()
+    refs = {"audio_clf": RefAudioBiLSTM(), "fuse_reg": RefFusionReg()}
+    predict_launches = {"audio_clf": CHECK_FOLD["audio"],
+                        "fuse_reg": dict(CHECK_FOLD["fuse"], lstmp_fwd=4)}
+    for task, ref in refs.items():
+        exported = pt / f"{task}_export.pt"
+        lines, _ = counted(["export-pt", "--task", task, "--ckpt",
+                            ckpts[task][0], "--out", exported], ZERO,
+                           f"cli export-pt --task {task}")
+        print(f"cli export-pt --task {task}: {lines[-1]}")
+        ref.load_state_dict(torch.load(exported, weights_only=True),
+                            strict=True)
+        torch.save(ref, pt / f"{task}_module.pt")
+        torch.save(ref, pt / f"{task}_module_legacy.pt",
+                   _use_new_zipfile_serialization=False)
+        base = None
+        for first in (ckpts[task][0], exported, pt / f"{task}_module.pt",
+                      pt / f"{task}_module_legacy.pt"):
+            lines, _ = counted(
+                ["check", "--task", task, "--root", work / "features",
+                 "--ckpts", first, *ckpts[task][1:]], check_launches(task),
+                f"cli check with {first.name}")
+            rows = [json.loads(line) for line in lines]
+            out, _ = counted(
+                ["predict", "--task", task, "--ckpt", first, "--root",
+                 corpus, "--speaker", "Data/1", "--segmenter", "fallback"],
+                predict_launches[task], f"cli predict {first.name}")
+            pred = _output(json.loads(out[-1]))
+            if base is None:
+                base = (rows, pred)
+                continue
+            d_rows = _rows_diff(rows, base[0])
+            d_pred = max(abs(a - b) for a, b in zip(pred, base[1]))
+            print(f"{first.name}: cli check and cli predict against the "
+                  f"npz's: metrics max|d| = {d_rows:.3e}, outputs max|d| = "
+                  f"{d_pred:.3e} (tol {SLICE_TOL})")
+            if not (d_rows <= SLICE_TOL and d_pred <= SLICE_TOL):
+                fail(f"{first.name} differs from the npz checkpoint: {rows} "
+                     f"{pred} vs {base}")
+
+
+def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
+                     work: Path) -> dict:
+    """At EATD's size (a synthetic corpus of 83 + 79 speakers, the JAX
+    ``warmup`` defaults): the wall time of ``cli extract-audio`` and of
+    ``cli check --task fuse_clf --corpus`` with the seeded bundle and
+    seeded full-width checkpoints, both counted; then, not counted, the
+    device time of each fold's forward at its test split's rows
+    (``torch.profiler``): the three clf folds and one reg fold."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import augment, eatd, folds
+    from icassp2022_depression_tpu_torch.eval import checking
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    big = work / "eatd_size"
+    t0 = time.perf_counter()
+    eatd.make_synthetic_corpus(big, n_data=83, n_validation=79,
+                               seconds=(2.0, 12.0), seed=5)
+    make_s = time.perf_counter() - t0
+    _, extract_s = counted(["extract-audio", "--root", big], ZERO,
+                           "cli extract-audio (83 + 79)")
+    audio = big / "Features" / "AudioWhole"
+    m = json.loads((audio / "manifest.json").read_text())
+    print(f"timing cli extract-audio, 83 + 79 speakers (486 answers of "
+          f"{m['min_len_s']:.2f}-{m['max_len_s']:.2f} s; corpus written in "
+          f"{make_s:.2f} s): {extract_s:.2f} s wall [{card}]")
+    fuse_ckpts = [checkpoints.save(
+        work / f"fuse_clf_{f}", porting.fusion_tree_from_state_dict(
+            FusionNet(C.FUSE_CLF, torch.Generator().manual_seed(20 + f))
+            .state_dict(), C.FUSE_CLF)) for f in (1, 2, 3)]
+    lines, check_s = counted(
+        ["check", "--task", "fuse_clf", "--root", big, "--ckpts",
+         *fuse_ckpts, "--corpus", big, "--elmo-weights", bundle,
+         "--segmenter", "fallback"], check_launches("fuse_clf", 486),
+        "cli check --task fuse_clf --corpus (83 + 79)")
+    print(f"timing cli check --task fuse_clf --corpus, 83 + 79 speakers "
+          f"(both modalities extracted, seeded full-width checkpoints): "
+          f"{check_s:.2f} s wall; {lines[-1]} [{card}]")
+
+    before = _counts(rnn_cuda)
+    xa = np.load(audio / "whole_samples_clf_256.npz")["arr_0"][:, :, 0]
+    clf = np.load(audio / "whole_labels_clf_256.npz")["arr_0"]
+    sds = np.load(audio / "whole_labels_reg_256.npz")["arr_0"]
+    xt, _, _ = tfe.extract_eatd(big, elmo_weights=str(bundle),
+                                segmenter="fallback", device="cuda")
+    dep, non = np.where(clf == 1)[0], np.where(clf == 0)[0]
+    forwards = []
+    for fold, tr in enumerate(folds.generate_clf_folds(clf, 3, seed=0)):
+        _, (xs, y) = augment.augment_classification_fold([xa, xt], clf, tr,
+                                                         dep, non)
+        forwards.append((f"fuse_clf fold {fold + 1}", xs, len(y),
+                         checkpoints.load_model(fuse_ckpts[fold], "fusion",
+                                                C.FUSE_CLF, "cuda")))
+    rdep, rnon = folds.generate_reg_shuffles(sds, seed=0)
+    _, _, te_d, te_n = folds.reg_fold_split(rdep, rnon, 0)
+    te = np.concatenate([te_d, te_n])
+    forwards.append(("fuse_reg fold 1", [xa[te], xt[te]], len(te),
+                     checkpoints.load_model(
+                         FusionNet(C.FUSE_REG,
+                                   torch.Generator().manual_seed(30)),
+                         "fusion", C.FUSE_REG, "cuda")))
+    device_us = {}
+    for label, xs, rows, model in forwards:
+        split = profile_split(
+            torch, lambda: checking.fold_forward(model, xs),
+            f"check {label} forward ({rows} rows)", 3, card)
+        device_us[label] = (rows, None if split is None
+                            else split["busy_us"])
+    _set_counts(rnn_cuda, before)
+    print("timing check fold forwards at EATD's test-split rows, device "
+          "time (torch.profiler): " + ", ".join(
+              f"{k} ({r} rows) "
+              + ("not measured" if us is None else f"{us:.1f} us")
+              for k, (r, us) in device_us.items()) + f" [{card}]")
+    return {"extract_s": extract_s, "check_s": check_s,
+            "device_us": device_us}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2133,12 +2624,13 @@ def main(argv=None) -> int:
               f"{bundle.stat().st_size / 2**20:.1f} MiB, drawn on the card "
               f"and written in {time.perf_counter() - t0:.2f} s [{card}]")
         launches, train = train_phase(torch, card, corpus, bundle)
+        checked = check_phase(torch, card, corpus, bundle, train)
         text_launches, text_latency = text_serving_phase(torch, card, bundle,
                                                          chars)
     standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
-        launches[k] += v + standin_launches[k]
+        launches[k] += v + standin_launches[k] + checked["launches"][k]
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if "jax" in sys.modules:
@@ -2148,6 +2640,9 @@ def main(argv=None) -> int:
         print(f"timing pipeline stage {task}: {wall:.2f} s wall [{card}]")
     print(f"timing cli extract-text (108 answers, one batch of 112 rows): "
           f"{train['text']['wall_s']:.2f} s wall [{card}]")
+    print(f"timing at 83 + 79 speakers: cli extract-audio "
+          f"{checked['extract_s']:.2f} s, cli check --task fuse_clf --corpus "
+          f"{checked['check_s']:.2f} s wall [{card}]")
     print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

@@ -2,6 +2,7 @@
 :mod:`icassp2022_depression_tpu.cli`, the subcommands of the ported slices).
 
   python -m icassp2022_depression_tpu_torch.cli synth-corpus --root ./corpus
+  python -m icassp2022_depression_tpu_torch.cli extract-audio --root ./corpus
   python -m icassp2022_depression_tpu_torch.cli extract-text --root ./corpus \\
       --elmo-weights elmo_zhs.npz
   python -m icassp2022_depression_tpu_torch.cli train --task audio_clf \\
@@ -12,9 +13,16 @@
       --root ./corpus [--corpus ./corpus]
   python -m icassp2022_depression_tpu_torch.cli predict --task fuse_clf \\
       --ckpt ckpt.npz --root ./corpus --speaker Data/1
+  python -m icassp2022_depression_tpu_torch.cli check --task audio_clf \\
+      --root ./corpus --ckpts f1.npz f2.npz f3.pt [--corpus ./corpus]
+  python -m icassp2022_depression_tpu_torch.cli export-pt --task audio_clf \\
+      --ckpt ckpt.npz --out ref.pt
+  python -m icassp2022_depression_tpu_torch.cli parity --root ./corpus \\
+      [--ckpt-dir Model | --from-report report.json]
 
 Every subcommand that computes runs on ``--device`` (default ``cuda``); on
 a machine without a card it raises unless ``--device cpu`` is given.
+``synth-corpus`` and ``export-pt`` run no model and take no device.
 
 ``train`` writes what the JAX CLI's ``train`` writes: the gated-best
 checkpoints (npz + JSON sidecar, and ``train_idxs_{f1:.2f}_{fold}.npy`` for
@@ -36,21 +44,36 @@ JAX CLI's fields: the result dict, ``speaker`` and ``true_sds``; the text
 and fusion tasks embed the speaker's transcripts with the embedder that
 ``ICASSP_ELMO_WEIGHTS`` names, else ``~/.cache/icassp2022_tpu/elmo_zhs.npz``
 when present (else the seeded stand-in).
+
+``extract-audio`` writes ``<root>/Features/AudioWhole`` (the JAX package's
+npz files and ``manifest.json``).  ``check`` recomputes each fold's
+metrics from its checkpoint (npz of either package, or a reference
+``.pt``) on the npz features or, with ``--corpus``, on features extracted
+anew, and prints one JSON line per fold and one of their mean.
+``export-pt`` writes a checkpoint as a reference-layout state-dict
+``.pt``.  ``parity`` prints the ``BASELINE.md`` acceptance table of a
+saved report (``--from-report``), of a reference ``Model/`` tree of
+checkpoints (``--ckpt-dir``) or of both tracks trained anew.  The lines
+printed are the JAX CLI's.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from icassp2022_depression_tpu_torch.serving.predictors import (
     TASKS,
     Predictor,
     default_device,
+    model_config,
+    model_kind,
 )
 
 
@@ -68,6 +91,23 @@ def _device(args) -> torch.device:
     naming ``--device cpu``, when there is none."""
     return default_device() if args.device == "cuda" \
         else torch.device(args.device)
+
+
+def cmd_extract_audio(args):
+    """EATD audio features -> ``<out>`` (default ``<root>/Features/
+    AudioWhole``) in the JAX package's layout."""
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+
+    _reject((("--embedder vggish", args.embedder == "vggish", _VGGISH),
+             ("--vggish-ckpt/--pca-params",
+              bool(args.vggish_ckpt or args.pca_params), _VGGISH)))
+    root = Path(args.root)
+    out = Path(args.out) if args.out else root / "Features" / "AudioWhole"
+    feats, _, clf, manifest = afe.extract_eatd(root, out_dir=out,
+                                               device=_device(args))
+    print(f"audio features {feats.shape} -> {out} "
+          f"({len(manifest)} speakers, {int(clf.sum())} depressed)")
+    return 0
 
 
 def cmd_predict(args):
@@ -126,6 +166,7 @@ def cmd_extract_text(args):
 
 _TRAINER_REST = "the rest of the JAX trainer (ROADMAP.md Queue 1, item 19)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP.md Queue 1, item 18)"
+_VGGISH = "the VGGish slice (ROADMAP.md Queue 1, item 17)"
 
 
 def _reject(options) -> None:
@@ -145,8 +186,7 @@ def _reject_unported(args) -> None:
         ("--vmap-folds", args.vmap_folds, _TRAINER_REST),
         ("--fold-parallel/--data-parallel",
          args.fold_parallel or args.data_parallel != 1, _MULTI_GPU),
-        ("--audio-dim", args.audio_dim != 256,
-         "the VGGish slice (ROADMAP.md Queue 1, item 17)")))
+        ("--audio-dim", args.audio_dim != 256, _VGGISH)))
 
 
 def _train_folds(targets, seed: int, idx_files=None):
@@ -293,6 +333,13 @@ def cmd_pipeline(args):
     """A whole track from the npz features, or with ``--corpus`` from both
     modalities extracted on the device: the audio and text branch trainers,
     then the fusion from each fold's gated branch params."""
+    _pipeline_summary(args)
+    return 0
+
+
+def _pipeline_summary(args) -> dict:
+    """The pipeline's body; returns the per-task fold metrics (also
+    printed, rounded, as the last JSON line)."""
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import folds
     from icassp2022_depression_tpu_torch.frontend import audio as afe
@@ -364,10 +411,400 @@ def cmd_pipeline(args):
     for name, results in named.items():
         for r in results:
             logger.log_fold(name, r["fold"], r["logs"], r["best"])
-    print(json.dumps({f"{name.split('_')[0]}_{metric}":
-                      [round(float(r["best"][metric]), 4) for r in results]
-                      for name, results in named.items()}))
+    summary = {f"{name.split('_')[0]}_{metric}":
+               [float(r["best"][metric]) for r in results]
+               for name, results in named.items()}
+    print(json.dumps({k: [round(v, 4) for v in vs]
+                      for k, vs in summary.items()}))
+    return summary
+
+
+def _corpus_audio(corpus: Path, device):
+    """The corpus's wav2vlad features [N, 3, 256] on the host, SDS and clf
+    targets (no npz written)."""
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+
+    feats, sds, clf, _ = afe.extract_eatd(corpus, device=device)
+    _require_speakers(sds, corpus)
+    return np.squeeze(feats, axis=2), sds, clf
+
+
+def _corpus_text_host(args, corpus: Path, device):
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    return tfe.extract_eatd(corpus, seed=args.seed,
+                            elmo_weights=args.elmo_weights,
+                            segmenter=args.segmenter, device=device)
+
+
+def cmd_check(args):
+    """The reference's ``*ModelChecking.py``: recompute each fold's metrics
+    from its checkpoint."""
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.eval import checking
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    device = _device(args)
+    root = Path(args.root)
+    audio_dir, text_dir = _features_dirs(root)
+    ckpts = [Path(p) for p in args.ckpts]
+    # "" (an unset shell variable) means no corpus, as absent does
+    corpus = Path(args.corpus) if args.corpus else None
+    if corpus is not None:
+        # the features of train/pipeline --corpus checkpoints, extracted
+        # anew (same math, ordinals and embedder resolution); every task
+        # but text_clf needs the audio side, whose SDS are the reg targets
+        if args.task != "text_clf":
+            cfeat, csds, cclf = _corpus_audio(corpus, device)
+        if args.task.startswith(("text", "fuse")):
+            tfeat, tsds, tclf = _corpus_text_host(args, corpus, device)
+
+    def _audio(track):
+        if corpus is not None:
+            return cfeat, (cclf if track == "clf" else csds)
+        return afe.load_features(audio_dir, track)
+
+    def _text(track):
+        if corpus is not None:
+            return tfeat, (tclf if track == "clf" else tsds)
+        return tfe.load_features(text_dir, track)
+
+    kw = {"device": device}
+    if args.task == "audio_clf":
+        x, y = _audio("clf")
+        tf_idx = _train_folds(y, args.seed, args.idx_files)
+        results, summary = checking.check_audio_clf(x, y, tf_idx, ckpts,
+                                                    **kw)
+    elif args.task == "text_clf":
+        x, y = _text("clf")
+        tf_idx = _train_folds(y, args.seed, args.idx_files)
+        results, summary = checking.check_text_clf(x, y, tf_idx, ckpts,
+                                                   **kw)
+    elif args.task == "fuse_clf":
+        xa, ya = _audio("clf")
+        xt, _ = _text("clf")
+        tf_idx = _train_folds(ya, args.seed, args.idx_files)
+        results, summary = checking.check_fuse_clf(xa, xt, ya, tf_idx,
+                                                   ckpts, **kw)
+    else:
+        xa, ya = _audio("reg")
+        dep, non = folds.generate_reg_shuffles(ya, seed=args.seed)
+        if args.task == "audio_reg":
+            results, summary = checking.check_audio_reg(xa, ya, dep, non,
+                                                        ckpts, **kw)
+        elif args.task == "text_reg":
+            xt, yt = _text("reg")
+            results, summary = checking.check_text_reg(xt, yt, dep, non,
+                                                       ckpts, **kw)
+        else:
+            xt, _ = _text("reg")
+            results, summary = checking.check_fuse_reg(xa, xt, ya, dep, non,
+                                                       ckpts, **kw)
+    for r in results:
+        print(json.dumps({k: v for k, v in r.items()
+                          if k not in ("confusion_matrix", "predictions")}))
+    print(json.dumps({"mean": summary}))
     return 0
+
+
+def cmd_export_pt(args):
+    """A checkpoint (npz of either package, or a reference ``.pt``) ->
+    a reference-layout state-dict ``.pt`` that the reference module loads
+    with ``load_state_dict(torch.load(out), strict=True)``."""
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    kind, mcfg = model_kind(args.task), model_config(args.task)
+    model = checkpoints.load_model(args.ckpt, kind, mcfg, "cpu")
+    sd = porting.export_reference_pt(model, kind, mcfg, args.out)
+    print(json.dumps({"exported": str(args.out), "task": args.task,
+                      "kind": kind, "tensors": len(sd)}))
+    return 0
+
+
+#: the reference's real-corpus metric bands (``BASELINE.md``; two
+#: checkpoint sets per branch task where the reference records both)
+PARITY_BANDS = {
+    "audio_f1": (0.60, 0.67), "text_f1": (0.62, 0.67),
+    "fuse_f1": (0.62, 0.69),
+    "audio_mae": (7.60, 8.38), "text_mae": (7.75, 8.46),
+}
+
+
+def check_parity_bands(report: dict):
+    """Fold-metric report -> (rc, rows), each row ``(key, vals, mean,
+    (lo, hi), in_band)``.  An F1 mean must lie within +-0.05 of its band,
+    an MAE mean at most 0.5 above the band's top (lower is better).  rc is
+    0 when every reported metric is in its band, else 1."""
+    rc = 0
+    rows = []
+    for key, band in PARITY_BANDS.items():
+        vals = report.get(key)
+        if not vals:
+            continue
+        mean = sum(vals) / len(vals)
+        lo, hi = band
+        in_band = lo - 0.05 <= mean <= hi + 0.05 if "f1" in key else \
+            mean <= hi + 0.5
+        rows.append((key, vals, mean, band, in_band))
+        if not in_band:
+            rc = 1
+    return rc, rows
+
+
+#: ``BASELINE.md``'s rows: (report key, metric label, the reference's fold
+#: values per published checkpoint set, source file:line in the
+#: reference).  fuse_mae has no published folds, only the save floor, so
+#: it is reported for information.
+PARITY_TABLE_ROWS = (
+    ("audio_f1", "Audio GRU clf F1, 3 folds",
+     ((0.67, 0.67, 0.63), (0.63, 0.65, 0.60)),
+     "Classification/fuse_net_whole.py:525; FuseModelChecking.py:11"),
+    ("text_f1", "Text BiLSTM clf F1, 3 folds",
+     ((0.64, 0.66, 0.62), (0.67, 0.66, 0.66)),
+     "Classification/fuse_net_whole.py:524; FuseModelChecking.py:10"),
+    ("fuse_f1", "Fusion clf F1, 3 folds", ((0.69, 0.68, 0.62),),
+     "Classification/FuseModelChecking.py:12"),
+    ("audio_mae", "Audio reg SDS MAE, 3 folds", ((7.60, 8.38, 8.25),),
+     "Regression/fuse_net.py:34"),
+    ("text_mae", "Text reg SDS MAE, 3 folds", ((7.75, 8.46, 8.01),),
+     "Regression/fuse_net.py:33"),
+    ("fuse_mae", "Fusion reg SDS MAE (save floor < 8.2)", None,
+     "Regression/fuse_net.py:448"),
+)
+
+
+def _fmt_folds(vals) -> str:
+    """``0.69 / 0.68 / 0.62 (mean ≈ 0.663)``, as ``BASELINE.md`` writes."""
+    mean = sum(vals) / len(vals)
+    return (" / ".join(f"{v:.2f}" for v in vals)
+            + f" (mean ≈ {mean:.3f})")
+
+
+def parity_report_markdown(report: dict, band_rows=None) -> str:
+    """A fold-metric report as ``BASELINE.md``'s acceptance table: one row
+    per published metric, this run's folds and mean beside the
+    reference's, PASS / FLAG by :func:`check_parity_bands` (``info`` where
+    there is no band, ``(not measured)`` where the report lacks the key).
+    ``band_rows``: :func:`check_parity_bands`'s rows, when computed
+    already."""
+    if band_rows is None:
+        _, band_rows = check_parity_bands(report)
+    status_by_key = {key: in_band for key, *_r, in_band in band_rows}
+    lines = [
+        "| Metric | This build | Reference | Source (file:line) | Status |",
+        "|---|---|---|---|---|",
+    ]
+    for key, label, ref_sets, source in PARITY_TABLE_ROWS:
+        vals = report.get(key)
+        ours = _fmt_folds(vals) if vals else "(not measured)"
+        ref = ("; ".join(_fmt_folds(rs) for rs in ref_sets)
+               if ref_sets else "save floor < 8.2, no published folds")
+        if not vals:
+            status = "—"
+        elif key in status_by_key:
+            status = "PASS" if status_by_key[key] else "FLAG"
+        else:
+            status = "info"
+        lines.append(f"| {label} | {ours} | {ref} | {source} | {status} |")
+    return "\n".join(lines)
+
+
+#: the reference's ``Model/`` file names: clf names end in
+#: ``_{metric:.2f}_{fold}`` (``audio_gru_whole.py:239``), reg names in
+#: ``_{metric:.2f}`` with the fold in the directory
+#: (``Regression/{Audio,Text,Fuse}{fold}/``, ``audio_bilstm_perm.py:208``)
+_CLF_CKPT_RE = re.compile(r"^(?P<base>.+?)_(?P<metric>\d+(?:\.\d+)?)"
+                          r"_(?P<fold>[123])$")
+_REG_CKPT_RE = re.compile(r"^(?P<base>.+?)_(?P<metric>\d+(?:\.\d+)?)$")
+_REG_DIR_RE = re.compile(r"^(?P<kind>Audio|Text|Fuse)(?P<fold>[123])$")
+
+
+def _ckpt_modality(base: str) -> str:
+    b = base.lower()
+    if b.startswith("fuse"):
+        return "fuse"
+    # audio names carry the embedder: BiLSTM_gru_vlad256_256 /
+    # gru_vlad256_256; a plain BiLSTM_{hidden} is the text branch
+    return "audio" if ("vlad" in b or "gru" in b) else "text"
+
+
+def _discover_reference_ckpts(ckpt_dir: Path) -> dict:
+    """A reference ``Model/`` tree (its root, ``Model/`` itself or a flat
+    directory of clf names) -> ``{task: [fold 1, 2, 3 paths]}``, ``.pt``
+    and ``.npz`` alike.  Of several saves of a fold the best metric wins
+    (max F1, min MAE: the file the reference's checking scripts name);
+    only tasks with all three folds are returned, partial sets warn."""
+    best: dict = {}   # (task, fold) -> (metric, path)
+
+    def _offer(task, fold, metric, path):
+        key = (task, fold)
+        if key in best:
+            old = best[key][0]
+            if (metric <= old) if task.endswith("clf") else (metric >= old):
+                return
+        best[key] = (metric, path)
+
+    for p in sorted(Path(ckpt_dir).rglob("*")):
+        if p.suffix not in (".pt", ".npz") or not p.is_file():
+            continue
+        stem = p.stem
+        mc = _CLF_CKPT_RE.match(stem)
+        if mc:   # the fold in the file name: classification
+            task = f"{_ckpt_modality(mc.group('base'))}_clf"
+            _offer(task, int(mc.group("fold")), float(mc.group("metric")), p)
+            continue
+        regdir = _REG_DIR_RE.match(p.parent.name)
+        mr = _REG_CKPT_RE.match(stem)
+        if regdir and mr:   # the fold in the directory: regression
+            task = f"{regdir.group('kind').lower()}_reg"
+            _offer(task, int(regdir.group("fold")),
+                   float(mr.group("metric")), p)
+    found: dict = {}
+    for task in TASKS:
+        paths = [best.get((task, f)) for f in (1, 2, 3)]
+        if all(p is not None for p in paths):
+            found[task] = [p[1] for p in paths]
+        elif any(p is not None for p in paths):
+            have = [f for f in (1, 2, 3) if best.get((task, f))]
+            print(f"parity: {task} has checkpoints only for folds {have} "
+                  "— need all 3, skipping", file=sys.stderr)
+    return found
+
+
+def _report_from_ckpts(args) -> dict:
+    """Score a discovered reference ``Model/`` tree with the checking
+    harness (no training): the acceptance path of the reference's released
+    ``.pt`` checkpoints (``FuseModelChecking.py:10-12`` names them)."""
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.eval import checking
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    found = _discover_reference_ckpts(Path(args.ckpt_dir))
+    if not found:
+        raise SystemExit(f"parity: no reference-layout checkpoints under "
+                         f"{args.ckpt_dir} (expected "
+                         "ClassificationWhole/{Audio,Text,Fuse}/"
+                         "<name>_<metric>_<fold>.pt and/or "
+                         "Regression/{Audio,Text,Fuse}<fold>/"
+                         "<name>_<metric>.pt)")
+    print("parity: checking " + ", ".join(
+        f"{t} ({', '.join(p.name for p in ps)})"
+        for t, ps in sorted(found.items())), file=sys.stderr)
+    device = _device(args)
+    corpus = Path(args.corpus) if args.corpus else None
+    root = Path(args.root or corpus)
+    audio_dir, text_dir = _features_dirs(root)
+    cache: dict = {}
+
+    def _audio(track):
+        key = ("a", track)
+        if key not in cache:
+            if corpus:
+                feat, sds, clf = _corpus_audio(corpus, device)
+                cache[("a", "clf")] = (feat, clf)
+                cache[("a", "reg")] = (feat, sds)
+            else:
+                cache[key] = afe.load_features(audio_dir, track)
+        return cache[key]
+
+    def _text(track):
+        key = ("t", track)
+        if key not in cache:
+            if corpus:
+                feat, sds, clf = _corpus_text_host(args, corpus, device)
+                cache[("t", "clf")] = (feat, clf)
+                cache[("t", "reg")] = (feat, sds)
+            else:
+                cache[key] = tfe.load_features(text_dir, track)
+        return cache[key]
+
+    kw = {"device": device}
+    report: dict = {}
+    clf_tasks = [t for t in found if t.endswith("clf")]
+    if clf_tasks:
+        y = (_audio if any(t.startswith(("audio", "fuse"))
+                           for t in clf_tasks) else _text)("clf")[1]
+        tf_idx = _train_folds(y, args.seed, args.idx_files)
+        if "audio_clf" in found:
+            x, ya = _audio("clf")
+            res, _ = checking.check_audio_clf(x, ya, tf_idx,
+                                              found["audio_clf"], **kw)
+            report["audio_f1"] = [r["f1"] for r in res]
+        if "text_clf" in found:
+            x, yt = _text("clf")
+            res, _ = checking.check_text_clf(x, yt, tf_idx,
+                                             found["text_clf"], **kw)
+            report["text_f1"] = [r["f1"] for r in res]
+        if "fuse_clf" in found:
+            xa, ya = _audio("clf")
+            xt, _yt = _text("clf")
+            res, _ = checking.check_fuse_clf(xa, xt, ya, tf_idx,
+                                             found["fuse_clf"], **kw)
+            report["fuse_f1"] = [r["f1"] for r in res]
+    if any(t.endswith("reg") for t in found):
+        xa, ya = _audio("reg")
+        dep, non = folds.generate_reg_shuffles(ya, seed=args.seed)
+        if "audio_reg" in found:
+            res, _ = checking.check_audio_reg(xa, ya, dep, non,
+                                              found["audio_reg"], **kw)
+            report["audio_mae"] = [r["mae"] for r in res]
+        if "text_reg" in found:
+            xt, yt = _text("reg")
+            res, _ = checking.check_text_reg(xt, yt, dep, non,
+                                             found["text_reg"], **kw)
+            report["text_mae"] = [r["mae"] for r in res]
+        if "fuse_reg" in found:
+            xt, _yt = _text("reg")
+            res, _ = checking.check_fuse_reg(xa, xt, ya, dep, non,
+                                             found["fuse_reg"], **kw)
+            report["fuse_mae"] = [r["mae"] for r in res]
+    return report
+
+
+def cmd_parity(args):
+    """The real-corpus parity report against ``BASELINE.md``'s bands, as
+    its markdown acceptance table: of a saved report (``--from-report``,
+    the first line this command prints), of a reference ``Model/`` tree
+    of ``.pt`` or npz checkpoints (``--ckpt-dir``), or of both tracks
+    trained anew with the reference configurations."""
+    _reject((("--vmap-folds", args.vmap_folds, _TRAINER_REST),))
+    # an acceptance run from a raw corpus keeps Model/ under the corpus
+    root = args.root or args.corpus
+    if args.from_report:
+        report = json.loads(Path(args.from_report).read_text())
+    elif args.ckpt_dir:
+        if not root:
+            raise SystemExit("parity --ckpt-dir: also pass --root (with "
+                             "Features/ npz) and/or --corpus (re-extract) "
+                             "so the checking harness has features")
+        report = _report_from_ckpts(args)
+    elif not root:
+        raise SystemExit("parity: --root and/or --corpus (train + check) "
+                         "or --from-report (re-check a saved report) is "
+                         "required")
+    else:
+        report = {}
+        for track in ("clf", "reg"):
+            ns = argparse.Namespace(
+                track=track, root=root, model_dir=args.model_dir,
+                idx_files=args.idx_files, seed=args.seed, lr=None,
+                vmap_folds=False, fold_parallel=False, corpus=args.corpus,
+                segmenter=args.segmenter, elmo_weights=args.elmo_weights,
+                device=args.device)
+            report.update(_pipeline_summary(ns))
+    if not any(report.get(k) for k in PARITY_BANDS):
+        # a band check that looked at no metric must not print PASS
+        raise SystemExit("parity: the report contains none of the band "
+                         "metrics (" + ", ".join(PARITY_BANDS) + ") — "
+                         "nothing to check")
+    print(json.dumps(report))
+    rc, rows = check_parity_bands(report)
+    print(parity_report_markdown(report, rows))
+    print("PARITY: " + ("PASS" if rc == 0 else "FAIL"))
+    return rc
 
 
 _DEVICE_HELP = ("torch device (default cuda; without a card this raises "
@@ -385,6 +822,18 @@ def build_parser():
     sp.add_argument("--seconds", type=float, default=2.0)
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=cmd_synth_corpus)
+
+    sp = sub.add_parser("extract-audio", help="EATD audio features "
+                        "(wav2vlad)")
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--out")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    # the JAX CLI's VGGish options arrive with item 17 (cmd_extract_audio)
+    sp.add_argument("--embedder", choices=["netvlad", "vggish"],
+                    default="netvlad")
+    sp.add_argument("--vggish-ckpt")
+    sp.add_argument("--pca-params")
+    sp.set_defaults(fn=cmd_extract_audio)
 
     sp = sub.add_parser("extract-text", help="EATD text features")
     sp.add_argument("--root", required=True)
@@ -469,6 +918,61 @@ def build_parser():
                     help="seed of the stand-in text encoder (default 0)")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     sp.set_defaults(fn=cmd_predict)
+
+    sp = sub.add_parser("check", help="recompute fold metrics from "
+                        "checkpoints")
+    sp.add_argument("--task", required=True, choices=list(TASKS))
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--ckpts", nargs="+", required=True,
+                    help="one checkpoint per fold, in fold order (npz of "
+                         "either package, or a reference .pt)")
+    sp.add_argument("--idx-files", nargs="*")
+    sp.add_argument("--corpus",
+                    help="extract the needed features from this EATD "
+                         "corpus dir anew instead of reading the npz "
+                         "features (the checkpoints of train/pipeline "
+                         "--corpus)")
+    sp.add_argument("--segmenter", default="auto",
+                    help="with --corpus on text/fusion tasks: see "
+                         "extract-text")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="with --corpus on text/fusion tasks: see "
+                         "extract-text")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.set_defaults(fn=cmd_check)
+
+    sp = sub.add_parser("export-pt", help="export a checkpoint as a "
+                        "reference-layout torch state-dict .pt")
+    sp.add_argument("--task", required=True, choices=list(TASKS))
+    sp.add_argument("--ckpt", required=True,
+                    help="an npz checkpoint (or a .pt to write anew as a "
+                         "state-dict pickle)")
+    sp.add_argument("--out", required=True, help="output .pt path")
+    sp.set_defaults(fn=cmd_export_pt)
+
+    sp = sub.add_parser("parity", help="real-corpus parity report against "
+                        "BASELINE.md")
+    sp.add_argument("--root")
+    sp.add_argument("--model-dir")
+    sp.add_argument("--idx-files", nargs="*",
+                    help="the reference's persisted train_idxs_*.npy")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--corpus",
+                    help="extract both modalities from this EATD corpus "
+                         "dir on the device (no Features/ npz needed)")
+    sp.add_argument("--segmenter", default="auto")
+    sp.add_argument("--elmo-weights", default="auto")
+    sp.add_argument("--from-report",
+                    help="check the bands of a saved report JSON instead "
+                         "of training")
+    sp.add_argument("--ckpt-dir",
+                    help="score a reference Model/ tree of .pt (or npz) "
+                         "checkpoints instead of training")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    # the JAX CLI's option that item 19 brings (see cmd_parity)
+    sp.add_argument("--vmap-folds", action="store_true")
+    sp.set_defaults(fn=cmd_parity)
     return p
 
 

@@ -1,6 +1,7 @@
 """EATD audio frontend: batched wav2vlad (port of
 :mod:`icassp2022_depression_tpu.frontend.audio`: the batched extraction,
-the fused corpus pass that feeds training, and the npz feature reader).
+the fused corpus pass that feeds training, the npz feature writer with its
+incremental per-speaker cache, and the npz feature reader).
 
 Reference: ``wav2vlad`` (``Classification/audio_features_whole.py:57-72``)
 = librosa log-mel -> a freshly initialised NetVLAD per utterance.
@@ -17,6 +18,8 @@ for a slow host link) is not ported.
 
 from __future__ import annotations
 
+import hashlib
+import json
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -142,8 +145,8 @@ def extract_eatd_device(root: Path, cfg: FrontendConfig = FrontendConfig(),
     """The fused corpus pass that feeds training (``cli train --corpus``):
     one corpus read, and the [N, 3, output_dim] features stay on
     ``device`` (None: the first card) for the trainers, which gather their
-    folds there.  Same math and ordinals as the JAX package's
-    ``extract_eatd``; no npz artifacts.  Labels are host arrays.
+    folds there.  Same math and ordinals as :func:`extract_eatd`; no npz
+    artifacts.  Labels are host arrays.
 
     Returns (features [N, 3, output_dim] on ``device``, sds_targets [N]
     float32, clf_targets [N] int64).
@@ -156,9 +159,116 @@ def extract_eatd_device(root: Path, cfg: FrontendConfig = FrontendConfig(),
     return feats, sds_targets, clf_targets
 
 
+def _cache_fingerprint(cfg: FrontendConfig) -> str:
+    """md5 of every frontend field that changes the features (the JAX
+    package's key, so either package reuses the other's cache)."""
+    return hashlib.md5(json.dumps([
+        cfg.netvlad_seed, cfg.n_mels, cfg.netvlad_clusters,
+        cfg.netvlad_output_dim, cfg.n_fft, cfg.hop_length, cfg.log_floor,
+        cfg.silence_amplitude, cfg.silence_seconds,
+    ]).encode()).hexdigest()[:10]
+
+
+def extract_eatd(root: Path, cfg: FrontendConfig = FrontendConfig(),
+                 out_dir: Optional[Path] = None,
+                 max_id: int = eatd.MAX_SPEAKER_ID,
+                 sds_threshold: float = FoldConfig.sds_threshold,
+                 incremental: bool = False, device=None):
+    """The corpus audio pass with host results (``cli extract-audio``):
+    [N, 3, 1, 256] features, SDS and clf targets and the per-speaker
+    manifest.  With ``out_dir`` it writes the JAX package's four
+    ``whole_{samples,labels}_{reg,clf}_256.npz`` and ``manifest.json``
+    (each speaker's status, the shortest and longest answer in seconds).
+
+    ``incremental`` (with ``out_dir``) reuses ``speaker_cache.npz`` from
+    an earlier pass of either package: only the speakers it lacks are
+    extracted, each under its training-time ordinals ``3 * position + k``,
+    and the manifest's durations merge with the earlier manifest's.  A
+    cache entry is keyed ``split/number@position|md5(config)[:10]``, so a
+    changed config or a speaker moved in the corpus is extracted anew.
+    The extraction runs on ``device`` (None: the first card);
+    :func:`extract_eatd_device` is the pass that leaves the features
+    there."""
+    fp = _cache_fingerprint(cfg)
+
+    def cache_key(sp, idx: int) -> str:
+        return f"{sp.split}/{sp.number}@{idx}|{fp}"
+
+    cache: dict = {}
+    cache_path = (Path(out_dir) / "speaker_cache.npz"
+                  if out_dir is not None else None)
+    if incremental and cache_path is not None and cache_path.exists():
+        with np.load(cache_path) as data:
+            cache = {k: data[k] for k in data.files}
+
+    waveforms: List[np.ndarray] = []
+    rates: List[int] = []
+    sds: List[float] = []
+    manifest, speakers, todo = [], [], []
+    min_len, max_len = float("inf"), 0.0
+    for idx, sp in enumerate(eatd.load_speakers(root, max_id=max_id,
+                                                read_text=False)):
+        speakers.append(sp)
+        sds.append(sp.sds)
+        cached = incremental and cache_key(sp, idx) in cache
+        manifest.append({"split": sp.split, "number": sp.number,
+                         "status": "cached" if cached else "ok"})
+        if cached:
+            continue
+        for w, sr, dur in zip(sp.waveforms, sp.sample_rates, sp.durations):
+            waveforms.append(w)
+            rates.append(sr)
+            min_len = min(min_len, dur)
+            max_len = max(max_len, dur)
+        todo.append(idx)
+
+    dim = cfg.netvlad_output_dim
+    features = np.zeros((len(sds), 3, 1, dim), np.float32)
+    if todo:
+        flat = extract_batch(waveforms, rates, cfg,
+                             ordinals=[3 * idx + k for idx in todo
+                                       for k in range(3)],
+                             device=device).cpu().numpy()
+        features[todo] = flat.reshape(len(todo), 3, 1, dim)
+    for idx, sp in enumerate(speakers):
+        key = cache_key(sp, idx)
+        if incremental and key in cache:
+            features[idx] = cache[key]
+    if incremental and cache_path is not None:
+        cache_path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(cache_path, **{cache_key(sp, idx): features[idx]
+                                for idx, sp in enumerate(speakers)})
+    sds_targets, clf_targets = eatd.eatd_targets(sds, sds_threshold)
+
+    if out_dir is not None:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for track, y in (("reg", sds_targets), ("clf", clf_targets)):
+            np.savez(out_dir / f"whole_samples_{track}_{dim}.npz", features)
+            np.savez(out_dir / f"whole_labels_{track}_{dim}.npz", y)
+        # durations are measured only for the speakers extracted now; an
+        # incremental rerun keeps the earlier manifest's corpus-wide range
+        manifest_path = out_dir / "manifest.json"
+        prev = {}
+        if incremental and manifest_path.exists():
+            try:
+                prev = json.loads(manifest_path.read_text())
+            except ValueError:
+                prev = {}
+        if prev.get("min_len_s") is not None:
+            min_len = min(min_len, prev["min_len_s"])
+        if prev.get("max_len_s") is not None:
+            max_len = max(max_len, prev["max_len_s"])
+        manifest_path.write_text(json.dumps(
+            {"speakers": manifest,
+             "min_len_s": min_len if np.isfinite(min_len) else None,
+             "max_len_s": max_len if max_len > 0 else None}, indent=2))
+    return features, sds_targets, clf_targets, manifest
+
+
 def load_features(features_dir: Path, track: str = "clf", dim: int = 256):
-    """Load the reference-layout npz pair (written by the JAX package's
-    ``extract-audio``) and squeeze the singleton axis the trainers expect
+    """Load the reference-layout npz pair (written by ``extract-audio`` of
+    either package) and squeeze the singleton axis the trainers expect
     (``audio_gru_whole.py:19``)."""
     features_dir = Path(features_dir)
     feats = np.load(features_dir / f"whole_samples_{track}_{dim}.npz")["arr_0"]

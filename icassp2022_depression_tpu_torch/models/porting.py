@@ -1,6 +1,5 @@
-"""JAX param trees <-> the port's ``state_dict()`` (port of the
-state-dict mappers of :mod:`icassp2022_depression_tpu.models.porting`; the
-reference ``.pt`` loaders are not ported yet).
+"""Param trees, reference ``state_dict()`` names and reference ``.pt``
+checkpoints (port of :mod:`icassp2022_depression_tpu.models.porting`).
 
 The JAX package keeps torch's tensor layouts, and its
 ``porting.{audio_net,text_net,fusion}_to_state_dict`` / ``rnn_to_state_dict``
@@ -9,7 +8,19 @@ do.  The ``*_state_dict_from_jax`` functions are that mapping on this side,
 so ``load_state_dict(sd, strict=True)`` on :class:`AudioNet`,
 :class:`TextNet` or :class:`FusionNet` is the bridge between the two
 packages; the ``*_tree_from_state_dict`` functions are their inverses, for
-writing JAX-layout npz checkpoints from the port.
+writing JAX-layout npz checkpoints from the port, and also the JAX
+package's ``*_from_state_dict`` mappers of reference state dicts (the head
+indices from ``head_input_dropout``, ``ln`` only where the config has it,
+the text model's unused ``ln1`` / ``ln2`` defaulting to ones / zeros, keys
+the model lacks ignored).
+
+The reference's checkpoints are whole-module pickles
+(``torch.save(model)``, ``Classification/audio_gru_whole.py:125``).
+:func:`load_reference_pt` reads them, and plain state-dict ``.pt`` files,
+in torch's zipfile or legacy format, through a restricted unpickler that
+runs no pickled code (see :class:`_SafeRefUnpickler`);
+:func:`export_reference_pt` writes a model back as a reference-layout
+state-dict ``.pt``.
 
 The text frontend's encoders (the char-CNN, the LSTMP biLM and the
 stand-in BiLSTM, :mod:`.char_cnn` / :mod:`.elmo`) keep the JAX package's
@@ -24,10 +35,14 @@ gives) or flat with '/'-joined keys (``"rnn/0/fwd/w_ih"``).
 
 from __future__ import annotations
 
+import pickle
+import types
+import warnings
 from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from icassp2022_depression_tpu_torch.config import FusionConfig, RNNConfig
 
@@ -89,7 +104,14 @@ def _linears_from_jax(tree: Mapping, names) -> dict:
 
 
 def _arr(sd: Mapping, name: str) -> np.ndarray:
-    return sd[name].detach().cpu().numpy().astype(np.float32)
+    """``sd[name]`` (a tensor or an array) as a float32 numpy copy."""
+    if name not in sd:
+        raise KeyError(f"state dict missing {name!r}; have e.g. "
+                       f"{sorted(sd)[:8]}")
+    v = sd[name]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.array(v, dtype=np.float32, copy=True)
 
 
 def _linear_tree(sd: Mapping, prefix: str, bias: bool = True) -> dict:
@@ -155,17 +177,22 @@ def text_net_state_dict_from_jax(tree: Mapping, cfg: RNNConfig) -> dict:
 
 
 def text_net_tree_from_state_dict(sd: Mapping, cfg: RNNConfig) -> dict:
-    """Inverse of :func:`text_net_state_dict_from_jax`."""
+    """Inverse of :func:`text_net_state_dict_from_jax`.  ``ln1`` / ``ln2``
+    (declared by the reference module, unused by its forward) default to
+    ones / zeros where ``sd`` lacks them, as the JAX mapper does."""
     i1, i2 = _head_indices(cfg)
-    return {
+    tree = {
         "rnn": rnn_tree_from_state_dict(sd, "lstm_net", cfg.rnn_layers,
                                         cfg.bidirectional),
         "attn": _linear_tree(sd, "attention_layer.0"),
         "fc1": _linear_tree(sd, f"fc_out.{i1}"),
         "fc2": _linear_tree(sd, f"fc_out.{i2}"),
-        "ln1": _linear_tree(sd, "ln1"),
-        "ln2": _linear_tree(sd, "ln2"),
     }
+    for ln, dim in (("ln1", cfg.embedding_size), ("ln2", cfg.hidden_dims)):
+        tree[ln] = (_linear_tree(sd, ln) if f"{ln}.weight" in sd else
+                    {"w": np.ones((dim,), np.float32),
+                     "b": np.zeros((dim,), np.float32)})
+    return tree
 
 
 def fusion_state_dict_from_jax(tree: Mapping, cfg: FusionConfig) -> dict:
@@ -220,3 +247,204 @@ def elmo_tree_from_jax(tree):
     if isinstance(tree, (list, tuple)):
         return [elmo_tree_from_jax(v) for v in tree]
     return _t(tree)
+
+
+# -- reference state dicts <-> the port's modules ----------------------------
+
+_TREES = {"audio": audio_net_tree_from_state_dict,
+          "text": text_net_tree_from_state_dict,
+          "fusion": fusion_tree_from_state_dict}
+_STATE_DICTS = {"audio": audio_net_state_dict_from_jax,
+                "text": text_net_state_dict_from_jax,
+                "fusion": fusion_state_dict_from_jax}
+
+
+def state_dict_from_jax(tree: Mapping, kind: str, cfg) -> dict:
+    """A JAX-layout param tree -> the state dict of the ``kind`` model
+    ('audio' | 'text' | 'fusion') under ``cfg``."""
+    return _STATE_DICTS[kind](tree, cfg)
+
+
+def tree_from_reference(sd: Mapping, kind: str, cfg) -> dict:
+    """A reference state dict (tensors or arrays) -> the ``kind`` model's
+    JAX-layout param tree under ``cfg``: the JAX package's
+    ``*_from_state_dict`` (keys the model lacks are ignored, a missing one
+    raises)."""
+    return _TREES[kind](sd, cfg)
+
+
+
+def export_reference_pt(model_or_tree, kind: str, cfg, path) -> dict:
+    """Write a model (its ``state_dict()``) or a JAX-layout param tree as a
+    reference-layout state-dict ``.pt``: the names and float32 tensors of
+    the JAX package's ``export_reference_pt``, so the reference module
+    loads it with ``load_state_dict(torch.load(path), strict=True)``.
+    Returns the exported ``{name: np.ndarray}``."""
+    if isinstance(model_or_tree, nn.Module):
+        sd = model_or_tree.state_dict()
+    else:
+        sd = state_dict_from_jax(model_or_tree, kind, cfg)
+    out = {k: v.detach().to("cpu", torch.float32).contiguous().clone()
+           for k, v in sd.items()}
+    torch.save(out, path)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+# -- loading the reference's ``.pt`` pickles ---------------------------------
+#
+# Unpickling a whole-module checkpoint normally imports the script that
+# defined its class (and torch's nn classes of the version it was pickled
+# under).  :func:`load_reference_pt` unpickles with a restricted
+# ``find_class`` instead: torch's tensor-rebuild helpers and a few
+# container primitives resolve for real, so the raw weights materialise,
+# and EVERY other global (the reference's model classes, torch's
+# nn.Module classes, anything else the pickle names) resolves to an inert
+# shim that only captures attribute state.  The state dict is then read
+# off the shim graph through torch's ``_parameters`` / ``_buffers`` /
+# ``_modules`` layout.
+
+
+class _ShimBase:
+    """Inert stand-in for a global outside the allowlist.  It covers
+    every way pickle touches a class: construction by NEWOBJ / REDUCE
+    (``__init__`` keeps the arguments), BUILD (``__setstate__`` keeps the
+    state) and calls on an instance (which return it)."""
+
+    def __init__(self, *args, **kwargs):
+        self._shim_args = args
+        self._shim_kwargs = kwargs
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        elif (isinstance(state, tuple) and len(state) == 2
+              and isinstance(state[0], dict)):
+            # object.__reduce_ex__'s (dict, slots) pair
+            self.__dict__.update(state[0] or {})
+            self.__dict__.update(state[1] or {})
+        else:
+            self.__dict__["_shim_state"] = state
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+
+_SHIM_CACHE: dict = {}
+
+
+def _shim_class(module: str, name: str):
+    key = (module, name)
+    if key not in _SHIM_CACHE:
+        _SHIM_CACHE[key] = type(name, (_ShimBase,), {
+            "__module__": f"<shim:{module}>",
+            "_shim_origin": f"{module}.{name}"})
+    return _SHIM_CACHE[key]
+
+
+class _SafeRefUnpickler(pickle.Unpickler):
+    """Unpickler whose globals allowlist is just enough to rebuild raw
+    tensors; every other global is a shim.
+
+    The allowlist is per NAME, not per module: pickle's REDUCE calls
+    whatever ``find_class`` returns with arguments from the stream, so a
+    whole module's namespace (``numpy.load``, ``torch.serialization.load``,
+    ...) would hand the stream a way to run code.  What resolves:
+
+    * ``torch._utils._rebuild_*``, the tensor and Parameter
+      reconstructors of every ``torch.save`` stream;
+    * ``torch.serialization._get_layout``, a helper of old streams;
+    * ``collections.OrderedDict`` and numpy's array reconstructors;
+    * from the ``torch`` module itself, dtypes, the ``*Storage`` classes,
+      ``Size`` and ``device`` (types, not code).
+
+    ``torch.storage._load_from_bytes`` is left out, unlike the JAX
+    package's allowlist: it is ``torch.load(io.BytesIO(b),
+    weights_only=False)``, an unrestricted unpickle of its argument, so a
+    crafted legacy ``.pt`` naming it would run code.  ``torch.save`` never
+    writes it, in either format (storages travel by persistent id; only
+    plain ``pickle`` of a storage emits it), so it shims like any other
+    global."""
+
+    _ALLOWED = {
+        "collections": ("OrderedDict",),
+        "torch.serialization": ("_get_layout",),
+        "numpy": ("ndarray", "dtype"),
+        "numpy.core.multiarray": ("_reconstruct", "scalar"),
+        "numpy._core.multiarray": ("_reconstruct", "scalar"),
+    }
+
+    def find_class(self, module, name):  # noqa: D102 (pickle API)
+        import importlib
+
+        if (name in self._ALLOWED.get(module, ())
+                or (module == "torch._utils" and name.startswith("_rebuild"))):
+            return getattr(importlib.import_module(module), name)
+        if module == "torch":
+            obj = getattr(torch, name, None)
+            if (isinstance(obj, torch.dtype) or "Storage" in name
+                    or name in ("Size", "device")):
+                return obj
+        return _shim_class(module, name)
+
+
+#: ``pickle_module`` for ``torch.load``: the zipfile and the legacy paths
+#: both unpickle through :class:`_SafeRefUnpickler` (torch subclasses it
+#: and keeps the storages' persistent ids on its side)
+_safe_pickle_module = types.SimpleNamespace(
+    __name__="icassp2022_depression_tpu_torch.models.porting."
+             "_safe_pickle_module",
+    Unpickler=_SafeRefUnpickler,
+    load=lambda f, **kw: _SafeRefUnpickler(f, **kw).load(),
+)
+
+
+def _tensor_np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().copy()
+    return np.array(t, copy=True)
+
+
+def _walk_module_shim(obj, prefix: str, out: dict) -> None:
+    """``state_dict()``-style dotted names off a shimmed nn.Module graph,
+    through torch's ``_parameters`` / ``_buffers`` / ``_modules``."""
+    d = getattr(obj, "__dict__", None) or {}
+    for name, p in (d.get("_parameters") or {}).items():
+        if p is not None:
+            out[prefix + name] = _tensor_np(p)
+    for name, b in (d.get("_buffers") or {}).items():
+        if b is not None:
+            out[prefix + name] = _tensor_np(b)
+    for name, m in (d.get("_modules") or {}).items():
+        if m is not None:
+            _walk_module_shim(m, f"{prefix}{name}.", out)
+
+
+def load_reference_pt(path) -> dict:
+    """``{name: np.ndarray}`` from a reference ``.pt``: a whole-module
+    pickle (``torch.save(model)``) or a ``state_dict()`` mapping, in
+    torch's zipfile or legacy format.  No class of the pickle is imported
+    or run (:class:`_SafeRefUnpickler`)."""
+    with warnings.catch_warnings():
+        # the legacy format checks each module class's source against the
+        # one it recorded; a shim has none
+        warnings.filterwarnings("ignore", "Couldn't retrieve source code")
+        obj = torch.load(path, map_location="cpu",
+                         pickle_module=_safe_pickle_module,
+                         weights_only=False)
+    if isinstance(obj, Mapping):   # torch.save(model.state_dict())
+        sd = {k: _tensor_np(v) for k, v in obj.items()
+              if isinstance(v, (torch.Tensor, np.ndarray))}
+        if sd:
+            return sd
+        raise ValueError(f"{path}: mapping checkpoint holds no tensors")
+    d = getattr(obj, "__dict__", None) or {}
+    if "_parameters" not in d and "_modules" not in d:
+        raise ValueError(
+            f"{path}: not a torch module pickle (top-level object "
+            f"{getattr(type(obj), '_shim_origin', type(obj).__name__)} has "
+            "no _parameters/_modules layout)")
+    out: dict = {}
+    _walk_module_shim(obj, "", out)
+    if not out:
+        raise ValueError(f"{path}: module pickle contained no tensors")
+    return out

@@ -20,8 +20,10 @@ The device is the caller's choice: without one, :func:`default_device`
 takes the first card and raises when there is none (``device="cpu"`` runs
 everything on the plain versions).
 
-Not ported yet: the VGGish embedder, reference ``.pt`` checkpoints, the
-DAIC predictor and the HTTP transport.
+Checkpoints are npz files of either package or the reference's ``.pt``
+pickles (:meth:`Predictor.from_checkpoint` dispatches on the extension).
+Not ported yet: the VGGish embedder, the DAIC predictor and the HTTP
+transport.
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ from icassp2022_depression_tpu_torch import config as C
 from icassp2022_depression_tpu_torch.frontend import audio as audio_fe
 from icassp2022_depression_tpu_torch.frontend import text as text_fe
 from icassp2022_depression_tpu_torch.models import elmo, porting
-from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
-from icassp2022_depression_tpu_torch.models.fusion import FusionNet
-from icassp2022_depression_tpu_torch.models.text_net import TextNet
 from icassp2022_depression_tpu_torch.train import checkpoints
 from icassp2022_depression_tpu_torch.utils import shapes
 from icassp2022_depression_tpu_torch.utils.device import (  # noqa: F401
@@ -82,19 +81,10 @@ def model_config(task: str):
     return cfg if branch == "fuse" else cfg.model
 
 
-def _build_model(task: str, tree, cfg):
-    """An npz param tree (the JAX package's layout) -> the task's module."""
-    if task.startswith("audio"):
-        model = AudioNet(cfg)
-        sd = porting.audio_net_state_dict_from_jax(tree, cfg)
-    elif task.startswith("text"):
-        model = TextNet(cfg)
-        sd = porting.text_net_state_dict_from_jax(tree, cfg)
-    else:
-        model = FusionNet(cfg)
-        sd = porting.fusion_state_dict_from_jax(tree, cfg)
-    model.load_state_dict(sd, strict=True)
-    return model
+def model_kind(task: str) -> str:
+    """'audio' | 'text' | 'fusion': the model a task runs."""
+    return {"audio": "audio", "text": "text", "fuse": "fusion"}[
+        task.split("_")[0]]
 
 
 class _FeatureCache:
@@ -202,8 +192,14 @@ class Predictor:
         features (``text_embedder`` / ``text_segmenter``), the segmenter is
         adopted unless ``segmenter`` is passed, and a mismatch of either
         warns on stderr."""
+        if str(path).endswith(".pt"):
+            # a reference pickle: read through the restricted unpickler,
+            # then served as a reference-trained model (with its warning)
+            return cls.from_torch_state_dict(
+                porting.load_reference_pt(path), task, model_cfg, **kw)
         mcfg = model_cfg if model_cfg is not None else model_config(task)
-        model = _build_model(task, checkpoints.load(path), mcfg)
+        model = checkpoints.load_model(checkpoints.load(path),
+                                       model_kind(task), mcfg, "cpu")
         try:
             meta = checkpoints.load_meta(path)
         except (FileNotFoundError, ValueError):
@@ -232,6 +228,29 @@ class Predictor:
                   f"segmented by '{trained_seg}' but serving uses "
                   f"'{predictor.segmenter}' - text features will not "
                   "match training", file=sys.stderr)
+        return predictor
+
+    @classmethod
+    def from_torch_state_dict(cls, sd, task: str, model_cfg=None, **kw):
+        """Serve a model trained by the reference: ``sd`` is its state
+        dict (tensors or arrays, e.g. from
+        :func:`..models.porting.load_reference_pt`).
+
+        The reference's text and fusion models were trained on pretrained
+        ELMoForManyLangs features: when such a task resolves the seeded
+        stand-in encoder, a warning says its predictions mean nothing."""
+        mcfg = model_cfg if model_cfg is not None else model_config(task)
+        kind = model_kind(task)
+        model = checkpoints.load_model(
+            porting.tree_from_reference(sd, kind, mcfg), kind, mcfg, "cpu")
+        predictor = cls(model, task, **kw)
+        if (not task.startswith("audio") and predictor.embedder_id
+                and predictor.embedder_id.startswith("prng")):
+            print("WARNING: serving a reference-trained text/fusion model "
+                  "on the PRNG-initialised text encoder - it does NOT "
+                  "match the pretrained ELMo features the reference model "
+                  "was trained on (pass elmo_params or a converted "
+                  "bundle)", file=sys.stderr)
         return predictor
 
     # -- feature extraction -------------------------------------------------

@@ -5,6 +5,8 @@ A checkpoint is a flat param tree written as ``<path>.npz`` with
 '/'-joined key paths (``rnn/0/fwd/w_ih``, ``fc1/w``, ...) plus an optional
 JSON sidecar ``<path>.json`` of metadata, so either package loads the
 other's checkpoints.  Leaves may be numpy arrays or torch tensors.
+:func:`load_model` also takes the reference's ``.pt`` checkpoints
+(:func:`..models.porting.load_reference_pt`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
+
+from icassp2022_depression_tpu_torch.models import porting
+from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+from icassp2022_depression_tpu_torch.models.text_net import TextNet
+from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
 def atomic_savez(path, **arrays) -> Path:
@@ -49,9 +58,13 @@ def _flatten(tree, prefix=""):
 def _npz_path(path) -> str:
     path = str(path)
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: reference .pt checkpoints are read by the "
-            "checking/migration slice of the port; pass an .npz")
+        # probed as x.pt.npz otherwise: point at the extension-dispatched
+        # loader instead
+        raise ValueError(
+            f"{path} is a torch .pt checkpoint: load it through "
+            "train.checkpoints.load_model or models.porting."
+            "load_reference_pt (check, predict and export-pt dispatch on "
+            "the extension)")
     return path if path.endswith(".npz") else path + ".npz"
 
 
@@ -82,6 +95,32 @@ def load(path) -> dict:
             d = d.setdefault(p, {})
         d[parts[-1]] = val
     return nested
+
+
+_MODELS = {"audio": AudioNet, "text": TextNet, "fusion": FusionNet}
+
+
+def load_model(ckpt, kind: str, cfg, device=None) -> nn.Module:
+    """A checkpoint -> the ``kind`` model ('audio' | 'text' | 'fusion')
+    under ``cfg`` on ``device`` (None: the first card), in eval mode.
+
+    ``ckpt`` may be a model (moved as it is), a JAX-layout param tree (a
+    dict), a reference ``.pt`` (whole-module or state-dict pickle) or an
+    npz checkpoint of either package."""
+    device = resolve_device(device)
+    if isinstance(ckpt, nn.Module):
+        return ckpt.to(device).eval()
+    if isinstance(ckpt, dict):
+        tree = ckpt
+    elif str(ckpt).endswith(".pt"):
+        tree = porting.tree_from_reference(porting.load_reference_pt(ckpt),
+                                           kind, cfg)
+    else:
+        tree = load(ckpt)
+    model = _MODELS[kind](cfg)
+    model.load_state_dict(porting.state_dict_from_jax(tree, kind, cfg),
+                          strict=True)
+    return model.to(device).eval()
 
 
 def load_meta(path) -> dict:

@@ -20,6 +20,7 @@ from icassp2022_depression_tpu.train import checkpoints as jcheckpoints
 from icassp2022_depression_tpu_torch import cli as tcli
 from icassp2022_depression_tpu_torch import config as tconfig
 from icassp2022_depression_tpu_torch.data import eatd as teatd
+from icassp2022_depression_tpu_torch.models import porting as tporting
 from icassp2022_depression_tpu_torch.serving import predictors as tpredictors
 from icassp2022_depression_tpu_torch.serving.predictors import Predictor
 
@@ -109,8 +110,15 @@ def test_predictor_names_missing_slices(tmp_path):
     _, tp = _pair(tmp_path, "audio_clf")
     with pytest.raises(NotImplementedError, match="VGGish"):
         Predictor(tp.model, "audio_clf", audio_embedder="vggish")
-    with pytest.raises(NotImplementedError, match=r"\.pt"):
-        Predictor.from_checkpoint(tmp_path / "ref.pt", "audio_clf")
+    # reference .pt checkpoints are served since the checking slice
+    tporting.export_reference_pt(tp.model, "audio", tp.model.cfg,
+                                 tmp_path / "ref.pt")
+    x = np.random.default_rng(1).standard_normal(
+        (2, 3, tp.model.cfg.embedding_size)).astype(np.float32)
+    served = Predictor.from_checkpoint(tmp_path / "ref.pt", "audio_clf",
+                                       model_cfg=tp.model.cfg, device="cpu")
+    np.testing.assert_array_equal(served.predict_features(audio_feats=x),
+                                  tp.predict_features(audio_feats=x))
 
 
 def test_cli_predict_matches_jax_cli(tmp_path, capsys):
