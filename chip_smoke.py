@@ -10,6 +10,7 @@ at full width.
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
     python3 chip_smoke.py --only lstm   # the LSTM kernels alone, no ok line
     python3 chip_smoke.py --only gru    # the GRU kernels alone, no ok line
+    python3 chip_smoke.py --only trainer  # fold axis, graph, resume
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -25,6 +26,9 @@ and both backward routes' checks and timings, the forward's profiles at
 (3, 8, 256), (3, 100, 256) and (3, 200, 256) (each route alone, and one
 round of the timing turns), the
 backward's at (3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
+``--only trainer`` builds the GRU and LSTM sources and runs the fold-axis
+kernel checks and the fold-program checks of phases 2 and 5 on random
+features (about a minute).
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -73,7 +77,13 @@ Phases (each raises on failure, so the exit code is nonzero):
    ``torch.profiler``, device time split by
    kernel name and the gaps between launches; the LSTMP forward and the
    stand-in's LSTM forward beside the plain loop, cuDNN and the bound at
-   each timed shape;
+   each timed shape; the four kernels with a fold axis (GRU and LSTM,
+   forward and backward, F = 3 folds in one launch) at the recipes'
+   (F, T, B, H) = (3, 3, 8, 256), (3, 3, 2, 256), (3, 3, 4, 128) and
+   (3, 3, 2, 128): against the plain loops (1e-5; dw, db of their largest
+   magnitude), against F single-fold launches (bitwise) and their reruns
+   (bitwise), then the fold launch, F single-fold launches, the plain
+   loops and F cuDNN calls in turns beside the F folds' bound;
 3. audio serving: a synthetic EATD corpus, a full-width ``audio_clf`` with
    seeded random weights saved as a JAX-layout npz, ``cli predict`` for
    one speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers,
@@ -102,9 +112,21 @@ Phases (each raises on failure, so the exit code is nonzero):
    ``audio_clf``, ``audio_reg``, ``text_clf`` and ``fuse_clf`` folds
    through the kernels against the plain recurrence on the card with the
    same dropout masks, and ``audio_clf`` and ``text_clf`` folds with
-   dropout 0 on the card against the CPU (per-step losses within 1e-5,
-   relative to the largest loss for the L1 loss on SDS scores; final
-   params within 1e-5 of the largest |param|);
+   dropout on (the same threefry masks) on the card against the CPU
+   (per-step losses within 1e-5, relative to the largest loss for the L1
+   loss on SDS scores; final params within 1e-5 of the largest |param|);
+   every fold runs as one CUDA graph an epoch (a
+   warm-up epoch per fold, counted in the launches above): 5-epoch
+   ``audio_clf``, ``text_clf`` and ``fuse_clf`` folds through the graph
+   against the eager route (losses and params bitwise), one replayed
+   epoch under ``torch.profiler`` (its kernels by name against the launch
+   counters and the captured calls), an epoch's time through the graph
+   and eagerly, a 15-epoch fold with ``--chunk-epochs 7`` killed after
+   its first chunk and resumed from its bundle against the single-shot
+   run (bitwise), the three ``audio_clf`` folds stacked
+   (``vmap_folds``) against serial (1e-5), and ``cli pipeline --track
+   clf`` / ``--track reg`` again with ``--vmap-folds`` (stage times; the
+   reg run's per-epoch logs against the serial run's within 1e-4);
 6. checking and migration on phase 5's corpus and checkpoints: counted,
    ``cli extract-audio`` (no kernel; its clf features bitwise
    ``extract_eatd_device``'s, 3 speakers the CPU's within 1e-5, and an
@@ -230,6 +252,9 @@ COMPARE_EPOCHS = 5
 #: epochs of the runs cut to keep the script short (cli train --corpus and
 #: the reg pipeline); the clf pipeline runs the full recipes
 REDUCED_EPOCHS = 20
+#: stacked folds against serial folds: the same arithmetic, but the
+#: batched products add in another order
+VMAP_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -398,6 +423,7 @@ def compare(a, b, what: str) -> float:
 
 
 def slice_phase(torch, card: str):
+    from icassp2022_depression_tpu_torch.ops import prng
     from icassp2022_depression_tpu_torch import cli
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import eatd
@@ -413,7 +439,7 @@ def slice_phase(torch, card: str):
         t0 = time.perf_counter()
         eatd.make_synthetic_corpus(root, n_data=8, n_validation=4,
                                    seconds=(2.0, 12.0), seed=0)
-        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
+        model = AudioNet(cfg, prng.prng_key(0))
         ckpt = checkpoints.save(
             Path(tmp) / "audio_clf",
             porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
@@ -1220,13 +1246,22 @@ def kernel_bounds() -> dict:
     lstmp = lstmp_bounds(*LSTMP_TIMED[0])
     return {"gru_fwd": gru["fwd"], "gru_bwd": rnn_bounds(
                 "gru", *BWD_TIMED[0])["bwd"],
+            "gru_bwd_streamed": rnn_bounds("gru", *BWD_TIMED[-1])["bwd"],
+            "lstm_bwd_streamed": rnn_bounds("lstm", *LSTM_TIMED[-1])["bwd"],
             "lstm_fwd": lstm["fwd"], "lstm_bwd": lstm["bwd"],
             "lstmp_fwd": lstmp["fwd"], "lstmp_bwd": lstmp["bwd"]}
 
 
+#: the kernel sources, each built by one nvcc
+SOURCES = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "lstmp_fwd",
+           "lstmp_bwd")
+#: the wrappers' launch counters: one a source, and the backwards' calls
+#: at the shapes the JAX package streams (TPU kernels #3 and #5)
 COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
             "lstm_fwd": "LSTM_LAUNCHES", "lstm_bwd": "LSTM_BWD_LAUNCHES",
-            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES"}
+            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES",
+            "gru_bwd_streamed": "GRU_BWD_STREAMED_LAUNCHES",
+            "lstm_bwd_streamed": "LSTM_BWD_STREAMED_LAUNCHES"}
 
 
 def _counts(rnn_cuda) -> dict:
@@ -1241,12 +1276,25 @@ def _set_counts(rnn_cuda, counts: dict) -> None:
 ZERO = {k: 0 for k in COUNTERS}
 
 
+def warmed(epochs: list) -> tuple:
+    """(optimizer steps, evals) of a trainer's epoch records, with the
+    warm-up epoch that each fold's CUDA graph capture runs before it (its
+    launches are real; the capture itself launches nothing, and each replay
+    counts the captured calls)."""
+    first = {}
+    for r in epochs:
+        first.setdefault(r["fold"], r["steps"])
+    return (int(sum(r["steps"] for r in epochs) + sum(first.values())),
+            len(epochs) + len(first))
+
+
 def expected_launches(task: str, steps: int, evals: int, folds: int) -> dict:
     """Two GRU layers (audio), two layers x two directions of LSTM (text):
     one forward per layer and direction per step and per eval, one backward
-    per step.  The fusion trains only its head: its frozen branches run
-    forward once per step and once per fold (the test split's features),
-    and no backward kernel launches."""
+    per step (steps and evals with each fold's warm-up epoch, ``warmed``).
+    The fusion trains only its head: its frozen branches run forward once
+    per step and once per fold (the test split's features), and no
+    backward kernel launches."""
     if task.startswith("audio"):
         return dict(ZERO, gru_fwd=2 * (steps + evals), gru_bwd=2 * steps)
     if task.startswith("text"):
@@ -1386,9 +1434,7 @@ def pipeline_run(torch, root: Path, track: str, card: str, embedder: str,
         if len(bests) != 3 or summary[f"{task.split('_')[0]}_{metric}"] \
                 != [round(b[metric], 4) for b in bests]:
             fail(f"{task}: {len(bests)} fold results, summary {summary}")
-        _check_launches(task, stages[task][1],
-                        int(sum(r["steps"] for r in epochs)), len(epochs),
-                        len(bests))
+        _check_launches(task, stages[task][1], *warmed(epochs), len(bests))
         gated = [r for r in bests if r["epoch"] >= 0]
         if all_gated and len(gated) != len(bests):
             fail(f"{task}: {len(gated)} of {len(bests)} folds gated with "
@@ -1417,6 +1463,83 @@ def pipeline_run(torch, root: Path, track: str, card: str, embedder: str,
             "stage_s": {t: st[0] for t, st in stages.items()}}
 
 
+def vmap_pipeline_run(torch, root: Path, track: str, card: str,
+                      fold_cfg=None, extra_argv=(), compare: bool = True):
+    """``cli pipeline --track <track> --vmap-folds`` beside the serial run
+    of ``pipeline_run`` on ``root`` (into ``root/ModelVmap``), not counted:
+    the branches (and the reg fusion) as stacked folds, the clf fusion
+    serial.  With ``compare``, every trainer's per-epoch loss and metric
+    against the serial run's, within VMAP_TOL of their largest magnitude
+    (the stacked folds' products add in another order).  Returns the stage
+    wall times."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.train import trainers
+
+    counted = _counts(rnn_cuda)
+    tasks = PIPELINE_TASKS[track]
+    stages = {}
+    originals = {t: getattr(trainers, f"train_{t}") for t in tasks}
+
+    def staged(task, fn):
+        def run(*args, **kwargs):
+            if fold_cfg is not None:
+                kwargs["fold_cfg"] = fold_cfg
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[task] = time.perf_counter() - t0
+            return out
+        return run
+
+    for t, fn in originals.items():
+        setattr(trainers, f"train_{t}", staged(t, fn))
+    model = root / "ModelVmap"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["pipeline", "--track", track, "--root", str(root),
+                           "--device", "cuda", "--model-dir", str(model),
+                           "--vmap-folds", *extra_argv])
+    finally:
+        for t, fn in originals.items():
+            setattr(trainers, f"train_{t}", fn)
+    _set_counts(rnn_cuda, counted)
+    if rc != 0:
+        fail(f"cli pipeline --track {track} --vmap-folds returned {rc}")
+
+    def epochs(path):
+        return [json.loads(line) for line in path.read_text().splitlines()
+                if json.loads(line)["event"] == "epoch"]
+
+    got = epochs(model / f"pipeline_{track}_metrics.jsonl")
+    want = epochs(root / "Model" / f"pipeline_{track}_metrics.jsonl")
+    keys = ("loss", "f1") if track == "clf" else ("loss", "mae")
+    worst = 0.0
+    if len(got) != len(want) or not all(
+            _finite(r[k]) for r in got for k in keys):
+        fail(f"--vmap-folds {track}: {len(got)} epochs logged against "
+             f"{len(want)}, or non-finite metrics")
+    if compare:
+        for k in keys:
+            a = np.array([r[k] for r in got])
+            b = np.array([r[k] for r in want])
+            worst = max(worst, float(np.abs(a - b).max()
+                                     / max(1e-12, np.abs(b).max())))
+        if worst > VMAP_TOL:
+            fail(f"--vmap-folds {track} differs from the serial run: "
+                 f"{worst}")
+    print(f"cli pipeline --track {track} --vmap-folds: {len(got)} epochs "
+          + (f"logged, max|d {'/'.join(keys)}| {worst:.3e} of the largest "
+             f"against the serial run (tol {VMAP_TOL})" if compare else
+             "logged, finite")
+          + "; stage wall " + ", ".join(f"{t} {v:.2f} s"
+                                        for t, v in stages.items())
+          + f" [{card}]")
+    return stages
+
+
 def _artifacts(checkpoints, model: Path, task: str, r: dict) -> list:
     """The files the JAX package's trainers write for a gated fold, the
     npz first."""
@@ -1439,9 +1562,11 @@ def _artifacts(checkpoints, model: Path, task: str, r: dict) -> list:
     return [d / f"{name}.npz", d / f"{name}.json"]
 
 
-def _fold_run(torch, tcfg, data, device):
-    """One branch fold through the trainers' own pieces; returns the
-    per-step losses and the final params."""
+def _fold_run(torch, tcfg, data, device, graph=None):
+    """One branch fold through the trainers' own pieces (fold 1's init and
+    dropout key of seed 0; on the card the CUDA graph route, or the eager
+    one with ``graph=False``); returns the per-step losses and the final
+    params."""
     from icassp2022_depression_tpu_torch.train import loop, optim, trainers
 
     model = trainers.init_model(tcfg, 0, 1, device)
@@ -1449,26 +1574,24 @@ def _fold_run(torch, tcfg, data, device):
     _, _, step_losses = loop.run_fold(
         model, opt, *loop.model_fns(model, trainers._branch_fns(tcfg)), data,
         tcfg.track, tcfg.gate, tcfg.epochs,
-        trainers.dropout_generator(0, 1, device))
+        trainers.dropout_key(0, 1, device), graph)
     return step_losses, {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def _fusion_fold_run(torch, fcfg, tcfg, data, branch, device):
+def _fusion_fold_run(torch, fcfg, tcfg, data, branch, device, graph=None):
     """One fusion fold as ``trainers._run_fusion_folds`` runs it (branch
     init, the test split's features once, only fc_final trains)."""
     from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.ops import prng
     from icassp2022_depression_tpu_torch.train import loop, optim, trainers
 
-    model = FusionNet(fcfg, generator=torch.Generator().manual_seed(0))
-    model = model.to(device)
+    model = FusionNet(fcfg, prng.prng_key(0)).to(device)
     model.init_from_branches(*branch, tcfg.track)
     opt = optim.build(tcfg.optimizer, model)
-    model.eval()
-    tf, af = model.pretrained_feature(*data.test_x)
-    data = data._replace(test_x=(torch.cat([tf, af], dim=-1),))
+    data = trainers._head_test_split(model, data)
     _, _, step_losses = loop.run_fold(
         model, opt, *trainers._fusion_fns(model, tcfg), data, tcfg.track,
-        tcfg.gate, tcfg.epochs, trainers.dropout_generator(0, 1, device))
+        tcfg.gate, tcfg.epochs, trainers.dropout_key(0, 1, device), graph)
     return step_losses, {k: v.cpu() for k, v in model.state_dict().items()}
 
 
@@ -1523,7 +1646,7 @@ def step_split(torch, tcfg, data, card: str, what: str,
     model = trainers.init_model(tcfg, 0, 1, "cuda").train()
     opt = optim.build(tcfg.optimizer, model)
     loss_fn = trainers._branch_fns(tcfg)
-    gen = trainers.dropout_generator(0, 1, "cuda")
+    key = trainers.dropout_key(0, 1, "cuda")
     n_steps = -(-data.n_train // data.train_y.shape[1])
     marks = []
     for i in range(steps + 10):
@@ -1531,7 +1654,7 @@ def step_split(torch, tcfg, data, card: str, what: str,
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model(data.train_x[0][j], gen), data.train_y[j],
+        loss = loss_fn(model(data.train_x[0][j], key), data.train_y[j],
                        data.train_mask[j])
         ev[1].record()
         loss.backward()
@@ -1650,6 +1773,10 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
         clf_run = pipeline_run(torch, root, "clf", card, embedder)
         for k, v in clf_run["launches"].items():
             launches[k] += v
+        # the same pipeline with --vmap-folds: its stage times (170 /
+        # 150 epochs part float32 trajectories too far to compare)
+        clf_run["vmap_stage_s"] = vmap_pipeline_run(torch, root, "clf",
+                                                    card, compare=False)
 
         # -- cli train --task audio_clf --corpus, reduced epochs, gates
         # open: every fold saves, for phase 6's cli check ------------------
@@ -1680,8 +1807,7 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
                     _finite(r["loss"]) for r in epochs):
                 fail(f"cli train audio_clf logged {len(epochs)} epochs")
             _check_launches("audio_clf (cli train --corpus)", got,
-                            int(sum(r["steps"] for r in epochs)),
-                            len(epochs), 3)
+                            *warmed(epochs), 3)
             gated = [r for r in records
                      if r["event"] == "fold_best" and r["epoch"] >= 0]
             if len(gated) != 3:
@@ -1715,6 +1841,10 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
             for k, v in reg_run["launches"].items():
                 launches[k] += v
             reg_run.update(root=corpus.parent / "reg", fold_cfg=fold_cfg)
+            reg_run["vmap_stage_s"] = vmap_pipeline_run(
+                torch, corpus.parent / "reg", "reg", card, fold_cfg,
+                ["--corpus", str(corpus), "--elmo-weights", str(bundle),
+                 "--segmenter", "fallback"])
         finally:
             for n, v in full.items():
                 setattr(C, n, v)
@@ -1743,13 +1873,12 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
                 torch, _plain(base, C), data, "cuda")),
             f"{COMPARE_EPOCHS}-epoch audio_clf fold, dropout 0.5, kernels vs "
             "plain recurrence on the card")
-        no_drop = C.replace(base, model=C.replace(base.model, dropout=0.0))
         cpu_data = trainers._clf_fold_datas([feats.cpu()], clf, train_idx,
                                             8)[0]
         cmp["audio_clf_cpu"] = _compare_runs(
-            _fold_run(torch, no_drop, data, "cuda"),
-            _fold_run(torch, no_drop, cpu_data, "cpu"),
-            f"{COMPARE_EPOCHS}-epoch audio_clf fold, dropout 0, card vs CPU")
+            runs[COMPARE_EPOCHS], _fold_run(torch, base, cpu_data, "cpu"),
+            f"{COMPARE_EPOCHS}-epoch audio_clf fold, dropout 0.5 (the same "
+            "threefry masks), card vs CPU")
         dep, non = folds.generate_reg_shuffles(sds, seed=0)
         reg_data = trainers._reg_fold_datas(
             [feats], sds, dep, non, C.AUDIO_REG.batch_size, fold_cfg)[0]
@@ -1775,13 +1904,12 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
                 torch, _plain(text_base, C), text_data, "cuda")),
             f"{COMPARE_EPOCHS}-epoch text_clf fold, dropout 0.5, kernels vs "
             "plain recurrence on the card")
-        text_nd = C.replace(text_base, model=C.replace(text_base.model,
-                                                       dropout=0.0))
         cmp["text_clf_cpu"] = _compare_runs(
-            _fold_run(torch, text_nd, text_data, "cuda"),
-            _fold_run(torch, text_nd, trainers._clf_fold_datas(
+            _fold_run(torch, text_base, text_data, "cuda"),
+            _fold_run(torch, text_base, trainers._clf_fold_datas(
                 [xt.cpu()], clf, train_idx, 4)[0], "cpu"),
-            f"{COMPARE_EPOCHS}-epoch text_clf fold, dropout 0, card vs CPU")
+            f"{COMPARE_EPOCHS}-epoch text_clf fold, dropout 0.5 (the same "
+            "threefry masks), card vs CPU")
         # the fusion: frozen branches (random, seeded), only fc_final trains
         fuse_data = trainers._clf_fold_datas([feats, xt], clf, train_idx,
                                              2)[0]
@@ -1802,6 +1930,7 @@ def train_phase(torch, card: str, corpus: Path, bundle: Path):
                  "text_clf": step_split(torch, C.TEXT_CLF, text_data, card,
                                         "text_clf")}
         _set_counts(rnn_cuda, counted)
+        split["graph"] = trainer_phase(torch, rnn_cuda, card, feats, clf, xt)
     return launches, {"clf": clf_run, "reg": reg_run, "extract_s": extract_s,
                       "text": text, "corpus_wall_s": corpus_wall,
                       "split": split, "cmp": cmp}
@@ -1828,6 +1957,7 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
 
     import numpy as np
 
+    from icassp2022_depression_tpu_torch.ops import prng
     from icassp2022_depression_tpu_torch import cli
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import eatd
@@ -1851,15 +1981,15 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
                                        seconds=(2.0, 12.0), seed=4)
             meta = {"text_embedder": bundle_id(bundle),
                     "text_segmenter": "fallback", "note": "seeded weights"}
-            gen = torch.Generator().manual_seed(6)
             ckpts = {
                 "fuse_clf": checkpoints.save(
                     Path(tmp) / "fuse_clf", porting.fusion_tree_from_state_dict(
-                        FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF),
+                        FusionNet(C.FUSE_CLF, prng.prng_key(6)).state_dict(),
+                        C.FUSE_CLF),
                     dict(meta, task="fuse_clf")),
                 "text_clf": checkpoints.save(
                     Path(tmp) / "text_clf", porting.text_net_tree_from_state_dict(
-                        TextNet(C.TEXT_CLF.model, gen).state_dict(),
+                        TextNet(C.TEXT_CLF.model, prng.prng_key(7)).state_dict(),
                         C.TEXT_CLF.model), dict(meta, task="text_clf"))}
             sp = eatd.load_speaker(root, "Data", 1)
             for task, ckpt in ckpts.items():
@@ -1977,6 +2107,7 @@ def standin_serving_phase(torch, card: str) -> tuple:
     predictor on the CPU.  Returns the launches and the latencies."""
     import numpy as np
 
+    from icassp2022_depression_tpu_torch.ops import prng
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import eatd
     from icassp2022_depression_tpu_torch.models import porting
@@ -1999,11 +2130,11 @@ def standin_serving_phase(torch, card: str) -> tuple:
                         if not ch.isspace()})
         meta = {"text_embedder": "prng:seed=0", "text_segmenter": "fallback",
                 "note": "seeded weights"}
-        gen = torch.Generator().manual_seed(6)
         trees = {"fuse_clf": porting.fusion_tree_from_state_dict(
-                     FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF),
+                     FusionNet(C.FUSE_CLF, prng.prng_key(6)).state_dict(),
+                     C.FUSE_CLF),
                  "text_clf": porting.text_net_tree_from_state_dict(
-                     TextNet(C.TEXT_CLF.model, gen).state_dict(),
+                     TextNet(C.TEXT_CLF.model, prng.prng_key(7)).state_dict(),
                      C.TEXT_CLF.model)}
         rng = np.random.default_rng(8)
         texts = _transcripts(rng, chars, 8)
@@ -2455,6 +2586,7 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
     (``torch.profiler``): the three clf folds and one reg fold."""
     import numpy as np
 
+    from icassp2022_depression_tpu_torch.ops import prng
     from icassp2022_depression_tpu_torch import config as C
     from icassp2022_depression_tpu_torch.data import augment, eatd, folds
     from icassp2022_depression_tpu_torch.eval import checking
@@ -2477,7 +2609,7 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
           f"{make_s:.2f} s): {extract_s:.2f} s wall [{card}]")
     fuse_ckpts = [checkpoints.save(
         work / f"fuse_clf_{f}", porting.fusion_tree_from_state_dict(
-            FusionNet(C.FUSE_CLF, torch.Generator().manual_seed(20 + f))
+            FusionNet(C.FUSE_CLF, prng.prng_key(20 + f))
             .state_dict(), C.FUSE_CLF)) for f in (1, 2, 3)]
     lines, check_s = counted(
         ["check", "--task", "fuse_clf", "--root", big, "--ckpts",
@@ -2507,8 +2639,7 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
     te = np.concatenate([te_d, te_n])
     forwards.append(("fuse_reg fold 1", [xa[te], xt[te]], len(te),
                      checkpoints.load_model(
-                         FusionNet(C.FUSE_REG,
-                                   torch.Generator().manual_seed(30)),
+                         FusionNet(C.FUSE_REG, prng.prng_key(30)),
                          "fusion", C.FUSE_REG, "cuda")))
     device_us = {}
     for label, xs, rows, model in forwards:
@@ -2527,14 +2658,364 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
             "device_us": device_us}
 
 
+# -- the fold axis, the fold's CUDA graph, resume --------------------------
+
+#: the four fold-axis kernels' shapes (F, T, B, H): the recipes' audio GRU
+#: (batch 8) and text BiLSTM direction (batch 4), and the reg tracks' batch 2
+FOLD_SHAPES = (("gru", (3, 3, 8, 256)), ("gru", (3, 3, 2, 256)),
+               ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 2, 128)))
+#: the fold-axis checks through the "sequence" route: the recipes' shapes
+#: (where it is taken only when asked) and an H that is no multiple of 4
+#: (where "auto" takes it)
+FOLD_SEQUENCE_SHAPES = (("gru", (3, 3, 8, 256)), ("gru", (3, 3, 4, 254)),
+                        ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 4, 126)))
+RESUME_EPOCHS = 15
+RESUME_CHUNK = 7
+
+
+def _fold_fns(rnn_cuda, cell: str) -> tuple:
+    """(kernel forward, plain forward, kernel backward, plain backward)
+    of the GRU or LSTM; the forwards' results as tuples."""
+    if cell == "gru":
+        return ((lambda *a, **kw: (rnn_cuda.gru_sequence(*a, **kw),)),
+                (lambda *a: (rnn_cuda.gru_sequence_torch(*a),)),
+                rnn_cuda.gru_sequence_bwd, rnn_cuda.gru_sequence_bwd_torch)
+    return (rnn_cuda.lstm_sequence, rnn_cuda.lstm_sequence_torch,
+            rnn_cuda.lstm_sequence_bwd, rnn_cuda.lstm_sequence_bwd_torch)
+
+
+def _cudnn_fwd(torch, cell: str, t: int, b: int, h: int):
+    mod = (torch.nn.GRU(h, h) if cell == "gru" else torch.nn.LSTM(h, h))
+    mod = mod.cuda()
+    x = torch.randn((t, b, h), device="cuda")
+
+    def fn():
+        with torch.no_grad():
+            mod(x)
+    return fn
+
+
+def _check_fold(torch, rnn_cuda, gen, cell: str, shape: tuple,
+                route: str = "auto") -> tuple:
+    """One launch over F folds of the ``cell`` forward and backward through
+    ``route``'s plan, held against the plain versions (1e-5; dw, db of
+    their largest magnitude), against F single-fold launches of that plan
+    (bitwise) and against itself (rerun bitwise); fails on a difference.
+    Returns ``(fwd, plain_fwd, bwd, plain_bwd, (xp, w, bias), bargs,
+    err_f, err_dxp)``, the kernel functions bound to the plan."""
+    f, t, b, h = shape
+    g = (3 if cell == "gru" else 4) * h
+    kfwd, plain_fwd, kbwd, plain_bwd = _fold_fns(rnn_cuda, cell)
+    fwd_plan = getattr(rnn_cuda, f"{cell}_fwd_plan")(b, h, route)
+    bwd_plan = getattr(rnn_cuda, f"{cell}_bwd_plan")(b, h, route, steps=t)
+
+    def fwd(*a):
+        return kfwd(*a, plan=fwd_plan)
+
+    def bwd(*a):
+        return kbwd(*a, plan=bwd_plan)
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    xp = torch.randn((f, t, b, g), generator=gen).cuda()
+    w, bias = rnd(f, h, g, scale=h ** -0.5), rnd(f, 1, g, scale=h ** -0.5)
+    couts = tuple(torch.randn((f, t, b, h), generator=gen).cuda()
+                  for _ in range(1 if cell == "gru" else 2))
+    got, again = fwd(xp, w, bias), fwd(xp, w, bias)
+    ref = plain_fwd(xp, w, bias)
+    singles = [fwd(xp[i], w[i], bias[i]) for i in range(f)]
+    bargs = (xp, w, bias, *ref, *couts)
+    gotb, againb = bwd(*bargs), bwd(*bargs)
+    refb = plain_bwd(*bargs)
+    singlesb = [bwd(*(a[i] for a in bargs)) for i in range(f)]
+    torch.cuda.synchronize()
+    err_f = max((x - r).abs().max().item() for x, r in zip(got, ref))
+    err_dxp = (gotb[0] - refb[0]).abs().max().item()
+    rel = max(((x[i] - r[i]).abs().max() / r[i].abs().max()).item()
+              for x, r in zip(gotb[1:], refb[1:]) for i in range(f))
+    rerun = (all(torch.equal(x, y) for x, y in zip(got, again))
+             and all(torch.equal(x, y) for x, y in zip(gotb, againb)))
+    single = (all(torch.equal(x[i], s[k]) for i, s in enumerate(singles)
+                  for k, x in enumerate(got))
+              and all(torch.equal(x[i], s[k]) for i, s in enumerate(singlesb)
+                      for k, x in enumerate(gotb)))
+    print(f"kernel {cell}_fwd/{cell}_bwd with a fold axis (F, T, B, H) = "
+          f"{shape}, routes {fwd_plan['route']}/{bwd_plan['route']}: "
+          f"forward max|d| {err_f:.3e}, dxp {err_dxp:.3e}, dw/db rel "
+          f"{rel:.3e} (tol {KERNEL_TOL}) against the plain loops; bitwise F "
+          f"single-fold launches {single}; reruns bitwise equal {rerun}")
+    if not (err_f <= KERNEL_TOL and err_dxp <= KERNEL_TOL
+            and rel <= KERNEL_TOL and rerun and single):
+        fail(f"the fold-axis {cell} kernels disagree at {shape} through "
+             f"{fwd_plan['route']}/{bwd_plan['route']}")
+    return (fwd, plain_fwd, bwd, plain_bwd, (xp, w, bias), bargs, err_f,
+            err_dxp)
+
+
+def fold_kernel_phase(torch, rnn_cuda, card: str) -> dict:
+    """The four fold-axis kernels (#1 ``gru_fwd``, #2 ``gru_bwd``, #4
+    ``lstm_fwd``, #8 ``lstm_bwd``): at ``FOLD_SHAPES`` through their
+    default plans, each checked by :func:`_check_fold`, then the fold
+    launch, the F single-fold launches, the plain loops and F cuDNN calls
+    timed in turns beside the bound of the F folds' work; then checked at
+    ``FOLD_SEQUENCE_SHAPES`` through the "sequence" route.
+    Returns {(name, shape): (ms, plain_ms, bound_ms, bound_by, cudnn_ms,
+    max_err)}."""
+    gen = torch.Generator().manual_seed(21)
+    out = {}
+    for cell, (f, t, b, h) in FOLD_SHAPES:
+        fwd, plain_fwd, bwd, plain_bwd, (xp, w, bias), bargs, err_f, \
+            err_dxp = _check_fold(torch, rnn_cuda, gen, cell, (f, t, b, h))
+        cud_f = [_cudnn_fwd(torch, cell, t, b, h) for _ in range(f)]
+        cud_b = [cudnn_bwd(torch, cell, t, b, h) for _ in range(f)]
+        turns = {
+            "fwd": {"fold": lambda: fwd(xp, w, bias),
+                    "single x F": lambda: [fwd(xp[i], w[i], bias[i])
+                                           for i in range(f)],
+                    "plain": lambda: plain_fwd(xp, w, bias),
+                    "cudnn x F": lambda: [c() for c in cud_f]},
+            "bwd": {"fold": lambda: bwd(*bargs),
+                    "single x F": lambda: [bwd(*(a[i] for a in bargs))
+                                           for i in range(f)],
+                    "plain": lambda: plain_bwd(*bargs),
+                    "cudnn x F": lambda: [c() for c in cud_b]}}
+        for d, fns in turns.items():
+            ms = turns_ms(torch, fns, 50)
+            b_ms, by = rnn_bounds(cell, t, b, h)[d]
+            b_ms *= f              # F folds' operations and bytes
+            print(f"timing {cell}_{d} fold axis (F, T, B, H) = "
+                  f"{(f, t, b, h)}: " + ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms['fold']:.4f} "
+                  f"of it (median of 50 in turns, CUDA events) [{card}]")
+            out[(f"{cell}_{d}", (f, t, b, h))] = (
+                ms["fold"], ms["plain"], b_ms, by, ms["cudnn x F"],
+                err_f if d == "fwd" else err_dxp)
+    for cell, shape in FOLD_SEQUENCE_SHAPES:
+        _check_fold(torch, rnn_cuda, gen, cell, shape, "sequence")
+    return out
+
+
+def _same_runs(a, b) -> bool:
+    (la, pa), (lb, pb) = a, b
+    import numpy as np
+
+    return (np.array_equal(la, lb)
+            and all(torch.equal(pa[k], pb[k]) for k in pb))
+
+
+def _kernel_calls(prof_events, steps: int) -> dict:
+    """Kernel wrapper calls read off a profiler trace by kernel name: a
+    forward call launches its step kernel T times, a backward call its
+    gate recompute once."""
+    names = [e.name for e in prof_events]
+    return {"gru_fwd": sum("gru_fwd_step_kernel" in n for n in names)
+            // steps,
+            "gru_bwd": sum("gates_kernel<false>" in n for n in names),
+            "lstm_fwd": sum("lstm_fwd_step_kernel" in n for n in names)
+            // steps,
+            "lstm_bwd": sum("gates_kernel<true>" in n for n in names)}
+
+
+def _busy_split(prof) -> tuple:
+    """A trace's kernels: their device time (us) by kind -- the recurrence
+    kernels, the GEMMs and every other kernel (elementwise, reductions,
+    the threefry draws) -- and the union of their intervals (us)."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"recurrence": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        n = e.name
+        kind = ("recurrence" if any(k in n for k in (
+                    "gru_", "lstm_", "gates_kernel", "dw_"))
+                else "gemm" if any(k in n.lower() for k in (
+                    "gemm", "cutlass", "xmma")) else "other")
+        out[kind] += e.time_range.elapsed_us()
+    busy, reach = 0.0, None
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start = e.time_range.start if reach is None else max(
+            reach, e.time_range.start)
+        busy += max(0.0, e.time_range.end - start)
+        reach = max(reach or e.time_range.end, e.time_range.end)
+    return out, busy
+
+
+def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
+    """The fold program on the card, not counted: 5-epoch ``audio_clf``,
+    ``text_clf`` and ``fuse_clf`` folds through the CUDA graph against the
+    eager route (bitwise: losses and params); one replayed epoch under
+    ``torch.profiler``, its kernels by name against the launch counters;
+    ``--chunk-epochs 7`` with a resume bundle, killed after its first
+    chunk and resumed, against the single-shot run (bitwise); the three
+    ``audio_clf`` folds stacked (``vmap_folds``) against the serial folds
+    (per-step losses within 1e-5 of the largest); and an epoch's time
+    through the graph and eagerly.  Returns the timings."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.train import loop, optim, trainers
+
+    counted = _counts(rnn_cuda)
+    train_idx = folds.generate_clf_folds(clf, 3, seed=0)
+    data = trainers._clf_fold_datas([feats], clf, train_idx, 8)[0]
+    text_data = trainers._clf_fold_datas([xt], clf, train_idx, 4)[0]
+    fuse_data = trainers._clf_fold_datas([feats, xt], clf, train_idx, 2)[0]
+    base = C.replace(C.AUDIO_CLF, epochs=COMPARE_EPOCHS + 1)
+    text_base = C.replace(C.TEXT_CLF, epochs=COMPARE_EPOCHS + 1)
+    fuse_t = C.replace(C.FUSE_CLF_TRAINER, epochs=COMPARE_EPOCHS + 1)
+    branch = (trainers.init_model(C.TEXT_CLF, 0, 1, "cuda").state_dict(),
+              trainers.init_model(C.AUDIO_CLF, 0, 1, "cuda").state_dict())
+    runs = {"audio_clf": lambda g: _fold_run(torch, base, data, "cuda", g),
+            "text_clf": lambda g: _fold_run(torch, text_base, text_data,
+                                            "cuda", g),
+            "fuse_clf": lambda g: _fusion_fold_run(
+                torch, C.FUSE_CLF, fuse_t, fuse_data, branch, "cuda", g)}
+    for name, run in runs.items():
+        graph, eager = run(True), run(False)
+        same = _same_runs(graph, eager)
+        print(f"{COMPARE_EPOCHS}-epoch {name} fold, dropout on: CUDA graph "
+              f"against the eager route, {graph[0].size} step losses and "
+              f"every param bitwise equal: {same}")
+        if not same:
+            fail(f"the {name} fold's CUDA graph differs from its eager run")
+
+    # one replayed epoch under the profiler: the captured calls, by name
+    timings = {}
+    for name, tcfg, d in (("audio_clf", C.AUDIO_CLF, data),
+                          ("text_clf", C.TEXT_CLF, text_data)):
+        per_epoch = {}
+        for graph in (True, False):
+            model = trainers.init_model(tcfg, 0, 1, "cuda")
+            opt = optim.build(tcfg.optimizer, model)
+            fr = loop.FoldRun(model, opt, *loop.model_fns(
+                model, trainers._branch_fns(tcfg)), d, tcfg.track, tcfg.gate,
+                12, trainers.dropout_key(0, 1, "cuda"), graph)
+            fr.run(2)                     # capture (graph), warm
+            torch.cuda.synchronize()
+            if graph:
+                before = _counts(rnn_cuda)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ev[0].record()
+                    fr.run(1)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                moved = {k: _counts(rnn_cuda)[k] - before[k]
+                         for k in before}
+                seen = _kernel_calls(prof.events(), 3)
+                want = {k: fr.captured.get(k, 0) for k in seen}
+                kinds, busy = _busy_split(prof)
+                span = ev[0].elapsed_time(ev[1]) * 1e3
+                print(f"{name}: one replayed epoch launched {seen} kernel "
+                      f"calls by the profiler's kernel names; captured "
+                      f"{fr.captured}; counters moved {moved}")
+                print(f"{name}: a replayed epoch, some kernel running "
+                      f"{busy:.1f} us of a {span:.1f} us span (CUDA "
+                      f"events; idle {1 - busy / span:.3f}); kernel time "
+                      + ", ".join(f"{k} {v:.1f} us"
+                                  for k, v in kinds.items())
+                      + f" (torch.profiler) [{card}]")
+                if seen != want or {k: moved[k] for k in seen} != want:
+                    fail(f"{name}: replay launches {seen}, counters "
+                         f"{moved}, captured {fr.captured}")
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+            fr.run(8)
+            ev1.record()
+            torch.cuda.synchronize()
+            per_epoch["graph" if graph else "eager"] = \
+                ev0.elapsed_time(ev1) / 8
+        steps = fr.n_steps
+        timings[name] = {k: v / steps for k, v in per_epoch.items()}
+        print(f"timing {name} epoch ({steps} steps + eval): CUDA graph "
+              f"{per_epoch['graph']:.3f} ms, eager {per_epoch['eager']:.3f} "
+              f"ms; a step {timings[name]['graph']:.3f} against "
+              f"{timings[name]['eager']:.3f} ms, "
+              f"{per_epoch['eager'] / per_epoch['graph']:.2f}x (mean of 8 "
+              f"epochs, CUDA events) [{card}]")
+
+    # chunked with a resume bundle, killed after the first chunk
+    cfg = C.replace(C.AUDIO_CLF, epochs=RESUME_EPOCHS + 1)
+    one = train_idx[:1]
+    single = trainers.train_audio_clf(feats, clf, one, tcfg=cfg,
+                                      device="cuda")[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        run, chunks = loop.FoldRun.run, []
+
+        def killed(self, n):
+            if chunks:
+                raise KeyboardInterrupt
+            chunks.append(n)
+            run(self, n)
+
+        loop.FoldRun.run = killed
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                trainers.train_audio_clf(feats, clf, one, tcfg=cfg,
+                                         device="cuda",
+                                         chunk_epochs=RESUME_CHUNK,
+                                         resume_dir=tmp)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            loop.FoldRun.run = run
+        with np.load(Path(tmp) / "audio_clf_fold1.npz") as z:
+            done = int(z["epoch_done"])
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            resumed = trainers.train_audio_clf(
+                feats, clf, one, tcfg=cfg, device="cuda",
+                chunk_epochs=RESUME_CHUNK, resume_dir=tmp)[0]
+    same = (np.array_equal(single["step_losses"], resumed["step_losses"])
+            and all(np.array_equal(single["logs"][k], resumed["logs"][k])
+                    for k in single["logs"])
+            and all(torch.equal(v, resumed["best"]["params"][k])
+                    for k, v in single["best"]["params"].items())
+            and single["best"]["epoch"] == resumed["best"]["epoch"])
+    print(f"audio_clf fold, {RESUME_EPOCHS} epochs, --chunk-epochs "
+          f"{RESUME_CHUNK} killed after its first chunk (bundle at epoch "
+          f"{done}) and resumed ({err.getvalue().count('committed')} more "
+          f"chunks committed): bitwise the single-shot run {same}")
+    if done != RESUME_CHUNK or not same:
+        fail("the resumed run differs from the single-shot run")
+
+    # the folds stacked against the serial folds
+    serial = trainers.train_audio_clf(feats, clf, train_idx, tcfg=base,
+                                      device="cuda")
+    stacked = trainers.train_audio_clf(feats, clf, train_idx, tcfg=base,
+                                       device="cuda", vmap_folds=True)
+    worst = 0.0
+    for s, v in zip(serial, stacked):
+        scale = float(np.abs(s["step_losses"]).max())
+        d = float(np.abs(s["step_losses"] - v["step_losses"]).max())
+        worst = max(worst, d / scale)
+    print(f"{COMPARE_EPOCHS}-epoch audio_clf, 3 folds stacked (vmap_folds) "
+          f"against serial on the card: max|d step loss| {worst:.3e} of the "
+          f"largest (tol {TRAIN_TOL}); gated epochs "
+          f"{[r['best']['epoch'] for r in stacked]} against "
+          f"{[r['best']['epoch'] for r in serial]}")
+    if worst > TRAIN_TOL:
+        fail("the stacked folds differ from the serial folds")
+    _set_counts(rnn_cuda, counted)
+    return timings
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gru", "lstm", "lstmp"],
+    ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
-                         "yardsticks, and stop (no ok line)")
+                         "yardsticks, and stop (no ok line); trainer: the "
+                         "GRU and LSTM kernels' fold-axis checks and the "
+                         "fold program's (graph, resume, stacked folds) on "
+                         "random features")
     args = ap.parse_args(argv)
     import torch
 
@@ -2559,8 +3040,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ((f"{args.only}_fwd", f"{args.only}_bwd") if args.only
-             else tuple(COUNTERS))
+    names = (("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd")
+             if args.only == "trainer"
+             else (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
+             else SOURCES)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(so.name for so in libs)} in "
@@ -2568,6 +3051,17 @@ def main(argv=None) -> int:
     for name in names:
         print(_build.build_log(name).strip())
 
+    if args.only == "trainer":
+        fold_kernel_phase(torch, rnn_cuda, card)
+        gen = torch.Generator().manual_seed(3)
+        clf = (torch.arange(36) % 3 == 0).long().numpy()
+        feats = (torch.randn((36, 3, 256), generator=gen)
+                 + 0.5 * torch.as_tensor(clf)[:, None, None]).cuda()
+        xt = torch.randn((36, 3, 1024), generator=gen).cuda()
+        trainer_phase(torch, rnn_cuda, card, feats, clf, xt)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
     if args.only == "lstmp":
         _, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda, card)
         lstmp_profile_phase(torch, rnn_cuda, card)
@@ -2599,6 +3093,7 @@ def main(argv=None) -> int:
     gru_profile_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
     lstm_err, lstm_times = lstm_kernel_phase(torch, rnn_cuda, card)
+    fold_kernel_phase(torch, rnn_cuda, card)
     lstmp_err, lstmp_times, _ = lstmp_kernel_phase(torch, rnn_cuda,
                                                    card)
     lstmp_profile_phase(torch, rnn_cuda, card)
@@ -2635,9 +3130,11 @@ def main(argv=None) -> int:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if "jax" in sys.modules:
         fail("jax was imported")
-    for task, wall in {**train["clf"]["stage_s"],
-                       **train["reg"]["stage_s"]}.items():
-        print(f"timing pipeline stage {task}: {wall:.2f} s wall [{card}]")
+    for track in ("clf", "reg"):
+        for task, wall in train[track]["stage_s"].items():
+            print(f"timing pipeline stage {task}: {wall:.2f} s wall, "
+                  f"{train[track]['vmap_stage_s'][task]:.2f} s with "
+                  f"--vmap-folds [{card}]")
     print(f"timing cli extract-text (108 answers, one batch of 112 rows): "
           f"{train['text']['wall_s']:.2f} s wall [{card}]")
     print(f"timing at 83 + 79 speakers: cli extract-audio "
@@ -2655,11 +3152,18 @@ def main(argv=None) -> int:
         **{(f"lstmp_{d}", k): v[d][0] for k, v in lstmp_times.items()
            for d in ("fwd", "bwd")}})
     bounds = kernel_bounds()
+    # one entry per TPU kernel: #3 and #5 are #2's and #8's sources timed
+    # at the streamed T = 256, their launches the backward calls at the
+    # shapes the JAX package streams (none on a main path)
     timed = {
         "gru_fwd": (kernel_times[TIMED_SHAPES[0]], err, "gru_fwd"),
         "gru_bwd": (bwd_times[BWD_TIMED[0]], bwd_err, "gru_bwd"),
+        "gru_bwd_streamed": (bwd_times[BWD_TIMED[-1]], bwd_err,
+                             "gru_bwd_streamed"),
         "lstm_fwd": (lstm_times[LSTM_TIMED[0]]["fwd"],
                      max(lstm_err["fwd"], standin_err), "lstm_fwd"),
+        "lstm_bwd_streamed": (lstm_times[LSTM_TIMED[-1]]["bwd"],
+                              lstm_err["bwd"], "lstm_bwd_streamed"),
         "lstm_bwd": (lstm_times[LSTM_TIMED[0]]["bwd"], lstm_err["bwd"],
                      "lstm_bwd"),
         "lstmp_fwd": (lstmp_times[LSTMP_TIMED[0]]["fwd"], lstmp_err["fwd"],
@@ -2669,16 +3173,20 @@ def main(argv=None) -> int:
     }
     src = "icassp2022_depression_tpu_torch/csrc"
     pallas = "icassp2022_depression_tpu/ops/rnn_pallas.py"
-    replaces = {"gru_fwd": f"{pallas}:149", "gru_bwd": f"{pallas}:38 (+:174)",
+    replaces = {"gru_fwd": f"{pallas}:149", "gru_bwd": f"{pallas}:38",
+                "gru_bwd_streamed": f"{pallas}:174",
                 "lstm_fwd": f"{pallas}:346",
-                "lstm_bwd": f"{pallas}:868 (+:377)",
+                "lstm_bwd_streamed": f"{pallas}:377",
+                "lstm_bwd": f"{pallas}:868",
                 "lstmp_fwd": f"{pallas}:562", "lstmp_bwd": f"{pallas}:609"}
     entries = []
     for name, ((ms, plain_ms), max_err, lib) in timed.items():
         bound_ms, bound_by = bounds[name]
+        source = name.replace("_streamed", "")
         entries.append({
-            "name": name, "route": "cuda", "source": f"{src}/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"{src}/{source}.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library[lib]})

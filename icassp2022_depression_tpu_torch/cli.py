@@ -164,7 +164,6 @@ def cmd_extract_text(args):
     return 0
 
 
-_TRAINER_REST = "the rest of the JAX trainer (ROADMAP.md Queue 1, item 19)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP.md Queue 1, item 18)"
 _VGGISH = "the VGGish slice (ROADMAP.md Queue 1, item 17)"
 
@@ -180,13 +179,20 @@ def _reject(options) -> None:
 
 def _reject_unported(args) -> None:
     _reject((
-        ("--resume-dir/--chunk-epochs",
-         args.resume_dir is not None or args.chunk_epochs is not None,
-         _TRAINER_REST),
-        ("--vmap-folds", args.vmap_folds, _TRAINER_REST),
         ("--fold-parallel/--data-parallel",
          args.fold_parallel or args.data_parallel != 1, _MULTI_GPU),
         ("--audio-dim", args.audio_dim != 256, _VGGISH)))
+
+
+def _fold_kw(args) -> dict:
+    """The trainers' fold options of ``train``: chunked execution with a
+    resume bundle (``--chunk-epochs`` counts only with ``--resume-dir``,
+    as in the JAX CLI) and ``--vmap-folds``."""
+    kw = {"vmap_folds": args.vmap_folds}
+    if args.resume_dir:
+        kw.update(resume_dir=Path(args.resume_dir),
+                  chunk_epochs=args.chunk_epochs)
+    return kw
 
 
 def _train_folds(targets, seed: int, idx_files=None):
@@ -303,12 +309,13 @@ def cmd_train(args):
         results = fn(x, y, _train_folds(y, args.seed, args.idx_files),
                      tcfg=tcfg,
                      out_dir=model_dir / "ClassificationWhole" / sub,
-                     seed=args.seed, device=device, **text_kw)
+                     seed=args.seed, device=device, **text_kw,
+                     **_fold_kw(args))
     else:
         dep, non = folds.generate_reg_shuffles(y, seed=args.seed)
         results = fn(x, y, dep, non, tcfg=tcfg,
                      out_dir=model_dir / "Regression", seed=args.seed,
-                     device=device, **text_kw)
+                     device=device, **text_kw, **_fold_kw(args))
     for r in results:
         logger.log_fold(args.task, r["fold"], r["logs"], r["best"])
         best = {k: round(v, 4) for k, v in r["best"].items() if k != "params"}
@@ -347,9 +354,7 @@ def _pipeline_summary(args) -> dict:
     from icassp2022_depression_tpu_torch.train import trainers
     from icassp2022_depression_tpu_torch.utils.logging import MetricsLogger
 
-    _reject((
-        ("--vmap-folds", args.vmap_folds, _TRAINER_REST),
-        ("--fold-parallel", args.fold_parallel, _MULTI_GPU)))
+    _reject((("--fold-parallel", args.fold_parallel, _MULTI_GPU),))
     device = _device(args)
     root = Path(args.root)
     audio_dir, text_dir = _features_dirs(root)
@@ -375,14 +380,17 @@ def _pipeline_summary(args) -> dict:
                                                    learning_rate=args.lr))
 
     kw = dict(seed=args.seed, device=device)
+    # the branches (and the reg fusion) as one stacked program; the clf
+    # fusion chains its folds, so it stays serial, as in the JAX CLI
+    vmap = dict(vmap_folds=args.vmap_folds)
     if args.track == "clf":
         out = model_dir / "ClassificationWhole"
         tf_idx = _train_folds(ya, args.seed, args.idx_files)
         ra = trainers.train_audio_clf(xa, ya, tf_idx, _lr(C.AUDIO_CLF),
-                                      out_dir=out / "Audio", **kw)
+                                      out_dir=out / "Audio", **kw, **vmap)
         rt = trainers.train_text_clf(xt, yt, tf_idx, _lr(C.TEXT_CLF),
                                      out_dir=out / "Text",
-                                     meta_extras=text_meta, **kw)
+                                     meta_extras=text_meta, **kw, **vmap)
         named = {"audio_clf": ra, "text_clf": rt}
         _warn_ungated(named)
         branch = [(t["best"]["params"], a["best"]["params"])
@@ -395,10 +403,10 @@ def _pipeline_summary(args) -> dict:
         out = model_dir / "Regression"
         dep, non = folds.generate_reg_shuffles(ya, seed=args.seed)
         ra = trainers.train_audio_reg(xa, ya, dep, non, _lr(C.AUDIO_REG),
-                                      out_dir=out, **kw)
+                                      out_dir=out, **kw, **vmap)
         rt = trainers.train_text_reg(xt, yt, dep, non, _lr(C.TEXT_REG),
                                      out_dir=out, meta_extras=text_meta,
-                                     **kw)
+                                     **kw, **vmap)
         named = {"audio_reg": ra, "text_reg": rt}
         _warn_ungated(named)
         branch = [(t["best"]["params"], a["best"]["params"])
@@ -406,7 +414,7 @@ def _pipeline_summary(args) -> dict:
         named["fuse_reg"] = trainers.train_fuse_reg(
             xa, xt, ya, dep, non, branch, C.FUSE_REG,
             _lr(C.FUSE_REG_TRAINER), out_dir=out, meta_extras=text_meta,
-            **kw)
+            **kw, **vmap)
         metric = "mae"
     for name, results in named.items():
         for r in results:
@@ -770,7 +778,6 @@ def cmd_parity(args):
     the first line this command prints), of a reference ``Model/`` tree
     of ``.pt`` or npz checkpoints (``--ckpt-dir``), or of both tracks
     trained anew with the reference configurations."""
-    _reject((("--vmap-folds", args.vmap_folds, _TRAINER_REST),))
     # an acceptance run from a raw corpus keeps Model/ under the corpus
     root = args.root or args.corpus
     if args.from_report:
@@ -791,7 +798,8 @@ def cmd_parity(args):
             ns = argparse.Namespace(
                 track=track, root=root, model_dir=args.model_dir,
                 idx_files=args.idx_files, seed=args.seed, lr=None,
-                vmap_folds=False, fold_parallel=False, corpus=args.corpus,
+                vmap_folds=args.vmap_folds, fold_parallel=False,
+                corpus=args.corpus,
                 segmenter=args.segmenter, elmo_weights=args.elmo_weights,
                 device=args.device)
             report.update(_pipeline_summary(ns))
@@ -873,11 +881,17 @@ def build_parser():
     sp.add_argument("--elmo-weights", default="auto",
                     help="with --corpus on text tasks: see extract-text")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.add_argument("--resume-dir",
+                    help="run each fold in epoch chunks and commit a resume "
+                         "bundle to this dir after each; a rerun continues "
+                         "from it (bundles of the JAX package are not read)")
+    sp.add_argument("--chunk-epochs", type=int, default=25,
+                    help="epochs per chunk with --resume-dir")
+    sp.add_argument("--vmap-folds", action="store_true",
+                    help="train the 3 folds as one program (a fold axis in "
+                         "every tensor and kernel)")
     # the JAX CLI's options that later slices bring (see _reject_unported)
     sp.add_argument("--audio-dim", type=int, default=256)
-    sp.add_argument("--resume-dir")
-    sp.add_argument("--chunk-epochs", type=int)
-    sp.add_argument("--vmap-folds", action="store_true")
     sp.add_argument("--fold-parallel", action="store_true")
     sp.add_argument("--data-parallel", type=int, default=1)
     sp.set_defaults(fn=cmd_train)
@@ -899,8 +913,11 @@ def build_parser():
                     help="with --corpus: see extract-text")
     sp.add_argument("--elmo-weights", default="auto",
                     help="with --corpus: see extract-text")
-    # the JAX CLI's options that later slices bring (see cmd_pipeline)
-    sp.add_argument("--vmap-folds", action="store_true")
+    sp.add_argument("--vmap-folds", action="store_true",
+                    help="train each branch's 3 folds (and the reg "
+                         "fusion's) as one program; the clf fusion chains "
+                         "its folds and stays serial")
+    # the JAX CLI's option that a later slice brings (see _pipeline_summary)
     sp.add_argument("--fold-parallel", action="store_true")
     sp.set_defaults(fn=cmd_pipeline)
 
@@ -970,8 +987,8 @@ def build_parser():
                     help="score a reference Model/ tree of .pt (or npz) "
                          "checkpoints instead of training")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
-    # the JAX CLI's option that item 19 brings (see cmd_parity)
-    sp.add_argument("--vmap-folds", action="store_true")
+    sp.add_argument("--vmap-folds", action="store_true",
+                    help="train both tracks as pipeline --vmap-folds does")
     sp.set_defaults(fn=cmd_parity)
     return p
 

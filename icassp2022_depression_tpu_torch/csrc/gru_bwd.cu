@@ -97,6 +97,7 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// Block (b, f): row b of fold f (blockIdx.y).
 __global__ void gru_bwd_recurrence_kernel(
     const float* __restrict__ xp, const float* __restrict__ w_hh_t,
     const float* __restrict__ b_hh, const float* __restrict__ ys,
@@ -109,6 +110,17 @@ __global__ void gru_bwd_recurrence_kernel(
   float* dg = carry + H;      // [3H]  [ds_r, ds_z, dhn] of step t
   const int G = 3 * H;
   const int b = blockIdx.x;
+  {
+    const FoldStride fs = fold_stride(T, B, H, G);
+    const size_t f = blockIdx.y;
+    xp += f * fs.x;
+    w_hh_t += f * fs.w;
+    b_hh += f * fs.b;
+    ys += f * fs.y;
+    dys += f * fs.y;
+    dxp += f * fs.x;
+    dgates_h += f * fs.x;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -173,13 +185,22 @@ __global__ void gru_bwd_recurrence_kernel(
   }
 }
 
-// Row k < H of the grid's y axis is dW_hh^T[k, :]; row H is db_hh.
+// Row k < H of the grid's y axis is dW_hh^T[k, :]; row H is db_hh; the z
+// axis is the fold.
 __global__ void gru_bwd_weights_kernel(const float* __restrict__ ys,
                                        const float* __restrict__ dgates_h,
                                        float* __restrict__ dw,
                                        float* __restrict__ db, int T, int B,
                                        int H) {
   const int G = 3 * H;
+  {
+    const FoldStride fs = fold_stride(T, B, H, G);
+    const size_t f = blockIdx.z;
+    ys += f * fs.y;
+    dgates_h += f * fs.x;
+    dw += f * fs.w;
+    db += f * fs.b;
+  }
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y;
   if (j >= G) return;
@@ -216,9 +237,22 @@ gru_bwd_step_kernel(const float* __restrict__ w_hh_t,
                     const float* __restrict__ dys_t,
                     const float* __restrict__ dg_next,
                     float* __restrict__ dhz, float* __restrict__ dxp_t,
-                    float* __restrict__ dgh_t, int B, int H) {
+                    float* __restrict__ dgh_t, int B, int H,
+                    FoldStride fs) {
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
+  {
+    const size_t f = blockIdx.z;  // the fold
+    w_hh_t += f * fs.w;
+    hp_t += f * fs.x;
+    xp_t += f * fs.x;
+    if (ys_prev != nullptr) ys_prev += f * fs.y;
+    dys_t += f * fs.y;
+    if (dg_next != nullptr) dg_next += f * fs.x;
+    dhz += f * fs.bh;
+    dxp_t += f * fs.x;
+    dgh_t += f * fs.x;
+  }
   const int c0 = blockIdx.x * CS, b0 = blockIdx.y * BM;
   const int b = b0 + threadIdx.x / CS, c = c0 + threadIdx.x % CS;
   const bool mine = threadIdx.x < BM * CS && b < B && c < H;
@@ -259,34 +293,37 @@ cudaError_t run_steps(const float* xp, const float* w_hh_t,
                       const float* b_hh, const float* ys, const float* dys,
                       float* dxp, float* dgates_h, float* dw, float* db,
                       float* hp, float* dhz, float* parts, int T, int B,
-                      int H, int splits, cudaStream_t s) {
+                      int H, int F, int splits, cudaStream_t s) {
   const int G = 3 * H;
+  const FoldStride fs = fold_stride(T, B, H, G);
   cudaLaunchConfig_t step;
   cudaLaunchAttribute overlap[1];
   cudaError_t err = rnn_bwd::step_config<CS, BM>(
-      &step, overlap, gru_bwd_step_kernel<CS, BM>, B, H, s);
+      &step, overlap, gru_bwd_step_kernel<CS, BM>, B, H, s, F);
   if (err == cudaSuccess)
     err = rnn_bwd::launch_gates<false>(nullptr, ys, w_hh_t, b_hh, hp, T, B,
-                                       H, G, s);
+                                       H, G, s, F, fs);
   const size_t bh = (size_t)B * H, bg = (size_t)B * G;
   for (int t = T - 1; t >= 0 && err == cudaSuccess; --t) {
     err = cudaLaunchKernelEx(
         &step, gru_bwd_step_kernel<CS, BM>, w_hh_t, hp + t * bg, xp + t * bg,
         t > 0 ? ys + (t - 1) * bh : nullptr, dys + t * bh,
         t < T - 1 ? dgates_h + (t + 1) * bg : nullptr, dhz, dxp + t * bg,
-        dgates_h + t * bg, B, H);
+        dgates_h + t * bg, B, H, fs);
     if (err == cudaSuccess) err = cudaGetLastError();
   }
   if (err == cudaSuccess)
     err = rnn_bwd::launch_weights(ys, dgates_h, dw, db, parts, T, B, H, G,
-                                  splits, s);
+                                  splits, s, F);
   return err;
 }
 
 }  // namespace
 
 // (dxp, dw, db) = GRU backward of ys = GRU(xp, w_hh_t, b_hh) given dys,
-// launched on `stream` (a cudaStream_t).  `dgates_h` [T, B, 3H] is scratch
+// launched on `stream` (a cudaStream_t), for each of F folds of contiguous
+// [F, ...] arrays in the same launches (F = 1: one fold; the scratch per
+// fold too).  `dgates_h` [T, B, 3H] is scratch
 // the caller allocates.  `cells` = `rows` = 0: the "sequence" route (hp,
 // dhz and parts unused); else the "step" route with a (cells, rows) tile,
 // cells in {1, 2, 4} and rows in {8, 16, 32} (H a multiple of 4), the
@@ -298,9 +335,10 @@ extern "C" int gru_seq_bwd_f32(const float* xp, const float* w_hh_t,
                                const float* b_hh, const float* ys,
                                const float* dys, float* dxp, float* dgates_h,
                                float* dw, float* db, float* hp, float* dhz,
-                               float* parts, int T, int B, int H, int cells,
-                               int rows, int splits, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535)
+                               float* parts, int T, int B, int H, int F,
+                               int cells, int rows, int splits,
+                               void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535 || F <= 0 || F > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cells != 0 || rows != 0) {
@@ -309,7 +347,7 @@ extern "C" int gru_seq_bwd_f32(const float* xp, const float* w_hh_t,
   if (cells == CS && rows == BM)                                           \
     return (int)run_steps<CS, BM>(xp, w_hh_t, b_hh, ys, dys, dxp,          \
                                   dgates_h, dw, db, hp, dhz, parts, T, B,  \
-                                  H, splits, s);
+                                  H, F, splits, s);
     GRU_BWD_TILE(1, 8)
     GRU_BWD_TILE(1, 16)
     GRU_BWD_TILE(1, 32)
@@ -329,11 +367,11 @@ extern "C" int gru_seq_bwd_f32(const float* xp, const float* w_hh_t,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gru_bwd_recurrence_kernel<<<B, kThreads, smem, s>>>(
+  gru_bwd_recurrence_kernel<<<dim3(B, F), kThreads, smem, s>>>(
       xp, w_hh_t, b_hh, ys, dys, dxp, dgates_h, T, B, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((3 * H + kThreads - 1) / kThreads, H + 1);
+  const dim3 grid((3 * H + kThreads - 1) / kThreads, H + 1, F);
   gru_bwd_weights_kernel<<<grid, kThreads, 0, s>>>(ys, dgates_h, dw, db, T,
                                                    B, H);
   return (int)cudaGetLastError();

@@ -70,6 +70,7 @@ __device__ __forceinline__ float sigmoidf_(float x) {
 // Route "sequence": one block per batch row, all T steps in one launch.
 // ---------------------------------------------------------------------------
 
+// Block (b, f): row b of fold f (blockIdx.y).
 __global__ void gru_fwd_kernel(const float* __restrict__ xp,
                                const float* __restrict__ w_hh_t,
                                const float* __restrict__ b_hh,
@@ -79,6 +80,12 @@ __global__ void gru_fwd_kernel(const float* __restrict__ xp,
   float* hp = seq_smem + H;   // [3H]
   const int G = 3 * H;
   const int b = blockIdx.x;
+  const size_t f = blockIdx.y;
+  const FoldStride fs = fold_stride(T, B, H, G);
+  xp += f * fs.x;
+  w_hh_t += f * fs.w;
+  b_hh += f * fs.b;
+  ys += f * fs.y;
 
   for (int j = threadIdx.x; j < H; j += blockDim.x) h[j] = 0.0f;
   __syncthreads();
@@ -138,23 +145,26 @@ gru_fwd_step_kernel(const float* __restrict__ xp_t,
                     const float* __restrict__ h_prev,
                     const float* __restrict__ h_state,
                     float* __restrict__ ys_t, float* __restrict__ cs_t,
-                    int B, int H) {
-  rnn_fwd::step<GruCell, CS, BM, KS>(xp_t, w_hh_t, b_hh, h_prev, h_state,
-                                     ys_t, cs_t, B, H);
+                    int B, int H, FoldStride fs) {
+  rnn_fwd::fold_step<GruCell, CS, BM, KS>(xp_t, w_hh_t, b_hh, h_prev, h_state,
+                                          ys_t, cs_t, B, H, fs);
 }
 
 }  // namespace
 
 // ys[T, B, H] = GRU(xp[T, B, 3H], w_hh_t[H, 3H], b_hh[3H]), launched on
-// `stream` (a cudaStream_t).  `cells` = `rows` = 0: the "sequence" route,
+// `stream` (a cudaStream_t), for each of F folds of contiguous [F, ...]
+// arrays in the same launches (F = 1: one fold).  `cells` = `rows` = 0: the "sequence" route,
 // one launch; else the "step" route with a (cells, rows) tile, one of
 // (4, 8), (4, 16), (4, 24), (4, 32), (32, 16) and (32, 64), one launch a
 // step (H a multiple of 4).  Returns the first cudaError_t of the launches
 // (0 on success), cudaErrorInvalidValue for a tile that is not compiled.
 extern "C" int gru_seq_fwd_f32(const float* xp, const float* w_hh_t,
                                const float* b_hh, float* ys, int T, int B,
-                               int H, int cells, int rows, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                               int H, int F, int cells, int rows,
+                               void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || F <= 0 || F > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cells == 0 && rows == 0) {
     const size_t smem = (size_t)4 * H * sizeof(float);
@@ -164,7 +174,8 @@ extern "C" int gru_seq_fwd_f32(const float* xp, const float* w_hh_t,
           (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    gru_fwd_kernel<<<B, kThreads, smem, s>>>(xp, w_hh_t, b_hh, ys, T, B, H);
+    gru_fwd_kernel<<<dim3(B, F), kThreads, smem, s>>>(xp, w_hh_t, b_hh, ys,
+                                                      T, B, H);
     return (int)cudaGetLastError();
   }
   if (H % 4) return (int)cudaErrorInvalidValue;
@@ -172,7 +183,7 @@ extern "C" int gru_seq_fwd_f32(const float* xp, const float* w_hh_t,
   if (cells == CS && rows == BM)                                           \
     return (int)rnn_fwd::run_steps<GruCell, CS, BM, KS>(                  \
         gru_fwd_step_kernel<CS, BM, KS>, xp, w_hh_t, b_hh, ys, nullptr, T, B, \
-        H, s);
+        H, F, s);
   GRU_FWD_TILE(4, 8, 8)
   GRU_FWD_TILE(4, 16, 8)
   GRU_FWD_TILE(4, 24, 8)

@@ -108,6 +108,18 @@ __global__ void lstm_bwd_recurrence_kernel(
   float* dg = dc_carry + H;      // [4H]  dgates of step t
   const int G = 4 * H;
   const int b = blockIdx.x;
+  {
+    const FoldStride fs = fold_stride(T, B, H, G);
+    const size_t f = blockIdx.y;  // the fold
+    xp += f * fs.x;
+    w_hh_t += f * fs.w;
+    b_hh += f * fs.b;
+    ys += f * fs.y;
+    cs += f * fs.y;
+    dys += f * fs.y;
+    dcs += f * fs.y;
+    dxp += f * fs.x;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -188,6 +200,14 @@ __global__ void lstm_bwd_weights_kernel(const float* __restrict__ ys,
                                         float* __restrict__ db, int T, int B,
                                         int H) {
   const int G = 4 * H;
+  {
+    const FoldStride fs = fold_stride(T, B, H, G);
+    const size_t f = blockIdx.z;  // the fold
+    ys += f * fs.y;
+    dxp += f * fs.x;
+    dw += f * fs.w;
+    db += f * fs.b;
+  }
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y;
   if (j >= G) return;
@@ -224,9 +244,21 @@ lstm_bwd_step_kernel(const float* __restrict__ w_hh_t,
                      const float* __restrict__ dcs_t,
                      const float* __restrict__ dg_next,
                      float* __restrict__ dc_carry, float* __restrict__ dxp_t,
-                     int B, int H) {
+                     int B, int H, FoldStride fs) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
+  {
+    const size_t f = blockIdx.z;  // the fold
+    w_hh_t += f * fs.w;
+    gp_t += f * fs.x;
+    cs_t += f * fs.y;
+    if (cs_prev != nullptr) cs_prev += f * fs.y;
+    dys_t += f * fs.y;
+    dcs_t += f * fs.y;
+    if (dg_next != nullptr) dg_next += f * fs.x;
+    dc_carry += f * fs.bh;
+    dxp_t += f * fs.x;
+  }
   const int c0 = blockIdx.x * CS, b0 = blockIdx.y * BM;
   const int b = b0 + threadIdx.x / CS, c = c0 + threadIdx.x % CS;
   const bool mine = threadIdx.x < BM * CS && b < B && c < H;
@@ -264,35 +296,38 @@ cudaError_t run_steps(const float* xp, const float* w_hh_t,
                       const float* b_hh, const float* ys, const float* cs,
                       const float* dys, const float* dcs, float* dxp,
                       float* dw, float* db, float* gp, float* dc_carry,
-                      float* parts, int T, int B, int H, int splits,
+                      float* parts, int T, int B, int H, int F, int splits,
                       cudaStream_t s) {
   const int G = 4 * H;
+  const FoldStride fs = fold_stride(T, B, H, G);
   cudaLaunchConfig_t step;
   cudaLaunchAttribute overlap[1];
   cudaError_t err = rnn_bwd::step_config<CS, BM>(
-      &step, overlap, lstm_bwd_step_kernel<CS, BM>, B, H, s);
+      &step, overlap, lstm_bwd_step_kernel<CS, BM>, B, H, s, F);
   if (err == cudaSuccess)
     err = rnn_bwd::launch_gates<true>(xp, ys, w_hh_t, b_hh, gp, T, B, H, G,
-                                      s);
+                                      s, F, fs);
   const size_t bh = (size_t)B * H, bg = (size_t)B * G;
   for (int t = T - 1; t >= 0 && err == cudaSuccess; --t) {
     err = cudaLaunchKernelEx(
         &step, lstm_bwd_step_kernel<CS, BM>, w_hh_t, gp + t * bg,
         cs + t * bh, t > 0 ? cs + (t - 1) * bh : nullptr, dys + t * bh,
         dcs + t * bh, t < T - 1 ? dxp + (t + 1) * bg : nullptr, dc_carry,
-        dxp + t * bg, B, H);
+        dxp + t * bg, B, H, fs);
     if (err == cudaSuccess) err = cudaGetLastError();
   }
   if (err == cudaSuccess)
     err = rnn_bwd::launch_weights(ys, dxp, dw, db, parts, T, B, H, G, splits,
-                                  s);
+                                  s, F);
   return err;
 }
 
 }  // namespace
 
 // (dxp, dw, db) = LSTM backward of (ys, cs) = LSTM(xp, w_hh_t, b_hh) given
-// (dys, dcs), launched on `stream` (a cudaStream_t).  `cells` = `rows` = 0:
+// (dys, dcs), launched on `stream` (a cudaStream_t), for each of F folds of
+// contiguous [F, ...] arrays in the same launches (F = 1: one fold; the
+// scratch per fold too).  `cells` = `rows` = 0:
 // the "sequence" route (gp, dc_carry and parts unused); else the "step"
 // route with a (cells, rows) tile, cells in {1, 2, 4} and rows in {8, 16,
 // 32} (H a multiple of 4), the scratch gp [T, B, 4H] and dc_carry [B, H],
@@ -305,9 +340,10 @@ extern "C" int lstm_seq_bwd_f32(const float* xp, const float* w_hh_t,
                                 const float* cs, const float* dys,
                                 const float* dcs, float* dxp, float* dw,
                                 float* db, float* gp, float* dc_carry,
-                                float* parts, int T, int B, int H, int cells,
-                                int rows, int splits, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535)
+                                float* parts, int T, int B, int H, int F,
+                                int cells, int rows, int splits,
+                                void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535 || F <= 0 || F > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cells != 0 || rows != 0) {
@@ -315,7 +351,7 @@ extern "C" int lstm_seq_bwd_f32(const float* xp, const float* w_hh_t,
 #define LSTM_BWD_TILE(CS, BM)                                              \
   if (cells == CS && rows == BM)                                           \
     return (int)run_steps<CS, BM>(xp, w_hh_t, b_hh, ys, cs, dys, dcs, dxp, \
-                                  dw, db, gp, dc_carry, parts, T, B, H,    \
+                                  dw, db, gp, dc_carry, parts, T, B, H, F, \
                                   splits, s);
     LSTM_BWD_TILE(1, 8)
     LSTM_BWD_TILE(1, 16)
@@ -336,11 +372,11 @@ extern "C" int lstm_seq_bwd_f32(const float* xp, const float* w_hh_t,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  lstm_bwd_recurrence_kernel<<<B, kThreads, smem, s>>>(
+  lstm_bwd_recurrence_kernel<<<dim3(B, F), kThreads, smem, s>>>(
       xp, w_hh_t, b_hh, ys, cs, dys, dcs, dxp, T, B, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((4 * H + kThreads - 1) / kThreads, H + 1);
+  const dim3 grid((4 * H + kThreads - 1) / kThreads, H + 1, F);
   lstm_bwd_weights_kernel<<<grid, kThreads, 0, s>>>(ys, dxp, dw, db, T, B,
                                                     H);
   return (int)cudaGetLastError();

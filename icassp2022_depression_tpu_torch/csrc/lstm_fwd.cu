@@ -83,6 +83,13 @@ __global__ void lstm_fwd_seq_kernel(const float* __restrict__ xp,
   float* gp = c + H;      // [4H]
   const int G = 4 * H;
   const int b = blockIdx.x;
+  const size_t f = blockIdx.y;  // the fold
+  const FoldStride fs = fold_stride(T, B, H, G);
+  xp += f * fs.x;
+  w_hh_t += f * fs.w;
+  b_hh += f * fs.b;
+  ys += f * fs.y;
+  cs += f * fs.y;
 
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     h[j] = 0.0f;
@@ -151,15 +158,16 @@ lstm_fwd_step_kernel(const float* __restrict__ xp_t,
                      const float* __restrict__ h_prev,
                      const float* __restrict__ c_prev,
                      float* __restrict__ ys_t, float* __restrict__ cs_t,
-                     int B, int H) {
-  rnn_fwd::step<LstmCell, CS, BM, KS>(xp_t, w_hh_t, b_hh, h_prev, c_prev,
-                                      ys_t, cs_t, B, H);
+                     int B, int H, FoldStride fs) {
+  rnn_fwd::fold_step<LstmCell, CS, BM, KS>(xp_t, w_hh_t, b_hh, h_prev, c_prev,
+                                           ys_t, cs_t, B, H, fs);
 }
 
 }  // namespace
 
 // (ys, cs)[T, B, H] = LSTM(xp[T, B, 4H], w_hh_t[H, 4H], b_hh[4H]), launched
-// on `stream` (a cudaStream_t).  `cells` = `rows` = 0: the "sequence"
+// on `stream` (a cudaStream_t), for each of F folds of contiguous [F, ...]
+// arrays in the same launches (F = 1: one fold).  `cells` = `rows` = 0: the "sequence"
 // route, one launch; else the "step" route with a (cells, rows) tile, one
 // of (4, 8), (4, 16), (4, 24), (4, 32), (32, 16) and (32, 64), one launch
 // a step (H a multiple of 4).  Returns the first cudaError_t of the
@@ -167,9 +175,10 @@ lstm_fwd_step_kernel(const float* __restrict__ xp_t,
 // compiled.
 extern "C" int lstm_seq_fwd_f32(const float* xp, const float* w_hh_t,
                                 const float* b_hh, float* ys, float* cs,
-                                int T, int B, int H, int cells, int rows,
-                                void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                                int T, int B, int H, int F, int cells,
+                                int rows, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || F <= 0 || F > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cells == 0 && rows == 0) {
     const size_t smem = (size_t)6 * H * sizeof(float);
@@ -179,15 +188,16 @@ extern "C" int lstm_seq_fwd_f32(const float* xp, const float* w_hh_t,
           (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    lstm_fwd_seq_kernel<<<B, kThreads, smem, s>>>(xp, w_hh_t, b_hh, ys, cs,
-                                                  T, B, H);
+    lstm_fwd_seq_kernel<<<dim3(B, F), kThreads, smem, s>>>(
+        xp, w_hh_t, b_hh, ys, cs, T, B, H);
     return (int)cudaGetLastError();
   }
   if (H % 4) return (int)cudaErrorInvalidValue;
 #define LSTM_FWD_TILE(CS, BM, KS)                                          \
   if (cells == CS && rows == BM)                                           \
     return (int)rnn_fwd::run_steps<LstmCell, CS, BM, KS>(                 \
-        lstm_fwd_step_kernel<CS, BM, KS>, xp, w_hh_t, b_hh, ys, cs, T, B, H, s);
+        lstm_fwd_step_kernel<CS, BM, KS>, xp, w_hh_t, b_hh, ys, cs, T, B, H, \
+        F, s);
   LSTM_FWD_TILE(4, 8, 8)
   LSTM_FWD_TILE(4, 16, 8)
   LSTM_FWD_TILE(4, 24, 8)

@@ -23,6 +23,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fold.cuh"
 #include "ptx.cuh"
 
 namespace rnn_bwd {
@@ -217,7 +218,16 @@ template <bool kAddX>
 __global__ void __launch_bounds__(kThreads)
 gates_kernel(const float* __restrict__ x, const float* __restrict__ ys,
              const float* __restrict__ w, const float* __restrict__ bias,
-             float* __restrict__ gp, int M, int N, int K, int B) {
+             float* __restrict__ gp, int M, int N, int K, int B,
+             FoldStride fs) {
+  {
+    const size_t f = blockIdx.z;
+    if (kAddX) x += f * fs.x;
+    ys += f * fs.y;
+    w += f * fs.w;
+    bias += f * fs.b;
+    gp += f * fs.x;
+  }
   __shared__ __align__(16) float as[kBK][68];  // [k][m]
   __shared__ __align__(16) float bs[kBK][64];  // [k][n]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -288,13 +298,23 @@ gates_kernel(const float* __restrict__ x, const float* __restrict__ ys,
 __global__ void __launch_bounds__(kThreads)
 dw_kernel(const float* __restrict__ ys, const float* __restrict__ dg,
           float* __restrict__ out_w, float* __restrict__ out_b,
-          size_t part_stride, int M, int N, int K, int B, int k_chunk) {
+          size_t part_stride, int M, int N, int K, int B, int k_chunk,
+          int splits, FoldStride fs, size_t out_w_fold, size_t out_b_fold) {
   __shared__ __align__(16) float as[kBK][68];  // [k][m]
   __shared__ __align__(16) float bs[kBK][64];  // [k][n]
   wait_previous_launch();
+  // blockIdx.z = fold * splits + part
+  const int part = blockIdx.z % splits;
+  {
+    const size_t f = blockIdx.z / splits;
+    ys += f * fs.y;
+    dg += f * fs.x;
+    out_w += f * out_w_fold;
+    out_b += f * out_b_fold;
+  }
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  const int k_begin = blockIdx.z * k_chunk;
+  const int k_begin = part * k_chunk;
   const int k_end = min(K, k_begin + k_chunk);
   const int lk = tid / 16, lc = (tid % 16) * 4;  // k lk, lk + 16; 4 columns
   const bool with_db = blockIdx.y == 0;
@@ -335,7 +355,7 @@ dw_kernel(const float* __restrict__ ys, const float* __restrict__ dg,
     fma_tile(acc, as, bs, ty, tx);
   }
   const int n = n0 + 4 * tx;
-  float* ow = out_w + blockIdx.z * part_stride;
+  float* ow = out_w + part * part_stride;
   if (n < N) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -355,7 +375,7 @@ dw_kernel(const float* __restrict__ ys, const float* __restrict__ dg,
     float v = 0.0f;
 #pragma unroll
     for (int r = 0; r < 16; ++r) v += red[r][tid];
-    out_b[blockIdx.z * part_stride + n0 + tid] = v;
+    out_b[part * part_stride + n0 + tid] = v;
   }
 }
 
@@ -367,6 +387,12 @@ dw_finish_kernel(const float* __restrict__ parts, float* __restrict__ dw,
   wait_previous_launch();
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   const int total = HG + G;
+  {
+    const size_t f = blockIdx.y;  // the fold
+    parts += f * splits * (size_t)total;
+    dw += f * HG;
+    db += f * G;
+  }
   if (idx >= total) return;
   float v = 0.0f;
   for (int s = 0; s < splits; ++s) v += parts[(size_t)s * total + idx];
@@ -382,10 +408,11 @@ template <bool kAddX>
 inline cudaError_t launch_gates(const float* xp, const float* ys,
                                 const float* w_hh_t, const float* b_hh,
                                 float* gp, int T, int B, int H, int G,
-                                cudaStream_t s) {
-  const dim3 grid(cdiv(G, 64), cdiv(T * B, 64));
+                                cudaStream_t s, int F = 1,
+                                FoldStride fs = {}) {
+  const dim3 grid(cdiv(G, 64), cdiv(T * B, 64), F);
   gates_kernel<kAddX><<<grid, kThreads, 0, s>>>(xp, ys, w_hh_t, b_hh, gp,
-                                                T * B, G, H, B);
+                                                T * B, G, H, B, fs);
   return cudaGetLastError();
 }
 
@@ -394,26 +421,31 @@ inline cudaError_t launch_gates(const float* xp, const float* ys,
 // unused for one part.
 inline cudaError_t launch_weights(const float* ys, const float* dg, float* dw,
                                   float* db, float* parts, int T, int B,
-                                  int H, int G, int splits, cudaStream_t s) {
+                                  int H, int G, int splits, cudaStream_t s,
+                                  int F = 1) {
+  const FoldStride fs = fold_stride(T, B, H, G);
   const int K = T * B;
   const int k_chunk = kBK * cdiv(cdiv(K, splits), kBK);
   cudaLaunchAttribute overlap[1];
   overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   overlap[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(G, 64), cdiv(H, 64), splits);
+  cfg.gridDim = dim3(cdiv(G, 64), cdiv(H, 64), splits * F);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
   cfg.attrs = overlap;
   cfg.numAttrs = 1;
   const bool split = splits > 1;
+  // a fold's output: its `splits` parts, or its dW and db
+  const size_t fold_parts = (size_t)splits * (H + 1) * G;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, dw_kernel, ys, dg, split ? parts : dw,
       split ? parts + (size_t)H * G : db, (size_t)(H + 1) * G, H, G, K, B,
-      k_chunk);
+      k_chunk, splits, fs, split ? fold_parts : (size_t)H * G,
+      split ? fold_parts : (size_t)G);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  cfg.gridDim = dim3(cdiv((H + 1) * G, kThreads));
+  cfg.gridDim = dim3(cdiv((H + 1) * G, kThreads), F);
   err = cudaLaunchKernelEx(&cfg, dw_finish_kernel, (const float*)parts, dw,
                            db, splits, H * G, G);
   if (err == cudaSuccess) err = cudaGetLastError();
@@ -426,7 +458,7 @@ inline cudaError_t launch_weights(const float* ys, const float* dg, float* dw,
 template <int CS, int BM, typename Kernel>
 inline cudaError_t step_config(cudaLaunchConfig_t* cfg,
                                cudaLaunchAttribute* overlap, Kernel kernel,
-                               int B, int H, cudaStream_t s) {
+                               int B, int H, cudaStream_t s, int F = 1) {
   static_assert(StepTile<CS, BM>::NST * StepTile<CS, BM>::SF *
                         sizeof(float) <= kSoloSmem,
                 "ring too large");
@@ -436,7 +468,7 @@ inline cudaError_t step_config(cudaLaunchConfig_t* cfg,
   overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   overlap[0].val.programmaticStreamSerializationAllowed = 1;
   *cfg = {};
-  cfg->gridDim = dim3(cdiv(H, CS), cdiv(B, BM));
+  cfg->gridDim = dim3(cdiv(H, CS), cdiv(B, BM), F);
   cfg->blockDim = dim3(kThreads);
   cfg->dynamicSmemBytes = kSoloSmem;
   cfg->stream = s;

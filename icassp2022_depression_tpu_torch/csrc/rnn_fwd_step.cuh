@@ -40,11 +40,18 @@
 // blocks met on one SM took twice as long (`lstm_variants.py`, PERF.md
 // section 6).  No atomics and no split of K across blocks, so a rerun is
 // bitwise equal.
+//
+// Fold axis (the counterpart of `jax.vmap` over the Pallas call, each fold
+// with its own weights): one launch covers F folds, gridDim.z = F, and a
+// block offsets every pointer by its fold's stride (`FoldStride`) before
+// running the single-fold body, so each fold's plan and sums are the ones
+// it has alone.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "fold.cuh"
 #include "ptx.cuh"
 
 namespace rnn_fwd {
@@ -285,17 +292,36 @@ __device__ __forceinline__ void step(const float* __restrict__ xp_t,
   }
 }
 
-// The signature of each file's step kernel (a __global__ that calls `step`).
+// `step` for the block's fold (blockIdx.z): every pointer moved to it.
+template <class Cell, int CS, int BM, int KS>
+__device__ __forceinline__ void fold_step(const float* xp_t,
+                                          const float* w_hh_t,
+                                          const float* b_hh,
+                                          const float* h_prev,
+                                          const float* s_prev, float* ys_t,
+                                          float* cs_t, int B, int H,
+                                          FoldStride fs) {
+  const size_t f = blockIdx.z;
+  step<Cell, CS, BM, KS>(xp_t + f * fs.x, w_hh_t + f * fs.w, b_hh + f * fs.b,
+                         h_prev != nullptr ? h_prev + f * fs.y : nullptr,
+                         s_prev != nullptr ? s_prev + f * fs.y : nullptr,
+                         ys_t + f * fs.y,
+                         cs_t != nullptr ? cs_t + f * fs.y : nullptr, B, H);
+}
+
+// The signature of each file's step kernel (a __global__ that calls
+// `fold_step`).
 using StepKernel = void (*)(const float*, const float*, const float*,
                             const float*, const float*, float*, float*, int,
-                            int);
+                            int, FoldStride);
 
 // The T launches of a call: ys [T, B, H] (and cs, null for the GRU) from
-// xp [T, B, NG H], with `kernel` = the file's step kernel at <CS, BM, KS>.
+// xp [T, B, NG H], with `kernel` = the file's step kernel at <CS, BM, KS>,
+// each launch over all F folds.
 template <class Cell, int CS, int BM, int KS>
 cudaError_t run_steps(StepKernel kernel, const float* xp,
                       const float* w_hh_t, const float* b_hh, float* ys,
-                      float* cs, int T, int B, int H, cudaStream_t s) {
+                      float* cs, int T, int B, int H, int F, cudaStream_t s) {
   static_assert(step_smem_bytes<Cell::kGates, CS, BM>() <= kSoloSmem,
                 "ring too large");
   const size_t smem = kSoloSmem;
@@ -303,6 +329,8 @@ cudaError_t run_steps(StepKernel kernel, const float* xp,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const size_t bh = (size_t)B * H;
+  const size_t g = (size_t)Cell::kGates * H;
+  const FoldStride fs = fold_stride(T, B, H, (int)g);
   // the state the update carries: c for the LSTM, h for the GRU
   const float* states = cs != nullptr ? cs : ys;
   // Every launch but the first may overlap the tail of the one before it
@@ -312,7 +340,7 @@ cudaError_t run_steps(StepKernel kernel, const float* xp,
   overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   overlap[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t step = {};
-  step.gridDim = dim3((H + CS - 1) / CS, (B + BM - 1) / BM);
+  step.gridDim = dim3((H + CS - 1) / CS, (B + BM - 1) / BM, F);
   step.blockDim = dim3(kThreads);
   step.dynamicSmemBytes = smem;
   step.stream = s;
@@ -324,7 +352,7 @@ cudaError_t run_steps(StepKernel kernel, const float* xp,
     err = cudaLaunchKernelEx(&step, kernel,
                              xp + t * Cell::kGates * bh, w_hh_t, b_hh, h_prev,
                              s_prev, ys + t * bh,
-                             cs != nullptr ? cs + t * bh : nullptr, B, H);
+                             cs != nullptr ? cs + t * bh : nullptr, B, H, fs);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

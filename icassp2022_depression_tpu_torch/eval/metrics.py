@@ -92,22 +92,32 @@ def root_mean_squared_error(y_true, y_pred) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _mask(like: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _flat(t: torch.Tensor, folded: bool, dtype) -> torch.Tensor:
+    """``t`` as one row ([N]), or one row per fold ([F, N]) when
+    ``folded``: the reductions below run over the last axis."""
+    t = t.to(dtype)
+    return t.reshape(t.shape[0], -1) if folded else t.reshape(-1)
+
+
+def _mask(like: torch.Tensor, mask: Optional[torch.Tensor],
+          folded: bool) -> torch.Tensor:
     if mask is None:
         return torch.ones_like(like, dtype=torch.float32)
-    return mask.to(torch.float32).reshape(-1)
+    return _flat(mask, folded, torch.float32)
 
 
 def confusion_counts(y_true: torch.Tensor, y_pred: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None):
-    """(tp, fp, fn, tn) as float32 scalars; ``mask`` excludes padded rows."""
-    y_true = y_true.to(torch.int32).reshape(-1)
-    y_pred = y_pred.to(torch.int32).reshape(-1)
-    mask = _mask(y_true, mask)
-    tp = (mask * ((y_true == 1) & (y_pred == 1))).sum()
-    fp = (mask * ((y_true == 0) & (y_pred == 1))).sum()
-    fn = (mask * ((y_true == 1) & (y_pred == 0))).sum()
-    tn = (mask * ((y_true == 0) & (y_pred == 0))).sum()
+                     mask: Optional[torch.Tensor] = None,
+                     folded: bool = False):
+    """(tp, fp, fn, tn) as float32 scalars; ``mask`` excludes padded rows.
+    ``folded``: inputs ``[F, ...]`` give one count per fold ([F])."""
+    y_true = _flat(y_true, folded, torch.int32)
+    y_pred = _flat(y_pred, folded, torch.int32)
+    mask = _mask(y_true, mask, folded)
+    tp = (mask * ((y_true == 1) & (y_pred == 1))).sum(dim=-1)
+    fp = (mask * ((y_true == 0) & (y_pred == 1))).sum(dim=-1)
+    fn = (mask * ((y_true == 1) & (y_pred == 0))).sum(dim=-1)
+    tn = (mask * ((y_true == 0) & (y_pred == 0))).sum(dim=-1)
     return tp, fp, fn, tn
 
 
@@ -133,22 +143,28 @@ def f1_from_counts(tp, fp, fn, tn):
 
 
 def masked_mae(y_true: torch.Tensor, y_pred: torch.Tensor,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y_true = y_true.to(torch.float32).reshape(-1)
-    y_pred = y_pred.to(torch.float32).reshape(-1)
+               mask: Optional[torch.Tensor] = None,
+               folded: bool = False) -> torch.Tensor:
+    """Mean absolute error over the valid rows (per fold when
+    ``folded``)."""
+    y_true = _flat(y_true, folded, torch.float32)
+    y_pred = _flat(y_pred, folded, torch.float32)
     if mask is None:
-        return (y_true - y_pred).abs().mean()
-    mask = _mask(y_true, mask)
-    return (mask * (y_true - y_pred).abs()).sum() / torch.clamp(mask.sum(),
-                                                                min=1.0)
+        return (y_true - y_pred).abs().mean(dim=-1)
+    mask = _mask(y_true, mask, folded)
+    return ((mask * (y_true - y_pred).abs()).sum(dim=-1)
+            / torch.clamp(mask.sum(dim=-1), min=1.0))
 
 
 def masked_rmse(y_true: torch.Tensor, y_pred: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y_true = y_true.to(torch.float32).reshape(-1)
-    y_pred = y_pred.to(torch.float32).reshape(-1)
+                mask: Optional[torch.Tensor] = None,
+                folded: bool = False) -> torch.Tensor:
+    """Root mean squared error over the valid rows (per fold when
+    ``folded``)."""
+    y_true = _flat(y_true, folded, torch.float32)
+    y_pred = _flat(y_pred, folded, torch.float32)
     if mask is None:
-        return ((y_true - y_pred) ** 2).mean().sqrt()
-    mask = _mask(y_true, mask)
-    return ((mask * (y_true - y_pred) ** 2).sum()
-            / torch.clamp(mask.sum(), min=1.0)).sqrt()
+        return ((y_true - y_pred) ** 2).mean(dim=-1).sqrt()
+    mask = _mask(y_true, mask, folded)
+    return ((mask * (y_true - y_pred) ** 2).sum(dim=-1)
+            / torch.clamp(mask.sum(dim=-1), min=1.0)).sqrt()

@@ -15,11 +15,15 @@ forward, kept for checkpoint fidelity) and ``fc_audio.{1,4}.*``
 :func:`..models.porting.audio_net_state_dict_from_jax` output loads with
 ``strict=True``.
 
-Every dropout mask (the GRU's inter-layer dropout and the head's two)
-is drawn from the ``generator`` passed to :meth:`AudioNet.forward`, so a
-training run is reproducible from its seed whatever else uses torch's
-global generator.  The head's dropout slots in ``fc_audio`` are
-parameter-free placeholders that keep the reference's indices.
+Initial weights come from a threefry key split as the JAX package's
+``audio_net.init`` splits it, and every dropout mask (the GRU's
+inter-layer dropout and the head's two) from the key passed to
+:meth:`AudioNet.forward`, split as ``audio_net.apply`` splits it: the same
+key gives the JAX package's weights and masks bit for bit.  The head's
+dropout slots in ``fc_audio`` are parameter-free placeholders that keep
+the reference's indices.  A model made by :func:`.folds.stack` holds all
+folds' parameters with a leading fold axis and runs on ``[F, B, T, D]``
+with keys ``[F, 2]``.
 """
 
 from __future__ import annotations
@@ -30,18 +34,23 @@ import torch
 from torch import nn
 
 from icassp2022_depression_tpu_torch.config import RNNConfig
-from icassp2022_depression_tpu_torch.ops import initializers, rnn
-from icassp2022_depression_tpu_torch.ops.nn import dropout, layer_norm
+from icassp2022_depression_tpu_torch.ops import initializers, prng, rnn
+from icassp2022_depression_tpu_torch.ops.nn import dropout, layer_norm, linear
+from icassp2022_depression_tpu_torch.ops.prng import split2
 
 
 class AudioNet(nn.Module):
-    def __init__(self, cfg: RNNConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
+    def __init__(self, cfg: RNNConfig, key: Optional[torch.Tensor] = None,
+                 device=None):
         """Torch-default init (the reference never calls its
-        ``init_weight``) drawn from ``generator``."""
+        ``init_weight``) drawn from the threefry ``key`` in the JAX
+        package's order (``audio_net.init``); a None key leaves zeros for
+        weights loaded next."""
         super().__init__()
         self.cfg = cfg
         pooled = cfg.hidden_dims * (2 if cfg.bidirectional else 1)
+        k_rnn, k_attn, k_fc1, k_fc2 = ([None] * 4 if key is None
+                                       else list(prng.split(key, 4)))
         if cfg.input_layernorm:
             # the module holds ln.weight / ln.bias; the forward is
             # ops.nn.layer_norm, the JAX package's arithmetic
@@ -49,56 +58,59 @@ class AudioNet(nn.Module):
         self.lstm_net_audio = rnn.RNN(
             cfg.embedding_size, cfg.hidden_dims, cfg.rnn_layers,
             cfg.bidirectional, cfg.dropout, cfg.cell, cfg.init,
-            cfg.rnn_backend, generator, device)
+            cfg.rnn_backend, k_rnn, device)
+
+        def lin(k, out_features, in_features):
+            return initializers.linear_module(
+                initializers.linear(k, out_features, in_features, cfg.init),
+                device)
+
         self.attention_layer = nn.Sequential(
-            self._linear(cfg.hidden_dims, cfg.hidden_dims, generator, device),
-            nn.ReLU())
+            lin(k_attn, cfg.hidden_dims, cfg.hidden_dims), nn.ReLU())
         # [Dropout, Linear, ReLU, Dropout, Linear]: the dropouts run in
-        # head() from the explicit generator; Identity keeps their indices
-        head = [self._linear(pooled, cfg.hidden_dims, generator, device),
-                nn.ReLU(), nn.Identity(),
-                self._linear(cfg.hidden_dims, cfg.num_classes, generator,
-                             device)]
+        # head() from the explicit key; Identity keeps their indices
+        head = [lin(k_fc1, cfg.hidden_dims, pooled), nn.ReLU(),
+                nn.Identity(), lin(k_fc2, cfg.num_classes, cfg.hidden_dims)]
         if cfg.head_input_dropout:
             head.insert(0, nn.Identity())
         self.fc_audio = nn.Sequential(*head)
 
-    @staticmethod
-    def _linear(in_features: int, out_features: int, generator, device):
-        return initializers.linear_module(in_features, out_features, "torch",
-                                          generator, device)
-
     def features(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, T, D] -> pooled hidden [B, H * num_dirs] (pre-head)."""
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, T, D] -> pooled hidden [B, H * num_dirs] (pre-head); the
+        GRU's masks from ``split(key)[1]``."""
         if self.cfg.input_layernorm:
             x = layer_norm(x, self.ln.weight, self.ln.bias)
-        y, _, _ = self.lstm_net_audio(x, generator)
+        k_rnn = split2(key)[1] if self.training else None
+        y, _, _ = self.lstm_net_audio(x, k_rnn)
         if self.cfg.pooling == "mean":
-            return y.mean(dim=1)
+            return y.mean(dim=-2)
         if self.cfg.pooling == "sum":
-            return y.sum(dim=1)
+            return y.sum(dim=-2)
         raise ValueError(f"unsupported audio pooling {self.cfg.pooling!r}")
 
     def head(self, pooled: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """FC head before the final activation: [Dropout, Linear, ReLU,
-        Dropout, Linear], the masks drawn from ``generator``."""
+        Dropout, Linear], the two masks from ``split(key)``."""
         cfg = self.cfg
         fc1, fc2 = (self.fc_audio[i] for i in
                     ((1, 4) if cfg.head_input_dropout else (0, 3)))
+        k1, k2 = split2(key) if self.training else (None, None)
         h = pooled
         if cfg.head_input_dropout:
-            h = dropout(h, cfg.dropout, self.training, generator)
-        h = torch.relu(fc1(h))
-        h = dropout(h, cfg.dropout, self.training, generator)
-        return fc2(h)
+            h = dropout(h, cfg.dropout, self.training, k1)
+        h = torch.relu(linear(h, fc1.weight, fc1.bias))
+        h = dropout(h, cfg.dropout, self.training, k2)
+        return linear(h, fc2.weight, fc2.bias)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
-        scores (reg)."""
-        out = self.head(self.features(x, generator), generator)
+        scores (reg); in train mode the masks come from ``key`` (none
+        without one), split as ``audio_net.apply`` splits it."""
+        k_feat, k_head = split2(key) if self.training else (None, None)
+        out = self.head(self.features(x, k_feat), k_head)
         if self.cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if self.cfg.head_activation == "relu":

@@ -19,7 +19,8 @@ forward applies ``x * sigmoid(modal_attn(x))`` before ``fc_final`` + ReLU.
 tracks, as the reference's does (``fuse_net_whole.py:337``,
 ``Regression/fuse_net.py:314``), and ``no_grad`` does not turn dropout off:
 in train mode the frozen branches still draw their masks (from the
-explicit generator).  The training loss (``MyLoss``) is computed from
+explicit threefry key, split as ``fusion.pretrained_feature`` splits it;
+the init from a key split as ``fusion.init`` splits it).  The training loss (``MyLoss``) is computed from
 those detached features and ``fc_final``'s weight, so only
 ``fc_final.0.weight`` ever receives a gradient, in either track.
 
@@ -38,72 +39,79 @@ import torch
 from torch import nn
 
 from icassp2022_depression_tpu_torch.config import FusionConfig
-from icassp2022_depression_tpu_torch.ops import initializers, rnn
+from icassp2022_depression_tpu_torch.ops import initializers, prng, rnn
 from icassp2022_depression_tpu_torch.ops.attention import attention_net_with_w
-from icassp2022_depression_tpu_torch.ops.nn import dropout, layer_norm
+from icassp2022_depression_tpu_torch.ops.nn import dropout, layer_norm, linear
 
 
 class FusionNet(nn.Module):
-    def __init__(self, cfg: FusionConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
-        """Torch-default init drawn from ``generator`` (the branches are
-        replaced by :meth:`init_from_branches` before training)."""
+    def __init__(self, cfg: FusionConfig, key: Optional[torch.Tensor] = None,
+                 device=None):
+        """Torch-default init drawn from the threefry ``key`` in the JAX
+        package's order (``fusion.init``; the branches are replaced by
+        :meth:`init_from_branches` before training); a None key leaves
+        zeros for weights loaded next."""
         super().__init__()
         self.cfg = cfg
         ht, ha = cfg.text_hidden_dims, cfg.audio_hidden_dims
+        keys = [None] * 7 if key is None else list(prng.split(key, 7))
 
-        def lin(i, o, bias=True):
-            return initializers.linear_module(i, o, "torch", generator,
-                                              device, bias)
+        def lin(k, i, o, bias=True):
+            return initializers.linear_module(
+                initializers.torch_linear(k, o, i), device, bias)
 
-        self.attention_layer = nn.Sequential(lin(ht, ht), nn.ReLU())
+        self.attention_layer = nn.Sequential(lin(keys[0], ht, ht), nn.ReLU())
         self.lstm_net = rnn.RNN(cfg.text_embed_size, ht, cfg.rnn_layers,
                                 True, cfg.dropout, "lstm", "torch",
-                                cfg.rnn_backend, generator, device)
+                                cfg.rnn_backend, keys[1], device)
         # [Dropout, Linear, ReLU, Dropout]: Identity keeps the indices
-        self.fc_out = nn.Sequential(nn.Identity(), lin(ht, ht), nn.ReLU(),
-                                    nn.Identity())
+        self.fc_out = nn.Sequential(nn.Identity(), lin(keys[2], ht, ht),
+                                    nn.ReLU(), nn.Identity())
         if cfg.audio_layernorm:
             self.ln = nn.LayerNorm(cfg.audio_embed_size, device=device)
         self.lstm_net_audio = rnn.RNN(cfg.audio_embed_size, ha,
                                       cfg.rnn_layers, False, cfg.dropout,
                                       "gru", "torch", cfg.rnn_backend,
-                                      generator, device)
-        self.fc_audio = nn.Sequential(nn.Identity(), lin(ha, ha), nn.ReLU(),
-                                      nn.Identity())
-        self.modal_attn = lin(ht + ha, ht + ha, bias=False)
-        self.fc_final = nn.Sequential(lin(ht + ha, cfg.num_classes,
+                                      keys[3], device)
+        self.fc_audio = nn.Sequential(nn.Identity(), lin(keys[4], ha, ha),
+                                      nn.ReLU(), nn.Identity())
+        self.modal_attn = lin(keys[5], ht + ha, ht + ha, bias=False)
+        self.fc_final = nn.Sequential(lin(keys[6], ht + ha, cfg.num_classes,
                                           bias=False))
 
-    def _branch_fc(self, fc: nn.Linear, x: torch.Tensor,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _branch_fc(self, fc: nn.Linear, x: torch.Tensor, k_in, k_out):
         p = self.cfg.dropout
-        x = dropout(x, p, self.training, generator)
-        x = torch.relu(fc(x))
-        return dropout(x, p, self.training, generator)
+        x = dropout(x, p, self.training, k_in)
+        x = torch.relu(linear(x, fc.weight, fc.bias))
+        return dropout(x, p, self.training, k_out)
 
     def pretrained_feature(self, x_audio: torch.Tensor, x_text: torch.Tensor,
-                           generator: Optional[torch.Generator] = None):
+                           key: Optional[torch.Tensor] = None):
         """Frozen branch forwards -> (text_feature [B, Ht], audio_feature
-        [B, Ha]), without a graph; dropout fires in train mode."""
+        [B, Ha]), without a graph; in train mode the masks come from
+        ``split(key, 6)`` (text LSTM, text fc in/out, audio GRU, audio fc
+        in/out), none without a key."""
+        ks = ([None] * 6 if key is None or not self.training else
+              [k for k in prng.split(key, 6).unbind(-2)])
         with torch.no_grad():
-            y, h_n, _ = self.lstm_net(x_text, generator)
+            y, h_n, _ = self.lstm_net(x_text, ks[0])
             att = self.attention_layer[0]
             ctx = attention_net_with_w(att.weight, att.bias, y, h_n)
-            tf = self._branch_fc(self.fc_out[1], ctx, generator)
+            tf = self._branch_fc(self.fc_out[1], ctx, ks[1], ks[2])
             xa = x_audio
             if self.cfg.audio_layernorm:
                 xa = layer_norm(xa, self.ln.weight, self.ln.bias)
-            ya, _, _ = self.lstm_net_audio(xa, generator)
-            af = self._branch_fc(self.fc_audio[1], ya.sum(dim=1), generator)
+            ya, _, _ = self.lstm_net_audio(xa, ks[3])
+            af = self._branch_fc(self.fc_audio[1], ya.sum(dim=-2), ks[4],
+                                 ks[5])
         return tf, af
 
     def forward(self, concat_x: torch.Tensor) -> torch.Tensor:
         """The head on concat(text_feature, audio_feature) [B, Ht + Ha]."""
         x = concat_x
         if self.cfg.modal_attention:
-            x = torch.sigmoid(self.modal_attn(x)) * x
-        out = self.fc_final[0](x)
+            x = torch.sigmoid(linear(x, self.modal_attn.weight)) * x
+        out = linear(x, self.fc_final[0].weight)
         if self.cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if self.cfg.head_activation == "relu":

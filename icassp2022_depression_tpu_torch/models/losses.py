@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from icassp2022_depression_tpu_torch.ops.nn import (
+    linear,
     masked_cross_entropy_on_probs,
     smooth_l1_loss,
 )
@@ -33,8 +34,8 @@ def _ce_logits(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _split_scores(text_feat, audio_feat, w_final, text_hidden_dims: int):
-    return (torch.matmul(text_feat, w_final[:, :text_hidden_dims].t()),
-            torch.matmul(audio_feat, w_final[:, text_hidden_dims:].t()))
+    return (linear(text_feat, w_final[..., :text_hidden_dims]),
+            linear(audio_feat, w_final[..., text_hidden_dims:]))
 
 
 def myloss_ce(text_feat: torch.Tensor, audio_feat: torch.Tensor,
@@ -57,6 +58,9 @@ def myloss_smooth_l1(text_feat: torch.Tensor, audio_feat: torch.Tensor,
     (``Regression/fuse_net.py:364-366``)."""
     pred_text, pred_audio = _split_scores(text_feat, audio_feat, w_final,
                                           text_hidden_dims)
-    t = targets.to(torch.float32)[:, None].expand(pred_text.shape)
-    m = None if mask is None else mask[:, None].expand(pred_text.shape)
-    return smooth_l1_loss(pred_text, t, m) + smooth_l1_loss(pred_audio, t, m)
+    t = targets.to(torch.float32)[..., None].expand(pred_text.shape)
+    m = None if mask is None else mask[..., None].expand(pred_text.shape)
+    # the mean runs over every score of the batch ([B, C] -> [B C])
+    t, m = t.flatten(-2), None if m is None else m.flatten(-2)
+    return (smooth_l1_loss(pred_text.flatten(-2), t, m)
+            + smooth_l1_loss(pred_audio.flatten(-2), t, m))

@@ -18,10 +18,13 @@ checkpoint fidelity; they get no gradient), so
 :func:`..models.porting.text_net_state_dict_from_jax` output loads with
 ``strict=True``.
 
-Every dropout mask (the LSTM's inter-layer dropout and the head's) is
-drawn from the ``generator`` passed to :meth:`TextNet.forward`; the head's
+Initial weights come from a threefry key split as the JAX package's
+``text_net.init`` splits it, and every dropout mask (the LSTM's
+inter-layer dropout and the head's) from the key passed to
+:meth:`TextNet.forward`, split as ``text_net.apply`` splits it; the head's
 dropout slots in ``fc_out`` are parameter-free placeholders that keep the
-reference's indices.
+reference's indices.  A fold-stacked model (:func:`.folds.stack`) runs on
+``[F, B, T, D]`` with keys ``[F, 2]``.
 """
 
 from __future__ import annotations
@@ -32,32 +35,37 @@ import torch
 from torch import nn
 
 from icassp2022_depression_tpu_torch.config import RNNConfig
-from icassp2022_depression_tpu_torch.ops import initializers, rnn
+from icassp2022_depression_tpu_torch.ops import initializers, prng, rnn
 from icassp2022_depression_tpu_torch.ops.attention import attention_net_with_w
-from icassp2022_depression_tpu_torch.ops.nn import dropout
+from icassp2022_depression_tpu_torch.ops.nn import dropout, linear
+from icassp2022_depression_tpu_torch.ops.prng import split2
 
 
 class TextNet(nn.Module):
-    def __init__(self, cfg: RNNConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
-        """``cfg.init`` ("xavier" in both recipes) drawn from
-        ``generator``."""
+    def __init__(self, cfg: RNNConfig, key: Optional[torch.Tensor] = None,
+                 device=None):
+        """``cfg.init`` ("xavier" in both recipes) drawn from the threefry
+        ``key`` in the JAX package's order (``text_net.init``); a None key
+        leaves zeros for weights loaded next."""
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_dims
+        k_rnn, k_attn, k_fc1, k_fc2 = ([None] * 4 if key is None
+                                       else list(prng.split(key, 4)))
         self.lstm_net = rnn.RNN(
             cfg.embedding_size, h, cfg.rnn_layers, cfg.bidirectional,
-            cfg.dropout, cfg.cell, cfg.init, cfg.rnn_backend, generator,
-            device)
-        self.attention_layer = nn.Sequential(
-            initializers.linear_module(h, h, cfg.init, generator, device),
-            nn.ReLU())
+            cfg.dropout, cfg.cell, cfg.init, cfg.rnn_backend, k_rnn, device)
+
+        def lin(k, out_features, in_features):
+            return initializers.linear_module(
+                initializers.linear(k, out_features, in_features, cfg.init),
+                device)
+
+        self.attention_layer = nn.Sequential(lin(k_attn, h, h), nn.ReLU())
         # [(Dropout,) Linear, ReLU, Dropout, Linear]: the dropouts run in
-        # head() from the explicit generator; Identity keeps their indices
-        fc = [initializers.linear_module(h, h, cfg.init, generator, device),
-              nn.ReLU(), nn.Identity(),
-              initializers.linear_module(h, cfg.num_classes, cfg.init,
-                                         generator, device)]
+        # head() from the explicit key; Identity keeps their indices
+        fc = [lin(k_fc1, h, h), nn.ReLU(), nn.Identity(),
+              lin(k_fc2, cfg.num_classes, h)]
         if cfg.head_input_dropout:
             fc.insert(0, nn.Identity())
         self.fc_out = nn.Sequential(*fc)
@@ -65,23 +73,26 @@ class TextNet(nn.Module):
         self.ln2 = nn.LayerNorm(h, device=device)
 
     def features(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, T, D] -> attention context [B, H]."""
-        y, h_n, _ = self.lstm_net(x, generator)
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, T, D] -> attention context [B, H]; the LSTM's masks from
+        ``split(key)[1]``."""
+        k_rnn = split2(key)[1] if self.training else None
+        y, h_n, _ = self.lstm_net(x, k_rnn)
         att = self.attention_layer[0]
         return attention_net_with_w(att.weight, att.bias, y, h_n)
 
     def head(self, context: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         fc1, fc2 = (self.fc_out[i] for i in
                     ((1, 4) if cfg.head_input_dropout else (0, 3)))
+        k1, k2 = split2(key) if self.training else (None, None)
         h = context
         if cfg.head_input_dropout:
-            h = dropout(h, cfg.dropout, self.training, generator)
-        h = torch.relu(fc1(h))
-        h = dropout(h, cfg.dropout, self.training, generator)
-        out = fc2(h)
+            h = dropout(h, cfg.dropout, self.training, k1)
+        h = torch.relu(linear(h, fc1.weight, fc1.bias))
+        h = dropout(h, cfg.dropout, self.training, k2)
+        out = linear(h, fc2.weight, fc2.bias)
         if cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if cfg.head_activation == "relu":
@@ -89,7 +100,9 @@ class TextNet(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
-        scores (reg)."""
-        return self.head(self.features(x, generator), generator)
+        scores (reg); in train mode the masks come from ``key``, split as
+        ``text_net.apply`` splits it."""
+        k_feat, k_head = split2(key) if self.training else (None, None)
+        return self.head(self.features(x, k_feat), k_head)

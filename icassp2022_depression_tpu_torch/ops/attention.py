@@ -22,11 +22,12 @@ from icassp2022_depression_tpu_torch.ops.nn import linear
 def attention_net_with_w(w: torch.Tensor, b: torch.Tensor,
                          lstm_out: torch.Tensor,
                          lstm_hidden: torch.Tensor) -> torch.Tensor:
-    """``w`` [H, H], ``b`` [H]: the ``attention_layer`` Linear."""
+    """``w`` [H, H], ``b`` [H]: the ``attention_layer`` Linear.  With a
+    fold axis every argument and the result lead with ``[F]``."""
     half = lstm_out.shape[-1] // 2
     h = lstm_out[..., :half] + lstm_out[..., half:]          # [B, T, H]
-    query = lstm_hidden.sum(dim=1)                           # [B, H]
+    query = lstm_hidden.sum(dim=-2)                          # [B, H]
     atten_w = torch.relu(linear(query, w, b))                # [B, H]
-    scores = torch.einsum("bh,bth->bt", atten_w, torch.tanh(h))
+    scores = torch.einsum("...bh,...bth->...bt", atten_w, torch.tanh(h))
     weights = torch.softmax(scores, dim=-1)
-    return torch.einsum("bt,bth->bh", weights, h)
+    return torch.einsum("...bt,...bth->...bh", weights, h)

@@ -1,6 +1,15 @@
 """Small NN primitives and the training losses shared by the models (port
 of :mod:`icassp2022_depression_tpu.ops.nn`).  A loss's ``mask`` marks the
-valid rows of a padded batch; the mean is over those rows."""
+valid rows of a padded batch; the mean is over those rows.
+
+Fold axis: a model whose folds train as one program (``--vmap-folds``, the
+counterpart of the JAX package's ``jax.vmap`` over folds) holds every
+parameter with a leading fold axis ``[F, ...]`` and runs on inputs
+``[F, ...]``.  :func:`linear` and :func:`layer_norm` take such a
+parameter (:func:`fold_view` lines it up with the input), the losses
+reduce over the last axis only, and :func:`dropout` takes one key per
+fold, so each fold's numbers are the ones it gets alone.
+"""
 
 from __future__ import annotations
 
@@ -8,12 +17,26 @@ from typing import Optional
 
 import torch
 
+from icassp2022_depression_tpu_torch.ops import prng
+
+
+def fold_view(p: torch.Tensor, ndim: int, rank: int) -> torch.Tensor:
+    """A parameter of base rank ``rank`` (1: a vector, 2: a matrix) with
+    a leading fold axis, as ``[F, 1, ..., 1, *base]`` of rank ``ndim``, so
+    that it broadcasts against an input ``[F, ...]`` of rank ``ndim`` (a
+    matrix in a product with it); one without a fold axis as it is."""
+    if p.dim() == rank:
+        return p
+    return p.reshape(p.shape[:1] + (1,) * (ndim - 1 - rank) + p.shape[1:])
+
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w.T + b`` with torch's ``[out, in]`` weight layout."""
-    y = torch.matmul(x, w.t())
-    return y if b is None else y + b
+    """``x @ w.T + b`` with torch's ``[out, in]`` weight layout; ``w`` /
+    ``b`` with a fold axis ``[F, out, in]`` / ``[F, out]`` take an input
+    ``[F, ..., in]``."""
+    y = torch.matmul(x, fold_view(w, x.dim(), 2).transpose(-1, -2))
+    return y if b is None else y + fold_view(b, x.dim(), 1)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -22,25 +45,32 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     eps=1e-5, biased variance), written out as the JAX package does."""
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * w + b
+    return ((x - mean) * torch.rsqrt(var + eps) * fold_view(w, x.dim(), 1)
+            + fold_view(b, x.dim(), 1))
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout (identity in eval mode).  The keep mask is drawn
-    from ``generator`` (or torch's default generator of ``x``'s device)."""
-    if not train or rate <= 0.0:
+            key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout, ``jax_nn.dropout``: the keep mask is
+    ``bernoulli(key, 1 - rate, shape)`` (threefry, the JAX package's
+    numbers), kept entries are ``x / keep``.  Identity in eval mode, at rate
+    0 and without a key.  Keys ``[F, 2]`` draw one mask per fold of an
+    ``[F, ...]`` input."""
+    if not train or rate <= 0.0 or key is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    mask = prng.bernoulli(key, keep, x.shape[key.dim() - 1:])
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def _masked_mean(err: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The mean over the last axis (the batch), over its valid rows."""
     if mask is None:
-        return err.mean()
+        return err.mean(dim=-1)
     mask = mask.to(err.dtype)
-    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ((err * mask).sum(dim=-1)
+            / torch.clamp(mask.sum(dim=-1), min=1.0))
 
 
 def cross_entropy_on_probs(probs: torch.Tensor, labels: torch.Tensor,

@@ -14,7 +14,8 @@ reproduces JAX's default PRNG (threefry2x32, 20 rounds) with
 * ``split(key, n)[i] = threefry(key, (hi(i), lo(i)))`` and
   ``random_bits(key, shape)[i] = xor(threefry(key, (hi(i), lo(i))))`` over
   the row-major index ``i`` (``jax/_src/prng.py``, ``iota_2x32_shape``);
-* ``uniform`` by the mantissa trick and
+* ``uniform`` by the mantissa trick, ``bernoulli(key, p, shape) =
+  uniform(key, shape) < p`` (``jax.random.bernoulli`` in float32), and
   ``normal = sqrt(2) * erfinv(u)`` with ``u`` uniform in
   ``(nextafter(-1, 0), 1)`` (``jax/_src/random.py``); ``erfinv`` is XLA's
   single-precision polynomial (Giles), so the two frameworks agree to an
@@ -84,6 +85,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def split2(key):
+    """``jax.random.split(key)`` as a pair of keys [..., 2] (a None key:
+    two None)."""
+    if key is None:
+        return None, None
+    ks = split(key)
+    return ks[..., 0, :], ks[..., 1, :]
+
+
 #: counters per threefry pass of :func:`random_bits`: a larger draw (an
 #: embedding table of millions of entries) runs in slices of this many, so
 #: the cipher's int64 temporaries stay bounded
@@ -124,14 +134,15 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # the float32 bounds as Python floats (exact), so that no host value
+    # is copied to the device (a CUDA graph may capture this)
+    lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     if span > 0 and math.frexp(span)[0] == 0.5:
-        scaled = floats * (hi - lo) + lo
+        scaled = floats * span + lo
     else:
-        scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+        scaled = (floats.double() * span + lo).float()
+    return torch.clamp(scaled, min=lo)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function")
@@ -162,3 +173,10 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: keys [..., 2] -> [..., *shape]."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * erfinv(u)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` in 32-bit
+    mode: keys [..., 2] -> bool [..., *shape], True where a float32
+    uniform draw is below ``p``."""
+    return uniform(key, shape) < p

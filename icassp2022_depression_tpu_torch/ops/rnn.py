@@ -20,6 +20,12 @@ projection (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
   :class:`RNN` registers them under ``nn.GRU``'s / ``nn.LSTM``'s names, so
   reference checkpoints load tensor for tensor.  ``nn.GRU`` and ``nn.LSTM``
   themselves are not used: cuDNN must not run the recurrence.
+* Initial weights and the inter-layer dropout masks come from threefry keys
+  split in the JAX package's order (:func:`init_params`, :func:`rnn`), so a
+  key gives the JAX package's numbers.
+* Fold axis (``--vmap-folds``): layers whose parameters carry a leading
+  fold axis ``[F, ...]`` run on inputs ``[F, B, T, D]``, and the kernels
+  take all F folds in one launch (:mod:`.rnn_cuda`).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from torch import nn
 
 from icassp2022_depression_tpu_torch.ops import initializers, prng, rnn_cuda
 from icassp2022_depression_tpu_torch.ops.nn import dropout as _dropout
+from icassp2022_depression_tpu_torch.ops.nn import linear
 
 GATES = {"gru": 3, "lstm": 4}
 BACKENDS = ("auto", "torch", "cuda")
@@ -47,23 +54,26 @@ _INITS = {"torch": initializers.torch_rnn_layer,
 
 def init_params(cell: str, input_size: int, hidden: int, num_layers: int,
                 bidirectional: bool, init: str = "torch",
-                generator: Optional[torch.Generator] = None,
-                dtype=torch.float32, device=None) -> list:
+                key: Optional[torch.Tensor] = None) -> list:
     """Parameter list over layers; each layer is a dict with direction keys
     ``fwd`` (and ``bwd`` when bidirectional) of
     ``{w_ih, w_hh, b_ih, b_hh}``; ``init`` is "torch" (``nn.GRU`` /
-    ``nn.LSTM`` defaults) or "xavier" (the text model's scheme)."""
+    ``nn.LSTM`` defaults) or "xavier" (the text model's scheme).  Layer l,
+    direction d draws from ``split(key, L * D)[l * D + d]``, as the JAX
+    package's ``rnn.init_params`` (a None key: zeros)."""
     _check_cell(cell)
     if init not in _INITS:
         raise ValueError(f"unknown init {init!r}")
     num_dirs = 2 if bidirectional else 1
+    keys = ([None] * (num_layers * num_dirs) if key is None
+            else list(prng.split(key, num_layers * num_dirs)))
     layers = []
     for layer in range(num_layers):
         in_size = input_size if layer == 0 else hidden * num_dirs
         layers.append({
-            d: _INITS[init](GATES[cell], hidden, in_size, generator, dtype,
-                            device)
-            for d in ("fwd", "bwd")[:num_dirs]})
+            d: _INITS[init](keys[layer * num_dirs + i], GATES[cell], hidden,
+                            in_size)
+            for i, d in enumerate(("fwd", "bwd")[:num_dirs])})
     return layers
 
 
@@ -84,39 +94,43 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
 def _sequence_inputs(p: dict, x: torch.Tensor, reverse: bool):
     """The hoisted input projection ``xp [T, B, G*H]`` (time-reversed for
     the backward direction) and the recurrent weights in the kernels'
-    layout."""
+    layout (each with the fold axis in front, when the layer has one)."""
     if reverse:
-        x = torch.flip(x, dims=(1,))
-    xp = torch.matmul(x, p["w_ih"].t()) + p["b_ih"]
-    return (xp.transpose(0, 1).contiguous(), p["w_hh"].t().contiguous(),
-            p["b_hh"].reshape(1, -1))
+        x = torch.flip(x, dims=(-2,))
+    xp = linear(x, p["w_ih"], p["b_ih"])
+    return (xp.transpose(-3, -2).contiguous(),
+            p["w_hh"].transpose(-1, -2).contiguous(),
+            p["b_hh"].unsqueeze(-2))
 
 
 def _batch_first(ys: torch.Tensor, reverse: bool) -> torch.Tensor:
-    ys = ys.transpose(0, 1)
-    return torch.flip(ys, dims=(1,)) if reverse else ys
+    ys = ys.transpose(-3, -2)
+    return torch.flip(ys, dims=(-2,)) if reverse else ys
 
 
 def gru_layer(p: dict, x: torch.Tensor, reverse: bool = False,
               backend: str = "auto"):
     """One GRU direction.  ``p``: {w_ih [3H, D], w_hh [3H, H], b_ih [3H],
-    b_hh [3H]}; x: [B, T, D].  Returns (ys [B, T, H], h_last [B, H])."""
+    b_hh [3H]}; x: [B, T, D].  Returns (ys [B, T, H], h_last [B, H]).
+    With a fold axis: ``p`` [F, ...], x [F, B, T, D], results [F, ...]."""
     backend = resolve_backend(backend, x)
     # "torch": the plain forward and backward, no kernel on any device
     ys = rnn_cuda.GRUSequence.apply(*_sequence_inputs(p, x, reverse),
                                     backend == "torch")
-    return _batch_first(ys, reverse), ys[-1]
+    return _batch_first(ys, reverse), ys[..., -1, :, :]
 
 
 def lstm_layer(p: dict, x: torch.Tensor, reverse: bool = False,
                backend: str = "auto"):
     """One LSTM direction (``rnn_pallas.lstm_layer``).  ``p``: {w_ih
     [4H, D], w_hh [4H, H], b_ih [4H], b_hh [4H]}; x: [B, T, D].  Returns
-    (ys [B, T, H], h_last [B, H], c_last [B, H])."""
+    (ys [B, T, H], h_last [B, H], c_last [B, H]); a fold axis as in
+    :func:`gru_layer`."""
     backend = resolve_backend(backend, x)
     ys, cs = rnn_cuda.LSTMSequence.apply(*_sequence_inputs(p, x, reverse),
                                          backend == "torch")
-    return _batch_first(ys, reverse), ys[-1], cs[-1]
+    return (_batch_first(ys, reverse), ys[..., -1, :, :],
+            cs[..., -1, :, :])
 
 
 def init_lstmp(key: torch.Tensor, input_size: int, cell: int,
@@ -178,14 +192,18 @@ def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,
 
 def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         dropout: float = 0.0, train: bool = False,
-        generator: Optional[torch.Generator] = None, backend: str = "auto"):
+        key: Optional[torch.Tensor] = None, backend: str = "auto"):
     """Multi-layer (bi)directional GRU or LSTM.
 
     Args:
       params: list from :func:`init_params` (or :meth:`RNN.layers`).
-      x: [B, T, D] batch-first input.
+      x: [B, T, D] batch-first input ([F, B, T, D] for layers with a fold
+        axis).
       dropout: inter-layer dropout rate (every layer's output but the
-        last, torch's RNN ``dropout=`` semantics), applied when ``train``.
+        last, torch's RNN ``dropout=`` semantics), applied when ``train``
+        and ``key`` is given: each layer's mask from ``key, sub =
+        split(key)``, as the JAX package draws them (keys [F, 2] with a
+        fold axis).
       backend: "auto" | "torch" | "cuda" (see :func:`resolve_backend`).
 
     Returns:
@@ -205,10 +223,12 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
             h_finals.append(h_last)
             c_finals.append(c_last)
         y = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
-        if train and dropout > 0.0 and layer_idx < len(params) - 1:
-            y = _dropout(y, dropout, True, generator)
-    c_n = torch.stack(c_finals, dim=1) if cell == "lstm" else None
-    return y, torch.stack(h_finals, dim=1), c_n
+        if train and dropout > 0.0 and key is not None and \
+                layer_idx < len(params) - 1:
+            key, sub = prng.split2(key)
+            y = _dropout(y, dropout, True, sub)
+    c_n = torch.stack(c_finals, dim=-2) if cell == "lstm" else None
+    return y, torch.stack(h_finals, dim=-2), c_n
 
 
 class RNN(nn.Module):
@@ -223,8 +243,7 @@ class RNN(nn.Module):
                  bidirectional: bool = False, dropout: float = 0.0,
                  cell: str = "gru", init: str = "torch",
                  backend: str = "auto",
-                 generator: Optional[torch.Generator] = None,
-                 device=None):
+                 key: Optional[torch.Tensor] = None, device=None):
         super().__init__()
         self.cell = cell
         self.num_layers = num_layers
@@ -232,13 +251,14 @@ class RNN(nn.Module):
         self.dropout = dropout
         self.backend = backend
         layers = init_params(cell, input_size, hidden, num_layers,
-                             bidirectional, init, generator, device=device)
+                             bidirectional, init, key)
         for k, layer in enumerate(layers):
             for d, p in layer.items():
                 suffix = "_reverse" if d == "bwd" else ""
                 for short, long in self._NAMES.items():
-                    self.register_parameter(f"{long}_l{k}{suffix}",
-                                            nn.Parameter(p[short]))
+                    self.register_parameter(
+                        f"{long}_l{k}{suffix}",
+                        nn.Parameter(p[short].to(device)))
 
     def layers(self) -> list:
         """The parameters as :func:`rnn`'s layer list."""
@@ -249,7 +269,6 @@ class RNN(nn.Module):
                  for d, suffix in dirs}
                 for k in range(self.num_layers)]
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, key: Optional[torch.Tensor] = None):
         return rnn(self.layers(), x, self.cell, self.dropout, self.training,
-                   generator, self.backend)
+                   key, self.backend)

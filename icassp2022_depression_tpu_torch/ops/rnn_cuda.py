@@ -28,7 +28,11 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   :data:`LAUNCHES`, :data:`BWD_LAUNCHES`, :data:`LSTM_LAUNCHES`,
   :data:`LSTM_BWD_LAUNCHES`, :data:`LSTMP_LAUNCHES` and
   :data:`LSTMP_BWD_LAUNCHES` (one per call of the C entry, which loops over
-  the T steps itself).  They never fall back to the plain versions:
+  the T steps itself).  A backward call at a (T, B, H) that the JAX
+  package runs through its streamed backward kernel instead
+  (:func:`streamed`) counts in :data:`GRU_BWD_STREAMED_LAUNCHES` or
+  :data:`LSTM_BWD_STREAMED_LAUNCHES` in place of the backward's own.  Calls captured into a CUDA graph are counted at
+  each replay instead (:func:`add_launches`).  They never fall back to the plain versions:
   a build or launch failure raises.
 * The GRU and LSTM forwards and the GRU and LSTM backwards each have two
   routes, picked from the shape by :func:`gru_fwd_plan`,
@@ -45,6 +49,14 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   each step.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
+* Fold axis (the counterpart of ``jax.vmap`` over ``pallas_call``, whose
+  batching rule gives each fold its own weights): the GRU and LSTM
+  forwards and backwards also take ``xp [F, T, B, G*H]``, ``w_hh_t
+  [F, H, G*H]``, ``b_hh [F, 1, G*H]`` and give every output a leading
+  ``F``.  One launch covers all folds (``gridDim.z = F``, per-fold
+  pointer strides in the kernels), each fold with the plan of its own
+  (T, B, H) and its weight gradient summed in the single-fold order; the
+  plain versions run the folds one after the other.
 
 Importing this module needs no ``nvcc``.
 """
@@ -67,17 +79,59 @@ BWD_LAUNCHES = 0
 LSTM_LAUNCHES = 0
 #: LSTM backward kernel launches made by :func:`lstm_sequence_bwd`
 LSTM_BWD_LAUNCHES = 0
+#: backward launches of :func:`gru_sequence_bwd` and
+#: :func:`lstm_sequence_bwd` at the shapes where the JAX package takes its
+#: streamed backward kernels (:func:`streamed`), not counted above
+GRU_BWD_STREAMED_LAUNCHES = 0
+LSTM_BWD_STREAMED_LAUNCHES = 0
 #: LSTMP forward launches made by :func:`lstmp_sequence`
 LSTMP_LAUNCHES = 0
 #: LSTMP backward launches made by :func:`lstmp_sequence_bwd`
 LSTMP_BWD_LAUNCHES = 0
 
+#: the launch counters above, by kernel source
+COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
+            "lstm_fwd": "LSTM_LAUNCHES", "lstm_bwd": "LSTM_BWD_LAUNCHES",
+            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES",
+            "gru_bwd_streamed": "GRU_BWD_STREAMED_LAUNCHES",
+            "lstm_bwd_streamed": "LSTM_BWD_STREAMED_LAUNCHES"}
+
+#: the working set above which the JAX package runs a recurrence through
+#: its streamed kernels (``ops/rnn.py::PALLAS_VMEM_BUDGET_BYTES``)
+STREAM_BUDGET_BYTES = 12 * 1024 * 1024
+
+
+def streamed(t_steps: int, batch: int, hidden: int, gates: int) -> bool:
+    """Whether the JAX package runs a (T, B, H) GRU (``gates`` 3) or LSTM
+    (4) fold through its streamed kernels, whose backward is TPU kernel #3
+    or #5 in place of #2 or #8: its backward working set exceeds
+    :data:`STREAM_BUDGET_BYTES` (``ops/rnn.py::_pallas_fits``)."""
+    g = gates * hidden
+    states = 2 if gates == 4 else 1
+    need = (2 * batch * t_steps * g + (states + 1) * batch * t_steps * hidden
+            + 2 * g * hidden + 2 * batch * hidden) * 4
+    return need > STREAM_BUDGET_BYTES
+
+
+def launch_counts() -> dict:
+    """Every launch counter, by kernel source."""
+    return {k: globals()[v] for k, v in COUNTERS.items()}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counters: a CUDA graph launches its
+    captured calls at every replay, and nothing while it is captured (see
+    :meth:`..train.loop.FoldRun.run`)."""
+    for k, v in delta.items():
+        globals()[COUNTERS[k]] += v * times
+
+
 #: each source's C entry: (symbol, pointer arguments, int arguments, float
 #: arguments), then the stream
-_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 5, 0),
-            "gru_bwd": ("gru_seq_bwd_f32", 12, 6, 0),
-            "lstm_fwd": ("lstm_seq_fwd_f32", 5, 5, 0),
-            "lstm_bwd": ("lstm_seq_bwd_f32", 13, 6, 0),
+_ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 6, 0),
+            "gru_bwd": ("gru_seq_bwd_f32", 12, 7, 0),
+            "lstm_fwd": ("lstm_seq_fwd_f32", 5, 6, 0),
+            "lstm_bwd": ("lstm_seq_bwd_f32", 13, 7, 0),
             "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
             "lstmp_bwd": ("lstmp_seq_bwd_f32", 12, 6, 2)}
 _fns: dict = {}
@@ -102,9 +156,21 @@ def _gates(x: torch.Tensor, hp: torch.Tensor, hidden: int):
     return r, z, n
 
 
+def _per_fold(fn, *args):
+    """``fn`` on each fold of fold-stacked arguments, the results stacked
+    (a tuple of results: each stacked)."""
+    outs = [fn(*(a[f] for a in args)) for f in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def gru_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
                        b_hh: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch GRU recurrence, the forward kernel's reference."""
+    """Plain PyTorch GRU recurrence, the forward kernel's reference (with a
+    fold axis: each fold alone)."""
+    if xp.dim() == 4:
+        return _per_fold(gru_sequence_torch, xp, w_hh_t, b_hh)
     t_steps, batch, g = xp.shape
     hidden = g // 3
     b_hh = b_hh.reshape(g)
@@ -125,7 +191,10 @@ def gru_sequence_bwd_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
                            dys: torch.Tensor):
     """Plain PyTorch GRU backward, the backward kernel's reference: the
     reverse loop of ``rnn_pallas._gru_bwd_kernel``, recomputing the gates
-    from ``ys``.  Returns (dxp [T, B, 3H], dw_hh_t [H, 3H], db_hh [1, 3H])."""
+    from ``ys``.  Returns (dxp [T, B, 3H], dw_hh_t [H, 3H], db_hh [1, 3H])
+    (with a fold axis: each fold alone)."""
+    if xp.dim() == 4:
+        return _per_fold(gru_sequence_bwd_torch, xp, w_hh_t, b_hh, ys, dys)
     t_steps, batch, g = xp.shape
     hidden = g // 3
     b = b_hh.reshape(g)
@@ -168,16 +237,23 @@ def _check(tensors: dict, shapes: dict) -> None:
 
 
 def _dims(xp: torch.Tensor, gates: int = 3):
-    if xp.dim() != 3 or xp.shape[-1] % gates:
-        raise ValueError(f"xp must be [T, B, {gates}H], got "
-                         f"{tuple(xp.shape)}")
-    t_steps, batch, g = xp.shape
-    return t_steps, batch, g // gates
+    """(lead, T, B, H) of ``xp [T, B, GH]`` or ``[F, T, B, GH]``; ``lead``
+    is () or (F,), the leading shape of every argument and result."""
+    if xp.dim() not in (3, 4) or xp.shape[-1] % gates:
+        raise ValueError(f"xp must be [T, B, {gates}H] or [F, T, B, "
+                         f"{gates}H], got {tuple(xp.shape)}")
+    t_steps, batch, g = xp.shape[-3:]
+    return tuple(xp.shape[:-3]), t_steps, batch, g // gates
+
+
+def _folds(lead: tuple) -> int:
+    return lead[0] if lead else 1
 
 
 def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
                  b_hh: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
-    """xp [T, B, 3H], w_hh_t [H, 3H], b_hh [1, 3H] (or [3H]) -> ys [T, B, H].
+    """xp [T, B, 3H], w_hh_t [H, 3H], b_hh [1, 3H] (or [3H]) -> ys [T, B, H],
+    or the same with a leading fold axis ``F`` on each (one launch).
     ``plan``: a :func:`gru_fwd_plan` for the kernel, by default the one it
     picks for (B, H); a CPU call ignores it.  The kernel's output carries
     no autograd graph, so a CUDA input that requires grad raises: gradients
@@ -190,12 +266,12 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
             t.requires_grad for t in (xp, w_hh_t, b_hh)):
         raise ValueError("gru_sequence: inputs require grad; call "
                          "GRUSequence.apply for a differentiable result")
-    t_steps, batch, hidden = _dims(xp)
+    lead, t_steps, batch, hidden = _dims(xp)
     g = 3 * hidden
     _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh},
-           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
-            "b_hh": [(1, g), (g,)]})
-    ys = torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+           {"xp": [lead + (t_steps, batch, g)], "w_hh_t": [lead + (hidden, g)],
+            "b_hh": [lead + (1, g), lead + (g,)]})
+    ys = torch.empty(lead + (t_steps, batch, hidden), dtype=torch.float32,
                      device=xp.device)
     if ys.numel() == 0:
         return ys
@@ -206,8 +282,8 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-                 ys.data_ptr(), t_steps, batch, hidden, plan["cells"],
-                 plan["rows"], stream)
+                 ys.data_ptr(), t_steps, batch, hidden, _folds(lead),
+                 plan["cells"], plan["rows"], stream)
     if err != 0:
         raise RuntimeError(f"gru_seq_fwd_f32 launch failed: cudaError {err}")
     global LAUNCHES
@@ -220,21 +296,23 @@ def gru_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
                      dys: torch.Tensor, plan: dict | None = None):
     """The backward kernel's wrapper: (dxp [T, B, 3H], dw_hh_t [H, 3H],
     db_hh [1, 3H]) of ``ys = gru_sequence(xp, w_hh_t, b_hh)`` given
-    ``dys [T, B, H]``.  ``plan``: a :func:`gru_bwd_plan` for the kernel, by
+    ``dys [T, B, H]``, each with a leading ``F`` for a fold axis.  ``plan``: a :func:`gru_bwd_plan` for the kernel, by
     default the one it picks for (T, B, H); a CPU call ignores it."""
     if xp.device.type == "cpu":
         return gru_sequence_bwd_torch(xp, w_hh_t, b_hh, ys, dys)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_sequence_bwd: unsupported device {xp.device}")
-    t_steps, batch, hidden = _dims(xp)
+    lead, t_steps, batch, hidden = _dims(xp)
     g = 3 * hidden
+    states = [lead + (t_steps, batch, hidden)]
     _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh, "ys": ys, "dys": dys},
-           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
-            "b_hh": [(1, g), (g,)], "ys": [(t_steps, batch, hidden)],
-            "dys": [(t_steps, batch, hidden)]})
+           {"xp": [lead + (t_steps, batch, g)], "w_hh_t": [lead + (hidden, g)],
+            "b_hh": [lead + (1, g), lead + (g,)], "ys": states,
+            "dys": states})
     dxp = torch.empty_like(xp)
-    dw = torch.empty((hidden, g), dtype=torch.float32, device=xp.device)
-    db = torch.empty((1, g), dtype=torch.float32, device=xp.device)
+    dw = torch.empty(lead + (hidden, g), dtype=torch.float32,
+                     device=xp.device)
+    db = torch.empty(lead + (1, g), dtype=torch.float32, device=xp.device)
     if xp.numel() == 0:
         return dxp, dw.zero_(), db.zero_()
     if plan is None:
@@ -248,12 +326,15 @@ def gru_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
                  ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(),
                  dgates_h.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 *_ptrs(scratch), t_steps, batch, hidden, plan["cells"],
-                 plan["rows"], plan["splits"], stream)
+                 *_ptrs(scratch), t_steps, batch, hidden, _folds(lead),
+                 plan["cells"], plan["rows"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError(f"gru_seq_bwd_f32 launch failed: cudaError {err}")
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
+    global BWD_LAUNCHES, GRU_BWD_STREAMED_LAUNCHES
+    if streamed(t_steps, batch, hidden, 3):
+        GRU_BWD_STREAMED_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return dxp, dw, db
 
 
@@ -294,7 +375,9 @@ def _lstm_gates(gp: torch.Tensor, hidden: int):
 def lstm_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
                         b_hh: torch.Tensor):
     """Plain PyTorch LSTM recurrence, the forward kernel's reference.
-    Returns (ys, cs), each [T, B, H]."""
+    Returns (ys, cs), each [T, B, H] (with a fold axis: each fold alone)."""
+    if xp.dim() == 4:
+        return _per_fold(lstm_sequence_torch, xp, w_hh_t, b_hh)
     t_steps, batch, g = xp.shape
     hidden = g // 4
     b_hh = b_hh.reshape(g)
@@ -321,7 +404,11 @@ def lstm_sequence_bwd_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
     """Plain PyTorch LSTM backward, the backward kernel's reference: the
     reverse loop of ``rnn_pallas._lstm_bwd_kernel``, recomputing the gates
     from ``ys``/``cs`` and adding ``dcs[t]`` to each step's cell-state
-    cotangent.  Returns (dxp [T, B, 4H], dw_hh_t [H, 4H], db_hh [1, 4H])."""
+    cotangent.  Returns (dxp [T, B, 4H], dw_hh_t [H, 4H], db_hh [1, 4H])
+    (with a fold axis: each fold alone)."""
+    if xp.dim() == 4:
+        return _per_fold(lstm_sequence_bwd_torch, xp, w_hh_t, b_hh, ys, cs,
+                         dys, dcs)
     t_steps, batch, g = xp.shape
     hidden = g // 4
     b = b_hh.reshape(g)
@@ -504,15 +591,15 @@ def _aligned(plan: dict, *tensors):
 def _bwd_scratch(plan: dict, xp: torch.Tensor, hidden: int) -> list:
     """The step route's scratch (None where unused): the gate sums of
     every step [T, B, G], a carry between steps [B, H], and the weight
-    product's parts [splits, H + 1, G]."""
+    product's parts [splits, H + 1, G], each per fold."""
     if plan["route"] != "step":
         return [None] * 3
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=xp.device)
-    t_steps, batch, g = xp.shape
-    return [new((t_steps, batch, g)), new((batch, hidden)),
-            new((plan["splits"], hidden + 1, g)) if plan["splits"] > 1
-            else None]
+    lead, (t_steps, batch, g) = tuple(xp.shape[:-3]), xp.shape[-3:]
+    return [new(lead + (t_steps, batch, g)), new(lead + (batch, hidden)),
+            new(lead + (plan["splits"], hidden + 1, g))
+            if plan["splits"] > 1 else None]
 
 
 def _ptrs(tensors) -> list:
@@ -522,7 +609,7 @@ def _ptrs(tensors) -> list:
 def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
                   b_hh: torch.Tensor, plan: dict | None = None):
     """xp [T, B, 4H], w_hh_t [H, 4H], b_hh [1, 4H] (or [4H]) -> (ys, cs),
-    each [T, B, H].  ``plan``: a :func:`lstm_fwd_plan` for the kernel, by
+    each [T, B, H], or the same with a leading fold axis ``F`` on each.  ``plan``: a :func:`lstm_fwd_plan` for the kernel, by
     default the one it picks for (B, H).  As :func:`gru_sequence`, a CUDA
     input that requires grad raises: gradients go through
     :class:`LSTMSequence`."""
@@ -534,12 +621,12 @@ def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
             t.requires_grad for t in (xp, w_hh_t, b_hh)):
         raise ValueError("lstm_sequence: inputs require grad; call "
                          "LSTMSequence.apply for a differentiable result")
-    t_steps, batch, hidden = _dims(xp, 4)
+    lead, t_steps, batch, hidden = _dims(xp, 4)
     g = 4 * hidden
     _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh},
-           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
-            "b_hh": [(1, g), (g,)]})
-    ys = torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+           {"xp": [lead + (t_steps, batch, g)], "w_hh_t": [lead + (hidden, g)],
+            "b_hh": [lead + (1, g), lead + (g,)]})
+    ys = torch.empty(lead + (t_steps, batch, hidden), dtype=torch.float32,
                      device=xp.device)
     cs = torch.empty_like(ys)
     if ys.numel() == 0:
@@ -551,7 +638,7 @@ def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
                  ys.data_ptr(), cs.data_ptr(), t_steps, batch, hidden,
-                 plan["cells"], plan["rows"], stream)
+                 _folds(lead), plan["cells"], plan["rows"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_seq_fwd_f32 launch failed: cudaError {err}")
     global LSTM_LAUNCHES
@@ -565,24 +652,25 @@ def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
                       plan: dict | None = None):
     """The LSTM backward kernel's wrapper: (dxp [T, B, 4H], dw_hh_t [H, 4H],
     db_hh [1, 4H]) of ``(ys, cs) = lstm_sequence(xp, w_hh_t, b_hh)`` given
-    ``dys``, ``dcs [T, B, H]``.  ``plan``: a :func:`lstm_bwd_plan` for the
+    ``dys``, ``dcs [T, B, H]``, each with a leading ``F`` for a fold axis.  ``plan``: a :func:`lstm_bwd_plan` for the
     kernel, by default the one it picks for (T, B, H); a CPU call ignores
     it."""
     if xp.device.type == "cpu":
         return lstm_sequence_bwd_torch(xp, w_hh_t, b_hh, ys, cs, dys, dcs)
     if xp.device.type != "cuda":
         raise ValueError(f"lstm_sequence_bwd: unsupported device {xp.device}")
-    t_steps, batch, hidden = _dims(xp, 4)
+    lead, t_steps, batch, hidden = _dims(xp, 4)
     g = 4 * hidden
-    states = [(t_steps, batch, hidden)]
+    states = [lead + (t_steps, batch, hidden)]
     _check({"xp": xp, "w_hh_t": w_hh_t, "b_hh": b_hh, "ys": ys, "cs": cs,
             "dys": dys, "dcs": dcs},
-           {"xp": [(t_steps, batch, g)], "w_hh_t": [(hidden, g)],
-            "b_hh": [(1, g), (g,)], "ys": states, "cs": states,
+           {"xp": [lead + (t_steps, batch, g)], "w_hh_t": [lead + (hidden, g)],
+            "b_hh": [lead + (1, g), lead + (g,)], "ys": states, "cs": states,
             "dys": states, "dcs": states})
     dxp = torch.empty_like(xp)
-    dw = torch.empty((hidden, g), dtype=torch.float32, device=xp.device)
-    db = torch.empty((1, g), dtype=torch.float32, device=xp.device)
+    dw = torch.empty(lead + (hidden, g), dtype=torch.float32,
+                     device=xp.device)
+    db = torch.empty(lead + (1, g), dtype=torch.float32, device=xp.device)
     if xp.numel() == 0:
         return dxp, dw.zero_(), db.zero_()
     if plan is None:
@@ -597,11 +685,15 @@ def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
                  ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
                  dcs.data_ptr(), dxp.data_ptr(), dw.data_ptr(),
                  db.data_ptr(), *_ptrs(scratch), t_steps, batch, hidden,
-                 plan["cells"], plan["rows"], plan["splits"], stream)
+                 _folds(lead), plan["cells"], plan["rows"], plan["splits"],
+                 stream)
     if err != 0:
         raise RuntimeError(f"lstm_seq_bwd_f32 launch failed: cudaError {err}")
-    global LSTM_BWD_LAUNCHES
-    LSTM_BWD_LAUNCHES += 1
+    global LSTM_BWD_LAUNCHES, LSTM_BWD_STREAMED_LAUNCHES
+    if streamed(t_steps, batch, hidden, 4):
+        LSTM_BWD_STREAMED_LAUNCHES += 1
+    else:
+        LSTM_BWD_LAUNCHES += 1
     return dxp, dw, db
 
 

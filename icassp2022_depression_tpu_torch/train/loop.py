@@ -5,9 +5,12 @@ The reference trains with a Python step loop: 100-170 epochs of
 minibatch slices, a full-batch evaluation of the test split every epoch,
 and a torch-save whenever the metric gate fires
 (``Classification/audio_gru_whole.py:161-245,316-318``).  The JAX package
-compiles that whole fold into one ``lax.scan`` program; PyTorch runs
-eagerly, so here it is a Python loop that keeps everything on the device
-and never waits for it:
+compiles that whole fold into one ``lax.scan``-over-epochs program and
+dispatches it once (``make_fold_runner``).  Here one epoch is one
+function, :meth:`FoldRun.epoch`, that keeps everything on the device and
+never waits for it; on a card :class:`FoldRun` captures it once into a
+``torch.cuda.CUDAGraph`` and replays the graph once an epoch, on the CPU
+it runs the same function eagerly:
 
 * minibatches are pre-padded to ``[n_batches, B, ...]`` with validity
   masks (the reference's ragged last slice is a masked batch), and are
@@ -16,11 +19,20 @@ and never waits for it:
 * a batch with no valid row (padding that gives every fold the same
   shapes) is skipped on the host -- which batches those are is known from
   ``FoldData.n_train`` -- so it updates nothing, not even Adam's step
-  count, exactly as the JAX program's masked no-op;
+  count, exactly as the JAX program's masked no-op; its dropout key is
+  still split off, as the JAX scan splits it;
+* dropout keys are split per batch from the fold key (``key, sub =
+  split(key)``, JAX ``loop.py:206``), in a device buffer updated in place;
 * the gated "save best" is a ``torch.where`` select on the device against
   the gate, with the JAX package's thresholds and its exact rational
-  train-accuracy compare;
-* per-epoch metrics stay on the device, and each fold is read back once.
+  train-accuracy compare, written in place into static buffers, as are
+  the per-epoch logs (indexed by a device epoch counter);
+* each fold is read back once.
+
+Stacked folds (``--vmap-folds``, JAX ``make_multi_fold_runner``): a
+:func:`stack_fold_data` of F folds, a model of :func:`..models.folds.stack`
+and an :class:`..train.optim.StackedAdam` run all folds in one epoch
+program, each with its own key, gated best and optimizer count.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ from torch import nn
 from icassp2022_depression_tpu_torch.config import GateConfig
 from icassp2022_depression_tpu_torch.data.augment import PERM_TABLE
 from icassp2022_depression_tpu_torch.eval import metrics as M
+from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
+from icassp2022_depression_tpu_torch.train import optim
 
 CLF_LOGS = ("loss", "train_correct", "f1", "accuracy", "precision",
             "recall")
@@ -48,7 +62,8 @@ class FoldData(NamedTuple):
     tensors (length 1 for unimodal), batched as ``[n_batches, B, ...]`` for
     train and flat ``[N, ...]`` for test.  The valid train rows are the
     first ``n_train`` (a host int), so the fold loop knows without reading
-    the device which batches hold one."""
+    the device which batches hold one.  :func:`stack_fold_data` gives every
+    tensor a leading fold axis and ``n_train`` one int per fold."""
 
     train_x: tuple
     train_y: torch.Tensor      # [NB, B]
@@ -56,7 +71,7 @@ class FoldData(NamedTuple):
     test_x: tuple
     test_y: torch.Tensor       # [N]
     test_mask: torch.Tensor    # [N]
-    n_train: int
+    n_train: int               # a tuple, one per fold, when stacked
 
 
 def _device(arrays, device):
@@ -184,13 +199,29 @@ def fold_data_from_plans(feature_arrays: Sequence[torch.Tensor], train_plan,
                     _valid_mask(n_test, test_total, dev), n_train)
 
 
-def init_best(track: str, model: nn.Module, device) -> dict:
+def stack_fold_data(datas: Sequence[FoldData]) -> FoldData:
+    """Shape-uniform folds (one ``train_total`` / ``test_total``) stacked
+    along a leading fold axis, JAX ``stack_fold_data``."""
+    return FoldData(
+        tuple(torch.stack(xs) for xs in zip(*(d.train_x for d in datas))),
+        torch.stack([d.train_y for d in datas]),
+        torch.stack([d.train_mask for d in datas]),
+        tuple(torch.stack(xs) for xs in zip(*(d.test_x for d in datas))),
+        torch.stack([d.test_y for d in datas]),
+        torch.stack([d.test_mask for d in datas]),
+        tuple(d.n_train for d in datas))
+
+
+def init_best(track: str, model: nn.Module, device, folds: int = 0) -> dict:
     """Initial gated-best record (reference init values: ``max_f1 = -1`` /
-    ``min_mae = 100``), the metrics as 0-d device tensors."""
+    ``min_mae = 100``), the metrics as device tensors ([] or, for ``folds``
+    stacked folds, [F])."""
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     init = -1.0 if track == "classification" else 100.0
     keys = CLF_BEST if track == "classification" else REG_BEST
-    best = {k: torch.tensor(-1.0 if k == "epoch" else init, device=device)
+    shape = (folds,) if folds else ()
+    best = {k: torch.full(shape, -1.0 if k == "epoch" else init,
+                          device=device)
             for k in keys}
     best["params"] = params
     return best
@@ -198,10 +229,10 @@ def init_best(track: str, model: nn.Module, device) -> dict:
 
 def model_fns(model: nn.Module, loss_fn: Callable):
     """:func:`run_fold`'s ``(train_loss, eval_fn)`` for a one-input model:
-    ``loss_fn(pred, y, mask)`` on ``model(xs[0], generator)``, and the
-    eval forward ``model(xs[0])``."""
-    def train_loss(xs, y, mask, generator):
-        pred = model(xs[0], generator)
+    ``loss_fn(pred, y, mask)`` on ``model(xs[0], key)``, and the eval
+    forward ``model(xs[0])``."""
+    def train_loss(xs, y, mask, key):
+        pred = model(xs[0], key)
         return loss_fn(pred, y, mask), pred
 
     def eval_fn(xs):
@@ -210,111 +241,263 @@ def model_fns(model: nn.Module, loss_fn: Callable):
     return train_loss, eval_fn
 
 
-def run_fold(model: nn.Module, optimizer: torch.optim.Optimizer,
-             train_loss: Callable, eval_fn: Callable, data: FoldData,
-             track: str, gate: GateConfig, epochs: int,
-             generator: Optional[torch.Generator] = None):
-    """Train one fold in place, the counterpart of the JAX package's
-    ``make_fold_runner(train_loss, eval_fn, ...)(params, opt_state, data,
-    key)``.
+def _where(cond: torch.Tensor, new: torch.Tensor,
+           old: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` with ``cond`` ([] or [F]) over leading axes."""
+    cond = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
+    return torch.where(cond, new, old)
 
-    Runs ``epochs - 1`` epochs (the reference's ``range(1, epochs)``) of
-    consecutive minibatches, each a step on ``train_loss(xs, y, mask,
-    generator) -> (loss, pred)`` with ``model`` in train mode (dropout from
-    ``generator``), then ``eval_fn(data.test_x)`` in eval mode without a
-    graph and the metric gate.  ``model`` holds every parameter (its
-    ``state_dict()`` is what the gate keeps); ``optimizer`` may carry state
-    in from an earlier fold.  Returns ``(best, logs, step_losses)``
-    on the host: ``best`` holds the gated metrics as floats and, under
-    ``"params"``, the gated state dict on the device; ``logs`` one array
-    per metric over the epochs, ``"steps"`` the optimizer steps of each;
-    ``step_losses`` [epochs - 1, steps] the loss of every step.
-    """
-    if data.n_train <= 0:
-        raise ValueError("the fold has no training rows")
-    n_epochs = epochs - 1
-    n_steps = -(-data.n_train // data.train_y.shape[1])   # later batches are all padding
-    device = data.train_y.device
-    clf = track == "classification"
-    best = init_best(track, model, device)
-    live = model.state_dict()           # views of the trained params
-    epoch_ids = torch.arange(n_epochs, dtype=torch.float32, device=device)
-    # EXACT boundary semantics (JAX loop.py:236-253): the reference tests
-    # `train_acc > len(train_idxs) * 0.9` in float64, where 0.9 is slightly
-    # above 9/10, so `correct == 0.9 * n` does NOT gate; both counts are
-    # integers, so compare the exact rational `correct * den > num * n`
-    frac = Fraction(gate.train_acc_frac).limit_denominator(10000)
-    acc_bound = frac.numerator * data.n_train
-    train_y = data.train_y[:n_steps]
-    train_mask = data.train_mask[:n_steps]
-    log_rows, loss_rows = [], []
-    for epoch in range(n_epochs):
+
+class FoldRun:
+    """One fold's training (or F stacked folds'), the counterpart of the
+    JAX package's ``make_fold_runner(...)(params, opt_state, data, key,
+    best, epoch0)``, with everything it updates in place on the device:
+    ``model``'s parameters and ``optimizer``'s state, the dropout ``key``
+    (a ``[2]`` threefry key, ``[F, 2]`` stacked; None: no dropout),
+    :attr:`best` (the gated metrics and params), :attr:`logs` /
+    :attr:`step_losses` over the fold's ``n_epochs`` epochs and the epoch
+    counter :attr:`epoch_at`.
+
+    :meth:`epoch` runs one epoch: ``n_steps`` steps of ``train_loss(xs, y,
+    mask, key) -> (loss, pred)`` with ``model`` in train mode, then
+    ``eval_fn(data.test_x)`` in eval mode without a graph, the metric
+    gate, and the epoch's log row.  :meth:`run` runs epochs: on CUDA with
+    ``graph`` (the default there) it captures :meth:`epoch` once into a
+    CUDA graph -- after a warm-up epoch on copies of the state, which is
+    then put back -- and replays it; otherwise it calls :meth:`epoch`.  A
+    failed capture raises: there is no fallback.  The kernels' launch
+    counters (:mod:`..ops.rnn_cuda`) count the warm-up's calls, and the
+    captured calls (:attr:`captured`) once per replay."""
+
+    def __init__(self, model: nn.Module, optimizer, train_loss: Callable,
+                 eval_fn: Callable, data: FoldData, track: str,
+                 gate: GateConfig, n_epochs: int,
+                 key: Optional[torch.Tensor] = None,
+                 graph: Optional[bool] = None):
+        self.folded = isinstance(data.n_train, tuple)
+        n_train = data.n_train if self.folded else (data.n_train,)
+        if min(n_train) <= 0:
+            raise ValueError("the fold has no training rows")
+        self.model, self.optimizer = model, optimizer
+        if data.train_y.device.type == "cuda":
+            optim.init_state(optimizer)     # a capture must not create it
+        self.train_loss, self.eval_fn = train_loss, eval_fn
+        self.data, self.gate = data, gate
+        self.clf = track == "classification"
+        device = data.train_y.device
+        self.graph = (device.type == "cuda") if graph is None else graph
+        if self.graph and device.type != "cuda":
+            raise ValueError("a CUDA graph needs the fold on a card")
+        self.n_batches, batch = data.train_y.shape[-2:]
+        # later batches are all padding
+        self.fold_steps = [-(-n // batch) for n in n_train]
+        self.n_steps = max(self.fold_steps)
+        self.n_epochs = n_epochs
+        self.key = None if key is None else key.to(device).clone()
+        folds = len(n_train) if self.folded else 0
+        lead = (folds,) if folds else ()
+        self.best = init_best(track, model, device, folds)
+        self.live = model.state_dict()      # views of the trained params
+        n_logs = len(CLF_LOGS if self.clf else REG_LOGS)
+        self.logs = torch.zeros(lead + (n_epochs, n_logs), device=device)
+        self.step_losses = torch.zeros(lead + (n_epochs, self.n_steps),
+                                       device=device)
+        self.epoch_done = 0
+        self.epoch_at = torch.zeros(1, dtype=torch.int64, device=device)
+        # EXACT boundary semantics (JAX loop.py:236-253): the reference
+        # tests `train_acc > len(train_idxs) * 0.9` in float64, where 0.9
+        # is slightly above 9/10, so `correct == 0.9 * n` does NOT gate;
+        # both counts are integers, so compare the exact rational
+        # `correct * den > num * n`
+        self.frac = Fraction(gate.train_acc_frac).limit_denominator(10000)
+        bound = [self.frac.numerator * n for n in n_train]
+        self.acc_bound = (torch.tensor(bound, device=device) if folds
+                          else bound[0])
+        # which folds step at each batch (stacked folds only)
+        self.active = [torch.tensor([i < s for s in self.fold_steps],
+                                    device=device)
+                       for i in range(self.n_steps)] if folds else None
+        self._graph = None
+        self.captured = {}      # kernel calls in the captured epoch
+
+    # -- the epoch program ------------------------------------------------
+
+    def _split_key(self):
+        if self.key is None:
+            return None
+        key, sub = prng.split2(self.key)
+        self.key.copy_(key)
+        return sub
+
+    def epoch(self) -> None:
+        """One epoch, every result written in place (what the graph
+        captures)."""
+        data, model, opt = self.data, self.model, self.optimizer
+        axis = 1 if self.folded else 0     # the batch index of train_x
         model.train()
         losses, preds = [], []
-        for i in range(n_steps):
-            optimizer.zero_grad(set_to_none=True)
-            loss, pred = train_loss(tuple(x[i] for x in data.train_x),
-                                    data.train_y[i], data.train_mask[i],
-                                    generator)
-            loss.backward()
-            optimizer.step()
+        for i in range(self.n_steps):
+            opt.zero_grad(set_to_none=True)
+            sub = self._split_key()
+            loss, pred = self.train_loss(
+                tuple(x.select(axis, i) for x in data.train_x),
+                data.train_y.select(axis, i), data.train_mask.select(axis, i),
+                sub)
+            if self.folded:
+                loss.sum().backward()
+                opt.step(self.active[i])
+            else:
+                loss.backward()
+                opt.step()
             losses.append(loss.detach())
             preds.append(pred.detach())
+        for _ in range(self.n_batches - self.n_steps):
+            self._split_key()    # the JAX scan splits on padding batches
         model.eval()
         with torch.no_grad():
-            test_pred = eval_fn(data.test_x)
-        losses = torch.stack(losses)
-        preds = torch.stack(preds)
-        if clf:
-            train_correct = (train_mask
-                             * (preds.argmax(dim=-1) == train_y)).sum()
+            test_pred = self.eval_fn(data.test_x)
+            self._gate(torch.stack(losses, dim=-1),
+                       torch.stack(preds, dim=-3), test_pred)
+
+    def _gate(self, losses, preds, test_pred) -> None:
+        data, gate, best = self.data, self.gate, self.best
+        folded = self.folded
+        train_y = data.train_y.narrow(-2, 0, self.n_steps)
+        train_mask = data.train_mask.narrow(-2, 0, self.n_steps)
+        if self.clf:
+            train_correct = (train_mask * (preds.argmax(dim=-1) == train_y)
+                             ).sum(dim=(-2, -1))
             tp, fp, fn, tn = M.confusion_counts(
-                data.test_y, test_pred.argmax(dim=-1), data.test_mask)
+                data.test_y, test_pred.argmax(dim=-1), data.test_mask,
+                folded)
             acc, prec, rec, f1 = M.f1_from_counts(tp, fp, fn, tn)
             improve = (f1 >= best["f1"]) if gate.f1_tie_update \
                 else (f1 > best["f1"])
-            corr = train_correct.to(torch.int64) * frac.denominator
-            acc_ok = (corr > acc_bound) if gate.train_acc_strict \
-                else (corr >= acc_bound)
+            corr = train_correct.to(torch.int64) * self.frac.denominator
+            acc_ok = (corr > self.acc_bound) if gate.train_acc_strict \
+                else (corr >= self.acc_bound)
             should = improve & acc_ok & (f1 > gate.f1_floor)
             new = {"f1": f1, "accuracy": acc, "precision": prec,
                    "recall": rec}
-            row = (losses.sum(), train_correct, f1, acc, prec, rec)
+            row = (losses.sum(dim=-1), train_correct, f1, acc, prec, rec)
         else:
-            train_mae = M.masked_mae(train_y, preds.squeeze(-1), train_mask)
+            train_mae = M.masked_mae(train_y, preds.squeeze(-1), train_mask,
+                                     folded)
             pred_flat = test_pred.squeeze(-1)
-            mae = M.masked_mae(data.test_y, pred_flat, data.test_mask)
-            rmse = M.masked_rmse(data.test_y, pred_flat, data.test_mask)
+            mae = M.masked_mae(data.test_y, pred_flat, data.test_mask,
+                               folded)
+            rmse = M.masked_rmse(data.test_y, pred_flat, data.test_mask,
+                                 folded)
             should = ((mae <= best["mae"]) & (mae < gate.mae_ceiling)
                       & (train_mae < gate.train_mae_ceiling))
             new = {"mae": mae, "rmse": rmse}
-            row = (losses.sum(), train_mae, mae, rmse)
-        new["epoch"] = epoch_ids[epoch]
+            row = (losses.sum(dim=-1), train_mae, mae, rmse)
+        new["epoch"] = self.epoch_at[0].to(torch.float32)
         for k, v in new.items():
-            best[k] = torch.where(should, v, best[k])
-        for k, v in live.items():
-            best["params"][k] = torch.where(should, v, best["params"][k])
-        log_rows.append(torch.stack(row))
-        loss_rows.append(losses)
-    return _to_host(best, log_rows, loss_rows, clf, n_epochs, n_steps)
+            best[k].copy_(torch.where(should, v, best[k]))
+        for k, v in self.live.items():
+            best["params"][k].copy_(_where(should, v, best["params"][k]))
+        at = self.logs.dim() - 2
+        row = torch.stack([r.to(torch.float32) for r in row], dim=-1)
+        self.logs.index_copy_(at, self.epoch_at, row.unsqueeze(-2))
+        self.step_losses.index_copy_(at, self.epoch_at, losses.unsqueeze(-2))
+        self.epoch_at.add_(1)
+
+    # -- running it -------------------------------------------------------
+
+    def state_tensors(self) -> list:
+        """Every tensor an epoch updates in place."""
+        out = list(self.model.parameters())
+        out += optim.state_tensors(self.optimizer)
+        out += [t for t in (self.key, self.logs, self.step_losses,
+                            self.epoch_at) if t is not None]
+        out += [v for k, v in self.best.items() if k != "params"]
+        out += list(self.best["params"].values())
+        return out
+
+    def _capture(self) -> None:
+        state = self.state_tensors()
+        saved = [t.detach().clone() for t in state]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.epoch()                  # warm-up, then undone below
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        before = rnn_cuda.launch_counts()
+        with torch.cuda.graph(graph):
+            self.epoch()
+        # the wrappers counted their calls, but nothing ran: the kernels
+        # launch at each replay, and are counted there
+        after = rnn_cuda.launch_counts()
+        self.captured = {k: after[k] - before[k] for k in after}
+        rnn_cuda.add_launches(self.captured, -1)
+        self._graph = graph
+
+    def run(self, n: int) -> None:
+        """Run the next ``n`` epochs (``n`` graph replays on the graph
+        route)."""
+        if n > self.n_epochs - self.epoch_done:
+            raise ValueError(f"{n} epochs past the fold's {self.n_epochs}")
+        if n <= 0:
+            return
+        if self.graph:
+            if self._graph is None:
+                self._capture()
+            for _ in range(n):
+                self._graph.replay()
+            rnn_cuda.add_launches(self.captured, n)
+        else:
+            for _ in range(n):
+                self.epoch()
+        self.epoch_done += n
+
+    def results(self):
+        """``(best, logs, step_losses)`` on the host after one
+        device-to-host copy: ``best`` holds the gated metrics as floats
+        and, under ``"params"``, the gated state dict on the device;
+        ``logs`` one array per metric over the epochs run, ``"steps"`` the
+        optimizer steps of each; ``step_losses`` [epochs, steps] the loss
+        of every step.  Stacked folds: one such triple per fold."""
+        keys = CLF_BEST if self.clf else REG_BEST
+        log_keys = CLF_LOGS if self.clf else REG_LOGS
+        e = self.epoch_done
+        parts = [torch.stack([self.best[k] for k in keys], dim=-1),
+                 self.logs.narrow(-2, 0, e).flatten(-2),
+                 self.step_losses.narrow(-2, 0, e).flatten(-2)]
+        flat = torch.cat(parts, dim=-1).cpu().numpy()
+        rows = flat if self.folded else flat[None]
+        out = []
+        for f, row in enumerate(rows):
+            best = {k: float(v) for k, v in zip(keys, row)}
+            params = self.best["params"]
+            best["params"] = ({k: v[f] for k, v in params.items()}
+                              if self.folded else params)
+            n_logs = e * len(log_keys)
+            table = row[len(keys):len(keys) + n_logs].reshape(
+                e, len(log_keys))
+            logs = {k: table[:, i] for i, k in enumerate(log_keys)}
+            logs["steps"] = np.full(e, float(self.fold_steps[f]), np.float32)
+            step_losses = row[len(keys) + n_logs:].reshape(e, self.n_steps)
+            if self.folded:
+                step_losses = step_losses[:, :self.fold_steps[f]]
+            out.append((best, logs, step_losses))
+        return out if self.folded else out[0]
 
 
-def _to_host(best, log_rows, loss_rows, clf: bool, n_epochs: int,
-             n_steps: int):
-    """One device-to-host copy for the whole fold."""
-    log_keys = CLF_LOGS if clf else REG_LOGS
-    best_keys = CLF_BEST if clf else REG_BEST
-    parts = [torch.stack([best[k] for k in best_keys])]
-    if n_epochs:
-        parts += [torch.stack(log_rows).reshape(-1),
-                  torch.stack(loss_rows).reshape(-1)]
-    flat = torch.cat(parts).cpu().numpy()
-    host_best = {k: float(v) for k, v in zip(best_keys, flat)}
-    host_best["params"] = best["params"]
-    n_logs = n_epochs * len(log_keys)
-    table = flat[len(best_keys):len(best_keys) + n_logs].reshape(
-        n_epochs, len(log_keys))
-    logs = {k: table[:, i] for i, k in enumerate(log_keys)}
-    logs["steps"] = np.full(n_epochs, float(n_steps), np.float32)
-    step_losses = flat[len(best_keys) + n_logs:].reshape(n_epochs, n_steps)
-    return host_best, logs, step_losses
+def run_fold(model: nn.Module, optimizer, train_loss: Callable,
+             eval_fn: Callable, data: FoldData, track: str,
+             gate: GateConfig, epochs: int,
+             key: Optional[torch.Tensor] = None,
+             graph: Optional[bool] = None):
+    """Train one fold in place for ``epochs - 1`` epochs (the reference's
+    ``range(1, epochs)``) in one :class:`FoldRun` and return its
+    :meth:`FoldRun.results`.  ``graph`` (default: on a card) takes the CUDA
+    graph route; ``graph=False`` on a card runs the same epochs eagerly."""
+    run = FoldRun(model, optimizer, train_loss, eval_fn, data, track, gate,
+                  epochs - 1, key, graph)
+    run.run(epochs - 1)
+    return run.results()

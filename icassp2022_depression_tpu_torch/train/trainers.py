@@ -20,18 +20,25 @@ Reference counterparts:
 * fusion reg -- ``Regression/fuse_net.py`` (Adam lr 8e-5, SmoothL1 MyLoss,
   batch 4, 150 epochs, every fold fresh)
 
-Per fold, the initial weights come from a CPU ``torch.Generator`` seeded
-from ``(seed, fold)`` (the clf fusion's one model from ``seed``), so a run
-on the card and one on the CPU start from the same weights; the dropout
-masks come from a generator on the run's device seeded from
-``(seed + 1000, fold)``.  Both streams differ from the JAX package's
-threefry streams: parity runs carry weights across
-(``init_params_per_fold``) and train with dropout 0.  The folds run one
-after the other; fold vectorisation and multi-GPU are not ported yet.
+Per fold, the initial weights come from the threefry key
+``fold_in(PRNGKey(seed), fold)`` (the clf fusion's one model from
+``PRNGKey(seed)``) and the dropout masks from ``fold_in(PRNGKey(seed +
+1000), fold)`` split once a batch, as in the JAX package
+(``trainers.py:404-405``, ``loop.py:203-206``): the same seed gives the
+JAX package's initial weights and dropout masks bit for bit, on the CPU
+and on a card.
+
+A fold runs as one :class:`..train.loop.FoldRun` (one CUDA graph an
+epoch on a card), optionally in chunks of epochs with a resume bundle
+committed after each (``resume_dir`` / ``chunk_epochs``, JAX
+``_execute_fold``); with ``vmap_folds`` the three folds run as one
+stacked program (JAX ``_vmapped_fold_results``; the reg fusion only, as
+there: the clf fusion chains its folds).  Multi-GPU is not ported yet.
 """
 
 from __future__ import annotations
 
+import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -44,6 +51,8 @@ from icassp2022_depression_tpu_torch.models import losses, porting
 from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
 from icassp2022_depression_tpu_torch.models.fusion import FusionNet
 from icassp2022_depression_tpu_torch.models.text_net import TextNet
+from icassp2022_depression_tpu_torch.models import folds as mfolds
+from icassp2022_depression_tpu_torch.ops import prng
 from icassp2022_depression_tpu_torch.ops.nn import (
     l1_loss,
     masked_cross_entropy_on_probs,
@@ -53,9 +62,15 @@ from icassp2022_depression_tpu_torch.train import checkpoints, loop, optim
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
-def _fold_seed(seed: int, fold: int) -> int:
-    """A well-mixed 32-bit seed for ``(seed, fold)``."""
-    return int(np.random.SeedSequence([seed, fold]).generate_state(1)[0])
+def init_key(seed: int, fold: int) -> torch.Tensor:
+    """Fold ``fold``'s init key, ``fold_in(PRNGKey(seed), fold)``."""
+    return prng.fold_in(prng.prng_key(seed), fold)
+
+
+def dropout_key(seed: int, fold: int, device=None) -> torch.Tensor:
+    """Fold ``fold``'s dropout key, ``fold_in(PRNGKey(seed + 1000),
+    fold)``, on ``device``."""
+    return prng.fold_in(prng.prng_key(seed + 1000), fold).to(device)
 
 
 def _branch_fns(tcfg: C.TrainerConfig):
@@ -90,45 +105,178 @@ _TREES = {"gru": porting.audio_net_tree_from_state_dict,
 def init_model(tcfg: C.TrainerConfig, seed: int, fold: int, device,
                state_dict=None):
     """Fold ``fold``'s branch model (:class:`AudioNet` for a GRU config,
-    :class:`TextNet` for an LSTM one) on ``device``: its init drawn from a
-    CPU generator seeded from ``(seed, fold)``, or ``state_dict`` (e.g.
+    :class:`TextNet` for an LSTM one) on ``device``: its init drawn from
+    :func:`init_key` (the JAX package's weights), or ``state_dict`` (e.g.
     :func:`..models.porting.audio_net_state_dict_from_jax` of the JAX
     package's initial params)."""
-    gen = torch.Generator().manual_seed(_fold_seed(seed, fold))
-    model = _NETS[tcfg.model.cell](tcfg.model, generator=gen)
+    model = _NETS[tcfg.model.cell](
+        tcfg.model, None if state_dict is not None else init_key(seed, fold))
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device)
 
 
-def dropout_generator(seed: int, fold: int, device) -> torch.Generator:
-    """Fold ``fold``'s dropout stream, on the run's device (a CPU
-    generator cannot draw CUDA tensors)."""
-    return torch.Generator(device=device).manual_seed(
-        _fold_seed(seed + 1000, fold))
+def _bundle_arrays(run: loop.FoldRun) -> dict:
+    """A fold run's state as flat host arrays: params, optimizer state,
+    key, gated best and ``epoch_done``."""
+    out = {f"params/{k}": v for k, v in run.model.state_dict().items()}
+    out.update({f"opt/{k}": v for k, v in
+                optim.state_arrays(run.optimizer).items()})
+    out.update({f"best/{k}": v for k, v in run.best.items()
+                if k != "params"})
+    out.update({f"best_params/{k}": v
+                for k, v in run.best["params"].items()})
+    if run.key is not None:
+        out["key"] = run.key
+    out = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+               else v) for k, v in out.items()}
+    out["epoch_done"] = np.asarray(run.epoch_done, np.int64)
+    return out
+
+
+def _logs_arrays(run: loop.FoldRun) -> dict:
+    """The epochs run so far: one array per log metric (epoch axis after
+    the fold axis, when stacked) and ``step_losses``."""
+    e = run.epoch_done
+    keys = loop.CLF_LOGS if run.clf else loop.REG_LOGS
+    logs = run.logs.narrow(-2, 0, e).cpu().numpy()
+    out = {k: logs[..., i] for i, k in enumerate(keys)}
+    out["step_losses"] = run.step_losses.narrow(-2, 0, e).cpu().numpy()
+    return out
+
+
+def _load_bundle(run: loop.FoldRun, state_path: Path,
+                 logs_path: Path) -> None:
+    """Resume ``run`` from a bundle: every tensor back in place, and the
+    logs sidecar truncated to ``epoch_done`` (the bundle is the commit
+    point: a sidecar written after it may run ahead)."""
+    with np.load(state_path) as z:
+        arrays = {k: z[k] for k in z.files}
+
+    def put(dst: torch.Tensor, a) -> None:
+        dst.copy_(torch.from_numpy(np.asarray(a)))
+
+    with torch.no_grad():
+        for k, v in run.model.state_dict().items():
+            put(v, arrays[f"params/{k}"])
+        optim.load_state_arrays(run.optimizer, {
+            k[len("opt/"):]: v for k, v in arrays.items()
+            if k.startswith("opt/")})
+        for k, v in run.best.items():
+            if k != "params":
+                put(v, arrays[f"best/{k}"])
+        for k, v in run.best["params"].items():
+            put(v, arrays[f"best_params/{k}"])
+        if run.key is not None:
+            put(run.key, arrays["key"])
+        e = int(arrays["epoch_done"])
+        run.epoch_done = e
+        run.epoch_at.fill_(e)
+        if logs_path.exists():
+            keys = loop.CLF_LOGS if run.clf else loop.REG_LOGS
+            at = run.logs.dim() - 2
+            with np.load(logs_path) as z:
+                for i, k in enumerate(keys):
+                    rows = torch.from_numpy(z[k]).narrow(at, 0, e)
+                    run.logs.select(-1, i).narrow(at, 0, e).copy_(rows)
+                run.step_losses.narrow(at, 0, e).copy_(
+                    torch.from_numpy(z["step_losses"]).narrow(at, 0, e))
+
+
+def _execute_fold(run: loop.FoldRun, chunk_epochs: Optional[int] = None,
+                  resume_path: Optional[Path] = None):
+    """Run a fold to its end, in chunks of ``chunk_epochs`` epochs (each
+    chunk is that many replays of the fold's graph) with a resume bundle
+    ``<resume_path>.npz`` (+ ``_logs.npz``, written first, both atomic)
+    committed after each, as JAX ``_execute_fold`` does: a run that finds
+    a bundle continues from it, and a completed one only reads it back.
+    Returns :meth:`..loop.FoldRun.results`."""
+    total = run.n_epochs
+    if resume_path is not None:
+        state_path = Path(str(resume_path) + ".npz")
+        logs_path = Path(str(resume_path) + "_logs.npz")
+        if state_path.exists():
+            _load_bundle(run, state_path, logs_path)
+    chunk = chunk_epochs or total
+    while run.epoch_done < total:
+        n = min(chunk, total - run.epoch_done)
+        if resume_path is not None:
+            print(f"# chunk starting: {Path(resume_path).name} "
+                  f"epochs {run.epoch_done}->{run.epoch_done + n}/{total}",
+                  file=sys.stderr, flush=True)
+        run.run(n)
+        if resume_path is not None:
+            checkpoints.atomic_savez(logs_path, **_logs_arrays(run))
+            checkpoints.atomic_savez(state_path, **_bundle_arrays(run))
+            print(f"# chunk committed: {Path(resume_path).name} "
+                  f"epochs {run.epoch_done}/{total}",
+                  file=sys.stderr, flush=True)
+    return run.results()
+
+
+def _resume_path(resume_dir, name: str) -> Optional[Path]:
+    return Path(resume_dir) / name if resume_dir is not None else None
 
 
 def _run_folds(tcfg: C.TrainerConfig, fold_datas, seed: int,
-               init_params_per_fold=None):
-    """Serial fold loop of a branch trainer: init -> :func:`loop.run_fold`
-    -> host summary.  The device is the fold tensors'.  Returns one
-    ``{"fold", "best", "logs", "step_losses"}`` per fold."""
+               init_params_per_fold=None, resume_dir=None,
+               chunk_epochs=None, task_name: str = "task",
+               vmap_folds: bool = False):
+    """Fold loop of a branch trainer: init -> one :class:`loop.FoldRun` a
+    fold (or one for all folds, stacked, with ``vmap_folds``) -> host
+    summary.  The device is the fold tensors'.  Returns one ``{"fold",
+    "best", "logs", "step_losses"}`` per fold."""
     loss_fn = _branch_fns(tcfg)
+
+    def model(fold: int, device):
+        return init_model(tcfg, seed, fold, device,
+                          None if init_params_per_fold is None
+                          else init_params_per_fold[fold - 1])
+
+    if vmap_folds:
+        return _vmapped_results(
+            tcfg, fold_datas, seed, [model(f, fold_datas[0].train_y.device)
+                                     for f in range(1, len(fold_datas) + 1)],
+            lambda m: loop.model_fns(m, loss_fn), resume_dir, chunk_epochs,
+            task_name)
     results = []
     for fold, data in enumerate(fold_datas, start=1):
         device = data.train_y.device
-        model = init_model(
-            tcfg, seed, fold, device,
-            None if init_params_per_fold is None
-            else init_params_per_fold[fold - 1])
-        optimizer = optim.build(tcfg.optimizer, model)
-        best, logs, step_losses = loop.run_fold(
-            model, optimizer, *loop.model_fns(model, loss_fn), data,
-            tcfg.track, tcfg.gate, tcfg.epochs,
-            dropout_generator(seed, fold, device))
+        net = model(fold, device)
+        optimizer = optim.build(tcfg.optimizer, net)
+        run = loop.FoldRun(net, optimizer, *loop.model_fns(net, loss_fn),
+                           data, tcfg.track, tcfg.gate, tcfg.epochs - 1,
+                           dropout_key(seed, fold, device))
+        best, logs, step_losses = _execute_fold(
+            run, chunk_epochs, _resume_path(resume_dir,
+                                            f"{task_name}_fold{fold}"))
         results.append({"fold": fold, "best": best, "logs": logs,
                         "step_losses": step_losses})
     return results
+
+
+def _vmapped_results(tcfg: C.TrainerConfig, fold_datas, seed: int, models,
+                     make_fns, resume_dir=None, chunk_epochs=None,
+                     task_name: str = "task"):
+    """All folds as one stacked program (JAX ``_vmapped_fold_results``):
+    the fold models stacked (:func:`..models.folds.stack`), the fold
+    tensors stacked, one dropout key per fold (the serial path's), a
+    :class:`..optim.StackedAdam`, and one ``{task_name}_folds`` resume
+    bundle.  ``make_fns(stacked_model)`` gives ``(train_loss,
+    eval_fn)``."""
+    device = fold_datas[0].train_y.device
+    stacked = mfolds.stack(models)
+    optimizer = optim.build_stacked(tcfg.optimizer, stacked)
+    keys = torch.stack([dropout_key(seed, f, device)
+                        for f in range(1, len(fold_datas) + 1)])
+    run = loop.FoldRun(stacked, optimizer, *make_fns(stacked),
+                       loop.stack_fold_data(fold_datas), tcfg.track,
+                       tcfg.gate, tcfg.epochs - 1, keys)
+    outs = _execute_fold(run, chunk_epochs,
+                         _resume_path(resume_dir, f"{task_name}_folds"))
+    return [{"fold": f, "best": best, "logs": logs,
+             "step_losses": step_losses}
+            for f, (best, logs, step_losses) in enumerate(outs, start=1)]
 
 
 def _gated(results):
@@ -214,12 +362,13 @@ def _reg_fold_datas(feature_arrays, targets, dep_idxs, non_idxs, batch_size,
 
 def _clf_branch(task: str, features, targets, train_folds_idx, tcfg,
                 out_dir, seed, fold_cfg, device, init_params_per_fold,
-                meta_extras=None):
+                meta_extras=None, **run_kw):
     """A classification branch trainer: folds, training, gated saves."""
     feats = _features(features, device)
     datas = _clf_fold_datas([feats], np.asarray(targets), train_folds_idx,
                             tcfg.batch_size, fold_cfg)
-    results = _run_folds(tcfg, datas, seed, init_params_per_fold)
+    results = _run_folds(tcfg, datas, seed, init_params_per_fold,
+                         task_name=task, **run_kw)
     if out_dir is not None:
         m = tcfg.model
         for r in _gated(results):
@@ -236,12 +385,13 @@ def _clf_branch(task: str, features, targets, train_folds_idx, tcfg,
 
 def _reg_branch(task: str, features, targets, dep_idxs, non_idxs, tcfg,
                 out_dir, seed, fold_cfg, device, init_params_per_fold,
-                meta_extras=None):
+                meta_extras=None, **run_kw):
     """A regression branch trainer: folds, training, gated saves."""
     feats = _features(features, device)
     datas = _reg_fold_datas([feats], np.asarray(targets), dep_idxs,
                             non_idxs, tcfg.batch_size, fold_cfg)
-    results = _run_folds(tcfg, datas, seed, init_params_per_fold)
+    results = _run_folds(tcfg, datas, seed, init_params_per_fold,
+                         task_name=task, **run_kw)
     if out_dir is not None:
         m = tcfg.model
         for r in _gated(results):
@@ -266,13 +416,19 @@ def train_audio_clf(features, targets: np.ndarray,
                     tcfg: C.TrainerConfig = C.AUDIO_CLF,
                     out_dir: Optional[Path] = None, seed: int = 0,
                     fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                    init_params_per_fold=None):
+                    init_params_per_fold=None, resume_dir=None,
+                    chunk_epochs=None, vmap_folds: bool = False):
     """3-fold audio GRU classifier.  ``features``: [N, 3, 256], numpy or a
     tensor (trained where it lies unless ``device`` says otherwise; numpy
-    features with ``device`` None go to the first card)."""
+    features with ``device`` None go to the first card).
+    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
+    resume bundle, ``vmap_folds`` runs the folds as one stacked
+    program."""
     return _clf_branch("audio_clf", features, targets, train_folds_idx,
                        tcfg, out_dir, seed, fold_cfg, device,
-                       init_params_per_fold)
+                       init_params_per_fold,
+                       resume_dir=resume_dir, chunk_epochs=chunk_epochs,
+                       vmap_folds=vmap_folds)
 
 
 def train_text_clf(features, targets: np.ndarray,
@@ -280,14 +436,20 @@ def train_text_clf(features, targets: np.ndarray,
                    tcfg: C.TrainerConfig = C.TEXT_CLF,
                    out_dir: Optional[Path] = None, seed: int = 0,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                   init_params_per_fold=None,
+                   init_params_per_fold=None, resume_dir=None,
+                   chunk_epochs=None, vmap_folds: bool = False,
                    meta_extras: dict | None = None):
     """3-fold text BiLSTM classifier.  ``features``: [N, 3, 1024];
     ``meta_extras`` (the text embedder's provenance) goes into every
-    checkpoint sidecar."""
+    checkpoint sidecar.
+    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
+    resume bundle, ``vmap_folds`` runs the folds as one stacked
+    program."""
     return _clf_branch("text_clf", features, targets, train_folds_idx,
                        tcfg, out_dir, seed, fold_cfg, device,
-                       init_params_per_fold, meta_extras)
+                       init_params_per_fold, meta_extras,
+                       resume_dir=resume_dir, chunk_epochs=chunk_epochs,
+                       vmap_folds=vmap_folds)
 
 
 def train_audio_reg(features, targets: np.ndarray,
@@ -295,13 +457,19 @@ def train_audio_reg(features, targets: np.ndarray,
                     tcfg: C.TrainerConfig = C.AUDIO_REG,
                     out_dir: Optional[Path] = None, seed: int = 0,
                     fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                    init_params_per_fold=None):
+                    init_params_per_fold=None, resume_dir=None,
+                    chunk_epochs=None, vmap_folds: bool = False):
     """3-fold audio GRU SDS-score regressor (L1 loss, MAE gating).  Pass
     the same ``fold_cfg`` here and to :func:`train_fuse_reg`, which
-    re-derives these splits."""
+    re-derives these splits.
+    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
+    resume bundle, ``vmap_folds`` runs the folds as one stacked
+    program."""
     return _reg_branch("audio_reg", features, targets, dep_idxs, non_idxs,
                        tcfg, out_dir, seed, fold_cfg, device,
-                       init_params_per_fold)
+                       init_params_per_fold,
+                       resume_dir=resume_dir, chunk_epochs=chunk_epochs,
+                       vmap_folds=vmap_folds)
 
 
 def train_text_reg(features, targets: np.ndarray,
@@ -309,12 +477,18 @@ def train_text_reg(features, targets: np.ndarray,
                    tcfg: C.TrainerConfig = C.TEXT_REG,
                    out_dir: Optional[Path] = None, seed: int = 0,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                   init_params_per_fold=None,
+                   init_params_per_fold=None, resume_dir=None,
+                   chunk_epochs=None, vmap_folds: bool = False,
                    meta_extras: dict | None = None):
-    """As :func:`train_audio_reg` for the text BiLSTM (SmoothL1)."""
+    """As :func:`train_audio_reg` for the text BiLSTM (SmoothL1).
+    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
+    resume bundle, ``vmap_folds`` runs the folds as one stacked
+    program."""
     return _reg_branch("text_reg", features, targets, dep_idxs, non_idxs,
                        tcfg, out_dir, seed, fold_cfg, device,
-                       init_params_per_fold, meta_extras)
+                       init_params_per_fold, meta_extras,
+                       resume_dir=resume_dir, chunk_epochs=chunk_epochs,
+                       vmap_folds=vmap_folds)
 
 
 # -- fusion -------------------------------------------------------------------
@@ -330,8 +504,8 @@ def _fusion_fns(model: FusionNet, tcfg: C.TrainerConfig):
     myloss = (losses.myloss_ce if tcfg.track == "classification"
               else losses.myloss_smooth_l1)
 
-    def train_loss(xs, y, mask, generator):
-        tf, af = model.pretrained_feature(xs[0], xs[1], generator)
+    def train_loss(xs, y, mask, key):
+        tf, af = model.pretrained_feature(xs[0], xs[1], key)
         loss = myloss(tf, af, y, model.fc_final[0].weight,
                       cfg.text_hidden_dims, mask)
         return loss, model(torch.cat([tf, af], dim=-1))
@@ -342,52 +516,93 @@ def _fusion_fns(model: FusionNet, tcfg: C.TrainerConfig):
     return train_loss, eval_fn
 
 
+def _fusion_model(fcfg: C.FusionConfig, key, init_sd, device) -> FusionNet:
+    model = FusionNet(fcfg, None if init_sd is not None else key)
+    if init_sd is not None:
+        model.load_state_dict(init_sd, strict=True)
+    return model.to(device)
+
+
+def _head_test_split(model: FusionNet, data: loop.FoldData) -> loop.FoldData:
+    """The branches never train, so the test split's features are the
+    same every epoch: computed once, the per-epoch eval is the head."""
+    model.eval()
+    tf, af = model.pretrained_feature(*data.test_x)
+    return data._replace(test_x=(torch.cat([tf, af], dim=-1),))
+
+
+def _check_frozen(model: FusionNet, fold) -> None:
+    stray = [n for n, p in model.named_parameters()
+             if p.grad is not None and n != "fc_final.0.weight"]
+    if stray:
+        raise RuntimeError(f"fusion fold {fold}: frozen parameters "
+                           f"received gradients: {stray}")
+
+
 def _run_fusion_folds(fcfg: C.FusionConfig, tcfg: C.TrainerConfig,
                       fold_datas, branch_params, seed: int,
-                      init_params_per_fold=None):
+                      init_params_per_fold=None, resume_dir=None,
+                      chunk_epochs=None, task_name: str = "fuse",
+                      vmap_folds: bool = False):
     """Fold loop of the fusion trainers, with the reference's cross-fold
     state:
 
     * classification (``fuse_net_whole.py:413-416``): the fusion net and
-      its Adam optimizer are made once, from ``seed``; each fold only
-      replaces the branch tensors, so fold k+1 continues from fold k's
+      its Adam optimizer are made once, from ``PRNGKey(seed)``; each fold
+      only replaces the branch tensors, so fold k+1 continues from fold k's
       trained ``fc_final`` and Adam moments (only the first entry of
-      ``init_params_per_fold`` is read);
+      ``init_params_per_fold`` is read); one graph per fold over the
+      carried state;
     * regression (``Regression/fuse_net.py:549-552``): model and optimizer
-      are made afresh for every fold, from ``(seed, fold)``.
+      are made afresh for every fold, from :func:`init_key`; with
+      ``vmap_folds`` the folds run as one stacked program.
 
     ``branch_params[fold - 1]`` is the (text, audio) pair of branch state
     dicts.  Only ``fc_final.0.weight`` may receive a gradient: a branch
     parameter that gets one raises."""
     carry = tcfg.track == "classification"
+    if vmap_folds and carry:
+        raise ValueError(
+            "fold vectorisation is impossible for the clf fusion trainer: "
+            "the reference chains folds sequentially -- fold k+1 starts "
+            "from fold k's trained fc_final weights and accumulated Adam "
+            "moments (fuse_net_whole.py:413-416)")
+
+    def fresh(fold: int, device) -> FusionNet:
+        model = _fusion_model(
+            fcfg, prng.prng_key(seed) if carry else init_key(seed, fold),
+            None if init_params_per_fold is None
+            else init_params_per_fold[fold - 1], device)
+        model.init_from_branches(*branch_params[fold - 1], tcfg.track)
+        return model
+
+    if vmap_folds:
+        device = fold_datas[0].train_y.device
+        models = [fresh(f, device) for f in range(1, len(fold_datas) + 1)]
+        datas = [_head_test_split(m, d) for m, d in zip(models, fold_datas)]
+        results = _vmapped_results(
+            tcfg, datas, seed, models, lambda m: _fusion_fns(m, tcfg),
+            resume_dir, chunk_epochs, task_name)
+        for m in models:
+            _check_frozen(m, "all")
+        return results
     model = optimizer = None
     results = []
     for fold, data in enumerate(fold_datas, start=1):
         device = data.train_y.device
         if model is None or not carry:
-            gen = torch.Generator().manual_seed(
-                seed if carry else _fold_seed(seed, fold))
-            model = FusionNet(fcfg, generator=gen)
-            if init_params_per_fold is not None:
-                model.load_state_dict(init_params_per_fold[fold - 1],
-                                      strict=True)
-            model = model.to(device)
+            model = fresh(fold, device)
             optimizer = optim.build(tcfg.optimizer, model)
-        text_sd, audio_sd = branch_params[fold - 1]
-        model.init_from_branches(text_sd, audio_sd, tcfg.track)
-        # the branches never train, so the test split's features are the
-        # same every epoch: computed once, the per-epoch eval is the head
-        model.eval()
-        tf, af = model.pretrained_feature(*data.test_x)
-        data = data._replace(test_x=(torch.cat([tf, af], dim=-1),))
-        best, logs, step_losses = loop.run_fold(
-            model, optimizer, *_fusion_fns(model, tcfg), data, tcfg.track,
-            tcfg.gate, tcfg.epochs, dropout_generator(seed, fold, device))
-        stray = [n for n, p in model.named_parameters()
-                 if p.grad is not None and n != "fc_final.0.weight"]
-        if stray:
-            raise RuntimeError(f"fusion fold {fold}: frozen parameters "
-                               f"received gradients: {stray}")
+        else:
+            model.init_from_branches(*branch_params[fold - 1], tcfg.track)
+        run = loop.FoldRun(model, optimizer, *_fusion_fns(model, tcfg),
+                           _head_test_split(model, data), tcfg.track,
+                           tcfg.gate, tcfg.epochs - 1,
+                           dropout_key(seed, fold, device))
+        best, logs, step_losses = _execute_fold(
+            run, chunk_epochs, _resume_path(resume_dir,
+                                            f"{task_name}_fold{fold}"))
+        _check_frozen(model, fold)
         results.append({"fold": fold, "best": best, "logs": logs,
                         "step_losses": step_losses})
     return results
@@ -400,19 +615,23 @@ def train_fuse_clf(audio_features, text_features, targets: np.ndarray,
                    tcfg: C.TrainerConfig = C.FUSE_CLF_TRAINER,
                    out_dir: Optional[Path] = None, seed: int = 0,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                   init_params_per_fold=None,
+                   init_params_per_fold=None, resume_dir=None,
+                   chunk_epochs=None, vmap_folds: bool = False,
                    meta_extras: dict | None = None):
     """3-fold multimodal fusion classifier.  ``branch_params[fold]`` is the
     (text, audio) pair of gated branch state dicts from
     :func:`train_text_clf` / :func:`train_audio_clf` (the reference's
     state-dict surgery); ``init_params_per_fold[0]``, when given, is the
-    fusion's initial state dict."""
+    fusion's initial state dict.  ``resume_dir`` / ``chunk_epochs`` as in
+    :func:`train_audio_clf`; ``vmap_folds`` raises: the folds chain their
+    state."""
     xa = _features(audio_features, device)
     feats = [xa, _features(text_features, xa.device)]
     datas = _clf_fold_datas(feats, np.asarray(targets), train_folds_idx,
                             tcfg.batch_size, fold_cfg)
     results = _run_fusion_folds(fcfg, tcfg, datas, branch_params, seed,
-                                init_params_per_fold)
+                                init_params_per_fold, resume_dir,
+                                chunk_epochs, "fuse_clf", vmap_folds)
     if out_dir is not None:
         for r in _gated(results):
             name = checkpoints.fuse_clf_name(r["best"]["f1"], r["fold"])
@@ -431,17 +650,20 @@ def train_fuse_reg(audio_features, text_features, targets: np.ndarray,
                    tcfg: C.TrainerConfig = C.FUSE_REG_TRAINER,
                    out_dir: Optional[Path] = None, seed: int = 0,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
-                   init_params_per_fold=None,
+                   init_params_per_fold=None, resume_dir=None,
+                   chunk_epochs=None, vmap_folds: bool = False,
                    meta_extras: dict | None = None):
     """3-fold multimodal fusion SDS regressor (SmoothL1 MyLoss, MAE
-    gating); arguments as :func:`train_fuse_clf`, folds as
+    gating); arguments as :func:`train_fuse_clf` (``vmap_folds`` runs the
+    folds, which start afresh, as one stacked program), folds as
     :func:`train_audio_reg` (pass the branches' ``fold_cfg``)."""
     xa = _features(audio_features, device)
     feats = [xa, _features(text_features, xa.device)]
     datas = _reg_fold_datas(feats, np.asarray(targets), dep_idxs, non_idxs,
                             tcfg.batch_size, fold_cfg)
     results = _run_fusion_folds(fcfg, tcfg, datas, branch_params, seed,
-                                init_params_per_fold)
+                                init_params_per_fold, resume_dir,
+                                chunk_epochs, "fuse_reg", vmap_folds)
     if out_dir is not None:
         for r in _gated(results):
             _save_gated(Path(out_dir) / f"Fuse{r['fold']}",

@@ -200,11 +200,15 @@ def step_times(checkout: Path) -> dict:
         model = trainers.init_model(tcfg, 0, 1, "cuda").train()
         opt = optim.build(tcfg.optimizer, model)
         loss_fn = trainers._branch_fns(tcfg)
-        gen = trainers.dropout_generator(0, 1, "cuda")
+        # the checkout's dropout stream: a threefry key, or before it a
+        # torch generator
+        drop = (trainers.dropout_key(0, 1, "cuda")
+                if hasattr(trainers, "dropout_key")
+                else trainers.dropout_generator(0, 1, "cuda"))
 
         def fwd_bwd():
             opt.zero_grad(set_to_none=True)
-            loss_fn(model(data.train_x[0][0], gen), data.train_y[0],
+            loss_fn(model(data.train_x[0][0], drop), data.train_y[0],
                     data.train_mask[0]).backward()
 
         prof = smoke.profile_split(torch, fwd_bwd, f"{task} forward and "
@@ -214,6 +218,17 @@ def step_times(checkout: Path) -> dict:
                          us for k, (us, _) in prof["kernels"].items()
                          if k in BWD_KERNELS)}
     return out
+
+
+def _seeded(torch, cls, cfg, seed: int):
+    """A ``cls`` model with weights drawn from ``seed`` through the
+    checkout's API: a threefry key, or before it a torch generator."""
+    from icassp2022_depression_tpu_torch.ops import prng
+
+    try:
+        return cls(cfg, key=prng.prng_key(seed))
+    except TypeError:
+        return cls(cfg, generator=torch.Generator().manual_seed(seed))
 
 
 def _checkpoint(torch, task: str, tmp: Path, chars: str, standin: bool):
@@ -232,7 +247,7 @@ def _checkpoint(torch, task: str, tmp: Path, chars: str, standin: bool):
 
     if task == "audio_clf":
         cfg = C.AUDIO_CLF.model
-        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
+        model = _seeded(torch, AudioNet, cfg, 0)
         return checkpoints.save(
             tmp / task,
             porting.audio_net_tree_from_state_dict(model.state_dict(), cfg),
@@ -249,13 +264,13 @@ def _checkpoint(torch, task: str, tmp: Path, chars: str, standin: bool):
         os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
         meta = {"task": task, "text_embedder": chip_smoke.bundle_id(bundle),
                 "text_segmenter": "fallback"}
-    gen = torch.Generator().manual_seed(6)
     if task == "fuse_clf":
         tree = porting.fusion_tree_from_state_dict(
-            FusionNet(C.FUSE_CLF, gen).state_dict(), C.FUSE_CLF)
+            _seeded(torch, FusionNet, C.FUSE_CLF, 6).state_dict(), C.FUSE_CLF)
     else:
         tree = porting.text_net_tree_from_state_dict(
-            TextNet(C.TEXT_CLF.model, gen).state_dict(), C.TEXT_CLF.model)
+            _seeded(torch, TextNet, C.TEXT_CLF.model, 6).state_dict(),
+            C.TEXT_CLF.model)
     return checkpoints.save(tmp / task, tree, meta), lexicon
 
 

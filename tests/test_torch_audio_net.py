@@ -19,6 +19,7 @@ from icassp2022_depression_tpu_torch.models import porting as tporting
 from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
 from icassp2022_depression_tpu_torch.ops import nn as tnn
 from icassp2022_depression_tpu_torch.train import checkpoints as tcheckpoints
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 SMALL = dict(embedding_size=32, hidden_dims=16)
@@ -121,7 +122,7 @@ def test_checkpoints_cross_load(tmp_path):
 
 def test_training_mode_dropout_and_eval_identity():
     _, tcfg = _cfgs("AUDIO_CLF", **SMALL)
-    model = AudioNet(tcfg, generator=torch.Generator().manual_seed(0))
+    model = AudioNet(tcfg, key=tprng.prng_key(0))
     x = torch.randn(4, 3, 32, generator=torch.Generator().manual_seed(1))
     model.eval()
     with torch.no_grad():
@@ -149,20 +150,24 @@ def test_nn_primitives_match_jax():
         np.asarray(jnn.layer_norm({"w": g, "b": g}, jnp.asarray(x))),
         rtol=0, atol=ATOL)
     assert tnn.dropout(t["x"], 0.5, train=False) is t["x"]
-    dropped = tnn.dropout(t["x"], 0.5, train=True,
-                          generator=torch.Generator().manual_seed(0))
+    dropped = tnn.dropout(t["x"], 0.5, train=True, key=tprng.prng_key(0))
     kept = dropped != 0
     assert 0 < kept.float().mean() < 1
     torch.testing.assert_close(dropped[kept], t["x"][kept] / 0.5)
+    # the JAX package's mask and values, bit for bit
+    np.testing.assert_array_equal(
+        dropped.numpy(), np.asarray(jnn.dropout(jax.random.PRNGKey(0),
+                                                jnp.asarray(x), 0.5, True)))
 
 
 @pytest.mark.parametrize("preset", ["AUDIO_CLF", "AUDIO_REG"])
 def test_every_dropout_draws_from_the_explicit_generator(preset):
-    """Train-mode forwards with generators of the same seed agree even when
-    torch's global generator moves in between; other seeds differ; eval
-    mode is unchanged by the generator."""
+    """Train-mode forwards with the same threefry key agree even when
+    torch's global generator moves in between, and give the JAX package's
+    train-mode ``apply`` with that key; other keys differ; eval mode is
+    unchanged by the key."""
     _, tcfg = _cfgs(preset, **SMALL)
-    model = AudioNet(tcfg, generator=torch.Generator().manual_seed(0))
+    model = AudioNet(tcfg, key=tprng.prng_key(0))
     x = torch.randn(6, 3, 32, generator=torch.Generator().manual_seed(1))
     # the reg head ends in a ReLU; lift it so dropout shows in the output
     with torch.no_grad():
@@ -170,24 +175,32 @@ def test_every_dropout_draws_from_the_explicit_generator(preset):
     model.train()
     with torch.no_grad():
         torch.manual_seed(1)
-        a = model(x, torch.Generator().manual_seed(7))
+        a = model(x, tprng.prng_key(7))
         torch.manual_seed(2)
         torch.rand(100)
-        b = model(x, torch.Generator().manual_seed(7))
-        c = model(x, torch.Generator().manual_seed(8))
+        b = model(x, tprng.prng_key(7))
+        c = model(x, tprng.prng_key(8))
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
-    # the head's own masks follow the generator too, not only the GRU's
+    jcfg, _ = _cfgs(preset, **SMALL)
+    params = jporting.audio_net_from_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
+    want = jaudio_net.apply(params, jconfig.replace(jcfg, rnn_backend="xla"),
+                            jnp.asarray(x.numpy()), train=True,
+                            key=jax.random.PRNGKey(7))
+    np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    # the head's own masks follow the key too, not only the GRU's
     pooled = torch.randn(6, 16, generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         torch.manual_seed(3)
-        h1 = model.head(pooled, torch.Generator().manual_seed(9))
+        h1 = model.head(pooled, tprng.prng_key(9))
         torch.manual_seed(4)
-        h2 = model.head(pooled, torch.Generator().manual_seed(9))
+        h2 = model.head(pooled, tprng.prng_key(9))
     assert torch.equal(h1, h2)
     model.eval()
     with torch.no_grad():
-        e1 = model(x, torch.Generator().manual_seed(7))
+        e1 = model(x, tprng.prng_key(7))
         e2 = model(x)
     assert torch.equal(e1, e2)
     assert set(model.state_dict()) == set(AudioNet(tcfg).state_dict())

@@ -22,6 +22,7 @@ from icassp2022_depression_tpu_torch import config as tconfig
 from icassp2022_depression_tpu_torch.models import losses as tlosses
 from icassp2022_depression_tpu_torch.models import porting as tporting
 from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 SMALL = dict(audio_embed_size=24, text_embed_size=32, audio_hidden_dims=16,
@@ -74,16 +75,28 @@ def test_pretrained_feature_and_forward_match_jax(track):
 
 def test_pretrained_feature_dropout_fires_in_train_mode_without_a_graph():
     _, tcfg = _cfgs("clf")
-    model = FusionNet(tcfg, generator=torch.Generator().manual_seed(0))
+    model = FusionNet(tcfg, key=tprng.prng_key(0))
     xa, xt = (torch.from_numpy(a) for a in _inputs(2))
     model.eval()
     ev = model.pretrained_feature(xa, xt)
     model.train()
-    a = model.pretrained_feature(xa, xt, torch.Generator().manual_seed(3))
-    b = model.pretrained_feature(xa, xt, torch.Generator().manual_seed(3))
+    a = model.pretrained_feature(xa, xt, tprng.prng_key(3))
+    b = model.pretrained_feature(xa, xt, tprng.prng_key(3))
     for x, y, e in zip(a, b, ev):
         assert torch.equal(x, y) and not torch.equal(x, e)
         assert x.grad_fn is None
+    # the JAX package's masks: its train-mode pretrained_feature, same key
+    jcfg, _ = _cfgs("clf")
+    params = jporting.fusion_from_state_dict(
+        {k: v.detach().numpy() for k, v in model.state_dict().items()},
+        jconfig.replace(jcfg, rnn_backend="xla"))
+    want = jfusion.pretrained_feature(
+        params, jconfig.replace(jcfg, rnn_backend="xla"),
+        jnp.asarray(xa.numpy()), jnp.asarray(xt.numpy()), train=True,
+        key=jax.random.PRNGKey(3))
+    for x, w in zip(a, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL)
     # only fc_final's weight gets a gradient through MyLoss
     tf, af = a
     loss = tlosses.myloss_ce(tf, af, torch.tensor([0, 1, 0, 1, 1]),

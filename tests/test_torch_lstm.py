@@ -22,6 +22,7 @@ from icassp2022_depression_tpu.ops import rnn as jrnn
 from icassp2022_depression_tpu.ops import rnn_pallas
 from icassp2022_depression_tpu_torch.ops import rnn as trnn
 from icassp2022_depression_tpu_torch.ops import rnn_cuda
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 NAMES = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -149,7 +150,7 @@ def test_lstm_layer_reverse_and_c_last_match_pallas_layer():
 def test_rnn_module_matches_torch_lstm():
     """Parameter names are nn.LSTM's, and so are outputs and gradients."""
     mod = trnn.RNN(6, 8, 2, True, cell="lstm", init="xavier",
-                   generator=torch.Generator().manual_seed(0))
+                   key=tprng.prng_key(0))
     ref = torch.nn.LSTM(6, 8, 2, batch_first=True, bidirectional=True)
     assert set(mod.state_dict()) == set(ref.state_dict())
     ref.load_state_dict(mod.state_dict(), strict=True)

@@ -380,7 +380,8 @@ def test_cli_train_text_reads_npz_features(tmp_path, monkeypatch, capsys):
     (["--segmenter", "jieba", "--device", "cpu"], "audio features not found"),
     (["--elmo-weights", "w.npz", "--device", "cpu"],
      "audio features not found"),
-    (["--vmap-folds"], "item 19"),
+    # --vmap-folds is ported: it passes to the feature check
+    (["--vmap-folds", "--device", "cpu"], "audio features not found"),
     (["--fold-parallel"], "item 18"),
 ])
 def test_cli_pipeline_unported_options_name_their_slice(argv, match,

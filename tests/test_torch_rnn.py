@@ -14,6 +14,7 @@ from icassp2022_depression_tpu.ops import rnn_pallas
 from icassp2022_depression_tpu_torch import _build
 from icassp2022_depression_tpu_torch.ops import rnn as trnn
 from icassp2022_depression_tpu_torch.ops import rnn_cuda
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 
@@ -150,7 +151,7 @@ def test_rnn_matches_jax(num_layers, bidirectional, backend):
 def test_rnn_module_matches_torch_gru(bidirectional):
     """Parameter names are nn.GRU's, and so are the outputs."""
     mod = trnn.RNN(6, 8, 2, bidirectional,
-                   generator=torch.Generator().manual_seed(0))
+                   key=tprng.prng_key(0))
     ref = torch.nn.GRU(6, 8, 2, batch_first=True,
                        bidirectional=bidirectional)
     assert set(mod.state_dict()) == set(ref.state_dict())

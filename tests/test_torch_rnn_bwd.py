@@ -18,6 +18,7 @@ from icassp2022_depression_tpu.ops import rnn as jrnn
 from icassp2022_depression_tpu.ops import rnn_pallas
 from icassp2022_depression_tpu_torch.ops import rnn as trnn
 from icassp2022_depression_tpu_torch.ops import rnn_cuda
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 NAMES = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -135,7 +136,7 @@ def test_rnn_module_grads_match_torch_gru():
     """Two layers through the Function: every gradient reaches its
     ``nn.GRU``-named parameter (``weight_hh_l{k}`` through the transpose
     in ``gru_layer``, ``bias_hh`` through its [1, 3H] reshape)."""
-    mod = trnn.RNN(6, 8, 2, generator=torch.Generator().manual_seed(0))
+    mod = trnn.RNN(6, 8, 2, key=tprng.prng_key(0))
     ref = torch.nn.GRU(6, 8, 2, batch_first=True)
     ref.load_state_dict(mod.state_dict(), strict=True)
     x = torch.randn(3, 4, 6, generator=torch.Generator().manual_seed(1))
@@ -236,3 +237,18 @@ def test_gru_bwd_wrapper_takes_plain_backward_on_cpu_whatever_the_plan(
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert rnn_cuda.BWD_LAUNCHES == before
+
+
+@pytest.mark.parametrize("cell,t,b,h", [
+    ("gru", 3, 8, 256), ("gru", 256, 16, 256), ("gru", 64, 16, 256),
+    ("gru", 128, 16, 256), ("gru", 3, 24, 256), ("lstm", 3, 4, 128),
+    ("lstm", 256, 16, 128), ("lstm", 128, 16, 128), ("lstm", 3, 112, 512),
+    ("lstm", 128, 488, 512)])
+def test_streamed_counter_shapes_are_where_jax_streams(cell, t, b, h):
+    """A backward call counts as TPU kernel #3 / #5 exactly where the JAX
+    package's ``_pallas_fits`` sends the layer to its streamed kernels."""
+    p = {"w_hh": np.zeros(((3 if cell == "gru" else 4) * h, h), np.float32)}
+    x = np.zeros((b, t, h), np.float32)
+    gates = 3 if cell == "gru" else 4
+    assert rnn_cuda.streamed(t, b, h, gates) == (
+        not jrnn._pallas_fits(p, x, cell))

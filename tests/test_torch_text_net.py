@@ -25,6 +25,7 @@ from icassp2022_depression_tpu_torch.models.text_net import TextNet
 from icassp2022_depression_tpu_torch.ops import attention as tattention
 from icassp2022_depression_tpu_torch.ops import initializers as tinit
 from icassp2022_depression_tpu_torch.train import checkpoints as tcheckpoints
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 ATOL = 1e-5
 SMALL = dict(embedding_size=32, hidden_dims=16)
@@ -117,7 +118,7 @@ def test_xavier_init_distribution():
     stacked [4H, D] LSTM ones included), uniform spread, zero biases and
     identity LayerNorms, as the JAX package's xavier init."""
     _, tcfg = _cfgs("TEXT_CLF", embedding_size=256, hidden_dims=64)
-    sd = TextNet(tcfg, generator=torch.Generator().manual_seed(0)) \
+    sd = TextNet(tcfg, key=tprng.prng_key(0)) \
         .state_dict()
     jparams = jtext_net.init(jax.random.PRNGKey(0), jconfig.replace(
         jconfig.TEXT_CLF.model, embedding_size=256, hidden_dims=64))
@@ -141,28 +142,42 @@ def test_xavier_init_distribution():
             for arr in (v.numpy(), jsd[name]):
                 assert abs(arr.std() / sd_a - 1) < 4 * 0.45 / np.sqrt(n), name
                 assert abs(arr.mean()) < 4 * sd_a / np.sqrt(n), name
-    lin = tinit.xavier_linear(5, 7, torch.Generator().manual_seed(1))
+    lin = tinit.xavier_linear(tprng.prng_key(1), 5, 7)
     jlin = jinit.xavier_linear(jax.random.PRNGKey(1), 5, 7)
     assert lin["w"].shape == jlin["w"].shape and torch.all(lin["b"] == 0)
+    # the same key draws the same numbers: the JAX package's init
+    np.testing.assert_array_equal(lin["w"].numpy(), np.asarray(jlin["w"]))
+    for name, v in sd.items():
+        np.testing.assert_array_equal(v.numpy(), jsd[name], err_msg=name)
 
 
 @pytest.mark.parametrize("preset", ["TEXT_CLF", "TEXT_REG"])
 def test_every_dropout_draws_from_the_explicit_generator(preset):
-    _, tcfg = _cfgs(preset)
-    model = TextNet(tcfg, generator=torch.Generator().manual_seed(0))
+    """Every mask comes from the explicit threefry key: the same key gives
+    the same forward whatever torch's global generator does, another key
+    another one, the JAX package's train-mode ``apply`` with that key the
+    same numbers; eval mode ignores the key."""
+    jcfg, tcfg = _cfgs(preset)
+    model = TextNet(tcfg, key=tprng.prng_key(0))
     x = torch.randn(6, 3, 32, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         model.fc_out[-1].bias.fill_(5.0)    # lift the reg head's ReLU
     model.train()
     with torch.no_grad():
         torch.manual_seed(1)
-        a = model(x, torch.Generator().manual_seed(7))
+        a = model(x, tprng.prng_key(7))
         torch.manual_seed(2)
-        b = model(x, torch.Generator().manual_seed(7))
-        c = model(x, torch.Generator().manual_seed(8))
+        b = model(x, tprng.prng_key(7))
+        c = model(x, tprng.prng_key(8))
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
+    params = jporting.text_net_from_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
+    want = jtext_net.apply(params, jconfig.replace(jcfg, rnn_backend="xla"),
+                           jnp.asarray(x.numpy()), train=True,
+                           key=jax.random.PRNGKey(7))
+    np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
     model.eval()
     with torch.no_grad():
-        assert torch.equal(model(x, torch.Generator().manual_seed(7)),
-                           model(x))
+        assert torch.equal(model(x, tprng.prng_key(7)), model(x))

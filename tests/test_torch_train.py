@@ -44,6 +44,7 @@ from icassp2022_depression_tpu_torch.train import loop as tloop
 from icassp2022_depression_tpu_torch.train import optim as toptim
 from icassp2022_depression_tpu_torch.train import trainers as ttrainers
 from icassp2022_depression_tpu_torch.utils import logging as tlogging
+from icassp2022_depression_tpu_torch.ops import prng as tprng
 
 TRAJ_TOL = 1e-5     # float32 trajectories, reductions in another order
 LOSS_TOL = 1e-6     # one float32 loss / metric evaluation
@@ -363,7 +364,7 @@ def test_optimizer_trajectory_matches_optax(preset):
         ocfg = tconfig.replace(getattr(tconfig, preset).optimizer,
                                learning_rate=1e-2, weight_decay=1e-2
                                if preset == "AUDIO_CLF" else 0.0)
-        model = AudioNet(cfg, generator=torch.Generator().manual_seed(0))
+        model = AudioNet(cfg, key=tprng.prng_key(0))
         model = model.double()
         sd0 = {k: v.detach().numpy().copy()
                for k, v in model.state_dict().items()}
@@ -534,17 +535,27 @@ def test_train_audio_reg_matches_jax_trainer(tmp_path):
 
 
 def test_fold_model_init_and_dropout_streams():
+    """A fold's init is the JAX trainer's ``model.init(fold_in(PRNGKey(
+    seed), fold))`` bit for bit, and its dropout key ``fold_in(PRNGKey(seed
+    + 1000), fold)``."""
     cfg = tconfig.replace(tconfig.AUDIO_CLF, model=tconfig.replace(
         tconfig.AUDIO_CLF.model, embedding_size=8, hidden_dims=4))
+    jcfg = jconfig.replace(jconfig.AUDIO_CLF.model, embedding_size=8,
+                           hidden_dims=4)
     a = ttrainers.init_model(cfg, 0, 1, "cpu").state_dict()
     b = ttrainers.init_model(cfg, 0, 1, "cpu").state_dict()
     c = ttrainers.init_model(cfg, 0, 2, "cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["fc_audio.1.weight"], c["fc_audio.1.weight"])
-    g1 = ttrainers.dropout_generator(0, 1, "cpu")
-    g2 = ttrainers.dropout_generator(0, 1, "cpu")
-    assert torch.equal(torch.rand(4, generator=g1),
-                       torch.rand(4, generator=g2))
+    want = jporting.audio_net_to_state_dict(jaudio_net.init(
+        jax.random.fold_in(jax.random.PRNGKey(0), 2), jcfg), jcfg)
+    for k, v in want.items():
+        np.testing.assert_array_equal(c[k].numpy(), np.asarray(v))
+    for seed, fold in ((0, 1), (3, 2)):
+        np.testing.assert_array_equal(
+            ttrainers.dropout_key(seed, fold, "cpu").numpy(),
+            np.asarray(jax.random.key_data(jax.random.fold_in(
+                jax.random.PRNGKey(seed + 1000), fold))))
 
 
 # -- the CLI ----------------------------------------------------------------
@@ -586,8 +597,12 @@ def test_cli_train_corpus_writes_artifacts(tmp_path, monkeypatch, capsys):
     # --corpus for a text task is ported: it passes to the corpus check
     (["--task", "text_clf", "--corpus", "x", "--device", "cpu",
       "--elmo-weights", "", "--segmenter", "fallback"], "no speakers found"),
-    (["--task", "audio_clf", "--vmap-folds"], "item 19"),
-    (["--task", "audio_clf", "--resume-dir", "x"], "item 19"),
+    # --vmap-folds, --resume-dir and --chunk-epochs are ported: they pass
+    # to the feature check
+    (["--task", "audio_clf", "--vmap-folds", "--device", "cpu"],
+     "Features/AudioWhole"),
+    (["--task", "audio_clf", "--resume-dir", "x", "--chunk-epochs", "3",
+      "--device", "cpu"], "Features/AudioWhole"),
     (["--task", "audio_reg", "--fold-parallel"], "multi-GPU"),
     (["--task", "audio_clf", "--audio-dim", "128"], "VGGish"),
 ])
