@@ -2,15 +2,18 @@
 """Smoke run of the PyTorch + CUDA port (``icassp2022_depression_tpu_torch``)
 on one NVIDIA GPU: serving of the audio, text and fusion models, the text
 frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), the
-training paths of both tracks, and checking and migration (``cli
+training paths of both tracks, checking and migration (``cli
 extract-audio``, ``check``, ``export-pt``, reference ``.pt`` checkpoints),
-at full width.
+DAIC-WOZ (``cli extract-daic`` / ``train-daic`` / ``check-daic`` /
+``predict-daic``) and the HTTP serving front, at full width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
     python3 chip_smoke.py --only lstm   # the LSTM kernels alone, no ok line
     python3 chip_smoke.py --only gru    # the GRU kernels alone, no ok line
     python3 chip_smoke.py --only trainer  # fold axis, graph, resume
+    python3 chip_smoke.py --only daic   # phase 9 alone, no ok line
+    python3 chip_smoke.py --only serve  # phase 10 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -28,7 +31,10 @@ round of the timing turns), the
 backward's at (3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
 ``--only trainer`` builds the GRU and LSTM sources and runs the fold-axis
 kernel checks and the fold-program checks of phases 2 and 5 on random
-features (about a minute).
+features (about a minute).  ``--only daic`` builds the GRU sources and
+the LSTMP forward and runs phase 9 with a seeded bundle of its own;
+``--only serve`` builds the GRU and LSTM forwards and runs phase 10 with a
+seeded DAIC checkpoint.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -168,8 +174,42 @@ Phases (each raises on failure, so the exit code is nonzero):
    forward, backward and optimizer; each kernel's bound (the larger of its
    float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s).
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+9. DAIC-WOZ: a DAIC-shaped corpus from a seed (AVEC2017's train / dev
+   layout cut from 107 + 35 participants to 32 + 16, 40-120 responses of
+   1-3 s each, Ellie's lines from the bundled question bank, the cuts on a
+   ``reduced`` line); counted, each CLI call with exact launches: ``cli
+   extract-daic`` of both splits (no kernel) and ``--multimodal`` of the
+   dev split through the seeded bundle (4 ``lstmp_fwd`` a batch of 128
+   responses), ``cli train-daic --track clf`` and ``--track reg`` from
+   those features and ``--track clf --daic-dir`` (fused; its best equal to
+   the two-step run's) at the presets' widths (D = H = 256, batch 16) and
+   21 epochs with the gates open (2 ``gru_fwd`` a step and an eval, 2
+   backwards a step, under ``gru_bwd_streamed`` where the JAX package
+   streams the batch: ``rnn_cuda.streamed``), ``cli check-daic`` on each
+   checkpoint (2 ``gru_fwd``; F1 within 1e-6, MAE within 1e-5 of the
+   trainer's recorded best, through ``check_daic``), ``cli predict-daic``
+   of a dev participant at its cumulative ordinal (the CPU's within 1e-5,
+   and the prediction from its extract-daic features); not counted, the
+   GRU forward at (R_max, 16, 256) and at one served participant, the
+   backward (#3) at (R_max, 16, 256) against its plain loop (dxp 1e-5,
+   dw / db 1e-5 of their largest magnitude, reruns bitwise) and timed in
+   turns with the plain loop and cuDNN beside its bound, and a train
+   step's time under the graph;
+10. the HTTP serving front (``serving/transport.py``): ``make_http_server``
+   on port 0 in a thread, on the card, for ``audio_clf``, stand-in
+   ``fuse_clf`` and phase 9's ``daic_clf``, with a 5 ms batch window, max
+   batch 32, max queue 64 and a bearer token; counted, 16 concurrent
+   clients x 4 requests over /predict, /predict_bin and /predict_stream
+   (DAIC: /predict), exact launches per device batch, every answer within
+   1e-5 of a direct ``predict_batch`` / ``predict_signals`` of another
+   predictor on the same speakers; a wrong token is a 401, overload a 503
+   with Retry-After, and HTTPS with a self-signed certificate where
+   ``openssl`` is present; the requests/s, the device batches run and
+   ``/healthz``'s latency quantiles.
+
+The line before the last is a JSON object describing each kernel (#3's
+timed at its DAIC shape); the last line is ``{"ok": true, "device":
+{...}}``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -3005,17 +3045,816 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
     return timings
 
 
+# -- phase 9: DAIC-WOZ ------------------------------------------------------
+
+#: the DAIC corpus of this script, AVEC2017's layout cut to size: 107 + 35
+#: train / dev participants -> 32 + 16, each with 40-120 responses of 1-3 s
+#: (the first train participant 120, so that the batch's response count
+#: exceeds 83 and the JAX package streams the backward)
+DAIC_TRAIN, DAIC_DEV = 32, 16
+DAIC_RESPONSES = (40, 120)
+DAIC_SECONDS = (1.0, 3.0)
+#: the presets' 101 epochs cut to keep the script short, gates open
+DAIC_EPOCHS = 21
+DAIC_WORDS = ("i", "feel", "okay", "tired", "sleep", "work", "family",
+              "good", "bad", "really", "not", "much", "today", "friends",
+              "worried", "happy", "guess", "yeah")
+
+
+def make_daic_corpus(root: Path, seed: int = 0) -> dict:
+    """DAIC-shaped sessions from ``seed``: ``<id>_P/<id>_AUDIO.wav`` (16
+    kHz int16; depressed participants speak lower and softer, as in
+    ``eatd.make_synthetic_corpus``) and ``<id>_TRANSCRIPT.csv``, whose
+    Ellie lines are questions of the bundled bank (a response closes at the
+    next one, a ``scrubbed_entry`` now and then is skipped), plus the
+    train and dev split CSVs.  Returns the split ids and the response
+    counts."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+
+    rng = np.random.default_rng(seed)
+    bank = daic_fe.load_queries()
+    sr = 16000
+    splits = {"train": list(range(300, 300 + DAIC_TRAIN)),
+              "dev": list(range(400, 400 + DAIC_DEV))}
+    counts = {}
+    for split, ids in splits.items():
+        rows_csv = ["Participant_ID,PHQ8_Binary,PHQ8_Score"]
+        for i, pid in enumerate(ids):
+            dep = i % 3 == 0
+            n = (DAIC_RESPONSES[1] if (split, i) == ("train", 0)
+                 else int(rng.integers(DAIC_RESPONSES[0],
+                                       DAIC_RESPONSES[1] + 1)))
+            rows, parts, t = [], [], 0.0
+            for _ in range(n):
+                rows.append(f"{t:.3f}\t{t + 0.3:.3f}\tEllie\t"
+                            f"{bank[int(rng.integers(len(bank)))]}")
+                t += 0.3
+                if rng.random() < 0.05:
+                    rows.append(f"{t:.3f}\t{t + 0.2:.3f}\tParticipant\t"
+                                "scrubbed_entry")
+                    t += 0.2
+                dur = float(rng.uniform(*DAIC_SECONDS))
+                words = " ".join(rng.choice(DAIC_WORDS,
+                                            int(rng.integers(3, 13))))
+                rows.append(f"{t:.3f}\t{t + dur:.3f}\tParticipant\t{words}")
+                t += dur
+            rows.append(f"{t:.3f}\t{t + 0.3:.3f}\tEllie\ti think i have "
+                        "asked everything i need to")
+            t += 0.5
+            m = int(t * sr)
+            f0 = (90 if dep else 180) + rng.uniform(-10, 10)
+            amp = (1200 if dep else 6000) * rng.uniform(0.8, 1.2)
+            wav = (amp * np.sin(2 * np.pi * f0 * np.arange(m) / sr)
+                   + rng.normal(0, 300, m))
+            d = root / f"{pid}_P"
+            eatd.write_wav(d / f"{pid}_AUDIO.wav", wav, sr)
+            (d / f"{pid}_TRANSCRIPT.csv").write_text(
+                "\n".join(["start_time\tstop_time\tspeaker\tvalue"] + rows)
+                + "\n")
+            score = int(rng.integers(10, 25) if dep else rng.integers(0, 10))
+            rows_csv.append(f"{pid},{int(dep)},{score}")
+            counts[pid] = n
+        (root / f"{split}_split.csv").write_text("\n".join(rows_csv) + "\n")
+    return {"splits": splits, "counts": counts}
+
+
+def _daic_presets(tdaic, C):
+    """The two DAIC presets at DAIC_EPOCHS epochs with the gates open, set
+    in place for the CLI (which reads them at call time); returns the
+    originals."""
+    originals = (tdaic.DAIC_CLF, tdaic.DAIC_REG)
+    tdaic.DAIC_CLF = C.replace(
+        tdaic.DAIC_CLF, epochs=DAIC_EPOCHS,
+        gate=C.GateConfig(f1_floor=-1.0, train_acc_frac=0.0))
+    tdaic.DAIC_REG = C.replace(tdaic.DAIC_REG, epochs=DAIC_EPOCHS)
+    return originals
+
+
+def daic_train_launches(rnn_cuda, n_train: int, max_r: int,
+                        batch: int) -> dict:
+    """One ``train-daic`` fold's exact launches: ``ceil(n / batch)`` steps
+    an epoch over DAIC_EPOCHS - 1 epochs and the graph's warm-up epoch, 2
+    GRU forwards a step and an eval, 2 backwards a step, counted under
+    ``gru_bwd_streamed`` where the JAX package streams (R, batch, 256)
+    (``rnn_cuda.streamed``), else under ``gru_bwd``."""
+    epochs = DAIC_EPOCHS - 1 + 1
+    steps = -(-n_train // batch) * epochs
+    bwd = ("gru_bwd_streamed" if rnn_cuda.streamed(max_r, batch, 256, 3)
+           else "gru_bwd")
+    return dict(ZERO, gru_fwd=2 * (steps + epochs), **{bwd: 2 * steps})
+
+
+def daic_kernel_checks(torch, rnn_cuda, card: str, max_r: int,
+                       serve_r: int) -> dict:
+    """The GRU kernels at the DAIC shapes, not counted: the forward (#1,
+    both routes) at the train batch and eval split (max_r, 16, 256) and
+    at one served participant (serve_r, 1, 256); the backward (#3 where
+    the JAX package streams it, else #2; both routes) at (max_r, 16, 256)
+    against its plain loop (dxp 1e-5, dw / db 1e-5 of their largest
+    magnitude, reruns bitwise), then its routes, the plain loop and cuDNN
+    ``nn.GRU`` timed in turns with its bound.  Returns the worst errors
+    and the timings."""
+    gen = torch.Generator().manual_seed(12)
+    worst_fwd = 0.0
+    for t, b in ((max_r, 16), (serve_r, 1)):
+        args = _bwd_inputs(torch, rnn_cuda, gen, "gru", t, b, 256)[:3]
+        ref = rnn_cuda.gru_sequence_torch(*args)
+        for route, fn in _route_fns(rnn_cuda, args, (t, b, 256),
+                                    "gru").items():
+            ys, again = fn(), fn()
+            torch.cuda.synchronize()
+            err = (ys - ref).abs().max().item()
+            if not (err <= KERNEL_TOL and torch.equal(ys, again)):
+                fail(f"gru_fwd ({route}) at the DAIC shape {(t, b, 256)}: "
+                     f"{err}, rerun bitwise equal {torch.equal(ys, again)}")
+            worst_fwd = max(worst_fwd, err)
+            print(f"kernel gru_fwd at the DAIC shape T={t} B={b} H=256 "
+                  f"({route}): max|cuda - plain| {err:.3e}, rerun bitwise "
+                  f"equal (tol {KERNEL_TOL})")
+    shape = (max_r, 16, 256)
+    name = ("gru_bwd_streamed" if rnn_cuda.streamed(*shape, 3)
+            else "gru_bwd")
+    args = _bwd_inputs(torch, rnn_cuda, gen, "gru", *shape)
+    ref = rnn_cuda.gru_sequence_bwd_torch(*args)
+    routes = bwd_routes(torch, rnn_cuda, "gru", args, ref, shape)
+    print(f"kernel {name} (TPU kernel #{3 if name.endswith('ed') else 2}) "
+          f"at the DAIC shape T={max_r} B=16 H=256: " + ", ".join(
+              f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun bitwise "
+              f"equal {same}" for r, (e, rel, same) in routes.items())
+          + f" (tol {KERNEL_TOL}; dw, db of max|ref|)")
+    plan = rnn_cuda.gru_bwd_plan(16, 256, steps=max_r)
+    fns = {route: (lambda p=rnn_cuda.gru_bwd_plan(16, 256, route,
+                                                  steps=max_r):
+                   rnn_cuda.gru_sequence_bwd(*args, plan=p))
+           for route in ("sequence", "step")}
+    fns["plain"] = lambda: rnn_cuda.gru_sequence_bwd_torch(*args)
+    fns["cudnn"] = cudnn_bwd(torch, "gru", *shape)
+    ms = turns_ms(torch, fns, 20)
+    b_ms, by = rnn_bounds("gru", *shape)["bwd"]
+    print(f"timing {name} at the DAIC shape T={max_r} B=16 H=256: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; the plan takes {plan['route']}; bound {b_ms:.6f} ms ({by}), "
+          f"{b_ms / ms[plan['route']]:.4f} of it; cuDNN "
+          f"{ms['cudnn'] / ms[plan['route']]:.2f}x the kernel's time "
+          f"(median of 20 in turns, CUDA events) [{card}]")
+    return {"name": name, "shape": shape, "fwd_err": worst_fwd,
+            "bwd_err": max(e for e, _, _ in routes.values()),
+            "ms": ms[plan["route"]], "plain_ms": ms["plain"],
+            "cudnn_ms": ms["cudnn"], "bound": (b_ms, by)}
+
+
+def daic_graph_check(torch, feats_dir: Path, card: str) -> float:
+    """A DAIC clf fold through the CUDA graph against the same fold run
+    eagerly (``graph=False``), not counted: the saved train and dev
+    features, the trainer's init and dropout keys of seed 0, 6 epochs
+    each; the per-step losses, the log rows and the gated params bitwise
+    equal (a replay that read a stale response mask would part them).
+    Times the last 5 epochs of each on the host clock around a
+    synchronize; returns a step's time under the graph."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.ops import prng
+    from icassp2022_depression_tpu_torch.train import daic as tdaic
+    from icassp2022_depression_tpu_torch.train import loop, optim
+
+    xtr, ytr = daic_fe.load_features(feats_dir, "train", "clf")
+    xte, yte = daic_fe.load_features(feats_dir, "dev", "clf")
+    max_r = max(f.shape[0] for f in xtr + xte)
+    tcfg = tdaic.DAIC_CLF
+    data = loop.make_fold_data(
+        [*daic_fe.pad_responses(xtr, max_r)], ytr.astype("int64"),
+        [*daic_fe.pad_responses(xte, max_r)], yte.astype("int64"),
+        tcfg.batch_size, device="cuda")
+    out, step = {}, {}
+    for graph in (True, False):
+        model = AudioNet(tcfg.model, prng.prng_key(0)).cuda()
+        run = loop.FoldRun(model, optim.build(tcfg.optimizer, model),
+                           *tdaic._fns(model, tcfg), data, tcfg.track,
+                           tcfg.gate, 6,
+                           prng.fold_in(prng.prng_key(0), 1).cuda(), graph)
+        run.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run(5)
+        torch.cuda.synchronize()
+        step[graph] = (time.perf_counter() - t0) * 1e3 / (5 * run.n_steps)
+        out[graph] = run.results()
+    (gb, gl, gs), (eb, el, es) = out[True], out[False]
+    same = (np.array_equal(gs, es)
+            and all(np.array_equal(gl[k], el[k]) for k in el)
+            and all(torch.equal(gb["params"][k], eb["params"][k])
+                    for k in eb["params"])
+            and {k: v for k, v in gb.items() if k != "params"}
+            == {k: v for k, v in eb.items() if k != "params"})
+    if not same:
+        fail(f"DAIC clf fold: the CUDA graph's run differs from the eager "
+             f"run's (step losses {gs.ravel()[:6]} against {es.ravel()[:6]}"
+             f", logs {gl} against {el})")
+    print(f"DAIC clf fold through the CUDA graph against graph=False: "
+          f"{gs.size} step losses, {len(el) - 1} log columns over 6 "
+          "epochs and the gated params bitwise equal")
+    print(f"timing a DAIC clf train step (batch 16, T = {max_r} responses, "
+          f"H = 256, eval of {len(yte)} participants once an epoch): "
+          f"{step[True]:.3f} ms under the CUDA graph, {step[False]:.3f} ms "
+          f"eagerly, 5 epochs of {run.n_steps} steps each (host clock) "
+          f"[{card}]")
+    return step[True]
+
+
+def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
+    """Phase 9, DAIC-WOZ on the card.  Counted, each CLI call with every
+    kernel counter zeroed before and read after: ``cli extract-daic`` of
+    both splits (no kernel) and of the dev split with ``--multimodal``
+    through the seeded bundle (4 ``lstmp_fwd`` a batch of 128 responses),
+    ``cli train-daic --track clf`` / ``--track reg`` from the features and
+    ``--track clf --daic-dir`` (fused) at the presets' widths and
+    DAIC_EPOCHS (exact launches, ``daic_train_launches``; the fused
+    checkpoint bitwise the two-step one), ``cli check-daic`` on each
+    checkpoint (2 ``gru_fwd``; the metrics those the trainer recorded) and
+    ``cli predict-daic``.  Not counted: the check through ``check_daic``
+    (F1 within 1e-6, MAE within 1e-5), the same prediction on the CPU
+    (1e-5) and from the training features, the kernels at the DAIC shapes,
+    and a clf fold through the graph against the same fold run eagerly
+    (``daic_graph_check``).  Returns the launches, the stage times, the
+    kernel readings and the clf checkpoint."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.serving.predictors import (
+        DaicPredictor,
+    )
+    from icassp2022_depression_tpu_torch.train import checkpoints
+    from icassp2022_depression_tpu_torch.train import daic as tdaic
+
+    counted = _Counted(torch, rnn_cuda)
+    stage_s = {}
+    root = work / "daic"
+    t0 = time.perf_counter()
+    corpus = make_daic_corpus(root)
+    counts = corpus["counts"]
+    train_ids, dev_ids = corpus["splits"]["train"], corpus["splits"]["dev"]
+    n_resp = sum(counts.values())
+    print(f"reduced: DAIC corpus of AVEC2017's train / dev layout, 107 + 35 "
+          f"participants cut to {DAIC_TRAIN} + {DAIC_DEV}, {n_resp} "
+          f"responses of {DAIC_SECONDS[0]:g}-{DAIC_SECONDS[1]:g} s "
+          f"({DAIC_RESPONSES[0]}-{DAIC_RESPONSES[1]} a participant), "
+          f"written in {time.perf_counter() - t0:.2f} s; train-daic epochs "
+          f"101 cut to {DAIC_EPOCHS} with the clf gate open; --multimodal "
+          "extraction of the dev split only")
+    feats = work / "Features"
+    data = ["--daic-dir", root]
+    csv = {s: root / f"{s}_split.csv" for s in ("train", "dev")}
+    for split in ("train", "dev"):
+        _, stage_s[f"extract-daic {split}"] = counted(
+            ["extract-daic", *data, "--split-csv", csv[split], "--out",
+             feats, "--split-name", split], dict(ZERO),
+            f"cli extract-daic {split}")
+    xtr, ytr = daic_fe.load_features(feats, "train", "clf")
+    xte, yte = daic_fe.load_features(feats, "dev", "clf")
+    if [f.shape[0] for f in xtr + xte] != [counts[p] for p in
+                                           train_ids + dev_ids]:
+        fail("extract-daic: responses per participant differ from the "
+             "corpus's")
+    if not all(np.isfinite(f).all() and f.shape[1:] == (1, 256)
+               for f in xtr + xte):
+        fail("extract-daic: malformed features")
+    max_r = max(counts.values())
+    n_dev = sum(counts[p] for p in dev_ids)
+    mm = work / "FeaturesMM"
+    _, stage_s["extract-daic dev --multimodal"] = counted(
+        ["extract-daic", *data, "--split-csv", csv["dev"], "--out", mm,
+         "--split-name", "dev", "--multimodal", "--elmo-weights", bundle,
+         "--segmenter", "fallback"],
+        dict(ZERO, lstmp_fwd=4 * -(-n_dev // 128)),
+        "cli extract-daic --multimodal")
+    meta = json.loads((mm / "extraction_meta.json").read_text())
+    _, tt, _ = daic_fe.load_features(mm, "dev", "clf", True)
+    if (meta["embedder"] != bundle_id(bundle)
+            or any(t.shape[1] != meta["text_dim"] or not np.isfinite(t).all()
+                   for t in tt)):
+        fail(f"extract-daic --multimodal: sidecar {meta}, text features "
+             f"{[t.shape for t in tt[:3]]}")
+    if [len(t) for t in tt] != [counts[p] for p in dev_ids]:
+        fail("extract-daic --multimodal: text responses differ from audio")
+    print(f"cli extract-daic: {n_resp} responses, R_max {max_r}; the dev "
+          f"split's {n_dev} transcripts through the bundle "
+          f"({meta['embedder']})")
+
+    originals = _daic_presets(tdaic, C)
+    want_train = daic_train_launches(rnn_cuda, DAIC_TRAIN, max_r,
+                                     tdaic.DAIC_CLF.batch_size)
+    results, ckpts = {}, {}
+    try:
+        for name, argv in (
+                ("clf", ["--track", "clf", "--features", feats,
+                         "--eval-split", "dev"]),
+                ("reg", ["--track", "reg", "--features", feats,
+                         "--eval-split", "dev"]),
+                ("clf fused", ["--track", "clf", *data, "--train-csv",
+                               csv["train"], "--eval-csv", csv["dev"]])):
+            model_dir = work / f"Model {name}"
+            lines, stage_s[f"train-daic {name}"] = counted(
+                ["train-daic", *argv, "--model-dir", model_dir], want_train,
+                f"cli train-daic {name}")
+            results[name] = json.loads(lines[-1])
+            track = name.split()[0]
+            found = sorted(model_dir.glob(f"daic_{track}_*.npz"))
+            if len(found) != 1:
+                fail(f"train-daic {name} wrote {found}")
+            ckpts[name] = found[0].with_suffix("")
+            print(f"cli train-daic {name}: best {json.dumps(results[name])}"
+                  f", launches {want_train}, wall "
+                  f"{stage_s[f'train-daic {name}']:.2f} s [{card}]")
+        fused, two_step = (np.load(f"{ckpts[n]}.npz")
+                           for n in ("clf fused", "clf"))
+        if (results["clf fused"] != results["clf"]
+                or set(fused.files) != set(two_step.files)
+                or not all(np.array_equal(fused[k], two_step[k])
+                           for k in two_step.files)):
+            fail(f"fused train-daic {results['clf fused']} differs from "
+                 f"the two-step run {results['clf']} (or its checkpoint's "
+                 "arrays do)")
+        print(f"cli train-daic clf fused against the two-step run: best "
+              f"and the checkpoint's {len(two_step.files)} arrays bitwise "
+              "equal")
+        for name in ("clf", "reg", "clf fused"):
+            track = name.split()[0]
+            metric = "f1" if track == "clf" else "mae"
+            src = (["--daic-dir", root, "--eval-csv", csv["dev"]]
+                   if name == "clf fused"
+                   else ["--features", feats, "--eval-split", "dev"])
+            lines, wall = counted(["check-daic", "--track", track, *src,
+                                   "--ckpt", ckpts[name]],
+                                  dict(ZERO, gru_fwd=2),
+                                  f"cli check-daic {name}")
+            printed = json.loads(lines[-1])
+            recorded = checkpoints.load_meta(ckpts[name])
+            xs, ys = daic_fe.load_features(feats, "dev", track)
+            exact = tdaic.check_daic(
+                xs, ys, ckpts[name], getattr(tdaic, f"DAIC_{track.upper()}"),
+                device="cuda")
+            # every metric the trainer recorded; the host's metrics give
+            # 0/0 as nan where the trainer's device metrics give 0 (as in
+            # the JAX package)
+            keys = [k for k in exact if k in recorded and k != "epoch"]
+            tol = 1e-6 if track == "clf" else 1e-5
+            d = max(abs(_nan_as_zero(exact[k]) - recorded[k]) for k in keys)
+            shown = max(abs(_nan_as_zero(printed[k]) - recorded[k])
+                        for k in keys)
+            if not (metric in keys and d <= tol and shown <= 5e-5 + tol):
+                fail(f"check-daic {name}: {exact} (printed {printed}) "
+                     f"against the trainer's {recorded}")
+            print(f"cli check-daic {name}: {metric} {printed[metric]}, "
+                  f"max |check_daic - trainer's best| over {keys} "
+                  f"{d:.3e} (tol {tol}), wall {wall:.2f} s [{card}]")
+    finally:
+        tdaic.DAIC_CLF, tdaic.DAIC_REG = originals
+
+    # predict-daic: a dev participant at its cumulative ordinal
+    idx = min(3, len(dev_ids) - 1)
+    pid = dev_ids[idx]
+    start = sum(counts[p] for p in dev_ids[:idx])
+    argv = ["predict-daic", "--task", "daic_clf", *data, "--ckpt",
+            ckpts["clf"], "--participant", pid, "--start-ordinal", start]
+    lines, wall = counted(argv, dict(ZERO, gru_fwd=2), "cli predict-daic")
+    on_card = json.loads(lines[-1])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv] + ["--device", "cpu"])
+    if rc != 0:
+        fail(f"cli predict-daic --device cpu returned {rc}")
+    on_cpu = json.loads(buf.getvalue().strip().splitlines()[-1])
+    d_cpu = compare([on_card], [on_cpu], "predict-daic card vs CPU")
+    # the participant's training-time features give the same prediction
+    served = DaicPredictor.from_checkpoint(ckpts["clf"], "daic_clf",
+                                           device="cuda")
+    d_feat = compare([on_card], served.predict_features([xte[idx]]),
+                     "predict-daic vs its extract-daic features")
+    check_results([on_card], 1, "cli predict-daic")
+    print(f"cli predict-daic {pid} (start ordinal {start}): "
+          f"{json.dumps(on_card)}; card vs CPU max|dprob| {d_cpu:.3e}, vs "
+          f"its extract-daic features {d_feat:.3e} (tol {SLICE_TOL}); wall "
+          f"{wall:.2f} s [{card}]")
+    kernels = daic_kernel_checks(torch, rnn_cuda, card, max_r,
+                                 1 << (max(counts[p] for p in dev_ids) - 1)
+                                 .bit_length())
+    step = daic_graph_check(torch, feats, card)
+    for stage, wall in stage_s.items():
+        print(f"timing DAIC stage cli {stage}: {wall:.2f} s wall [{card}]")
+    return {"launches": counted.launches, "stage_s": stage_s,
+            "kernels": kernels, "step_ms": step, "clf_ckpt": ckpts["clf"],
+            "root": root, "dev_ids": dev_ids}
+
+
+def seeded_daic(work: Path) -> dict:
+    """``--only serve``'s stand-in for phase 9: the DAIC corpus and a
+    seeded full-width ``daic_clf`` checkpoint."""
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.ops import prng
+    from icassp2022_depression_tpu_torch.train import checkpoints
+    from icassp2022_depression_tpu_torch.train import daic as tdaic
+
+    root = work / "daic"
+    corpus = make_daic_corpus(root)
+    cfg = tdaic.DAIC_CLF.model
+    ckpt = checkpoints.save(
+        work / "daic_clf_seeded", porting.audio_net_tree_from_state_dict(
+            AudioNet(cfg, prng.prng_key(5)).state_dict(), cfg),
+        {"embedding_size": cfg.embedding_size})
+    return {"clf_ckpt": ckpt, "root": root,
+            "dev_ids": corpus["splits"]["dev"]}
+
+
+# -- phase 10: the HTTP serving front ---------------------------------------
+
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 4
+SERVE_KW = dict(batch_window_ms=5.0, max_batch=32, max_queue=64)
+SERVE_TOKEN = "chip-smoke-token"
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None,
+          context=None) -> tuple:
+    import http.client
+
+    conn = (http.client.HTTPSConnection("127.0.0.1", port, timeout=300,
+                                        context=context) if context
+            else http.client.HTTPConnection("127.0.0.1", port, timeout=300))
+    try:
+        conn.request(method, path, body, headers or {})
+        r = conn.getresponse()
+        return r.status, r.read(), dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def _http_server(transport, predictor, **kw):
+    """``make_http_server`` on an ephemeral port, served from a thread
+    that is joined on the way out."""
+    import threading
+
+    server = transport.make_http_server(predictor, port=0, **kw)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=60)
+        if t.is_alive():
+            fail("the HTTP server thread did not stop")
+
+
+def _b64(w) -> str:
+    import base64
+
+    import numpy as np
+
+    return base64.b64encode(np.asarray(w, np.int16).tobytes()).decode()
+
+
+def _eatd_bodies(speakers, texts: bool) -> list:
+    """Per speaker: its /predict JSON entry and its /predict_bin part."""
+    import numpy as np
+
+    out = []
+    for sp in speakers:
+        entry = {"wav_b64": [_b64(w) for w in sp.waveforms],
+                 "sr": list(sp.sample_rates)}
+        if texts:
+            entry["texts"] = list(sp.texts)
+        header = dict(entry, n_samples=[len(w) for w in sp.waveforms])
+        del header["wav_b64"]
+        pcm = b"".join(np.asarray(w, np.int16).tobytes()
+                       for w in sp.waveforms)
+        out.append((entry, header, pcm))
+    return out
+
+
+def _bin(parts) -> bytes:
+    header = json.dumps({"speakers": [h for _, h, _ in parts]}).encode()
+    return (len(header).to_bytes(4, "little") + header
+            + b"".join(p for _, _, p in parts))
+
+
+def _close_results(got, want, what: str) -> float:
+    """Served against direct results (probabilities, or scores), within
+    SLICE_TOL of max(1, |score|)."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} results for {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if set(g) != set(w) or g.get("label") != w.get("label"):
+            fail(f"{what}: {g} against {w}")
+        for k in ("probs", "phq8_score", "sds_score"):
+            if k in w:
+                a = w[k] if isinstance(w[k], list) else [w[k]]
+                b = g[k] if isinstance(g[k], list) else [g[k]]
+                d = max(abs(x - y) / max(1.0, abs(y)) for x, y in zip(b, a))
+                if not d <= SLICE_TOL:
+                    fail(f"{what}: {k} differs by {d}")
+                worst = max(worst, d)
+    return worst
+
+
+def _burst(port: int, requests: list, headers: dict) -> tuple:
+    """SERVE_CLIENTS client threads, each sending its SERVE_REQUESTS
+    requests ``(path, body)`` in turn; returns ({(client, k): (status,
+    payload)}, wall seconds)."""
+    import threading
+
+    out = {}
+
+    def client(c):
+        for k in range(SERVE_REQUESTS):
+            path, body = requests[c * SERVE_REQUESTS + k]
+            status, data, _ = _http(port, "POST", path, body, headers)
+            out[(c, k)] = (status, data)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or len(out) != len(requests):
+        fail(f"serve burst: {len(out)} of {len(requests)} answered")
+    return out, wall
+
+
+def _parse_served(path: str, status: int, data: bytes, what: str) -> list:
+    if status != 200:
+        fail(f"{what} {path}: status {status}: {data[:300]!r}")
+    if path == "/predict_stream":
+        lines = [json.loads(ln) for ln in data.splitlines() if ln]
+        if any("result" not in ln for ln in lines):
+            fail(f"{what} /predict_stream: {lines}")
+        return [ln["result"] for ln in
+                sorted(lines, key=lambda ln: ln["index"])]
+    return json.loads(data)["results"]
+
+
+class _CountedCalls:
+    """Counts a predictor's calls of ``method`` (each one device batch)."""
+
+    def __init__(self, predictor, method: str):
+        self.n = 0
+        inner = getattr(predictor, method)
+
+        def call(*args, **kwargs):
+            self.n += 1
+            return inner(*args, **kwargs)
+        setattr(predictor, method, call)
+
+
+def _serve_one(torch, rnn_cuda, transport, card: str, task: str, predictor,
+               requests, per_call: dict, method: str) -> dict:
+    """One task behind ``make_http_server`` (SERVE_KW, the bearer token):
+    the burst of SERVE_CLIENTS x SERVE_REQUESTS requests, sent once to a
+    warm-up server and then to a fresh one with the feature cache emptied,
+    counted (every counter zeroed before, read after: exactly
+    ``per_call`` a device batch), each answer against its reference
+    (``requests``' third field, a direct call of another predictor); a
+    wrong token is a 401; healthz's histograms and cache counters.  The
+    readings are a smoke run's (64 requests over a few speakers), not a
+    throughput.  Returns them."""
+    calls = _CountedCalls(predictor, method)
+    auth = {"Authorization": f"Bearer {SERVE_TOKEN}"}
+    bodies = [(path, body) for path, body, _ in requests]
+    with _http_server(transport, predictor, auth_token=SERVE_TOKEN,
+                      **SERVE_KW) as port:
+        _burst(port, bodies, auth)      # first calls' allocations
+    cache = predictor.feature_cache
+    predictor.feature_cache = type(cache)(cache.max_entries)
+    with _http_server(transport, predictor, auth_token=SERVE_TOKEN,
+                      **SERVE_KW) as port:
+        status, _, hdrs = _http(port, "POST", "/predict", bodies[0][1],
+                                {"Authorization": "Bearer wrong"})
+        if status != 401 or hdrs.get("WWW-Authenticate") != "Bearer":
+            fail(f"serve {task}: a wrong token got {status}")
+        _set_counts(rnn_cuda, ZERO)
+        calls.n = 0
+        out, wall = _burst(port, bodies, auth)
+        torch.cuda.synchronize()
+        got = _counts(rnn_cuda)
+        health = json.loads(_http(port, "GET", "/healthz")[1])
+    want = {k: v * calls.n for k, v in per_call.items()}
+    if got != dict(ZERO, **want):
+        fail(f"serve {task}: {calls.n} device batches launched {got}, "
+             f"expected {want}")
+    worst = 0.0
+    for i, (path, _, ref) in enumerate(requests):
+        status, data = out[divmod(i, SERVE_REQUESTS)]
+        worst = max(worst, _close_results(
+            _parse_served(path, status, data, f"serve {task}"), ref,
+            f"serve {task} {path} vs direct"))
+    b = health["batcher"]
+    if b["requests_served"] != len(requests) or b["pending"] != 0:
+        fail(f"serve {task}: healthz {b}")
+    lat = health["latency"]
+    print(f"serve {task} (smoke reading after a warm-up burst): "
+          f"{len(requests)} requests from {SERVE_CLIENTS} clients in "
+          f"{wall:.3f} s, {b['batches_run']} device batches ({calls.n} "
+          f"predictor calls, launches {got}), feature cache "
+          f"{health['cache']['hits']} hits / {health['cache']['misses']} "
+          f"misses; served vs direct max diff {worst:.3e} (tol "
+          f"{SLICE_TOL}); request latency p50 / p90 / p99 "
+          f"{lat['request']['p50_ms']} / {lat['request']['p90_ms']} / "
+          f"{lat['request']['p99_ms']} ms, device batch "
+          f"{lat['device_batch']['p50_ms']} / {lat['device_batch']['p90_ms']}"
+          f" / {lat['device_batch']['p99_ms']} ms (healthz histograms; "
+          f"window {SERVE_KW['batch_window_ms']} ms, max batch "
+          f"{SERVE_KW['max_batch']}) [{card}]")
+    return {"launches": got, "wall": wall, "batches": b["batches_run"],
+            "latency": lat, "cache": health["cache"], "worst": worst}
+
+
+def _overload_and_tls(transport, card: str, predictor, entry,
+                      ref) -> None:
+    """Overload on a server with one pending speaker allowed: 503 with
+    Retry-After, the admitted answers right; then HTTPS with a
+    self-signed certificate where ``openssl`` is present."""
+    import shutil
+    import ssl
+    import threading
+
+    body = json.dumps({"speakers": [entry]})
+    out = {}
+    with _http_server(transport, predictor, batch_window_ms=300.0,
+                      max_batch=1, max_queue=1) as port:
+        def one(i):
+            out[i] = _http(port, "POST", "/predict", body)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    statuses = sorted(s for s, _, _ in out.values())
+    if 503 not in statuses or 200 not in statuses:
+        fail(f"overload: statuses {statuses}")
+    for status, data, hdrs in out.values():
+        if status == 503 and hdrs.get("Retry-After") != "1":
+            fail(f"a 503 without Retry-After: {hdrs}")
+        if status == 200:
+            _close_results(json.loads(data)["results"], ref,
+                           "overload: an admitted request")
+    print(f"serve overload (max_queue 1, max_batch 1, 6 concurrent): "
+          f"statuses {statuses}, 503s carry Retry-After: 1")
+    if shutil.which("openssl") is None:
+        print("serve TLS: skipped (no openssl on this machine to mint a "
+              "certificate)")
+        return
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tls_") as tmp:
+        cert, key = Path(tmp) / "crt.pem", Path(tmp) / "key.pem"
+        subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                        "-nodes", "-keyout", str(key), "-out", str(cert),
+                        "-days", "1", "-subj", "/CN=127.0.0.1"],
+                       capture_output=True, check=True, timeout=120)
+        ctx = ssl.create_default_context(cafile=str(cert))
+        ctx.check_hostname = False
+        with _http_server(transport, predictor, tls_cert=str(cert),
+                          tls_key=str(key)) as port:
+            status, data, _ = _http(port, "POST", "/predict", body,
+                                    context=ctx)
+    if status != 200:
+        fail(f"serve TLS: status {status}")
+    d = _close_results(json.loads(data)["results"], ref, "serve TLS")
+    print(f"serve TLS (self-signed, single-threaded): served vs direct "
+          f"{d:.3e} [{card}]")
+
+
+def serve_phase(torch, card: str, daic: dict) -> dict:
+    """Phase 10, the HTTP front on the card (``make_http_server`` on port
+    0 in a thread): ``audio_clf`` (seeded, full width), stand-in
+    ``fuse_clf`` (seeded, ``elmo_weights=None``, feature cache off so each
+    device batch embeds) and ``daic_clf`` (phase 9's checkpoint), each
+    with SERVE_KW and a bearer token; counted bursts of SERVE_CLIENTS x
+    SERVE_REQUESTS requests over /predict, /predict_bin and
+    /predict_stream (DAIC: /predict), every answer within SLICE_TOL of a
+    direct ``predict_batch`` / ``predict_signals`` of another predictor on
+    the same speakers; then overload (503 + Retry-After), a wrong token
+    (401) and TLS.  Returns the launches and the readings."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.models import porting
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
+    from icassp2022_depression_tpu_torch.serving import transport
+    from icassp2022_depression_tpu_torch.serving.predictors import (
+        DaicPredictor,
+        Predictor,
+    )
+    from icassp2022_depression_tpu_torch.train import checkpoints
+
+    launches = dict(ZERO)
+    readings = {}
+    n_req = SERVE_CLIENTS * SERVE_REQUESTS
+    paths = ("/predict", "/predict_bin", "/predict_stream", "/predict")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        root = Path(tmp) / "corpus"
+        eatd.make_synthetic_corpus(root, n_data=12, n_validation=4,
+                                   seconds=(2.0, 6.0), seed=9)
+        speakers = list(eatd.iter_speakers(root, read_text=True))
+        trees = {
+            "audio_clf": ("audio", C.AUDIO_CLF.model,
+                          AudioNet(C.AUDIO_CLF.model, prng.prng_key(21))),
+            "fuse_clf": ("fusion", C.FUSE_CLF,
+                         FusionNet(C.FUSE_CLF, prng.prng_key(22)))}
+        for task, (kind, cfg, model) in trees.items():
+            ckpt = checkpoints.save(
+                Path(tmp) / task,
+                {"audio": porting.audio_net_tree_from_state_dict,
+                 "fusion": porting.fusion_tree_from_state_dict}[kind](
+                     model.state_dict(), cfg),
+                {"task": task, "text_embedder": "prng:seed=0",
+                 "text_segmenter": "fallback"})
+            kw = dict(device="cuda")
+            if task == "fuse_clf":
+                kw.update(elmo_weights=None, feature_cache_entries=0)
+            predictor = Predictor.from_checkpoint(ckpt, task, **kw)
+            direct = Predictor.from_checkpoint(ckpt, task, **kw)
+            parts = _eatd_bodies(speakers, texts=task == "fuse_clf")
+            requests = []
+            for i in range(n_req):
+                j = i % len(speakers)
+                path = paths[i % len(paths)]
+                entry, header, pcm = parts[j]
+                body = (_bin([parts[j]]) if path == "/predict_bin"
+                        else json.dumps({"speakers": [entry]}))
+                ref = direct.predict_batch(
+                    [speakers[j].waveforms], [speakers[j].sample_rates],
+                    [speakers[j].texts] if task == "fuse_clf" else None)
+                requests.append((path, body, ref))
+            per_call = (dict(gru_fwd=2) if task == "audio_clf"
+                        else dict(gru_fwd=2, lstm_fwd=8))
+            readings[task] = _serve_one(torch, rnn_cuda, transport, card,
+                                        task, predictor, requests, per_call,
+                                        "predict_batch")
+            if task == "audio_clf":
+                _overload_and_tls(transport, card, predictor, parts[0][0],
+                                  requests[0][2])
+        # DAIC: dev participants' first 8-31 responses as int16 PCM
+        predictor = DaicPredictor.from_checkpoint(daic["clf_ckpt"],
+                                                  "daic_clf", device="cuda")
+        direct = DaicPredictor.from_checkpoint(daic["clf_ckpt"], "daic_clf",
+                                               device="cuda")
+        queries = daic_fe.load_queries()
+        rng = np.random.default_rng(10)
+        requests = []
+        sessions = {}
+        for pid in daic["dev_ids"]:
+            sig, sr = daic_fe.participant_signals(daic["root"], pid, queries)
+            sessions[pid] = (sig, sr)
+        for i in range(n_req):
+            pid = daic["dev_ids"][i % len(daic["dev_ids"])]
+            sig, sr = sessions[pid]
+            k = int(rng.integers(8, 32))
+            resp = [np.asarray(w, np.int16) for w in sig[:k]]
+            body = json.dumps({"participants": [{
+                "responses_b64": [_b64(w) for w in resp], "sr": sr}]})
+            ref = direct.predict_signals([resp], [sr])
+            requests.append(("/predict", body, ref))
+        readings["daic_clf"] = _serve_one(
+            torch, rnn_cuda, transport, card, "daic_clf", predictor,
+            requests, dict(gru_fwd=2), "predict_signals")
+    for r in readings.values():
+        for k, v in r["launches"].items():
+            launches[k] += v
+    return {"launches": launches, "readings": readings}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer"],
+    ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
+                                       "daic", "serve"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
                          "GRU and LSTM kernels' fold-axis checks and the "
                          "fold program's (graph, resume, stacked folds) on "
-                         "random features")
+                         "random features; daic: phase 9 (with a seeded "
+                         "bundle); serve: phase 10 (with a seeded DAIC "
+                         "checkpoint)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3040,10 +3879,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = (("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd")
-             if args.only == "trainer"
-             else (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
-             else SOURCES)
+    names = {"trainer": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd"),
+             "daic": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
+             "serve": ("gru_fwd", "lstm_fwd")}.get(
+        args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
+        else SOURCES)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(so.name for so in libs)} in "
@@ -3059,6 +3899,18 @@ def main(argv=None) -> int:
                  + 0.5 * torch.as_tensor(clf)[:, None, None]).cuda()
         xt = torch.randn((36, 3, 1024), generator=gen).cuda()
         trainer_phase(torch, rnn_cuda, card, feats, clf, xt)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
+    if args.only in ("daic", "serve"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_daic_") as tmp:
+            work = Path(tmp)
+            if args.only == "daic":
+                bundle, _ = seeded_bundle(torch, work / "elmo_seeded.npz",
+                                          "")
+                daic_phase(torch, card, bundle, work)
+            else:
+                serve_phase(torch, card, seeded_daic(work))
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
@@ -3122,12 +3974,17 @@ def main(argv=None) -> int:
         checked = check_phase(torch, card, corpus, bundle, train)
         text_launches, text_latency = text_serving_phase(torch, card, bundle,
                                                          chars)
+        daic = daic_phase(torch, card, bundle, Path(tmp))
+        served = serve_phase(torch, card, daic)
     standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
-        launches[k] += v + standin_launches[k] + checked["launches"][k]
+        launches[k] += (v + standin_launches[k] + checked["launches"][k]
+                        + daic["launches"][k] + served["launches"][k])
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
+    if daic["launches"]["gru_bwd_streamed"] <= 0:
+        fail(f"the DAIC path never reached TPU kernel #3: {daic['launches']}")
     if "jax" in sys.modules:
         fail("jax was imported")
     for track in ("clf", "reg"):
@@ -3140,6 +3997,17 @@ def main(argv=None) -> int:
     print(f"timing at 83 + 79 speakers: cli extract-audio "
           f"{checked['extract_s']:.2f} s, cli check --task fuse_clf --corpus "
           f"{checked['check_s']:.2f} s wall [{card}]")
+    print(f"timing DAIC: a clf train step {daic['step_ms']:.3f} ms under the "
+          "graph; stages " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in daic["stage_s"].items())
+          + f" [{card}]")
+    for task, r in served["readings"].items():
+        print(f"timing serve {task} through the HTTP front (smoke "
+              f"reading, not a throughput): {SERVE_CLIENTS * SERVE_REQUESTS}"
+              f" requests in {r['wall']:.3f} s, {r['batches']} device "
+              f"batches, cache {r['cache']['hits']} hits / "
+              f"{r['cache']['misses']} misses, request p50 "
+              f"{r['latency']['request']['p50_ms']} ms [{card}]")
     print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 
@@ -3152,13 +4020,21 @@ def main(argv=None) -> int:
         **{(f"lstmp_{d}", k): v[d][0] for k, v in lstmp_times.items()
            for d in ("fwd", "bwd")}})
     bounds = kernel_bounds()
-    # one entry per TPU kernel: #3 and #5 are #2's and #8's sources timed
-    # at the streamed T = 256, their launches the backward calls at the
-    # shapes the JAX package streams (none on a main path)
+    # one entry per TPU kernel: #3 and #5 are #2's and #8's sources; #3 is
+    # timed at its main path's shape (the DAIC train batch, phase 9), #5 at
+    # the streamed T = 256 (no main path reaches it); their launches are
+    # the backward calls at the shapes the JAX package streams
+    dk = daic["kernels"]
+    if dk["name"] != "gru_bwd_streamed":
+        fail(f"the DAIC shape {dk['shape']} is not one the JAX package "
+             "streams")
+    bounds["gru_bwd_streamed"] = dk["bound"]
+    library["gru_bwd_streamed"] = dk["cudnn_ms"]
     timed = {
-        "gru_fwd": (kernel_times[TIMED_SHAPES[0]], err, "gru_fwd"),
+        "gru_fwd": (kernel_times[TIMED_SHAPES[0]], max(err, dk["fwd_err"]),
+                    "gru_fwd"),
         "gru_bwd": (bwd_times[BWD_TIMED[0]], bwd_err, "gru_bwd"),
-        "gru_bwd_streamed": (bwd_times[BWD_TIMED[-1]], bwd_err,
+        "gru_bwd_streamed": ((dk["ms"], dk["plain_ms"]), dk["bwd_err"],
                              "gru_bwd_streamed"),
         "lstm_fwd": (lstm_times[LSTM_TIMED[0]]["fwd"],
                      max(lstm_err["fwd"], standin_err), "lstm_fwd"),

@@ -19,6 +19,19 @@
       --ckpt ckpt.npz --out ref.pt
   python -m icassp2022_depression_tpu_torch.cli parity --root ./corpus \\
       [--ckpt-dir Model | --from-report report.json]
+  python -m icassp2022_depression_tpu_torch.cli serve --task audio_clf \\
+      --ckpt ckpt.npz [--batch-window-ms 5 --max-batch 32 --max-queue 128]
+  python -m icassp2022_depression_tpu_torch.cli extract-daic \\
+      --daic-dir ./daic --split-csv train_split.csv --out ./DaicFeatures
+  python -m icassp2022_depression_tpu_torch.cli train-daic --track clf \\
+      (--features ./DaicFeatures | --daic-dir ./daic --train-csv A \\
+      --eval-csv B) --model-dir ./Model
+  python -m icassp2022_depression_tpu_torch.cli check-daic --track clf \\
+      --ckpt Model/daic_clf_0.67 (--features ./DaicFeatures | --daic-dir \\
+      ./daic --eval-csv B)
+  python -m icassp2022_depression_tpu_torch.cli predict-daic \\
+      --task daic_clf --ckpt Model/daic_clf_0.67 --daic-dir ./daic \\
+      --participant 300
 
 Every subcommand that computes runs on ``--device`` (default ``cuda``); on
 a machine without a card it raises unless ``--device cpu`` is given.
@@ -55,6 +68,15 @@ anew, and prints one JSON line per fold and one of their mean.
 saved report (``--from-report``), of a reference ``Model/`` tree of
 checkpoints (``--ckpt-dir``) or of both tracks trained anew.  The lines
 printed are the JAX CLI's.
+
+``serve`` runs the HTTP front (:mod:`.serving.transport`) around one
+checkpoint of any EATD task or of a DAIC model (``--task daic_clf|
+daic_reg``).  ``extract-daic`` writes a DAIC split's features in the
+reference's layout (``--multimodal``: the per-response text too);
+``train-daic`` trains on two such splits or, with ``--daic-dir``, on
+features extracted on the device (no npz); ``check-daic`` recomputes a
+DAIC checkpoint's eval-split metrics; ``predict-daic`` serves one raw
+session.
 """
 
 from __future__ import annotations
@@ -70,6 +92,7 @@ import torch
 
 from icassp2022_depression_tpu_torch.serving.predictors import (
     TASKS,
+    DaicPredictor,
     Predictor,
     default_device,
     model_config,
@@ -815,6 +838,236 @@ def cmd_parity(args):
     return rc
 
 
+def cmd_extract_daic(args):
+    """A DAIC split's features in the reference's layout (``--multimodal``:
+    also the per-response text modality and ``extraction_meta.json``)."""
+    from icassp2022_depression_tpu_torch.frontend import daic
+
+    _reject((("--elmo-tp", args.elmo_tp > 1, _MULTI_GPU),))
+    queries = Path(args.queries) if args.queries else None
+    device = _device(args)
+    if args.multimodal:
+        features, _, _, _ = daic.extract_split_multimodal(
+            Path(args.daic_dir), Path(args.split_csv), queries,
+            out_prefix=Path(args.out), split_name=args.split_name,
+            seed=args.seed, elmo_weights=args.elmo_weights,
+            segmenter=args.segmenter, device=device)
+    else:
+        features, _, _ = daic.extract_split(
+            Path(args.daic_dir), Path(args.split_csv), queries,
+            out_prefix=Path(args.out), split_name=args.split_name,
+            device=device)
+    counts = [f.shape[0] for f in features]
+    print(f"{len(features)} participants, responses per participant: "
+          f"min {min(counts, default=0)} max {max(counts, default=0)} "
+          f"-> {args.out}"
+          + (" (+ text modality)" if args.multimodal else ""))
+    return 0
+
+
+def _daic_tcfg(track: str, dim: int):
+    """The track's preset (resolved at call time) at input width ``dim``."""
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.train import daic as daic_train
+
+    base = daic_train.DAIC_CLF if track == "clf" else daic_train.DAIC_REG
+    return C.replace(base, model=C.replace(base.model, embedding_size=dim))
+
+
+def cmd_train_daic(args):
+    """Train on the AVEC2017 splits: from ``extract-daic`` npz features,
+    or with ``--daic-dir`` from features extracted on the device."""
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.train import daic as daic_train
+
+    device = _device(args)
+    meta_extras = None
+    if args.daic_dir:
+        if args.multimodal:
+            raise SystemExit("--daic-dir (fused extract->train) is "
+                             "audio-only - the text modality needs the "
+                             "ELMo pipeline's artifacts (extract-daic "
+                             "--multimodal first, then --features)")
+        if not (args.train_csv and args.eval_csv):
+            raise SystemExit("--daic-dir requires --train-csv and "
+                             "--eval-csv (AVEC2017 split files)")
+        if args.features:
+            raise SystemExit("--daic-dir and --features are mutually "
+                             "exclusive (fused vs persisted-npz path)")
+        queries = Path(args.queries) if args.queries else None
+        x_tr, cl_tr, rl_tr = daic_fe.extract_split_device(
+            Path(args.daic_dir), Path(args.train_csv), queries,
+            device=device)
+        x_te, cl_te, rl_te = daic_fe.extract_split_device(
+            Path(args.daic_dir), Path(args.eval_csv), queries,
+            device=device)
+        for split, labels, csv in (("train", cl_tr, args.train_csv),
+                                   ("eval", cl_te, args.eval_csv)):
+            if len(labels) == 0:
+                raise SystemExit(
+                    f"--daic-dir {args.daic_dir}: no participants "
+                    f"extracted for the {split} split ({csv}) - check "
+                    "the CSV's Participant_ID column against the "
+                    "<id>_P/ session dirs")
+        y_tr, y_te = ((cl_tr, cl_te) if args.track == "clf"
+                      else (rl_tr, rl_te))
+        dim = int(x_tr.flat.shape[-1])
+    else:
+        if not args.features:
+            raise SystemExit("train-daic needs --features (persisted npz "
+                             "prefix) or --daic-dir (fused "
+                             "extract->train)")
+        prefix = Path(args.features)
+        if args.multimodal:
+            xa_tr, xt_tr, y_tr = daic_fe.load_features(
+                prefix, "train", args.track, True)
+            xa_te, xt_te, y_te = daic_fe.load_features(
+                prefix, args.eval_split, args.track, True)
+            x_tr = daic_train.concat_multimodal(xa_tr, xt_tr)
+            x_te = daic_train.concat_multimodal(xa_te, xt_te)
+            # the text provenance of extract-daic's sidecar -> checkpoint
+            # sidecar (DaicPredictor adopts segmenter and seed)
+            meta_p = prefix / "extraction_meta.json"
+            if meta_p.exists():
+                m = json.loads(meta_p.read_text())
+                meta_extras = {"text_embedder": m.get("embedder"),
+                               "text_segmenter": m.get("segmenter"),
+                               "text_seed": m.get("seed")}
+        else:
+            x_tr, y_tr = daic_fe.load_features(prefix, "train", args.track)
+            x_te, y_te = daic_fe.load_features(prefix, args.eval_split,
+                                               args.track)
+        dim = x_tr[0].shape[-1] if x_tr else 0
+    result = daic_train.train_daic(
+        x_tr, y_tr, x_te, y_te, _daic_tcfg(args.track, dim),
+        out_dir=Path(args.model_dir) if args.model_dir else None,
+        seed=args.seed, meta_extras=meta_extras, device=device)
+    print(json.dumps({k: round(v, 4) for k, v in result["best"].items()
+                      if k != "params"}))
+    return 0
+
+
+def cmd_check_daic(args):
+    """A DAIC checkpoint's eval-split metrics, from npz features or, with
+    ``--daic-dir``, from the split extracted anew (the checkpoints of
+    ``train-daic --daic-dir``)."""
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.train import daic as daic_train
+
+    device = _device(args)
+    if args.daic_dir:
+        if args.multimodal:
+            raise SystemExit("--daic-dir re-extraction is audio-only "
+                             "(multimodal needs extract-daic --multimodal "
+                             "artifacts via --features)")
+        if not args.eval_csv:
+            raise SystemExit("--daic-dir requires --eval-csv")
+        if args.features:
+            raise SystemExit("--daic-dir and --features are mutually "
+                             "exclusive")
+        if args.eval_split is not None:
+            raise SystemExit("--eval-split names a persisted npz split "
+                             "and has no effect with --daic-dir (the "
+                             "--eval-csv file alone selects the split)")
+        queries = Path(args.queries) if args.queries else None
+        x, cl, rl = daic_fe.extract_split(Path(args.daic_dir),
+                                          Path(args.eval_csv), queries,
+                                          device=device)
+        y = cl if args.track == "clf" else rl
+    elif args.features:
+        if args.queries:
+            raise SystemExit("--queries only applies to --daic-dir "
+                             "re-extraction (persisted npz features are "
+                             "already segmented)")
+        prefix = Path(args.features)
+        eval_split = args.eval_split or "test"
+        if args.multimodal:
+            xa, xt, y = daic_fe.load_features(prefix, eval_split,
+                                              args.track, True)
+            x = daic_train.concat_multimodal(xa, xt)
+        else:
+            x, y = daic_fe.load_features(prefix, eval_split, args.track)
+    else:
+        raise SystemExit("check-daic needs --features (persisted npz "
+                         "prefix) or --daic-dir + --eval-csv")
+    dim = x[0].shape[-1] if x else 0
+    out = daic_train.check_daic(x, y, args.ckpt,
+                                _daic_tcfg(args.track, dim), device=device)
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in out.items()}))
+    return 0
+
+
+def _daic_embedder_kw(args) -> dict:
+    """serve / predict-daic: the multimodal text embedder's flags as
+    :class:`DaicPredictor` kwargs; 'auto' / None values are left out so
+    that ``from_checkpoint``'s sidecar adoption decides."""
+    kw = {}
+    if getattr(args, "multimodal", False):
+        kw["multimodal"] = True
+    if getattr(args, "elmo_weights", "auto") != "auto":
+        kw["elmo_weights"] = args.elmo_weights or None
+    if getattr(args, "segmenter", None):
+        kw["segmenter"] = args.segmenter
+    if getattr(args, "embed_seed", None) is not None:
+        kw["seed"] = args.embed_seed
+    return kw
+
+
+def cmd_predict_daic(args):
+    """A PHQ8 prediction for one raw DAIC session from a ``train-daic``
+    checkpoint."""
+    p = DaicPredictor.from_checkpoint(args.ckpt, args.task,
+                                      device=_device(args),
+                                      **_daic_embedder_kw(args))
+    result = p.predict_participant(
+        Path(args.daic_dir), args.participant,
+        queries_path=Path(args.queries) if args.queries else None,
+        start_ordinal=args.start_ordinal)
+    result["participant"] = args.participant
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_serve(args):
+    """The HTTP front around one checkpoint (runs until interrupted)."""
+    from icassp2022_depression_tpu_torch.serving import transport
+
+    _reject((("--audio-embedder vggish", args.audio_embedder == "vggish",
+              _VGGISH),
+             ("--vggish-ckpt/--pca-params",
+              bool(args.vggish_ckpt or args.pca_params), _VGGISH)))
+    device = _device(args)
+    if args.task.startswith("daic"):
+        predictor = DaicPredictor.from_checkpoint(
+            args.ckpt, args.task, device=device, **_daic_embedder_kw(args))
+        if predictor.multimodal:
+            print("serve: multimodal DAIC model - requests must carry "
+                  "per-response 'texts' aligned with responses_b64",
+                  file=sys.stderr)
+        if args.warmup:
+            print("note: --warmup is a no-op for DAIC serving (shapes "
+                  "depend on per-session response counts)",
+                  file=sys.stderr)
+    else:
+        kw = {"device": device}
+        # default: from_checkpoint adopts the sidecar's segmenter
+        if args.segmenter:
+            kw["segmenter"] = args.segmenter
+        if args.embed_seed is not None:
+            kw["seed"] = args.embed_seed
+        predictor = Predictor.from_checkpoint(args.ckpt, args.task, **kw)
+        if args.warmup:
+            with transport.predictor_scope(predictor):
+                predictor.warmup()
+    transport.serve_http(predictor, args.host, args.port,
+                         batch_window_ms=args.batch_window_ms,
+                         max_batch=args.max_batch, max_queue=args.max_queue,
+                         auth_token=args.auth_token,
+                         tls_cert=args.tls_cert, tls_key=args.tls_key)
+    return 0
+
+
 _DEVICE_HELP = ("torch device (default cuda; without a card this raises "
                 "unless --device cpu is given)")
 
@@ -990,6 +1243,146 @@ def build_parser():
     sp.add_argument("--vmap-folds", action="store_true",
                     help="train both tracks as pipeline --vmap-folds does")
     sp.set_defaults(fn=cmd_parity)
+
+    sp = sub.add_parser("extract-daic", help="DAIC-WOZ features")
+    sp.add_argument("--daic-dir", required=True)
+    sp.add_argument("--split-csv", required=True)
+    sp.add_argument("--queries", default=None,
+                    help="question-bank file (default: the bundled DAIC "
+                         "table, data/daic_queries.txt)")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--split-name", default="train")
+    sp.add_argument("--multimodal", action="store_true",
+                    help="also extract the per-response text modality "
+                         "(the reference drops it)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--elmo-weights", default="auto")
+    sp.add_argument("--segmenter", default="auto",
+                    help="text-modality segmenter (--multimodal only; see "
+                         "extract-text --segmenter)")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    # the JAX CLI's option that a later slice brings (cmd_extract_daic)
+    sp.add_argument("--elmo-tp", type=int, default=0)
+    sp.set_defaults(fn=cmd_extract_daic)
+
+    sp = sub.add_parser("train-daic", help="DAIC-WOZ downstream training")
+    sp.add_argument("--track", required=True, choices=["clf", "reg"])
+    sp.add_argument("--daic-dir",
+                    help="fused extract->train from a raw DAIC directory: "
+                         "one extraction pass per split on the device "
+                         "(requires --train-csv/--eval-csv; audio-only; no "
+                         "npz written)")
+    sp.add_argument("--train-csv",
+                    help="AVEC2017 train split CSV (with --daic-dir)")
+    sp.add_argument("--eval-csv",
+                    help="AVEC2017 dev/test split CSV (with --daic-dir)")
+    sp.add_argument("--queries", default=None,
+                    help="question-bank file (with --daic-dir; default: the "
+                         "bundled table)")
+    sp.add_argument("--features", required=False,
+                    help="directory written by extract-daic")
+    sp.add_argument("--eval-split", default="test",
+                    help="split name used for gating/eval (e.g. dev/test)")
+    sp.add_argument("--model-dir")
+    sp.add_argument("--multimodal", action="store_true")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.set_defaults(fn=cmd_train_daic)
+
+    sp = sub.add_parser("check-daic",
+                        help="recompute DAIC eval-split metrics from a "
+                             "train-daic checkpoint")
+    sp.add_argument("--track", required=True, choices=["clf", "reg"])
+    sp.add_argument("--features", required=False)
+    sp.add_argument("--daic-dir",
+                    help="re-extract the eval split from this raw DAIC dir "
+                         "(with --eval-csv; the checkpoints of train-daic "
+                         "--daic-dir)")
+    sp.add_argument("--eval-csv", help="AVEC2017 split CSV (with --daic-dir)")
+    sp.add_argument("--queries", default=None,
+                    help="question-bank file (with --daic-dir; default: the "
+                         "bundled table)")
+    sp.add_argument("--ckpt", required=True)
+    sp.add_argument("--eval-split", default=None,
+                    help="persisted npz split name (with --features; "
+                         "default 'test')")
+    sp.add_argument("--multimodal", action="store_true")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.set_defaults(fn=cmd_check_daic)
+
+    sp = sub.add_parser("predict-daic",
+                        help="serve one raw DAIC session from a train-daic "
+                             "checkpoint")
+    sp.add_argument("--task", required=True, choices=list(
+        DaicPredictor.TASKS))
+    sp.add_argument("--daic-dir", required=True)
+    sp.add_argument("--ckpt", required=True)
+    sp.add_argument("--participant", type=int, required=True)
+    sp.add_argument("--queries",
+                    help="question bank (default: the bundled "
+                         "data/daic_queries.txt)")
+    sp.add_argument("--start-ordinal", type=int, default=0,
+                    help="cumulative utterance ordinal of this participant "
+                         "in its split (reproduces training-time NetVLAD "
+                         "features)")
+    sp.add_argument("--multimodal", action="store_true",
+                    help="force multimodal serving (audio + per-response "
+                         "text); checkpoints of train-daic are detected "
+                         "from their recorded embedding_size")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="multimodal text embedder bundle (as extract-daic "
+                         "--elmo-weights; '' = the seeded stand-in)")
+    sp.add_argument("--segmenter", default=None,
+                    help="multimodal text segmenter (as extract-daic "
+                         "--segmenter)")
+    sp.add_argument("--embed-seed", type=int, default=None,
+                    help="stand-in text-embedder seed (default: the "
+                         "checkpoint's recorded extraction seed)")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    sp.set_defaults(fn=cmd_predict_daic)
+
+    sp = sub.add_parser("serve", help="HTTP serving front (stdlib)")
+    sp.add_argument("--task", required=True,
+                    choices=list(TASKS) + list(DaicPredictor.TASKS))
+    sp.add_argument("--ckpt", required=True)
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--warmup", action="store_true",
+                    help="run the standard serving shapes once at startup")
+    sp.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help=">0: threaded server that micro-batches concurrent "
+                         "requests into one device batch")
+    sp.add_argument("--max-batch", type=int, default=32)
+    sp.add_argument("--max-queue", type=int, default=128,
+                    help="admission bound (pending speakers); overload sheds "
+                         "with 503 + Retry-After instead of queueing "
+                         "unboundedly")
+    sp.add_argument("--auth-token", default=None,
+                    help="require 'Authorization: Bearer <token>' on "
+                         "prediction endpoints (healthz stays open)")
+    sp.add_argument("--tls-cert", default=None,
+                    help="PEM certificate chain: serve HTTPS")
+    sp.add_argument("--tls-key", default=None,
+                    help="PEM private key for --tls-cert")
+    sp.add_argument("--segmenter", default=None,
+                    help="override the text segmenter (default: adopt the "
+                         "one recorded by the checkpoint's training "
+                         "features)")
+    sp.add_argument("--elmo-weights", default="auto",
+                    help="text embedder bundle for multimodal DAIC serving "
+                         "('' = the seeded stand-in; EATD tasks resolve as "
+                         "predict does)")
+    sp.add_argument("--embed-seed", type=int, default=None,
+                    help="stand-in text-embedder seed (EATD tasks: default "
+                         "0; DAIC: the checkpoint's recorded extraction "
+                         "seed)")
+    sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    # the JAX CLI's VGGish options arrive with item 17 (cmd_serve)
+    sp.add_argument("--audio-embedder", choices=["netvlad", "vggish"],
+                    default="netvlad")
+    sp.add_argument("--vggish-ckpt")
+    sp.add_argument("--pca-params")
+    sp.set_defaults(fn=cmd_serve)
     return p
 
 

@@ -76,18 +76,31 @@ class AudioNet(nn.Module):
         self.fc_audio = nn.Sequential(*head)
 
     def features(self, x: torch.Tensor,
-                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 key: Optional[torch.Tensor] = None,
+                 time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, T, D] -> pooled hidden [B, H * num_dirs] (pre-head); the
-        GRU's masks from ``split(key)[1]``."""
+        GRU's masks from ``split(key)[1]``.
+
+        ``time_mask`` [B, T] restricts the pooling to the valid steps (the
+        ragged DAIC batches: responses padded at the tail to a common
+        count).  The GRU still runs over the padded steps; mean pooling
+        divides by ``max(sum(mask), 1)``, as the JAX package does."""
         if self.cfg.input_layernorm:
             x = layer_norm(x, self.ln.weight, self.ln.bias)
         k_rnn = split2(key)[1] if self.training else None
         y, _, _ = self.lstm_net_audio(x, k_rnn)
+        if self.cfg.pooling not in ("mean", "sum"):
+            raise ValueError(
+                f"unsupported audio pooling {self.cfg.pooling!r}")
+        if time_mask is not None:
+            m = time_mask.to(y.dtype).unsqueeze(-1)
+            pooled = (y * m).sum(dim=-2)
+            if self.cfg.pooling == "mean":
+                return pooled / torch.clamp(m.sum(dim=-2), min=1.0)
+            return pooled
         if self.cfg.pooling == "mean":
             return y.mean(dim=-2)
-        if self.cfg.pooling == "sum":
-            return y.sum(dim=-2)
-        raise ValueError(f"unsupported audio pooling {self.cfg.pooling!r}")
+        return y.sum(dim=-2)
 
     def head(self, pooled: torch.Tensor,
              key: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -105,12 +118,14 @@ class AudioNet(nn.Module):
         return linear(h, fc2.weight, fc2.bias)
 
     def forward(self, x: torch.Tensor,
-                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None,
+                time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
         scores (reg); in train mode the masks come from ``key`` (none
-        without one), split as ``audio_net.apply`` splits it."""
+        without one), split as ``audio_net.apply`` splits it.
+        ``time_mask`` [B, T]: see :meth:`features`."""
         k_feat, k_head = split2(key) if self.training else (None, None)
-        out = self.head(self.features(x, k_feat), k_head)
+        out = self.head(self.features(x, k_feat, time_mask), k_head)
         if self.cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if self.cfg.head_activation == "relu":

@@ -22,8 +22,9 @@ everything on the plain versions).
 
 Checkpoints are npz files of either package or the reference's ``.pt``
 pickles (:meth:`Predictor.from_checkpoint` dispatches on the extension).
-Not ported yet: the VGGish embedder, the DAIC predictor and the HTTP
-transport.
+:class:`DaicPredictor` serves the DAIC models of :mod:`..train.daic` (a raw
+interview session, or its response signals, -> PHQ8); the HTTP front is
+:mod:`.transport`.  Not ported yet: the VGGish embedder.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from icassp2022_depression_tpu_torch import config as C
 from icassp2022_depression_tpu_torch.frontend import audio as audio_fe
+from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
 from icassp2022_depression_tpu_torch.frontend import text as text_fe
 from icassp2022_depression_tpu_torch.models import elmo, porting
 from icassp2022_depression_tpu_torch.train import checkpoints
@@ -286,6 +288,11 @@ class Predictor:
             raise ValueError(
                 f"task {self.task!r} needs 3 waveforms (+ sample rates) per "
                 "speaker; got None")
+        if len(sample_rates) != len(waveforms_per_speaker) or any(
+                len(w) != 3 or len(sr) != 3 for w, sr in
+                zip(waveforms_per_speaker, sample_rates)):
+            raise ValueError("every speaker needs exactly 3 waveforms and "
+                             "3 sample rates (positive, neutral, negative)")
         return [
             _FeatureCache.key(
                 ["audio", self.audio_embedder,
@@ -433,3 +440,305 @@ class Predictor:
                     [f"warm {n} {i} 你 好", f"warm {n} {i} 还 可以",
                      f"warm {n} {i} 有点 累"] for i in range(n)]
             self.predict_batch(**kw)
+
+
+class DaicPredictor:
+    """Serves a DAIC checkpoint (:mod:`..train.daic`) end to end: a raw
+    interview session (transcript CSV + whole-session wav, segmented by the
+    bundled question bank as extraction segments it,
+    ``DAICFeatureExtarction/feature_extraction.py:31-64``) or its
+    pre-segmented response signals -> PHQ8 binary / score.
+
+    Response counts are ragged: a batch pads its responses to a power of
+    two with a validity mask, and its participants to a power of two with
+    all-ones masks (no 0/0 in the padded rows' mean pooling).  Features
+    stay on the device from extraction to the forward, and every response's
+    features are memoised in the LRU (:class:`_FeatureCache`), keyed by
+    its ordinal, sample rate, waveform (and transcript)."""
+
+    TASKS = ("daic_clf", "daic_reg")
+
+    def __init__(self, model, task: str, tcfg=None,
+                 frontend_cfg: C.FrontendConfig = C.FrontendConfig(),
+                 multimodal: bool = False, elmo_cfg=None, elmo_params=None,
+                 seed: int = 0, elmo_weights: Optional[str] = "auto",
+                 segmenter: str = "auto",
+                 feature_cache_entries: int = 1024, device=None):
+        """``model`` (:class:`..models.audio_net.AudioNet`) is moved to
+        ``device`` (default: the first card) in eval mode.
+        ``multimodal=True`` serves ``train-daic --multimodal``
+        checkpoints: each response's text embedding (the embedder resolved
+        as ``extract-daic --multimodal`` resolves it) follows its audio
+        features, so the model's ``embedding_size`` must be audio + text
+        width (:meth:`from_checkpoint` reads it from the sidecar)."""
+        from icassp2022_depression_tpu_torch.train import daic as daic_train
+
+        if task not in self.TASKS:
+            raise ValueError(f"task must be one of {self.TASKS}, got "
+                             f"{task!r}")
+        self.task = task
+        self.tcfg = tcfg if tcfg is not None else (
+            daic_train.DAIC_CLF if task == "daic_clf"
+            else daic_train.DAIC_REG)
+        self.frontend_cfg = frontend_cfg
+        self.device = resolve_device(device)
+        # per RESPONSE: repeat participants hit it fully, sessions that
+        # share responses partly
+        self.feature_cache = _FeatureCache(feature_cache_entries)
+        self.multimodal = multimodal
+        self.segmenter = segmenter
+        self._text_embed = None
+        self._text_dim = 0
+        #: provenance id of the text embedder (multimodal only)
+        self.embedder_id: Optional[str] = None
+        if multimodal:
+            text_fe.get_segmenter(segmenter)   # fail fast on bad names
+            self._text_embed, self._text_dim, self.embedder_id = \
+                text_fe.make_embedder(params=elmo_params, cfg=elmo_cfg,
+                                      seed=seed, elmo_weights=elmo_weights,
+                                      with_id=True, device=self.device)
+            expect = frontend_cfg.netvlad_output_dim + self._text_dim
+            if self.tcfg.model.embedding_size != expect:
+                raise ValueError(
+                    f"multimodal DAIC model expects embedding_size "
+                    f"{self.tcfg.model.embedding_size} but audio+text "
+                    f"features are {expect}-d "
+                    f"({frontend_cfg.netvlad_output_dim}+{self._text_dim})"
+                    " - pass the elmo_cfg/elmo_weights used at extraction")
+        self.model = model.to(self.device).eval()
+        #: the checkpoint's JSON sidecar (set by :meth:`from_checkpoint`)
+        self.meta: dict = {}
+
+    @classmethod
+    def from_checkpoint(cls, path, task: str, tcfg=None, **kw):
+        """Load a ``train-daic`` checkpoint: npz of either package, or a
+        reference ``.pt`` through the restricted unpickler.  The sidecar's
+        ``embedding_size`` (for checkpoints without one: the first GRU
+        layer's input width) resizes the model config, and a width other
+        than the audio features' serves the checkpoint as multimodal
+        unless ``multimodal`` is passed.  The training features' text
+        provenance is adopted: ``text_segmenter`` and ``text_seed`` feed
+        the embedder unless ``segmenter`` / ``seed`` are passed, and an
+        embedder id other than ``text_embedder`` warns."""
+        from icassp2022_depression_tpu_torch.train import daic as daic_train
+
+        resolved = tcfg if tcfg is not None else (
+            daic_train.DAIC_CLF if task == "daic_clf"
+            else daic_train.DAIC_REG)
+        try:
+            meta = checkpoints.load_meta(path)
+        except (FileNotFoundError, ValueError):
+            meta = {}
+        sd_pt = (porting.load_reference_pt(path)
+                 if str(path).endswith(".pt") else None)
+        tree = checkpoints.load(path) if sd_pt is None else None
+        # the first layer's gate weight is [3H, embedding]: it gives the
+        # width when the sidecar has none, and H (the JAX package's
+        # functional model takes both from the loaded weights)
+        w_ih = (sd_pt["lstm_net_audio.weight_ih_l0"] if sd_pt is not None
+                else tree["rnn"]["0"]["fwd"]["w_ih"])
+        emb = int(meta.get("embedding_size") or w_ih.shape[1])
+        hidden = int(w_ih.shape[0]) // 3
+        if (emb, hidden) != (resolved.model.embedding_size,
+                             resolved.model.hidden_dims):
+            resolved = C.replace(resolved, model=C.replace(
+                resolved.model, embedding_size=emb, hidden_dims=hidden))
+        audio_dim = kw.get("frontend_cfg",
+                           C.FrontendConfig()).netvlad_output_dim
+        if "multimodal" not in kw and emb != audio_dim:
+            kw = dict(kw, multimodal=True)
+            print(f"DaicPredictor: checkpoint records embedding_size "
+                  f"{emb} != audio dim {audio_dim} - serving it as a "
+                  "--multimodal model (audio + per-response text)",
+                  file=sys.stderr)
+        trained_seg = meta.get("text_segmenter")
+        if trained_seg and "segmenter" not in kw:
+            kw = dict(kw, segmenter=trained_seg)
+            if trained_seg != "auto":
+                print(f"DaicPredictor: adopting segmenter "
+                      f"'{trained_seg}' recorded by the checkpoint's "
+                      "training features", file=sys.stderr)
+        if meta.get("text_seed") is not None and "seed" not in kw:
+            kw = dict(kw, seed=int(meta["text_seed"]))
+        if sd_pt is not None:
+            tree = porting.tree_from_reference(sd_pt, "audio",
+                                               resolved.model)
+        model = checkpoints.load_model(tree, "audio", resolved.model, "cpu")
+        predictor = cls(model, task, tcfg=resolved, **kw)
+        predictor.meta = meta
+        expected = meta.get("text_embedder")
+        if (expected and predictor.embedder_id
+                and expected != predictor.embedder_id):
+            print(f"WARNING: checkpoint {path} was trained on text "
+                  f"features from embedder '{expected}' but serving "
+                  f"resolved '{predictor.embedder_id}' - predictions "
+                  "will be meaningless; pass matching elmo_weights",
+                  file=sys.stderr)
+        return predictor
+
+    @staticmethod
+    def _flatten_signals(signals_per_participant, sample_rates,
+                         start_ordinals):
+        """Ragged per-participant response lists -> flat (waveforms, srs,
+        ordinals, counts) for one ``extract_batch`` call."""
+        if len(sample_rates) != len(signals_per_participant):
+            raise ValueError(f"{len(sample_rates)} sample rates for "
+                             f"{len(signals_per_participant)} participants")
+        counts = [len(s) for s in signals_per_participant]
+        flat = [w for sig in signals_per_participant for w in sig]
+        srs = [sample_rates[i] for i, c in enumerate(counts)
+               for _ in range(c)]
+        if start_ordinals is None:
+            ords = [k for c in counts for k in range(c)]
+        else:
+            ords = [start_ordinals[i] + k
+                    for i, c in enumerate(counts) for k in range(c)]
+        return flat, srs, ords, counts
+
+    def response_features(self, signals_per_participant,
+                          sample_rates: Sequence[int],
+                          start_ordinals: Optional[Sequence[int]] = None):
+        """Ragged response signals -> list of [n_i, 1, D] host feature
+        blocks, through one ``extract_batch`` call.  ``start_ordinals``
+        reproduces a corpus participant's training-time features
+        (extraction numbers utterances cumulatively across the split);
+        the default numbers each participant's responses from 0."""
+        flat, srs, ords, counts = self._flatten_signals(
+            signals_per_participant, sample_rates, start_ordinals)
+        if flat:
+            with torch.inference_mode():
+                feats = audio_fe.extract_batch(
+                    flat, srs, self.frontend_cfg, ordinals=ords,
+                    device=self.device).cpu().numpy()
+        else:
+            feats = np.zeros((0, self.frontend_cfg.netvlad_output_dim),
+                             np.float32)
+        out, pos = [], 0
+        for c in counts:
+            out.append(feats[pos:pos + c][:, None, :])
+            pos += c
+        return out
+
+    def _forward(self, x: torch.Tensor, mask: np.ndarray,
+                 n: int) -> List[dict]:
+        with torch.inference_mode():
+            out = self.model(x, time_mask=torch.as_tensor(
+                mask, device=self.device))
+        return _format_outputs(out[:n].cpu().numpy(),
+                               self.task.endswith("clf"), "phq8_score")
+
+    @staticmethod
+    def _require_responses(counts) -> None:
+        if any(c == 0 for c in counts):
+            raise ValueError("participant with zero segmented responses "
+                             "(no transcript line matched the question "
+                             "bank?) - nothing to pool over")
+
+    def _predict_flat(self, flat: torch.Tensor, counts) -> List[dict]:
+        """Flat [M, D] device features + per-participant counts -> result
+        dicts; the padded batch is built on the device by one index
+        gather (:func:`..frontend.daic.gather_responses`)."""
+        n = len(counts)
+        bucket_r = _pow2(max(counts))
+        bucket_n = _pow2(n)
+        # padded participants keep all-ones masks: no 0/0 in their mean
+        mask = np.ones((bucket_n, bucket_r), np.float32)
+        mask[:n] = np.arange(bucket_r) < np.asarray(counts)[:, None]
+        return self._forward(
+            daic_fe.gather_responses(flat, counts, bucket_n, bucket_r),
+            mask, n)
+
+    def predict_features(self, feature_blocks) -> List[dict]:
+        """[n_i, 1, D] blocks (as the trainer consumes them) -> result
+        dicts, padded as :meth:`predict_signals` pads."""
+        if not feature_blocks:
+            return []   # zero participants is a valid request
+        counts = [f.shape[0] for f in feature_blocks]
+        self._require_responses(counts)
+        flat = np.concatenate([np.asarray(f, np.float32)[:, 0]
+                               for f in feature_blocks])
+        return self._predict_flat(torch.as_tensor(flat, device=self.device),
+                                  counts)
+
+    def predict_signals(self, signals_per_participant, sample_rates,
+                        start_ordinals=None,
+                        texts_per_participant=None) -> List[dict]:
+        """Pre-segmented response signals (+ aligned per-response
+        transcripts for multimodal models) -> result dicts.  Features stay
+        on the device from extraction (and embedding) to the forward; the
+        response LRU keys on ``["daic", embedder_id, ordinal, sr, wave(,
+        text)]``, so with the default 0-based ordinals a repeat
+        participant hits it whatever the rest of its batch."""
+        if self.multimodal:
+            if texts_per_participant is None:
+                raise ValueError(
+                    "multimodal DAIC model: per-response transcripts are "
+                    "required (one texts list per participant, aligned "
+                    "1:1 with its response signals)")
+            if len(texts_per_participant) != len(signals_per_participant) \
+                    or any(len(t) != len(s) for t, s in
+                           zip(texts_per_participant,
+                               signals_per_participant)):
+                raise ValueError("per-participant texts must align 1:1 "
+                                 "with response signals")
+        flat_w, srs, ords, counts = self._flatten_signals(
+            signals_per_participant, sample_rates, start_ordinals)
+        if not counts:
+            return []   # zero participants is a valid request
+        self._require_responses(counts)
+        texts_flat = ([t for ts in texts_per_participant for t in ts]
+                      if self.multimodal else None)
+        keys = [_FeatureCache.key(
+                    ["daic", self.embedder_id or "", str(ords[i]),
+                     str(srs[i]), flat_w[i]]
+                    + ([texts_flat[i]] if texts_flat is not None else []))
+                for i in range(len(flat_w))]
+        rows: list = [None] * len(keys)
+        todo = []
+        for i, key in enumerate(keys):
+            cached = self.feature_cache.get(key)
+            if cached is not None:
+                rows[i] = cached
+            else:
+                todo.append(i)
+        if todo:
+            with torch.inference_mode():
+                feats = audio_fe.extract_batch(
+                    [flat_w[i] for i in todo], [srs[i] for i in todo],
+                    self.frontend_cfg, ordinals=[ords[i] for i in todo],
+                    device=self.device)
+                if self.multimodal:
+                    emb = self._text_embed(
+                        [text_fe.tokenize(texts_flat[i],
+                                          segmenter=self.segmenter)
+                         for i in todo])
+                    feats = torch.cat([feats, emb], dim=-1)
+            for row, i in enumerate(todo):
+                # a copy, so the cache does not pin the whole batch
+                rows[i] = feats[row].clone()
+                self.feature_cache.put(keys[i], rows[i])
+        return self._predict_flat(torch.stack(rows), counts)
+
+    def predict_participant(self, daic_dir, number: int,
+                            queries_path=None, start_ordinal: int = 0
+                            ) -> dict:
+        """A raw ``<daic_dir>/<number>_P`` session -> one result dict,
+        through the extraction-side session pass of each modality set."""
+        from pathlib import Path
+
+        queries = daic_fe.load_queries(queries_path)
+        if self.multimodal:
+            from icassp2022_depression_tpu_torch.train.daic import (
+                concat_multimodal,
+            )
+
+            af, tf = daic_fe.extract_participant_multimodal(
+                Path(daic_dir), number, queries, None, None,
+                self.frontend_cfg, start_ordinal, embed_fn=self._text_embed,
+                segmenter=self.segmenter, device=self.device)
+            feats = concat_multimodal([af], [tf])[0]
+        else:
+            feats = daic_fe.extract_participant(
+                Path(daic_dir), number, queries, self.frontend_cfg,
+                start_ordinal, device=self.device)
+        return self.predict_features([feats])[0]
