@@ -5,7 +5,10 @@ frontend (the ELMo char-CNN and LSTMP biLM at the zhs geometry), the
 training paths of both tracks, checking and migration (``cli
 extract-audio``, ``check``, ``export-pt``, reference ``.pt`` checkpoints),
 DAIC-WOZ (``cli extract-daic`` / ``train-daic`` / ``check-daic`` /
-``predict-daic``) and the HTTP serving front, at full width.
+``predict-daic``), the HTTP serving front, VGGish (``extract-audio
+--embedder vggish``, ``train --audio-dim 128``, ``predict
+--audio-embedder vggish``), cross-corpus evaluation and the stateful ELMo
+mode (``extract-text --elmo-stateful``), at full width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
@@ -14,6 +17,7 @@ DAIC-WOZ (``cli extract-daic`` / ``train-daic`` / ``check-daic`` /
     python3 chip_smoke.py --only trainer  # fold axis, graph, resume
     python3 chip_smoke.py --only daic   # phase 9 alone, no ok line
     python3 chip_smoke.py --only serve  # phase 10 alone, no ok line
+    python3 chip_smoke.py --only vggish  # phase 11 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -34,7 +38,9 @@ kernel checks and the fold-program checks of phases 2 and 5 on random
 features (about a minute).  ``--only daic`` builds the GRU sources and
 the LSTMP forward and runs phase 9 with a seeded bundle of its own;
 ``--only serve`` builds the GRU and LSTM forwards and runs phase 10 with a
-seeded DAIC checkpoint.
+seeded DAIC checkpoint.  ``--only vggish`` builds the GRU sources and the
+LSTMP forward and runs phase 11 on a corpus, a seeded bundle and DAIC
+features of its own.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -206,6 +212,26 @@ Phases (each raises on failure, so the exit code is nonzero):
    with Retry-After, and HTTPS with a self-signed certificate where
    ``openssl`` is present; the requests/s, the device batches run and
    ``/healthz``'s latency quantiles.
+11. VGGish, cross-corpus evaluation and the stateful ELMo mode, on phase
+   5's corpus and bundle and phase 9's DAIC features: the VGGish stand-in
+   (seed 0, 72.1 M floats) drawn on the card bitwise the CPU's draw; a
+   256-example chunk of real examples through the network on the card
+   within 1e-5 of the CPU's with ``cudnn.allow_tf32`` at PyTorch's default
+   (the module turns it off around its convolutions), its device time
+   beside its bound; counted at EATD's size (83 + 79 speakers), ``cli
+   extract-audio --embedder vggish`` in turns with the wav2vlad one (no
+   kernel; 3 speakers the CPU's within 1e-5), ``cli train --task
+   audio_clf --audio-dim 128`` at 3 epochs a fold with the gate open
+   (exact ``gru_fwd`` / ``gru_bwd`` launches; ``--vmap-folds`` against it,
+   not counted), ``cli predict --audio-embedder vggish`` (2 ``gru_fwd``;
+   the CPU's within 1e-5); ``cli extract-text --elmo-stateful`` in turns
+   with the stateless one (no kernel launch: a plain step loop; the first
+   speaker the stateless features within 1e-5, later ones not; two
+   carried calls on the CPU within 1e-5); ``eval.cross_corpus``
+   ``evaluate_clf`` (dev split) and ``evaluate_reg`` (both splits) with
+   seeded full-width EATD models, each one padded batch through 2
+   ``gru_fwd`` launches (counted), against the CPU; ``gru_fwd`` at (3,
+   1024, 256) against its plain loop, timed in turns with it and cuDNN.
 
 The line before the last is a JSON object describing each kernel (#3's
 timed at its DAIC shape); the last line is ``{"ok": true, "device":
@@ -3451,7 +3477,7 @@ def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
         print(f"timing DAIC stage cli {stage}: {wall:.2f} s wall [{card}]")
     return {"launches": counted.launches, "stage_s": stage_s,
             "kernels": kernels, "step_ms": step, "clf_ckpt": ckpts["clf"],
-            "root": root, "dev_ids": dev_ids}
+            "root": root, "dev_ids": dev_ids, "features": feats}
 
 
 def seeded_daic(work: Path) -> dict:
@@ -3841,12 +3867,436 @@ def serve_phase(torch, card: str, daic: dict) -> dict:
     return {"launches": launches, "readings": readings}
 
 
+# -- phase 11: VGGish, cross-corpus evaluation, the stateful ELMo mode -----
+
+#: EATD's size, the corpus of phase 6's timings (same seed and lengths)
+VGGISH_SPEAKERS = (83, 79)
+#: the --audio-dim 128 recipe's epochs (3 trained epochs a fold)
+VGGISH_EPOCHS = 4
+#: cross-corpus batches: next_pow2 of the dev split's windows, and the
+#: batch of AVEC2017's 35 dev participants (timed alone)
+CROSS_TIMED = (3, 1024, 256)
+
+
+def vggish_bounds(n: int):
+    """The VGGish network's bound on ``n`` examples: its convolutions' and
+    FCs' float32 flops, the examples, weights and embeddings read or
+    written once."""
+    from icassp2022_depression_tpu_torch.models import vggish
+
+    flops, h, w, params = 0, vggish.EXAMPLE_FRAMES, vggish.NUM_MEL_BINS, 0
+    for i, (cin, cout) in enumerate(vggish._CONV_CHANNELS):
+        flops += 2 * n * h * w * cin * cout * 9
+        params += 9 * cin * cout + cout
+        if i in vggish._POOL_AFTER:
+            h, w = h // 2, w // 2
+    for din, dout in vggish._FC_DIMS:
+        flops += 2 * n * din * dout
+        params += din * dout + dout
+    return bound(flops, 4 * (n * vggish.EXAMPLE_FRAMES * vggish.NUM_MEL_BINS
+                             + params + n * vggish.EMBEDDING_SIZE)), flops
+
+
+def vggish_network_checks(torch, card: str, corpus: Path):
+    """Not counted: the seeded stand-in drawn on the card against the CPU
+    draw (bitwise); one chunk of real examples through the network on the
+    card against the CPU within SLICE_TOL of the largest output, with
+    ``torch.backends.cudnn.allow_tf32`` at PyTorch's default (True) around
+    the call (the module turns it off around its convolutions; the same
+    chunk with that guard lifted shows what TF32 would cost); the chunk's
+    device time beside its bound.  Returns the CPU draw."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.models import vggish
+    from icassp2022_depression_tpu_torch.ops import prng
+
+    t0 = time.perf_counter()
+    on_card = vggish.init(prng.prng_key(0, "cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = vggish.init(prng.prng_key(0, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(a[k].cpu(), b[k]) for g in ("convs", "fcs")
+               for a, b in zip(on_card[g], on_cpu[g]) for k in ("w", "b"))
+    n = sum(d[k].numel() for g in ("convs", "fcs") for d in on_cpu[g]
+            for k in d)
+    print(f"vggish stand-in (seed 0, {n} floats): drawn on the card in "
+          f"{card_s:.2f} s, on the CPU in {cpu_s:.2f} s; bitwise equal "
+          f"{same} [{card}]")
+    if not same:
+        fail("the VGGish stand-in drawn on the card differs from the CPU's")
+    examples = np.concatenate([
+        vggish.waveform_to_examples(w, sr)
+        for sp in eatd.load_speakers(corpus)[:6]
+        for w, sr in zip(sp.waveforms, sp.sample_rates)])[:afe.VGGISH_CHUNK]
+    chunk = np.zeros((afe.VGGISH_CHUNK,) + examples.shape[1:], np.float32)
+    chunk[:len(examples)] = examples
+    model = vggish.from_params(on_card, "cuda")
+    x = torch.from_numpy(chunk).cuda()
+    with torch.inference_mode():
+        want = vggish.from_params(on_cpu, "cpu")(torch.from_numpy(chunk))
+        default = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True    # PyTorch's default
+        try:
+            got = model(x).cpu()
+            guard = vggish.no_tf32_convs
+            vggish.no_tf32_convs = contextlib.nullcontext
+            try:
+                tf32 = model(x).cpu()
+            finally:
+                vggish.no_tf32_convs = guard
+        finally:
+            torch.backends.cudnn.allow_tf32 = default
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        tf32_err = float((tf32 - want).abs().max()) / scale
+        ms = event_ms(lambda: model(x), 20, torch)
+    (b_ms, by), flops = vggish_bounds(afe.VGGISH_CHUNK)
+    print(f"vggish network on {afe.VGGISH_CHUNK} examples ({len(examples)} "
+          f"real), card vs CPU with cudnn.allow_tf32 at its default True: "
+          f"max|d| {err:.3e} of the largest (tol {SLICE_TOL}); the same "
+          f"call with the module's TF32 guard lifted {tf32_err:.3e}")
+    if not err <= SLICE_TOL:
+        fail(f"VGGish on the card differs from the CPU: {err}")
+    print(f"timing vggish chunk of {afe.VGGISH_CHUNK} examples: {ms:.4f} ms "
+          f"device time (median of 20, CUDA events; {flops / 1e9:.1f} "
+          f"GFLOP); bound {b_ms:.4f} ms ({by}), {b_ms / ms:.4f} of it "
+          f"[{card}]")
+    return on_cpu, {"chunk_ms": ms, "chunk_bound_ms": b_ms,
+                    "chunk_err": err, "tf32_err": tf32_err}
+
+
+def vggish_cli_checks(torch, counted, card: str, work: Path, on_cpu):
+    """Counted at EATD's size (a synthetic corpus of 83 + 79 speakers):
+    ``cli extract-audio --embedder vggish`` (no kernel of the port) beside
+    the wav2vlad ``cli extract-audio`` of the same corpus; its features
+    finite, 3 speakers' the CPU's within SLICE_TOL of the largest; ``cli
+    train --task audio_clf --audio-dim 128`` on them at VGGISH_EPOCHS with
+    the gate open (exact launches; each fold through its CUDA graph), the
+    same with ``--vmap-folds`` (not counted) against it within VMAP_TOL;
+    ``cli predict --audio-embedder vggish`` of fold 1's checkpoint (2
+    ``gru_fwd``) against the CPU's ``Predictor`` within SLICE_TOL."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.models import vggish
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+
+    if vggish.default_weights_path() is not None:
+        fail(f"a VGGish bundle ({vggish.default_weights_path()}) would "
+             "replace the seeded stand-in this phase checks")
+    big = work / "vggish_eatd"
+    t0 = time.perf_counter()
+    eatd.make_synthetic_corpus(big, n_data=VGGISH_SPEAKERS[0],
+                               n_validation=VGGISH_SPEAKERS[1],
+                               seconds=(2.0, 12.0), seed=5)
+    make_s = time.perf_counter() - t0
+    n_spk = sum(VGGISH_SPEAKERS)
+    audio = big / "Features" / "AudioWhole"
+    walls = {}
+    for name, extra in (("netvlad", []), ("vggish", ["--embedder", "vggish"]),
+                        ("netvlad again", []),
+                        ("vggish again", ["--embedder", "vggish"])):
+        lines, walls[name] = counted(
+            ["extract-audio", "--root", big, *extra], ZERO,
+            f"cli extract-audio {name} ({n_spk} speakers)")
+    print(f"timing cli extract-audio at {n_spk} speakers ({3 * n_spk} "
+          f"answers of 2-12 s; corpus written in {make_s:.2f} s), in turns: "
+          f"wav2vlad "
+          f"{walls['netvlad']:.2f}, {walls['netvlad again']:.2f} s; "
+          f"--embedder vggish {walls['vggish']:.2f}, "
+          f"{walls['vggish again']:.2f} s wall [{card}]")
+    xa = np.load(audio / "whole_samples_clf_128.npz")["arr_0"]
+    manifest = json.loads((audio / "manifest.json").read_text())
+    if (xa.shape != (n_spk, 3, 1, 128) or not np.isfinite(xa).all()
+            or manifest.get("embedder") != "vggish"):
+        fail(f"extract-audio --embedder vggish: {xa.shape}, {manifest}")
+    speakers = eatd.load_speakers(big)[:3]
+    cpu = afe.vggish_embed_waveforms(
+        vggish.from_params(on_cpu, "cpu"),
+        [w for sp in speakers for w in sp.waveforms],
+        [r for sp in speakers for r in sp.sample_rates])
+    err = float(np.abs(xa[:3].reshape(9, -1) - cpu).max()
+                / np.abs(cpu).max())
+    print(f"extract-audio --embedder vggish: {xa.shape}, 3 speakers card vs "
+          f"CPU max|d| {err:.3e} of the largest (tol {SLICE_TOL})")
+    if not err <= SLICE_TOL:
+        fail(f"VGGish features on the card differ from the CPU: {err}")
+
+    full = C.AUDIO_CLF
+    try:
+        C.AUDIO_CLF = C.replace(full, epochs=VGGISH_EPOCHS, gate=C.replace(
+            full.gate, f1_floor=-1.0, train_acc_frac=0.0,
+            train_acc_strict=False))
+        model = work / "vggish_model"
+        argv = ["train", "--task", "audio_clf", "--root", big,
+                "--audio-dim", "128", "--model-dir", model]
+        # the expected launches come from the run's own epoch records
+        rnn_cuda = counted.rnn_cuda
+        _set_counts(rnn_cuda, ZERO)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([str(a) for a in argv] + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = _counts(rnn_cuda)
+        if rc != 0:
+            fail(f"cli train --audio-dim 128 returned {rc}")
+        records = [json.loads(ln) for ln in
+                   (model / "audio_clf_metrics.jsonl").read_text()
+                   .splitlines()]
+        epochs = [r for r in records if r["event"] == "epoch"]
+        if len(epochs) != 3 * (VGGISH_EPOCHS - 1) or not all(
+                _finite(r["loss"]) for r in epochs):
+            fail(f"cli train --audio-dim 128 logged {len(epochs)} epochs")
+        _check_launches("audio_clf --audio-dim 128", got, *warmed(epochs), 3)
+        for k, v in got.items():
+            counted.launches[k] += v
+        vmap_model = work / "vggish_model_vmap"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([str(a) for a in argv[:-1]]
+                          + [str(vmap_model), "--vmap-folds", "--device",
+                             "cuda"])
+        _set_counts(rnn_cuda, dict(ZERO))
+        if rc != 0:
+            fail(f"cli train --audio-dim 128 --vmap-folds returned {rc}")
+        stacked = [json.loads(ln) for ln in
+                   (vmap_model / "audio_clf_metrics.jsonl").read_text()
+                   .splitlines() if json.loads(ln)["event"] == "epoch"]
+        worst = max(abs(a[k] - b[k]) / max(1e-12, abs(b[k]))
+                    for a, b in zip(stacked, epochs) for k in ("loss",))
+        print(f"cli train --task audio_clf --audio-dim 128 ({n_spk} "
+              f"speakers, 3 folds x {VGGISH_EPOCHS - 1} epochs, gate open): "
+              f"launches {got}; wall {train_s:.2f} s; --vmap-folds epoch "
+              f"losses within {worst:.3e} of the serial run's (tol "
+              f"{VMAP_TOL}) [{card}]")
+        if len(stacked) != len(epochs) or not worst <= VMAP_TOL:
+            fail(f"--audio-dim 128 --vmap-folds differs: {worst}")
+    finally:
+        C.AUDIO_CLF = full
+    ckpt = _fold_ckpt(model / "ClassificationWhole" / "Audio", "*_1.npz")
+    sp = speakers[1]
+    lines, wall = counted(
+        ["predict", "--task", "audio_clf", "--ckpt", ckpt, "--root", big,
+         "--speaker", f"{sp.split}/{sp.number}", "--audio-embedder",
+         "vggish"], dict(ZERO, gru_fwd=2), "cli predict --audio-embedder "
+        "vggish")
+    on_card = json.loads(lines[-1])
+    cfg128 = C.replace(C.AUDIO_CLF.model, embedding_size=128)
+    on_host = Predictor.from_checkpoint(
+        ckpt, "audio_clf", model_cfg=cfg128, audio_embedder="vggish",
+        vggish_params=on_cpu, device="cpu").predict_speaker(
+            sp.waveforms, sp.sample_rates)
+    d = compare([on_card], [on_host], "predict --audio-embedder vggish "
+                "card vs CPU")
+    check_results([on_card], 1, "cli predict --audio-embedder vggish")
+    print(f"cli predict --audio-embedder vggish {on_card['speaker']}: "
+          f"{on_card['probs']}; card vs CPU max|dprob| {d:.3e} (tol "
+          f"{SLICE_TOL}); wall {wall:.2f} s [{card}]")
+    return {"extract_s": walls, "train_s": train_s, "feature_err": err}
+
+
+def cross_corpus_checks(torch, rnn_cuda, card: str, daic_features: Path):
+    """EATD audio models (seeded, full width; the regressor's last bias
+    shifted to SDS scale) on phase 9's DAIC features:
+    ``evaluate_clf`` on the dev split and ``evaluate_reg`` on both splits,
+    each one batch of next_pow2(windows) rows through 2 ``gru_fwd``
+    launches (counted, exact), against the CPU (predictions equal, window
+    outputs within SLICE_TOL); then, not counted, ``gru_fwd`` at
+    CROSS_TIMED against its plain loop (KERNEL_TOL) and timed in turns
+    with it and cuDNN beside its bound.  Returns the launches and
+    readings."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.eval import cross_corpus as cc
+    from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
+    from icassp2022_depression_tpu_torch.models.audio_net import AudioNet
+    from icassp2022_depression_tpu_torch.ops import prng
+    from icassp2022_depression_tpu_torch.utils import shapes
+
+    launches = dict(ZERO)
+    readings = {}
+    xs, ys = daic_fe.load_features(daic_features, "dev", "clf")
+    xr = []
+    yr = []
+    for split in ("train", "dev"):
+        a, b = daic_fe.load_features(daic_features, split, "reg")
+        xr += list(a)
+        yr += list(b)
+    for name, fn, cfg, feats, labels in (
+            ("evaluate_clf", cc.evaluate_clf, C.AUDIO_CLF.model, xs, ys),
+            ("evaluate_reg", cc.evaluate_reg, C.AUDIO_REG.model, xr, yr)):
+        model = AudioNet(cfg, prng.prng_key(41))
+        if name == "evaluate_reg":
+            # SDS-scale scores out of the ReLU head, as a trained
+            # regressor gives, not the seeded head's zeros
+            with torch.no_grad():
+                [m for m in model.modules()
+                 if isinstance(m, torch.nn.Linear)][-1].bias += 40.0
+        windows = sum(-(-len(f) // 3) for f in feats)
+        _set_counts(rnn_cuda, ZERO)
+        t0 = time.perf_counter()
+        on_card = fn(model, feats, labels, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        got = _counts(rnn_cuda)
+        if got != dict(ZERO, gru_fwd=2):
+            fail(f"{name} launched {got}, expected 2 gru_fwd")
+        for k, v in got.items():
+            launches[k] += v
+        on_cpu = fn(model, feats, labels, cfg, device="cpu")
+        _, out_card = cc._all_window_outputs(model.cuda(), feats)
+        _, out_cpu = cc._all_window_outputs(model.cpu(), feats)
+        _set_counts(rnn_cuda, ZERO)
+        err = float(np.abs(out_card - out_cpu).max())
+        if not np.ptp(out_cpu) > 0:
+            fail(f"{name}: every window gives {out_cpu.ravel()[0]}")
+        same = (on_card.get("predictions") == on_cpu.get("predictions")
+                and all(abs(on_card[k] - on_cpu[k]) <= 1e-5 * max(
+                    1.0, abs(on_cpu[k])) for k in on_cpu
+                        if isinstance(on_cpu[k], float)))
+        shown = {k: v for k, v in on_card.items()
+                 if k not in ("predictions", "confusion_matrix")}
+        print(f"cross-corpus {name}: {len(feats)} DAIC participants, "
+              f"{windows} windows in one batch of "
+              f"{shapes.next_pow2(windows)} rows; {json.dumps(shown)}; "
+              f"launches {got}; card vs CPU: window outputs max|d| "
+              f"{err:.3e} (tol {SLICE_TOL}), metrics and predictions equal "
+              f"{same}; wall {wall * 1e3:.1f} ms [{card}]")
+        if not (err <= SLICE_TOL and same):
+            fail(f"{name} on the card differs from the CPU")
+        readings[name] = {"windows": windows, "ms": wall * 1e3}
+
+    t, b, h = CROSS_TIMED
+    gen = torch.Generator().manual_seed(17)
+    args = (torch.randn((t, b, 3 * h), generator=gen).cuda(),
+            ((torch.rand((h, 3 * h), generator=gen) * 2 - 1)
+             * h ** -0.5).cuda(),
+            ((torch.rand((1, 3 * h), generator=gen) * 2 - 1)
+             * h ** -0.5).cuda())
+    before = _counts(rnn_cuda)
+    ys_k = rnn_cuda.gru_sequence(*args)
+    err = float((ys_k - rnn_cuda.gru_sequence_torch(*args)).abs().max())
+    same = torch.equal(ys_k, rnn_cuda.gru_sequence(*args))
+    if not (err <= KERNEL_TOL and same):
+        fail(f"gru_fwd at {CROSS_TIMED} disagrees with its plain loop: "
+             f"{err}, rerun bitwise {same}")
+    fns = _gru_turn_fns(torch, rnn_cuda, args, CROSS_TIMED)
+    ms = turns_ms(torch, fns, 50)
+    _set_counts(rnn_cuda, before)
+    plan = rnn_cuda.gru_fwd_plan(b, h)
+    b_ms, by = rnn_bounds("gru", t, b, h)["fwd"]
+    print(f"timing gru_fwd at the cross-corpus batch {CROSS_TIMED} (plan "
+          f"{plan}): max|cuda - plain| {err:.3e} (tol {KERNEL_TOL}), rerun "
+          f"bitwise {same}; " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in ms.items())
+          + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms[plan['route']]:.4f} "
+          f"of it (median of 50 in turns, CUDA events) [{card}]")
+    readings["gru_fwd"] = dict(ms, err=err, bound_ms=b_ms)
+    return launches, readings
+
+
+def stateful_text_checks(torch, counted, card: str, corpus: Path,
+                         bundle: Path, work: Path):
+    """``cli extract-text --elmo-stateful`` with the seeded zhs bundle,
+    counted: one embedding call a speaker, the biLM state carried across
+    them through the plain step loop (no kernel launch at all); beside the
+    stateless ``cli extract-text`` of the same corpus (counted too).  The
+    first speaker's features (zero initial state) equal the stateless
+    ones within SLICE_TOL of the largest, and later ones differ; the CPU,
+    with the same bundle carrying its state over two calls, gives the
+    first two speakers within SLICE_TOL of the largest."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+    from icassp2022_depression_tpu_torch.models import elmo_pretrained as ep
+
+    texts = [sp.texts for sp in eatd.iter_speakers(corpus, read_text=True)]
+    n_batches = -(-3 * len(texts) // 128)
+    outs, walls = {}, {}
+    for name, flag, want in (
+            ("stateless", [], dict(ZERO, lstmp_fwd=4 * n_batches)),
+            ("stateful", ["--elmo-stateful"], ZERO),
+            ("stateless again", [], dict(ZERO, lstmp_fwd=4 * n_batches)),
+            ("stateful again", ["--elmo-stateful"], ZERO)):
+        outs[name] = work / f"text {name}"
+        _, walls[name] = counted(
+            ["extract-text", "--root", corpus, "--out", outs[name],
+             "--elmo-weights", bundle, "--segmenter", "fallback", *flag],
+            want, f"cli extract-text {name}")
+    feats = {k: np.load(outs[k] / "whole_samples_clf_avg.npz")["arr_0"]
+             for k in ("stateless", "stateful", "stateful again")}
+    meta = json.loads((outs["stateful"] / "extraction_meta.json")
+                      .read_text())
+    if meta["embedder"] != bundle_id(bundle) + ":stateful":
+        fail(f"extract-text --elmo-stateful: {meta}")
+    scale = float(np.abs(feats["stateless"]).max())
+    first = float(np.abs(feats["stateful"][0]
+                         - feats["stateless"][0]).max()) / scale
+    later = float(np.abs(feats["stateful"][1:]
+                         - feats["stateless"][1:]).max()) / scale
+    rerun = np.array_equal(feats["stateful"], feats["stateful again"])
+    pe = ep.load_npz(bundle, "cpu")
+    pe.stateful = True
+    cpu = np.stack([pe.embed_sentences(
+        [tfe.tokenize(t, "fallback") for t in ts]).numpy()
+        for ts in texts[:2]])
+    err = float(np.abs(feats["stateful"][:2] - cpu).max()
+                / np.abs(cpu).max())
+    print(f"cli extract-text --elmo-stateful ({len(texts)} speakers, one "
+          f"call each, state carried): no kernel launch; the first speaker "
+          f"within {first:.3e} of the stateless features, later speakers "
+          f"up to {later:.3e} apart (of the largest); a rerun bitwise "
+          f"{rerun}; 2 speakers (2 calls) card vs CPU max|d| {err:.3e} of "
+          f"the largest (tol {SLICE_TOL})")
+    if not (first <= SLICE_TOL and later > 10 * SLICE_TOL and rerun
+            and err <= SLICE_TOL):
+        fail("the stateful extraction disagrees")
+    print(f"timing cli extract-text at {len(texts)} speakers, in turns: "
+          f"stateless {walls['stateless']:.2f}, "
+          f"{walls['stateless again']:.2f} s; --elmo-stateful "
+          f"{walls['stateful']:.2f}, {walls['stateful again']:.2f} s wall "
+          f"[{card}]")
+    return walls
+
+
+def vggish_phase(torch, card: str, corpus: Path, bundle: Path, work: Path,
+                 daic_features: Path) -> dict:
+    """Phase 11: VGGish (``vggish_network_checks``, ``vggish_cli_checks``),
+    cross-corpus evaluation (``cross_corpus_checks``) and the stateful
+    ELMo mode (``stateful_text_checks``) on the card.  Returns the counted
+    launches and the timings."""
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+    t0 = time.perf_counter()
+    counted = _Counted(torch, rnn_cuda)
+    on_cpu, net = vggish_network_checks(torch, card, corpus)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vggish_") as tmp:
+        cli = vggish_cli_checks(torch, counted, card, Path(tmp), on_cpu)
+        text = stateful_text_checks(torch, counted, card, corpus, bundle,
+                                    Path(tmp))
+    cross_launches, cross = cross_corpus_checks(torch, rnn_cuda, card,
+                                                daic_features)
+    for k, v in cross_launches.items():
+        counted.launches[k] += v
+    print(f"timing phase 11: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": counted.launches, "net": net, "cli": cli,
+            "text_s": text, "cross": cross}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
-                                       "daic", "serve"],
+                                       "daic", "serve", "vggish"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
@@ -3854,7 +4304,8 @@ def main(argv=None) -> int:
                          "fold program's (graph, resume, stacked folds) on "
                          "random features; daic: phase 9 (with a seeded "
                          "bundle); serve: phase 10 (with a seeded DAIC "
-                         "checkpoint)")
+                         "checkpoint); vggish: phase 11 (with a corpus, a "
+                         "seeded bundle and DAIC features of its own)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3881,7 +4332,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     names = {"trainer": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd"),
              "daic": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
-             "serve": ("gru_fwd", "lstm_fwd")}.get(
+             "serve": ("gru_fwd", "lstm_fwd"),
+             "vggish": ("gru_fwd", "gru_bwd", "lstmp_fwd")}.get(
         args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
         else SOURCES)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
@@ -3899,6 +4351,33 @@ def main(argv=None) -> int:
                  + 0.5 * torch.as_tensor(clf)[:, None, None]).cuda()
         xt = torch.randn((36, 3, 1024), generator=gen).cuda()
         trainer_phase(torch, rnn_cuda, card, feats, clf, xt)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
+    if args.only == "vggish":
+        from icassp2022_depression_tpu_torch import cli
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_vggish_") as tmp:
+            work = Path(tmp)
+            corpus = work / "corpus"
+            eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
+                                       seconds=(2.0, 12.0), seed=1)
+            chars = "".join(ch for sp in eatd.iter_speakers(
+                corpus, read_text=True) for t in sp.texts for ch in t
+                if not ch.isspace())
+            bundle, _ = seeded_bundle(torch, work / "elmo_zhs_seeded.npz",
+                                      chars)
+            daic_root = work / "daic"
+            make_daic_corpus(daic_root)
+            for split in ("train", "dev"):
+                if cli.main(["extract-daic", "--daic-dir", str(daic_root),
+                             "--split-csv",
+                             str(daic_root / f"{split}_split.csv"), "--out",
+                             str(work / "Features"), "--split-name", split,
+                             "--device", "cuda"]) != 0:
+                    fail(f"cli extract-daic {split} failed")
+            vggish_phase(torch, card, corpus, bundle, work,
+                         work / "Features")
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
@@ -3976,11 +4455,14 @@ def main(argv=None) -> int:
                                                          chars)
         daic = daic_phase(torch, card, bundle, Path(tmp))
         served = serve_phase(torch, card, daic)
+        vgg = vggish_phase(torch, card, corpus, bundle, Path(tmp),
+                           daic["features"])
     standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
         launches[k] += (v + standin_launches[k] + checked["launches"][k]
-                        + daic["launches"][k] + served["launches"][k])
+                        + daic["launches"][k] + served["launches"][k]
+                        + vgg["launches"][k])
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if daic["launches"]["gru_bwd_streamed"] <= 0:

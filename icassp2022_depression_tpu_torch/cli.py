@@ -3,6 +3,8 @@
 
   python -m icassp2022_depression_tpu_torch.cli synth-corpus --root ./corpus
   python -m icassp2022_depression_tpu_torch.cli extract-audio --root ./corpus
+  python -m icassp2022_depression_tpu_torch.cli extract-audio --root ./corpus \\
+      --embedder vggish [--vggish-ckpt CKPT] [--pca-params P.npz]
   python -m icassp2022_depression_tpu_torch.cli extract-text --root ./corpus \\
       --elmo-weights elmo_zhs.npz
   python -m icassp2022_depression_tpu_torch.cli train --task audio_clf \\
@@ -32,10 +34,13 @@
   python -m icassp2022_depression_tpu_torch.cli predict-daic \\
       --task daic_clf --ckpt Model/daic_clf_0.67 --daic-dir ./daic \\
       --participant 300
+  python -m icassp2022_depression_tpu_torch.cli baselines --task audio_clf \\
+      --root ./corpus --model rf
 
 Every subcommand that computes runs on ``--device`` (default ``cuda``); on
 a machine without a card it raises unless ``--device cpu`` is given.
-``synth-corpus`` and ``export-pt`` run no model and take no device.
+``synth-corpus`` and ``export-pt`` run no model and take no device;
+``baselines`` runs sklearn on the host.
 
 ``train`` writes what the JAX CLI's ``train`` writes: the gated-best
 checkpoints (npz + JSON sidecar, and ``train_idxs_{f1:.2f}_{fold}.npy`` for
@@ -59,7 +64,12 @@ and fusion tasks embed the speaker's transcripts with the embedder that
 when present (else the seeded stand-in).
 
 ``extract-audio`` writes ``<root>/Features/AudioWhole`` (the JAX package's
-npz files and ``manifest.json``).  ``check`` recomputes each fold's
+npz files and ``manifest.json``; ``--embedder vggish`` the ``_128`` files
+of the VGGish embedder, whose checkpoints ``train --audio-dim 128`` trains
+and ``predict`` / ``serve --audio-embedder vggish`` serve).
+``extract-text --elmo-stateful`` carries the biLM state across speakers
+as upstream's persistent embedder does.  ``baselines`` prints the fold
+mean of a sklearn baseline on the npz features.  ``check`` recomputes each fold's
 metrics from its checkpoint (npz of either package, or a reference
 ``.pt``) on the npz features or, with ``--corpus``, on features extracted
 anew, and prints one JSON line per fold and one of their mean.
@@ -121,13 +131,29 @@ def cmd_extract_audio(args):
     AudioWhole``) in the JAX package's layout."""
     from icassp2022_depression_tpu_torch.frontend import audio as afe
 
-    _reject((("--embedder vggish", args.embedder == "vggish", _VGGISH),
-             ("--vggish-ckpt/--pca-params",
-              bool(args.vggish_ckpt or args.pca_params), _VGGISH)))
     root = Path(args.root)
     out = Path(args.out) if args.out else root / "Features" / "AudioWhole"
-    feats, _, clf, manifest = afe.extract_eatd(root, out_dir=out,
-                                               device=_device(args))
+    device = _device(args)
+    if args.embedder == "vggish":
+        from icassp2022_depression_tpu_torch.models import vggish
+
+        params = post = None
+        if args.vggish_ckpt:
+            params = vggish.from_tf_checkpoint(args.vggish_ckpt)
+        else:
+            bundle = vggish.default_weights_path()
+            if bundle is not None:   # a converted bundle loads itself
+                params, post = vggish.load_npz(bundle, device)
+                print(f"extract-audio: auto-loaded VGGish bundle {bundle}",
+                      file=sys.stderr)
+        if args.pca_params:          # the explicit flag wins over the bundle's
+            post = vggish.load_pca_params(args.pca_params)
+        feats, _, clf, manifest = afe.extract_eatd_vggish(
+            root, params=params, postprocessor=post, out_dir=out,
+            device=device)
+    else:
+        feats, _, clf, manifest = afe.extract_eatd(root, out_dir=out,
+                                                   device=device)
     print(f"audio features {feats.shape} -> {out} "
           f"({len(manifest)} speakers, {int(clf.sum())} depressed)")
     return 0
@@ -147,7 +173,8 @@ def cmd_predict(args):
         kw["segmenter"] = args.segmenter
     if args.embed_seed is not None:
         kw["seed"] = args.embed_seed
-    p = Predictor.from_checkpoint(args.ckpt, args.task, **kw)
+    p = Predictor.from_checkpoint(args.ckpt, args.task, **kw,
+                                  **_embedder_kw(args))
     call = {}
     if not args.task.startswith("text"):
         # corpus-position ordinal base -> NetVLAD features identical to the
@@ -167,8 +194,7 @@ def cmd_predict(args):
 def _reject_text_modes(args) -> None:
     from icassp2022_depression_tpu_torch.frontend import text as tfe
 
-    _reject((("--elmo-stateful", args.elmo_stateful, tfe.STATEFUL_ITEM),
-             ("--elmo-tp", args.elmo_tp > 1, tfe.TP_ITEM)))
+    _reject((("--elmo-tp", args.elmo_tp > 1, tfe.TP_ITEM),))
 
 
 def cmd_extract_text(args):
@@ -182,13 +208,13 @@ def cmd_extract_text(args):
     feats, _, _ = tfe.extract_eatd(root, out_dir=out, seed=args.seed,
                                    elmo_weights=args.elmo_weights,
                                    segmenter=args.segmenter,
-                                   device=_device(args))
+                                   device=_device(args),
+                                   elmo_stateful=args.elmo_stateful)
     print(f"text features {feats.shape} -> {out}")
     return 0
 
 
 _MULTI_GPU = "the multi-GPU slice (ROADMAP.md Queue 1, item 18)"
-_VGGISH = "the VGGish slice (ROADMAP.md Queue 1, item 17)"
 
 
 def _reject(options) -> None:
@@ -203,8 +229,31 @@ def _reject(options) -> None:
 def _reject_unported(args) -> None:
     _reject((
         ("--fold-parallel/--data-parallel",
-         args.fold_parallel or args.data_parallel != 1, _MULTI_GPU),
-        ("--audio-dim", args.audio_dim != 256, _VGGISH)))
+         args.fold_parallel or args.data_parallel != 1, _MULTI_GPU),))
+
+
+def _embedder_kw(args) -> dict:
+    """predict / serve: ``--audio-embedder vggish`` (audio tasks only) as
+    :class:`Predictor` kwargs, with the 128-d input layer and the weights
+    and postprocessor that extraction used."""
+    if args.audio_embedder != "vggish":
+        return {}
+    if not args.task.startswith("audio"):
+        raise SystemExit(
+            "--audio-embedder vggish is supported for audio_* tasks only "
+            "(fusion/DAIC checkpoints train on wav2vlad features; serve "
+            "those with the default embedder)")
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.models import vggish
+
+    kw = {"audio_embedder": "vggish",
+          "model_cfg": C.replace(model_config(args.task),
+                                 embedding_size=vggish.EMBEDDING_SIZE)}
+    if args.vggish_ckpt:
+        kw["vggish_params"] = vggish.from_tf_checkpoint(args.vggish_ckpt)
+    if args.pca_params:
+        kw["vggish_postprocessor"] = vggish.load_pca_params(args.pca_params)
+    return kw
 
 
 def _fold_kw(args) -> dict:
@@ -297,6 +346,10 @@ def cmd_train(args):
     from icassp2022_depression_tpu_torch.utils.logging import MetricsLogger
 
     _reject_unported(args)
+    audio_dim = args.audio_dim if args.task.startswith("audio") else 256
+    if args.corpus and audio_dim != 256:
+        raise SystemExit("--corpus always extracts 256-d wav2vlad "
+                         "features; --audio-dim must stay 256")
     device = _device(args)
     root = Path(args.root)
     audio_dir, text_dir = _features_dirs(root)
@@ -306,6 +359,11 @@ def cmd_train(args):
     track = "clf" if args.task.endswith("clf") else "reg"
     # resolved at call time, so a changed preset is what trains
     tcfg = getattr(C, args.task.upper())
+    if audio_dim != 256:
+        # another embedder's features (extract-audio --embedder vggish:
+        # 128-d): the model's input layer takes their width
+        tcfg = C.replace(tcfg, model=C.replace(tcfg.model,
+                                               embedding_size=audio_dim))
     text_kw = {}
     if args.task.startswith("text") and args.corpus:
         x, sds, clf_targets, text_kw["meta_extras"] = _corpus_text(
@@ -322,7 +380,7 @@ def cmd_train(args):
         y = clf_targets if track == "clf" else sds
     else:
         _require_features(audio_dir, "audio")
-        x, y = afe.load_features(audio_dir, track)
+        x, y = afe.load_features(audio_dir, track, dim=audio_dim)
     fn = {"audio_clf": trainers.train_audio_clf,
           "text_clf": trainers.train_text_clf,
           "audio_reg": trainers.train_audio_reg,
@@ -1033,10 +1091,7 @@ def cmd_serve(args):
     """The HTTP front around one checkpoint (runs until interrupted)."""
     from icassp2022_depression_tpu_torch.serving import transport
 
-    _reject((("--audio-embedder vggish", args.audio_embedder == "vggish",
-              _VGGISH),
-             ("--vggish-ckpt/--pca-params",
-              bool(args.vggish_ckpt or args.pca_params), _VGGISH)))
+    embedder_kw = _embedder_kw(args)   # vggish raises off the audio tasks
     device = _device(args)
     if args.task.startswith("daic"):
         predictor = DaicPredictor.from_checkpoint(
@@ -1050,7 +1105,7 @@ def cmd_serve(args):
                   "depend on per-session response counts)",
                   file=sys.stderr)
     else:
-        kw = {"device": device}
+        kw = {"device": device, **embedder_kw}
         # default: from_checkpoint adopts the sidecar's segmenter
         if args.segmenter:
             kw["segmenter"] = args.segmenter
@@ -1068,8 +1123,50 @@ def cmd_serve(args):
     return 0
 
 
+def cmd_baselines(args):
+    """The sklearn baselines of one task on the npz features, on the host
+    (the card's machine has no sklearn): one JSON line of the fold mean,
+    rounded as the JAX CLI rounds it."""
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.eval import traditional
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+
+    audio_dir, text_dir = _features_dirs(Path(args.root))
+    track = "clf" if args.task.endswith("_clf") else "reg"
+    x, y = (afe.load_features(audio_dir, track)
+            if args.task.startswith("audio")
+            else tfe.load_features(text_dir, track))
+    if track == "clf":
+        _, summary = traditional.classify(
+            x, y, _train_folds(y, args.seed, args.idx_files),
+            model=args.model, seed=args.seed)
+    else:
+        dep, non = folds.generate_reg_shuffles(y, seed=args.seed)
+        _, summary = traditional.regress(x, y, dep, non, model=args.model,
+                                         seed=args.seed)
+    print(json.dumps({k: round(v, 4) for k, v in summary.items()}))
+    return 0
+
+
 _DEVICE_HELP = ("torch device (default cuda; without a card this raises "
                 "unless --device cpu is given)")
+_SERVE_EMBEDDER_HELP = ("serve checkpoints trained on extract-audio "
+                        "--embedder vggish features (audio tasks)")
+
+
+def _vggish_args(sp, embedder_flag: str, embedder_help: str) -> None:
+    """The audio embedder's options (extract-audio, predict, serve)."""
+    sp.add_argument(embedder_flag, choices=["netvlad", "vggish"],
+                    default="netvlad", help=embedder_help)
+    sp.add_argument("--vggish-ckpt",
+                    help="released vggish_model.ckpt to convert and use "
+                         "(default: the bundle ICASSP_VGGISH_WEIGHTS or "
+                         "~/.cache/icassp2022_tpu/vggish.npz names, else "
+                         "the seeded stand-in)")
+    sp.add_argument("--pca-params",
+                    help="released vggish_pca_params.npz postprocessor "
+                         "(wins over a bundle's)")
 
 
 def build_parser():
@@ -1085,15 +1182,14 @@ def build_parser():
     sp.set_defaults(fn=cmd_synth_corpus)
 
     sp = sub.add_parser("extract-audio", help="EATD audio features "
-                        "(wav2vlad)")
+                        "(wav2vlad or VGGish)")
     sp.add_argument("--root", required=True)
     sp.add_argument("--out")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
-    # the JAX CLI's VGGish options arrive with item 17 (cmd_extract_audio)
-    sp.add_argument("--embedder", choices=["netvlad", "vggish"],
-                    default="netvlad")
-    sp.add_argument("--vggish-ckpt")
-    sp.add_argument("--pca-params")
+    _vggish_args(sp, "--embedder",
+                 "netvlad = the reference's committed wav2vlad path (256-d); "
+                 "vggish = its declared alternative to_vggish_embedds "
+                 "(128-d, _128 npz suffix)")
     sp.set_defaults(fn=cmd_extract_audio)
 
     sp = sub.add_parser("extract-text", help="EATD text features")
@@ -1111,8 +1207,11 @@ def build_parser():
                          "installed, else fallback), jieba, fallback, "
                          "pkuseg, thulac, hanlp")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
-    # the JAX CLI's options that later slices bring (see _reject_text_modes)
-    sp.add_argument("--elmo-stateful", action="store_true")
+    sp.add_argument("--elmo-stateful", action="store_true",
+                    help="emulate upstream ElmobiLm's cross-batch state (one "
+                         "sents2elmo call per speaker, biLM states carried "
+                         "across speakers; needs a converted bundle)")
+    # the JAX CLI's option that a later slice brings (see _reject_text_modes)
     sp.add_argument("--elmo-tp", type=int, default=0)
     sp.set_defaults(fn=cmd_extract_text)
 
@@ -1143,8 +1242,11 @@ def build_parser():
     sp.add_argument("--vmap-folds", action="store_true",
                     help="train the 3 folds as one program (a fold axis in "
                          "every tensor and kernel)")
-    # the JAX CLI's options that later slices bring (see _reject_unported)
-    sp.add_argument("--audio-dim", type=int, default=256)
+    sp.add_argument("--audio-dim", type=int, default=256,
+                    help="audio feature width of the npz features (128: "
+                         "extract-audio --embedder vggish); the model's "
+                         "input layer takes it")
+    # the JAX CLI's options that a later slice brings (see _reject_unported)
     sp.add_argument("--fold-parallel", action="store_true")
     sp.add_argument("--data-parallel", type=int, default=1)
     sp.set_defaults(fn=cmd_train)
@@ -1185,8 +1287,10 @@ def build_parser():
                          "one recorded by the checkpoint's training "
                          "features)")
     sp.add_argument("--embed-seed", type=int, default=None,
-                    help="seed of the stand-in text encoder (default 0)")
+                    help="seed of the stand-in text encoder and VGGish "
+                         "weights (default 0)")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    _vggish_args(sp, "--audio-embedder", _SERVE_EMBEDDER_HELP)
     sp.set_defaults(fn=cmd_predict)
 
     sp = sub.add_parser("check", help="recompute fold metrics from "
@@ -1377,12 +1481,18 @@ def build_parser():
                          "0; DAIC: the checkpoint's recorded extraction "
                          "seed)")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
-    # the JAX CLI's VGGish options arrive with item 17 (cmd_serve)
-    sp.add_argument("--audio-embedder", choices=["netvlad", "vggish"],
-                    default="netvlad")
-    sp.add_argument("--vggish-ckpt")
-    sp.add_argument("--pca-params")
+    _vggish_args(sp, "--audio-embedder", _SERVE_EMBEDDER_HELP)
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("baselines", help="sklearn baselines (host only)")
+    sp.add_argument("--task", required=True,
+                    choices=["audio_clf", "text_clf", "audio_reg", "text_reg"])
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--model", default="rf",
+                    help="clf: rf, dt, svm, lr; reg: svr, dt, rf, ada")
+    sp.add_argument("--idx-files", nargs="*")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_baselines)
     return p
 
 

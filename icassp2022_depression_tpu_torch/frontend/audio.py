@@ -1,7 +1,8 @@
-"""EATD audio frontend: batched wav2vlad (port of
+"""EATD audio frontend: batched wav2vlad and VGGish (port of
 :mod:`icassp2022_depression_tpu.frontend.audio`: the batched extraction,
 the fused corpus pass that feeds training, the npz feature writer with its
-incremental per-speaker cache, and the npz feature reader).
+incremental per-speaker cache, the VGGish corpus pass
+(:func:`extract_eatd_vggish`) and the npz feature reader).
 
 Reference: ``wav2vlad`` (``Classification/audio_features_whole.py:57-72``)
 = librosa log-mel -> a freshly initialised NetVLAD per utterance.
@@ -263,6 +264,91 @@ def extract_eatd(root: Path, cfg: FrontendConfig = FrontendConfig(),
             {"speakers": manifest,
              "min_len_s": min_len if np.isfinite(min_len) else None,
              "max_len_s": max_len if max_len > 0 else None}, indent=2))
+    return features, sds_targets, clf_targets, manifest
+
+
+#: examples per VGGish forward: one shape for every call, and the first
+#: conv's map of a chunk (256 x 64 x 96 x 64 floats, 100.7 MB) bounded
+VGGISH_CHUNK = 256
+
+
+def vggish_embed_waveforms(model, waveforms: Sequence[np.ndarray],
+                           sample_rates: Sequence[int],
+                           postprocessor=None) -> np.ndarray:
+    """Waveforms -> per-utterance mean-pooled VGGish embeddings [n_utt,
+    128], numpy (the JAX package's ``vggish_embed_waveforms``).
+
+    Corpus extraction and serving both embed through here.  Every
+    utterance's 0.96 s examples (host numpy,
+    :func:`..models.vggish.waveform_to_examples`) go through fixed
+    ``VGGISH_CHUNK``-example chunks of ``model`` (a
+    :class:`..models.vggish.VGGish`) on its device, the last chunk zero
+    padded; the embeddings are read back once, postprocessed on the host
+    when ``postprocessor`` is given, and averaged per utterance.  An
+    utterance shorter than one example embeds as a zero row."""
+    from icassp2022_depression_tpu_torch.models import vggish
+
+    per_utt = [vggish.waveform_to_examples(np.asarray(w), sr)
+               for w, sr in zip(waveforms, sample_rates)]
+    counts = [e.shape[0] for e in per_utt]
+    total = sum(counts)
+    out = np.zeros((len(counts), vggish.EMBEDDING_SIZE), np.float32)
+    if not total:
+        return out
+    flat = np.concatenate([e for e in per_utt if e.shape[0]])
+    device = next(model.parameters()).device
+    pieces = []
+    with torch.inference_mode():
+        for lo in range(0, total, VGGISH_CHUNK):
+            part = np.zeros((VGGISH_CHUNK,) + flat.shape[1:], np.float32)
+            rows = flat[lo:lo + VGGISH_CHUNK]
+            part[:len(rows)] = rows
+            pieces.append(model(torch.from_numpy(part).to(device)))
+        emb = torch.cat(pieces)[:total].cpu().numpy()
+    if postprocessor is not None:
+        emb = postprocessor(emb).astype(np.float32)
+    pos = 0
+    for utt, c in enumerate(counts):
+        if c:
+            out[utt] = emb[pos:pos + c].mean(0)
+            pos += c
+    return out
+
+
+def extract_eatd_vggish(root: Path, params=None, postprocessor=None,
+                        out_dir: Optional[Path] = None,
+                        max_id: int = eatd.MAX_SPEAKER_ID,
+                        sds_threshold: float = FoldConfig.sds_threshold,
+                        seed: int = 0, device=None):
+    """The corpus audio pass through the reference's alternative embedder,
+    VGGish (``to_vggish_embedds``, ``audio_features_whole.py:39-55``):
+    each utterance's example embeddings mean-pooled to one 128-d vector,
+    in the wav2vlad layout ``[N, 3, 1, 128]``.  ``params``: a
+    :class:`..models.vggish.VGGish`, a JAX-layout param tree, or None for
+    the seeded stand-in at ``seed``.  With ``out_dir`` it writes the JAX
+    package's ``whole_{samples,labels}_{reg,clf}_128.npz`` and a
+    ``manifest.json`` with ``"embedder": "vggish"``.  The network runs on
+    ``device`` (None: the first card).
+
+    Returns (features [N, 3, 1, 128], sds_targets, clf_targets, manifest).
+    """
+    from icassp2022_depression_tpu_torch.models import vggish
+
+    model = vggish.resolve(params, seed, device)
+    waveforms, rates, sds, manifest = _corpus_utterances(root, max_id)
+    dim = vggish.EMBEDDING_SIZE
+    features = vggish_embed_waveforms(model, waveforms, rates,
+                                      postprocessor).reshape(len(sds), 3, 1,
+                                                             dim)
+    sds_targets, clf_targets = eatd.eatd_targets(sds, sds_threshold)
+    if out_dir is not None:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for track, y in (("reg", sds_targets), ("clf", clf_targets)):
+            np.savez(out_dir / f"whole_samples_{track}_{dim}.npz", features)
+            np.savez(out_dir / f"whole_labels_{track}_{dim}.npz", y)
+        (out_dir / "manifest.json").write_text(json.dumps(
+            {"speakers": manifest, "embedder": "vggish"}, indent=2))
     return features, sds_targets, clf_targets, manifest
 
 

@@ -13,9 +13,11 @@ bundle, or the seeded stand-in) and averaged over its tokens -> one
 the JAX package's for the same embedder); :func:`extract_eatd_device` keeps
 the features on the device for the trainers (``cli train --corpus``,
 ``cli pipeline --corpus``).  Each runs on ``device``, by default the
-first card (raising when there is none).  Not ported yet: the stateful
-pretrained mode (``ROADMAP.md`` Queue 1 item 13) and the tensor-parallel
-biLM (item 18); the CLI's ``--elmo-stateful`` and ``--elmo-tp`` raise.
+first card (raising when there is none).  ``elmo_stateful`` (a bundle
+only) emulates upstream's cross-batch biLM state, one embedding call per
+speaker as the reference's persistent ``Embedder`` makes them.  Not
+ported yet: the tensor-parallel biLM (``ROADMAP.md`` Queue 1 item 18);
+the CLI's ``--elmo-tp`` raises.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from icassp2022_depression_tpu_torch.models import elmo, elmo_pretrained
 from icassp2022_depression_tpu_torch.ops import prng
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
-STATEFUL_ITEM = "ROADMAP.md Queue 1 item 13 (the stateful pretrained mode)"
 TP_ITEM = "ROADMAP.md Queue 1 item 18 (multi-GPU)"
 
 
@@ -161,7 +162,8 @@ def embed_sentences(params, sentences: Sequence[List[str]],
 
 def make_embedder(params=None, cfg=None, seed: int = 0,
                   elmo_weights: Optional[str] = "auto",
-                  with_id: bool = False, device=None):
+                  with_id: bool = False, device=None,
+                  elmo_stateful: bool = False):
     """Resolve the sentence embedder once -> ``(embed_fn, output_dim)``
     (plus the provenance id with ``with_id``, recorded in extraction
     sidecars).  ``embed_fn(sentences) -> [N, output_dim]`` on ``device``.
@@ -174,6 +176,10 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     for an :class:`..models.elmo.ElmoLstmpConfig`), with a stderr banner.
     Explicit ``params`` are moved to ``device``; ``device`` None is the
     first card (:func:`..utils.device.default_device`).
+
+    ``elmo_stateful`` (a bundle only; explicit params or no bundle raise):
+    the bundle's :class:`..models.elmo_pretrained.PretrainedElmo` carries
+    its biLM states across calls, and the id gets a ``:stateful`` suffix.
     """
     device = resolve_device(device)
 
@@ -183,6 +189,10 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     if cfg is None:
         cfg = elmo.ElmoConfig()
     if params is not None:
+        if elmo_stateful:
+            raise ValueError("elmo_stateful requires a converted "
+                             "ELMoForManyLangs bundle (explicit params "
+                             "use the stateless encoder)")
         params = elmo_pretrained.tree_to(params, device)
         return ret(lambda s: embed_sentences(params, s, cfg), cfg.output_dim,
                    "explicit-params")
@@ -191,9 +201,19 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
         found = elmo_pretrained.default_weights_path()
     elif elmo_weights:
         found = Path(elmo_weights)
+    if elmo_stateful and found is None:
+        raise ValueError(
+            "elmo_stateful emulates the pretrained upstream ElmobiLm's "
+            "cross-batch state and needs a converted bundle "
+            "(scripts/convert_elmo_zhs.py; set ICASSP_ELMO_WEIGHTS or "
+            "pass --elmo-weights) - refusing to silently run the "
+            "stateless PRNG encoder instead")
     if found is not None:
         pretrained = elmo_pretrained.load_npz(found, device)
+        pretrained.stateful = elmo_stateful
         ident = f"elmo_bundle:{found.name}:{found.stat().st_size}"
+        if elmo_stateful:
+            ident += ":stateful"
         return ret(pretrained.embed_sentences, pretrained.output_dim, ident)
     key = prng.prng_key(seed, device)
     if isinstance(cfg, elmo.ElmoLstmpConfig):
@@ -241,14 +261,27 @@ def extract_eatd_device(root: Path, params=None, cfg=elmo.ElmoConfig(),
                         seed: int = 0, max_id: int = eatd.MAX_SPEAKER_ID,
                         sds_threshold: float = 53.0,
                         elmo_weights: Optional[str] = "auto",
-                        segmenter: str = "auto", device=None):
+                        segmenter: str = "auto", device=None,
+                        elmo_stateful: bool = False):
     """The corpus text pass with the features left on ``device`` (``cli
     train --corpus`` / ``cli pipeline --corpus``).  Returns (features
-    [N, 3, D] on ``device``, sds_targets, clf_targets, provenance dict)."""
+    [N, 3, D] on ``device``, sds_targets, clf_targets, provenance dict).
+
+    With ``elmo_stateful`` each speaker's 3 answers are one embedding call,
+    the reference's granularity (one ``sents2elmo`` call per speaker on a
+    persistent ``Embedder``, ``text_features_whole.py:16,40``): the carried
+    states depend on the batches, so they must match call for call."""
     embed, dim, embedder_id = make_embedder(
-        params, cfg, seed, elmo_weights, with_id=True, device=device)
+        params, cfg, seed, elmo_weights, with_id=True, device=device,
+        elmo_stateful=elmo_stateful)
     sentences, sds = _corpus_sentences(Path(root), max_id, segmenter)
-    features = embed(sentences).reshape(len(sds), 3, dim)
+    if elmo_stateful:
+        flat = torch.cat([embed(sentences[i:i + 3])
+                          for i in range(0, len(sentences), 3)]
+                         or [embed([])])
+    else:
+        flat = embed(sentences)
+    features = flat.reshape(len(sds), 3, dim)
     sds_targets, clf_targets = eatd.eatd_targets(sds, sds_threshold)
     meta = {"embedder": embedder_id, "output_dim": int(dim), "seed": seed,
             "segmenter": segmenter}
@@ -260,14 +293,15 @@ def extract_eatd(root: Path, params=None, cfg=elmo.ElmoConfig(),
                  max_id: int = eatd.MAX_SPEAKER_ID,
                  sds_threshold: float = 53.0,
                  elmo_weights: Optional[str] = "auto",
-                 segmenter: str = "auto", device=None):
+                 segmenter: str = "auto", device=None,
+                 elmo_stateful: bool = False):
     """The corpus text pass -> ([N, 3, D] features, sds, clf labels) as
     numpy; with ``out_dir``, also the JAX package's
     ``whole_{samples,labels}_{reg,clf}_avg.npz`` and
     ``extraction_meta.json``."""
     feats, sds_targets, clf_targets, meta = extract_eatd_device(
         root, params, cfg, seed, max_id, sds_threshold, elmo_weights,
-        segmenter, device)
+        segmenter, device, elmo_stateful)
     features = feats.cpu().numpy()
     if out_dir is not None:
         out_dir = Path(out_dir)

@@ -18,7 +18,6 @@ a bundle's arrays load unchanged.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Mapping, Optional, Tuple
 
@@ -27,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from icassp2022_depression_tpu_torch.ops import prng
+from icassp2022_depression_tpu_torch.ops.nn import no_tf32_convs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,17 +88,6 @@ def init(key: torch.Tensor, cfg: CharCnnConfig = CharCnnConfig()) -> dict:
     return params
 
 
-@contextlib.contextmanager
-def _no_tf32_convs():
-    """cuDNN runs float32 convolutions in TF32 by default; not here."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
-
-
 def embed_tokens(params: Mapping, char_ids: torch.Tensor, cfg: CharCnnConfig,
                  word_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """char_ids [B, T, max_chars] int -> token representations [B, T,
@@ -108,7 +97,7 @@ def embed_tokens(params: Mapping, char_ids: torch.Tensor, cfg: CharCnnConfig,
     x = params["char_emb"][char_ids.reshape(b * t, c)]       # [BT, C, D]
     x = x.transpose(1, 2)                                     # [BT, D, C]
     outs = []
-    with _no_tf32_convs():
+    with no_tf32_convs():
         for conv in params["convs"]:
             y = F.conv1d(x, conv["w"], conv["b"])
             outs.append(act(y.amax(dim=-1)))                  # max over pos

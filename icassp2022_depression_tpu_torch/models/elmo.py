@@ -11,7 +11,10 @@ Two encoders, both ``[B, T]`` inputs with per-row ``lengths`` -> per-token
 * the ELMo-faithful biLM (:class:`ElmoLstmpConfig`, :func:`bilm_stack`,
   :func:`encode_lstmp_from_reps`): stacked LSTMP layers
   (:func:`..ops.rnn.lstmp_layer`: the ``lstmp_fwd`` CUDA kernel on a card)
-  with residuals between layers, averaged with the token layer.
+  with residuals between layers, averaged with the token layer; and its
+  stateful twin (:func:`encode_lstmp_from_reps_stateful`), whose layers
+  start from carried states (:func:`..ops.rnn.lstmp_layer_stateful`, a
+  plain step loop).
 
 The backward direction of a padded batch reverses each row by its own
 length (:func:`reverse_padded`), so padding never reaches a real token; the
@@ -153,26 +156,30 @@ def init_lstmp_encoder(key: torch.Tensor,
 def bilm_stack(layers, token_reps: torch.Tensor, lengths: torch.Tensor,
                direction_fn):
     """The stacked-biLM composition (upstream ``ElmobiLm`` / allennlp
-    ``ElmoLstm``): per layer, ``direction_fn(layer, name, x, idx) -> ys``
-    on the forward stream and on the length-reversed backward stream, the
-    reversal undone, residuals from the second layer on; the ELMo layers
-    ([emb; emb] and every LSTMP layer) averaged, then masked-mean-pooled.
-    Returns (rep [B, T, 2P], pooled [B, 2P])."""
+    ``ElmoLstm``): per layer, ``direction_fn(layer, name, x, idx) -> (ys,
+    aux)`` on the forward stream and on the length-reversed backward
+    stream, the reversal undone, residuals from the second layer on; the
+    ELMo layers ([emb; emb] and every LSTMP layer) averaged, then
+    masked-mean-pooled.  Returns (rep [B, T, 2P], pooled [B, 2P], the
+    per-layer ``(fwd aux, bwd aux)`` pairs)."""
     e = token_reps
     f_in, b_in = e, e
     layer_reps = [torch.cat([e, e], dim=-1)]
+    auxes = []
     for idx, layer in enumerate(layers):
-        f_out = direction_fn(layer, "fwd", f_in, idx)
-        b_out = reverse_padded(
-            direction_fn(layer, "bwd", reverse_padded(b_in, lengths), idx),
-            lengths)
+        f_out, f_aux = direction_fn(layer, "fwd", f_in, idx)
+        b_rev, b_aux = direction_fn(layer, "bwd",
+                                    reverse_padded(b_in, lengths), idx)
+        b_out = reverse_padded(b_rev, lengths)
         if idx > 0:
             f_out = f_out + f_in
             b_out = b_out + b_in
         layer_reps.append(torch.cat([f_out, b_out], dim=-1))
+        auxes.append((f_aux, b_aux))
         f_in, b_in = f_out, b_out
     rep = sum(layer_reps) / len(layer_reps)
-    return rep, _masked_mean(rep, _valid(token_reps.shape[1], lengths))
+    return (rep, _masked_mean(rep, _valid(token_reps.shape[1], lengths)),
+            auxes)
 
 
 def encode_lstmp_from_reps(params: Mapping, token_reps: torch.Tensor,
@@ -186,9 +193,57 @@ def encode_lstmp_from_reps(params: Mapping, token_reps: torch.Tensor,
     def direction(layer, name, x, idx):
         ys, _, _ = rnn_ops.lstmp_layer(layer[name], x, False, cfg.cell_clip,
                                        cfg.proj_clip, backend)
-        return ys
+        return ys, None
 
-    return bilm_stack(params["layers"], token_reps, lengths, direction)
+    rep, pooled, _ = bilm_stack(params["layers"], token_reps, lengths,
+                                direction)
+    return rep, pooled
+
+
+def encode_lstmp_from_reps_stateful(params: Mapping, token_reps: torch.Tensor,
+                                    lengths: torch.Tensor, h0: torch.Tensor,
+                                    c0: torch.Tensor,
+                                    cfg: ElmoLstmpConfig = ElmoLstmpConfig()):
+    """Stateful :func:`encode_lstmp_from_reps`, upstream ``ElmobiLm``'s
+    allennlp ``_EncoderBase(stateful=True)`` layout: ``h0`` [L, B, 2P] /
+    ``c0`` [L, B, 2C] are the per-layer initial states, the forward
+    direction in the first half of the last axis and the backward in the
+    second.  Each direction runs :func:`..ops.rnn.lstmp_layer_stateful`
+    (a plain step loop, no kernel).
+
+    Returns (rep, pooled, h_n, c_n): ``h_n`` / ``c_n`` are each row's
+    states at its last valid step in the same layout, to be carried into
+    the next batch (:class:`..models.elmo_pretrained.PretrainedElmo`)."""
+    pdim, cdim = cfg.proj_size, cfg.cell_size
+    valid = _valid(token_reps.shape[1], lengths)
+
+    def direction(layer, name, x, idx):
+        # a reversed row holds its valid tokens at [0, len) too, so one
+        # mask serves both directions, and the backward scan consumes its
+        # initial state at the row's original index len - 1, where
+        # upstream's backward cell starts
+        off_h = 0 if name == "fwd" else pdim
+        off_c = 0 if name == "fwd" else cdim
+        ys, h, c = rnn_ops.lstmp_layer_stateful(
+            layer[name], x, valid, h0[idx, :, off_h:off_h + pdim],
+            c0[idx, :, off_c:off_c + cdim], cfg.cell_clip, cfg.proj_clip)
+        return ys, (h, c)
+
+    rep, pooled, auxes = bilm_stack(params["layers"], token_reps, lengths,
+                                    direction)
+    h_n = torch.stack([torch.cat([f[0], b[0]], dim=-1) for f, b in auxes])
+    c_n = torch.stack([torch.cat([f[1], b[1]], dim=-1) for f, b in auxes])
+    return rep, pooled, h_n, c_n
+
+
+def zero_lstmp_states(batch: int, cfg: ElmoLstmpConfig = ElmoLstmpConfig(),
+                      device=None):
+    """Fresh (h, c) for :func:`encode_lstmp_from_reps_stateful`, upstream's
+    first-batch ``initial_states=None``: zeros [L, B, 2P] / [L, B, 2C]."""
+    return (torch.zeros((cfg.layers, batch, 2 * cfg.proj_size),
+                        dtype=torch.float32, device=device),
+            torch.zeros((cfg.layers, batch, 2 * cfg.cell_size),
+                        dtype=torch.float32, device=device))
 
 
 def encode_lstmp(params: Mapping, token_ids: torch.Tensor,

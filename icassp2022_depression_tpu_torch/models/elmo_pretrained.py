@@ -1,5 +1,5 @@
 """Pretrained ELMoForManyLangs (zhs) pipeline: convert, load, embed (port
-of :mod:`icassp2022_depression_tpu.models.elmo_pretrained`, stateless mode).
+of :mod:`icassp2022_depression_tpu.models.elmo_pretrained`).
 
 * :func:`convert_model_dir` reads a released model directory
   (``config.json``, ``char.dic`` [, ``word.dic``], ``token_embedder.pkl``,
@@ -17,9 +17,21 @@ of :mod:`icassp2022_depression_tpu.models.elmo_pretrained`, stateless mode).
 Faithfulness notes, each as in the JAX package: every sentence is wrapped
 in ``<bos>``/``<eos>``; a token longer than ``max_chars - 2`` is cut; each
 token's chars are ``[bow, chars..., eow]`` padded with ``<pad>``, with
-upstream's swapped bow/eow ids (``SWAP_BOW_EOW``); the encoder is zero-state
-per sentence (the stateful emulation of upstream's cross-batch state is
-not ported yet, ``ROADMAP.md`` Queue 1 item 13).
+upstream's swapped bow/eow ids (``SWAP_BOW_EOW``).
+
+Upstream's ``ElmobiLm`` is stateful across batches (allennlp
+``_EncoderBase(stateful=True)``), so its embeddings depend on the order a
+corpus is processed in.  By default the encoder here is zero-state per
+sentence, the JAX package's documented reproducibility fix (upstream's
+very first batch).  ``stateful=True`` emulates upstream batch for batch
+(:meth:`PretrainedElmo._embed_sentences_stateful`): sentences sorted by
+length, descending and stable, batches of 64 without row padding, and the
+biLM states carried across batches and across
+:meth:`PretrainedElmo.embed_sentences` calls, with allennlp's rules for a
+batch that grows or shrinks and for unused rows.  ``reset_states()``
+forgets them.  That mode's recurrence is a plain step loop
+(:func:`..ops.rnn.lstmp_layer_stateful`): the ``lstmp_fwd`` kernel is
+zero-state by contract, as the Pallas kernel it ports is.
 """
 
 from __future__ import annotations
@@ -123,6 +135,18 @@ def encode_pooled(cc_params, enc_params, char_ids, word_ids, lengths,
     return rep, _interior_mean(rep, lengths)
 
 
+def encode_pooled_stateful(cc_params, enc_params, char_ids, word_ids,
+                           lengths, h0, c0, char_cfg: char_cnn.CharCnnConfig,
+                           lstmp_cfg: elmo.ElmoLstmpConfig):
+    """Stateful :func:`encode_pooled`: carries the biLM states ([L, B, 2P]
+    / [L, B, 2C], allennlp's layout) in and out -> (pooled [B, 2P], h_n,
+    c_n)."""
+    reps = char_cnn.embed_tokens(cc_params, char_ids, char_cfg, word_ids)
+    rep, _, h_n, c_n = elmo.encode_lstmp_from_reps_stateful(
+        enc_params, reps, lengths, h0, c0, lstmp_cfg)
+    return _interior_mean(rep, lengths), h_n, c_n
+
+
 def tree_to(tree, device):
     """A nested dict / list of arrays -> the same tree of float32 tensors
     on ``device``."""
@@ -141,10 +165,19 @@ class PretrainedElmo:
     enc_params: dict
     char_lexicon: Dict[str, int]
     word_lexicon: Optional[Dict[str, int]]
+    #: emulate upstream ElmobiLm's cross-batch state (module docstring);
+    #: False is the zero-state mode
+    stateful: bool = False
+    _states: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def output_dim(self) -> int:
         return self.lstmp_cfg.output_dim
+
+    def reset_states(self) -> None:
+        """Forget the carried biLM states (a fresh process's)."""
+        self._states = None
 
     @property
     def device(self) -> torch.device:
@@ -157,12 +190,18 @@ class PretrainedElmo:
             enc_params=tree_to(self.enc_params, device))
 
     def embed_sentences(self, sentences: Sequence[Sequence[str]],
-                        batch_size: int = 128) -> torch.Tensor:
+                        batch_size: Optional[int] = None) -> torch.Tensor:
         """Tokenised sentences -> [N, 1024] on the parameters' device:
-        batches of ``batch_size`` sentences, rows padded to a multiple of 8
-        (empty sentences: BOS/EOS only) and tokens to a multiple of 16, as
-        in the JAX package.  The encoder is zero-state per sentence, so a
-        sentence gets the same vector in any batch."""
+        batches of ``batch_size`` sentences (default 128), rows padded to a
+        multiple of 8 (empty sentences: BOS/EOS only) and tokens to a
+        multiple of 16, as in the JAX package.  The encoder is zero-state
+        per sentence, so a sentence gets the same vector in any batch;
+        with ``stateful`` it is :meth:`_embed_sentences_stateful` (default
+        batch 64, upstream's)."""
+        if self.stateful:
+            return self._embed_sentences_stateful(sentences,
+                                                  batch_size or 64)
+        batch_size = batch_size or 128
         device = self.device
         pooled = []
         with torch.inference_mode():
@@ -186,6 +225,78 @@ class PretrainedElmo:
             return torch.zeros((0, self.output_dim), dtype=torch.float32,
                                device=device)
         return torch.cat(pooled)
+
+    # -- upstream-faithful stateful mode -----------------------------------
+
+    def _prepare_states(self, batch: int):
+        """allennlp ``_EncoderBase._get_initial_states``: zeros at the very
+        first batch; a batch larger than the store grows the stored states
+        with zero rows (upstream mutates its ``_states``), a smaller one
+        takes the first rows.  The sort indices are the identity here,
+        since the sentences arrive sorted."""
+        if self._states is None:
+            return elmo.zero_lstmp_states(batch, self.lstmp_cfg, self.device)
+        h, c = self._states
+        grow = batch - h.shape[1]
+        if grow > 0:
+            h = torch.cat([h, h.new_zeros((h.shape[0], grow, h.shape[2]))], 1)
+            c = torch.cat([c, c.new_zeros((c.shape[0], grow, c.shape[2]))], 1)
+            self._states = (h, c)
+        return h[:, :batch], c[:, :batch]
+
+    def _update_states(self, h_n, c_n) -> None:
+        """allennlp ``_EncoderBase._update_states``: a row whose returned
+        first-layer state sums to exactly 0 counts as unused and keeps its
+        old state; rows of the store beyond the batch stay as they were
+        (the store never shrinks)."""
+        if self._states is None:
+            self._states = (h_n, c_n)
+            return
+        old_h, old_c = self._states
+        batch = h_n.shape[1]
+        used_h = (h_n[0].sum(-1) != 0.0)[None, :, None]
+        used_c = (c_n[0].sum(-1) != 0.0)[None, :, None]
+        new_h = old_h.clone()
+        new_c = old_c.clone()
+        new_h[:, :batch] = torch.where(used_h, h_n, old_h[:, :batch])
+        new_c[:, :batch] = torch.where(used_c, c_n, old_c[:, :batch])
+        self._states = (new_h, new_c)
+
+    def _embed_sentences_stateful(self, sentences: Sequence[Sequence[str]],
+                                  batch_size: int = 64) -> torch.Tensor:
+        """Upstream ``sents2elmo`` batch for batch: a stable sort by length,
+        descending (``create_batches(..., sort=True)``; ties keep corpus
+        order), batches without row padding (a padded row would perturb
+        the carried states), tokens padded to a multiple of 16 (masked
+        updates make trailing padding a no-op), the states carried across
+        batches and calls, outputs in input order."""
+        device = self.device
+        n = len(sentences)
+        if n == 0:
+            return torch.zeros((0, self.output_dim), dtype=torch.float32,
+                               device=device)
+        order = sorted(range(n), key=lambda i: -len(sentences[i]))
+        pooled = []
+        with torch.inference_mode():
+            for start in range(0, n, batch_size):
+                chunk = [sentences[i] for i in order[start:start + batch_size]]
+                max_t = max(2, max(len(s) for s in chunk) + 2)
+                char_ids, word_ids, lengths = build_batch(
+                    chunk, self.char_lexicon, self.word_lexicon,
+                    self.char_cfg.max_chars, pad_to=-(-max_t // 16) * 16)
+                h0, c0 = self._prepare_states(len(chunk))
+                out, h_n, c_n = encode_pooled_stateful(
+                    self.cc_params, self.enc_params,
+                    torch.from_numpy(char_ids).to(device),
+                    None if word_ids is None
+                    else torch.from_numpy(word_ids).to(device),
+                    torch.from_numpy(lengths).to(device), h0, c0,
+                    self.char_cfg, self.lstmp_cfg)
+                self._update_states(h_n, c_n)
+                pooled.append(out)
+        inv = np.empty(n, np.int64)
+        inv[np.asarray(order)] = np.arange(n)
+        return torch.cat(pooled)[torch.from_numpy(inv).to(device)]
 
 
 # ---------------------------------------------------------------------------

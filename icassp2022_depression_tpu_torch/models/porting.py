@@ -231,6 +231,25 @@ def fusion_tree_from_state_dict(sd: Mapping, cfg: FusionConfig) -> dict:
     return tree
 
 
+def vggish_state_dict_from_jax(tree: Mapping) -> dict:
+    """A JAX ``vggish`` param tree (``{"convs": [{"w": HWIO, "b"}], "fcs":
+    [{"w": [in, out], "b"}]}``, tensors or arrays, nested or with
+    '/'-joined keys) -> :class:`..models.vggish.VGGish`'s state dict:
+    OIHW convolutions, ``[out, in]`` linears, float32 on the leaves'
+    device.  A ``pca`` subtree (a bundle's postprocessor) is not part of
+    the network and is left out."""
+    tree = _nest(tree)
+    out = {}
+    for name, perm in (("convs", (3, 2, 0, 1)), ("fcs", (1, 0))):
+        node = tree[name]
+        for i in range(len(node)):
+            entry = _item(node, i)
+            out[f"{name}.{i}.weight"] = _t(entry["w"]).permute(
+                *perm).contiguous()
+            out[f"{name}.{i}.bias"] = _t(entry["b"])
+    return out
+
+
 def elmo_tree_from_jax(tree):
     """A JAX text-encoder param tree (``char_cnn.init``,
     ``elmo.init_lstmp_encoder``, ``elmo.init``, or a converted bundle's

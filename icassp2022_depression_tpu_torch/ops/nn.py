@@ -13,11 +13,26 @@ fold, so each fold's numbers are the ones it gets alone.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from icassp2022_depression_tpu_torch.ops import prng
+
+
+@contextlib.contextmanager
+def no_tf32_convs():
+    """cuDNN runs float32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``); the port's convolutions (the
+    char-CNN's, VGGish's) run in full float32 inside this block, whatever
+    the caller set."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def fold_view(p: torch.Tensor, ndim: int, rank: int) -> torch.Tensor:

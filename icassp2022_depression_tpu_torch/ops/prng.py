@@ -38,22 +38,22 @@ MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) & MASK) | (x >> (32 - d))
-
-
 def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 block cipher on broadcastable int64 tensors holding
-    uint32 values -> the two output words."""
+    uint32 values -> the two output words.  The rounds update the two
+    words in place (they are fresh tensors after the first key addition),
+    which keeps a large draw's temporaries to a few."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & MASK
-    x2 = (x2 + ks[1]) & MASK
+    x1 = (x1 + ks[0]).bitwise_and_(MASK)
+    x2 = (x2 + ks[1]).bitwise_and_(MASK)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & MASK
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & MASK
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+            x1.add_(x2).bitwise_and_(MASK)
+            # rotate left by r, then mix in x1
+            x2 = (x2 << r).bitwise_and_(MASK).bitwise_or_(
+                x2 >> (32 - r)).bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
+        x2.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK)
     return x1, x2
 
 
@@ -122,6 +122,16 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return out.reshape(key.shape[:-1] + shape)
 
 
+def _scale(bits: torch.Tensor, lo: float, span: float) -> torch.Tensor:
+    float_bits = (bits >> 9) | 0x3F800000
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    if span > 0 and math.frexp(span)[0] == 0.5:
+        scaled = floats * span + lo
+    else:
+        scaled = (floats.double() * span + lo).float()
+    return torch.clamp(scaled, min=lo)
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits become the
@@ -130,19 +140,26 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     a power of two (``normal``'s), the product is exact and a float32
     multiply and add round as the FMA does; otherwise the product of two
     float32 values is exact in float64, so one float64 multiply-add
-    rounded once to float32 gives its bits."""
-    bits = random_bits(key, shape)
-    float_bits = (bits >> 9) | 0x3F800000
-    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    rounded once to float32 gives its bits.
+
+    A draw of more than ``_BITS_CHUNK`` values (VGGish's 50 M-float first
+    FC) runs slice by slice into the float32 result, so no int64 tensor of
+    the whole draw is ever made."""
     # the float32 bounds as Python floats (exact), so that no host value
     # is copied to the device (a CUDA graph may capture this)
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
-    if span > 0 and math.frexp(span)[0] == 0.5:
-        scaled = floats * span + lo
-    else:
-        scaled = (floats.double() * span + lo).float()
-    return torch.clamp(scaled, min=lo)
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= _BITS_CHUNK:
+        return _scale(random_bits(key, shape), lo, span)
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    out = torch.empty(key.shape[:-1] + (n,), dtype=torch.float32,
+                      device=key.device)
+    for start in range(0, n, _BITS_CHUNK):
+        stop = min(n, start + _BITS_CHUNK)
+        out[..., start:stop] = _scale(_bits(k1, k2, start, stop), lo, span)
+    return out.reshape(key.shape[:-1] + shape)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function")

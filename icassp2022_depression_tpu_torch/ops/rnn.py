@@ -11,7 +11,9 @@ projection (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
   ``"torch"`` the plain PyTorch loops beside them, ``"auto"`` picks the
   kernels for CUDA tensors and the plain loops for CPU tensors.
   :func:`lstmp_layer` takes the same seam to
-  :class:`.rnn_cuda.LSTMPSequence`.  The kernels take any batch size,
+  :class:`.rnn_cuda.LSTMPSequence`; :func:`lstmp_layer_stateful` (carried
+  states, the stateful ELMo mode) is a plain step loop, as the JAX package
+  runs it.  The kernels take any batch size,
   sequence length and geometry, so the TPU package's VMEM-fit guards
   (``_pallas_fits``, ``_lstmp_pallas_fits``) and its streamed kernels have
   no counterpart here.
@@ -180,6 +182,47 @@ def lstmp_layer(p: dict, x: torch.Tensor, reverse: bool = False,
     if reverse:
         ys = torch.flip(ys, dims=(1,))
     return ys, h_last, c_last
+
+
+def lstmp_layer_stateful(p: dict, x: torch.Tensor, valid: torch.Tensor,
+                         h0: torch.Tensor, c0: torch.Tensor,
+                         cell_clip: float = 3.0, proj_clip: float = 3.0):
+    """:func:`lstmp_layer` with initial states and per-row validity
+    (``rnn.lstmp_layer_stateful`` in the JAX package, the allennlp
+    ``LstmCellWithProjection`` contract with an ``initial_state``): a
+    row's state advances only on its valid steps, so ``h_last`` /
+    ``c_last`` are its states at its last valid step, and a row with no
+    valid step returns ``h0`` / ``c0`` unchanged.
+
+    The stateful pretrained-ELMo mode's recurrence.  A plain step loop in
+    torch, as the JAX package runs an XLA scan here: the ``lstmp_fwd``
+    kernel, like the Pallas kernel it ports, is zero-state by contract.
+
+    x: [B, T, In]; valid: [B, T] bool; h0: [B, P]; c0: [B, C].  Outputs at
+    invalid positions are the would-be step outputs (callers mask them).
+    Returns (ys [B, T, P], h_last [B, P], c_last [B, C])."""
+    c_dim = p["w_x"].shape[0] // 4
+    xp = torch.matmul(x, p["w_x"].t())
+    w_h_t, w_p_t = p["w_h"].t(), p["w_p"].t()
+    h, c = h0, c0
+    ys = []
+    for t in range(x.shape[1]):
+        gp = xp[:, t] + torch.matmul(h, w_h_t) + p["b"]
+        i = torch.sigmoid(gp[:, :c_dim])
+        f = torch.sigmoid(gp[:, c_dim:2 * c_dim])
+        g = torch.tanh(gp[:, 2 * c_dim:3 * c_dim])
+        o = torch.sigmoid(gp[:, 3 * c_dim:])
+        c_new = f * c + i * g
+        if cell_clip:
+            c_new = c_new.clamp(-cell_clip, cell_clip)
+        h_new = torch.matmul(o * torch.tanh(c_new), w_p_t)
+        if proj_clip:
+            h_new = h_new.clamp(-proj_clip, proj_clip)
+        keep = valid[:, t, None]
+        h = torch.where(keep, h_new, h)
+        c = torch.where(keep, c_new, c)
+        ys.append(h_new)
+    return torch.stack(ys, dim=1), h, c
 
 
 def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,

@@ -3,7 +3,9 @@
 tasks).
 
 :class:`Predictor` serves all six tasks: three raw answers per speaker ->
-wav2vlad features (:mod:`..frontend.audio`) and/or three transcripts ->
+wav2vlad features, or per-answer mean-pooled VGGish embeddings
+(``audio_embedder="vggish"``, :func:`..frontend.audio.
+vggish_embed_waveforms`), and/or three transcripts ->
 segmented -> sentence embeddings (:func:`..frontend.text.make_embedder`:
 the char-CNN + LSTMP biLM of a converted ELMo bundle, or the seeded
 stand-in) -> :class:`..models.audio_net.AudioNet`,
@@ -24,7 +26,7 @@ Checkpoints are npz files of either package or the reference's ``.pt``
 pickles (:meth:`Predictor.from_checkpoint` dispatches on the extension).
 :class:`DaicPredictor` serves the DAIC models of :mod:`..train.daic` (a raw
 interview session, or its response signals, -> PHQ8); the HTTP front is
-:mod:`.transport`.  Not ported yet: the VGGish embedder.
+:mod:`.transport`.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from icassp2022_depression_tpu_torch import config as C
 from icassp2022_depression_tpu_torch.frontend import audio as audio_fe
 from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
 from icassp2022_depression_tpu_torch.frontend import text as text_fe
-from icassp2022_depression_tpu_torch.models import elmo, porting
+from icassp2022_depression_tpu_torch.models import elmo, porting, vggish
 from icassp2022_depression_tpu_torch.train import checkpoints
 from icassp2022_depression_tpu_torch.utils import shapes
 from icassp2022_depression_tpu_torch.utils.device import (  # noqa: F401
@@ -139,10 +141,19 @@ class Predictor:
                  audio_embedder: str = "netvlad", device=None,
                  elmo_cfg=elmo.ElmoConfig(), elmo_params=None, seed: int = 0,
                  elmo_weights: Optional[str] = "auto",
-                 segmenter: str = "auto"):
+                 segmenter: str = "auto", vggish_params=None,
+                 vggish_postprocessor=None):
         """``model`` (:class:`AudioNet`, :class:`TextNet` or
         :class:`FusionNet`) is moved to ``device`` (default: the first
         card, see :func:`default_device`) and put in eval mode.
+
+        ``audio_embedder="vggish"`` serves models trained on ``extract-audio
+        --embedder vggish`` features: ``vggish_params`` (a
+        :class:`..models.vggish.VGGish` or a JAX-layout param tree) or, at
+        the first request, the bundle :func:`..models.vggish.
+        default_weights_path` finds (its PCA postprocessor too), else the
+        seeded stand-in at ``seed``, as extraction resolves them;
+        ``vggish_postprocessor`` must be the one extraction used.
 
         The text and fusion tasks resolve their sentence embedder as
         ``extract-text`` does (:func:`..frontend.text.make_embedder`):
@@ -153,15 +164,17 @@ class Predictor:
         checkpoint's."""
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
-        if audio_embedder != "netvlad":
-            raise NotImplementedError(
-                f"audio_embedder={audio_embedder!r}: the VGGish embedder "
-                "arrives with the VGGish slice of the port")
+        if audio_embedder not in ("netvlad", "vggish"):
+            raise ValueError(f"audio_embedder must be 'netvlad' or "
+                             f"'vggish', got {audio_embedder!r}")
         self.task = task
         self.frontend_cfg = frontend_cfg
         self.audio_embedder = audio_embedder
         self.segmenter = segmenter
         self.device = resolve_device(device)
+        self._seed = seed
+        self._vggish = vggish_params
+        self._vggish_postprocessor = vggish_postprocessor
         #: provenance id of the resolved text embedder (the id scheme of
         #: the extraction sidecars)
         self.embedder_id: Optional[str] = None
@@ -261,7 +274,8 @@ class Predictor:
                        sample_rates: Sequence[Sequence[int]],
                        ordinal_bases: Optional[Sequence[int]] = None
                        ) -> np.ndarray:
-        """[[w_pos, w_neu, w_neg], ...] -> [N, 3, 256] wav2vlad features.
+        """[[w_pos, w_neu, w_neg], ...] -> [N, 3, D] features (wav2vlad,
+        D = 256, or VGGish, D = 128).
 
         By default every speaker uses ordinals (0, 1, 2), so a speaker gets
         the same features alone or in any batch; ``ordinal_bases`` (3 x
@@ -274,13 +288,46 @@ class Predictor:
         return self._stack_rows(rows).cpu().numpy()
 
     def _stack_rows(self, rows, dim: Optional[int] = None) -> torch.Tensor:
-        """[3, D] rows -> [N, 3, D] (zero speakers is a valid request)."""
+        """[3, D] rows -> [N, 3, D] (zero speakers is a valid request;
+        ``dim`` None: the audio embedder's width)."""
         if not rows:
-            return torch.zeros(
-                (0, 3, self.frontend_cfg.netvlad_output_dim
-                 if dim is None else dim),
-                dtype=torch.float32, device=self.device)
+            if dim is None:
+                dim = (vggish.EMBEDDING_SIZE
+                       if self.audio_embedder == "vggish"
+                       else self.frontend_cfg.netvlad_output_dim)
+            return torch.zeros((0, 3, dim), dtype=torch.float32,
+                               device=self.device)
         return torch.stack(rows)
+
+    def _vggish_model(self) -> vggish.VGGish:
+        """The VGGish network, resolved at the first request as
+        ``extract-audio --embedder vggish`` resolves it."""
+        if self._vggish is None:
+            bundle = vggish.default_weights_path()
+            if bundle is not None:
+                self._vggish, bundle_post = vggish.load_npz(bundle,
+                                                            self.device)
+                if self._vggish_postprocessor is None:
+                    self._vggish_postprocessor = bundle_post
+                print(f"Predictor: auto-loaded VGGish bundle {bundle} - the "
+                      "served checkpoint must have been trained on features "
+                      "from this embedder", file=sys.stderr)
+        self._vggish = vggish.resolve(self._vggish, self._seed, self.device)
+        return self._vggish
+
+    def _embed_audio(self, flat_w, flat_sr, ordinals) -> torch.Tensor:
+        """Cold answers -> [n, D] features on the device: wav2vlad at the
+        utterance ``ordinals``, or mean-pooled VGGish embeddings."""
+        if self.audio_embedder == "vggish":
+            emb = audio_fe.vggish_embed_waveforms(
+                self._vggish_model(), flat_w, flat_sr,
+                self._vggish_postprocessor)
+            return torch.from_numpy(emb).to(self.device)
+        with torch.inference_mode():
+            return audio_fe.extract_batch(flat_w, flat_sr,
+                                          self.frontend_cfg,
+                                          ordinals=ordinals,
+                                          device=self.device)
 
     def _audio_keys(self, waveforms_per_speaker, sample_rates,
                     ordinal_bases):
@@ -318,12 +365,8 @@ class Predictor:
             base = [0 if ordinal_bases is None else ordinal_bases[i]
                     for i in todo]
             ordinals = [b + k for b in base for k in range(3)]
-            with torch.inference_mode():
-                feats = audio_fe.extract_batch(flat_w, flat_sr,
-                                               self.frontend_cfg,
-                                               ordinals=ordinals,
-                                               device=self.device)
-            feats = feats.reshape(len(todo), 3, -1)
+            feats = self._embed_audio(flat_w, flat_sr, ordinals).reshape(
+                len(todo), 3, -1)
             for row, i in enumerate(todo):
                 rows[i] = feats[row].clone()
                 self.feature_cache.put(keys[i], rows[i])

@@ -16,6 +16,7 @@ from icassp2022_depression_tpu_torch import cli as tcli
 from icassp2022_depression_tpu_torch import config as tconfig
 from icassp2022_depression_tpu_torch.data import eatd as teatd
 from icassp2022_depression_tpu_torch.frontend import audio as taudio
+from icassp2022_depression_tpu_torch.models import vggish as tvggish
 
 ATOL = 1e-5
 SMALL = dict(n_fft=256, hop_length=64, n_mels=16, netvlad_clusters=4,
@@ -162,12 +163,45 @@ def test_cache_key_is_the_jax_packages(corpus, tmp_path):
         + [f"ValidationData/{n}@{n + 3}|{fp}" for n in range(1, 3)])
 
 
+def _vggish_tree(seed):
+    """Full-width VGGish weights in the JAX layout, drawn with numpy (the
+    seeded threefry draw is held against JAX in test_torch_vggish.py)."""
+    rng = np.random.default_rng(seed)
+    return {g: [{"w": rng.uniform(-0.05, 0.05, shape).astype(np.float32),
+                 "b": np.zeros(shape[-1], np.float32)} for shape in shapes]
+            for g, shapes in (
+                ("convs", [(3, 3, i, o) for i, o in tvggish._CONV_CHANNELS]),
+                ("fcs", tvggish._FC_DIMS))}
+
+
 @pytest.mark.parametrize("argv", [["--embedder", "vggish"],
                                   ["--vggish-ckpt", "x.ckpt"]])
-def test_vggish_options_raise_naming_their_item(argv, tmp_path):
-    with pytest.raises(SystemExit, match="item 17"):
-        tcli.main(["extract-audio", "--root", str(tmp_path), "--device",
-                   "cpu"] + argv)
+def test_vggish_options_raise_naming_their_item(argv, tmp_path, monkeypatch,
+                                                capsys):
+    """The VGGish options are ported: ``--embedder vggish`` runs the seeded
+    stand-in (no bundle), ``--vggish-ckpt`` converts the checkpoint it
+    names (the converter needs tensorflow, so it is replaced here); each
+    writes the ``_128`` npz files and a manifest naming the embedder."""
+    root = tmp_path / "corpus"
+    teatd.make_synthetic_corpus(root, n_data=1, n_validation=1,
+                                seconds=1.2, seed=2)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("ICASSP_VGGISH_WEIGHTS", raising=False)
+    seen = []
+    monkeypatch.setattr(tvggish, "init", lambda key: _vggish_tree(0))
+    monkeypatch.setattr(tvggish, "from_tf_checkpoint",
+                        lambda path: seen.append(path) or _vggish_tree(1))
+    out = tmp_path / "out"
+    assert tcli.main(["extract-audio", "--root", str(root), "--out",
+                      str(out), "--device", "cpu"]
+                     + (argv if argv[0] == "--embedder"
+                        else ["--embedder", "vggish"] + argv)) == 0
+    assert "(2, 3, 1, 128)" in capsys.readouterr().out
+    assert seen == (["x.ckpt"] if "--vggish-ckpt" in argv else [])
+    assert json.loads((out / "manifest.json").read_text())["embedder"] == \
+        "vggish"
+    feats = _npz(out / "whole_samples_clf_128.npz")
+    assert feats.shape == (2, 3, 1, 128) and np.abs(feats).sum(-1).all()
 
 
 def test_extract_audio_without_a_card_raises(corpus, tmp_path, monkeypatch):

@@ -56,10 +56,12 @@ def test_gru_sequence_wrapper_uses_plain_version_on_cpu():
 
 @pytest.mark.parametrize("b,h", [(8, 256), (2, 256), (24, 256), (16, 256),
                                  (1, 256), (3, 200), (40, 256), (100, 256),
-                                 (200, 256), (9, 512), (1, 8), (4, 254)])
+                                 (200, 256), (9, 512), (1, 8), (4, 254),
+                                 (512, 256), (1024, 256)])
 def test_gru_fwd_plan_covers_every_cell_once(b, h):
     """The forward kernel's plan (``rnn_cuda.gru_fwd_plan``): at the audio
-    model's H = 256 (serving, training, eval and streamed batches), a
+    model's H = 256 (serving, training, eval and streamed batches, and
+    cross-corpus evaluation's power-of-two batches of windows), a
     ragged H and a wide one, a step tile that ``csrc/gru_fwd.cu`` compiles,
     slabs and row tiles that cover every cell and row exactly once with
     none empty (4-cell slabs and at most 32-row tiles at every B: 64 slabs

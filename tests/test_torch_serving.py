@@ -108,8 +108,16 @@ def test_predictor_names_missing_slices(tmp_path):
     with pytest.raises(ValueError, match="task must be one of"):
         tpredictors.model_config("video_clf")
     _, tp = _pair(tmp_path, "audio_clf")
-    with pytest.raises(NotImplementedError, match="VGGish"):
-        Predictor(tp.model, "audio_clf", audio_embedder="vggish")
+    # the VGGish embedder is served since the VGGish slice: its network is
+    # resolved at the first request (test_torch_vggish.py); an embedder
+    # neither package has is refused
+    vp = Predictor(tp.model, "audio_clf", audio_embedder="vggish",
+                   device="cpu")
+    assert vp.audio_embedder == "vggish" and vp._vggish is None
+    assert tuple(vp._stack_rows([]).shape) == (0, 3, 128)
+    with pytest.raises(ValueError, match="audio_embedder"):
+        Predictor(tp.model, "audio_clf", audio_embedder="wav2vec",
+                  device="cpu")
     # reference .pt checkpoints are served since the checking slice
     tporting.export_reference_pt(tp.model, "audio", tp.model.cfg,
                                  tmp_path / "ref.pt")

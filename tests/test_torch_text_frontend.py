@@ -334,10 +334,23 @@ def test_entry_points_without_a_card_raise(monkeypatch, corpus, tmp_path):
             tcli.main(argv)
 
 
-@pytest.mark.parametrize("flag,match", [(["--elmo-stateful"], "item 13"),
+@pytest.mark.parametrize("flag,match", [(["--elmo-stateful"], None),
                                         (["--elmo-tp", "2"], "item 18")])
-def test_cli_extract_text_unported_modes_name_their_items(flag, match,
-                                                          tmp_path):
-    with pytest.raises(SystemExit, match=match):
-        tcli.main(["extract-text", "--root", str(tmp_path), "--device",
-                   "cpu", *flag])
+def test_cli_extract_text_unported_modes_name_their_items(flag, match, bundle,
+                                                          corpus, tmp_path):
+    """``--elmo-stateful`` is ported (the stateful mode, held against JAX in
+    test_torch_elmo_stateful.py): with a bundle it writes the features
+    under the ``:stateful`` id; ``--elmo-tp`` still names item 18."""
+    argv = ["extract-text", "--root", str(corpus), "--out", str(tmp_path),
+            "--elmo-weights", str(bundle), "--segmenter", "fallback",
+            "--device", "cpu", *flag]
+    if match:
+        with pytest.raises(SystemExit, match=match):
+            tcli.main(argv)
+        return
+    assert tcli.main(argv) == 0
+    meta = json.loads((tmp_path / "extraction_meta.json").read_text())
+    assert meta["embedder"] == \
+        f"elmo_bundle:{bundle.name}:{bundle.stat().st_size}:stateful"
+    with np.load(tmp_path / "whole_samples_clf_avg.npz") as z:
+        assert z["arr_0"].shape == (9, 3, 1024)

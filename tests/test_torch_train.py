@@ -604,7 +604,12 @@ def test_cli_train_corpus_writes_artifacts(tmp_path, monkeypatch, capsys):
     (["--task", "audio_clf", "--resume-dir", "x", "--chunk-epochs", "3",
       "--device", "cpu"], "Features/AudioWhole"),
     (["--task", "audio_reg", "--fold-parallel"], "multi-GPU"),
-    (["--task", "audio_clf", "--audio-dim", "128"], "VGGish"),
+    # --audio-dim is ported (test_torch_vggish.py): it passes to the
+    # feature check, and with --corpus it is refused as the JAX CLI does
+    (["--task", "audio_clf", "--audio-dim", "128", "--device", "cpu"],
+     "Features/AudioWhole"),
+    (["--task", "audio_clf", "--audio-dim", "128", "--corpus", "x"],
+     "--audio-dim must stay 256"),
 ])
 def test_cli_train_unported_options_name_their_slice(argv, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
