@@ -8,7 +8,10 @@ DAIC-WOZ (``cli extract-daic`` / ``train-daic`` / ``check-daic`` /
 ``predict-daic``), the HTTP serving front, VGGish (``extract-audio
 --embedder vggish``, ``train --audio-dim 128``, ``predict
 --audio-embedder vggish``), cross-corpus evaluation and the stateful ELMo
-mode (``extract-text --elmo-stateful``), at full width.
+mode (``extract-text --elmo-stateful``), and multi-GPU (``parallel/``:
+fold-parallel and fold x data-parallel training, the explicit
+data-parallel step, the tensor-parallel biLM) on one card, at full
+width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
@@ -18,6 +21,7 @@ mode (``extract-text --elmo-stateful``), at full width.
     python3 chip_smoke.py --only daic   # phase 9 alone, no ok line
     python3 chip_smoke.py --only serve  # phase 10 alone, no ok line
     python3 chip_smoke.py --only vggish  # phase 11 alone, no ok line
+    python3 chip_smoke.py --only parallel  # phase 12 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -40,7 +44,9 @@ the LSTMP forward and runs phase 9 with a seeded bundle of its own;
 ``--only serve`` builds the GRU and LSTM forwards and runs phase 10 with a
 seeded DAIC checkpoint.  ``--only vggish`` builds the GRU sources and the
 LSTMP forward and runs phase 11 on a corpus, a seeded bundle and DAIC
-features of its own.
+features of its own.  ``--only parallel`` builds the GRU and LSTM sources
+and the LSTMP forward and runs phase 12 on a corpus and a seeded bundle
+of its own.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -232,6 +238,32 @@ Phases (each raises on failure, so the exit code is nonzero):
    seeded full-width EATD models, each one padded batch through 2
    ``gru_fwd`` launches (counted), against the CPU; ``gru_fwd`` at (3,
    1024, 256) against its plain loop, timed in turns with it and cuDNN.
+12. multi-GPU on one card (``parallel/``; NCCL takes one rank a card, so
+   several ranks share cuda:0 over Gloo), on phase 5's corpus and bundle,
+   training on its leading speakers whose padded test split is even (the
+   layout of 2-way data parallelism asserts it), the recipes' widths, 20
+   epochs: (a) NCCL at world size 1: each collective the port uses on
+   CUDA tensors, and a 5-epoch ``audio_clf`` fold with a one-rank NCCL
+   data group, its all-reduces captured in the epoch's CUDA graph,
+   bitwise the fold without a group (counted); (b) ``train_audio_clf`` /
+   ``train_text_clf(fold_parallel=True)`` on 3 Gloo ranks on cuda:0 (one
+   fold a rank), every fold's logs and step losses within 1e-5 of their
+   largest magnitude of the single-process ``vmap_folds`` run's (a rank's
+   one-fold products may take another cuBLAS algorithm than the 3-fold
+   batched ones; whether they are bitwise is printed), the same gated
+   epochs, each rank's launches exactly the stacked run's; (c) 3 folds x 2 data-parallel
+   ranks, eager on Gloo: logs within 1e-5 of their largest magnitude of
+   ``vmap_folds``, the same gated epochs, each rank's launches exact;
+   (d) on 2 Gloo ranks, the collectives on CUDA tensors and
+   ``dp_train_step`` at the audio model's width against the one-process
+   step with the same per-rank keys (loss 1e-5, params' L1 1e-4); (e) on
+   the same 2 ranks ``extract_eatd(elmo_tp=2)`` with the zhs-geometry
+   bundle: pooled features within 1e-5 of their largest magnitude of the
+   serial path's (TPU kernel #6, counted), ``extraction_meta.json``
+   naming ``elmo_tp: 2``, no LSTMP kernel on a rank; (f) ``cli train
+   --fold-parallel`` on a host with fewer than 3 cards exits with the
+   JAX CLI's "need >= 3 devices" message.  Each stage's wall time is
+   printed as a shared-card smoke reading, not a scaling figure.
 
 The line before the last is a JSON object describing each kernel (#3's
 timed at its DAIC shape); the last line is ``{"ok": true, "device":
@@ -269,10 +301,11 @@ TIMED_SHAPES = ((3, 8, 256), (3, 24, 256), (3, 100, 256), (3, 200, 256))
 GRU_FWD_PROFILED = ((3, 8, 256), (3, 100, 256), (3, 200, 256))
 BATCHES = (1, 3, 8)
 #: the training shapes (audio_clf batch 8, audio_reg batch 2, eval of a
-#: 24-row test split), a ragged one, and one the JAX package would stream
-#: (its backward working set, ~35 MB, exceeds `_pallas_fits`' 12 MB)
-BWD_SHAPES = ((3, 8, 256), (3, 2, 256), (3, 24, 256), (7, 3, 200),
-              (256, 16, 256))
+#: 24-row test split, a fold x DP rank's 4 rows of audio_clf's 8), a ragged
+#: one, and one the JAX package would stream (its backward working set,
+#: ~35 MB, exceeds `_pallas_fits`' 12 MB)
+BWD_SHAPES = ((3, 8, 256), (3, 2, 256), (3, 24, 256), (3, 4, 256),
+              (7, 3, 200), (256, 16, 256))
 BWD_TIMED = ((3, 8, 256), (3, 2, 256), (256, 16, 256))
 #: the LSTM at the text model's H = 128: the training batches (text_clf 4,
 #: text_reg and fuse_clf 2), an eval split, a ragged shape, and one the JAX
@@ -2727,9 +2760,13 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
 # -- the fold axis, the fold's CUDA graph, resume --------------------------
 
 #: the four fold-axis kernels' shapes (F, T, B, H): the recipes' audio GRU
-#: (batch 8) and text BiLSTM direction (batch 4), and the reg tracks' batch 2
+#: (batch 8) and text BiLSTM direction (batch 4), and the reg tracks' batch
+#: 2; then the one fold of a fold-parallel rank (phase 12 (b)) and its
+#: half batch on a fold x DP rank (c)
 FOLD_SHAPES = (("gru", (3, 3, 8, 256)), ("gru", (3, 3, 2, 256)),
-               ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 2, 128)))
+               ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 2, 128)),
+               ("gru", (1, 3, 8, 256)), ("gru", (1, 3, 4, 256)),
+               ("lstm", (1, 3, 4, 128)), ("lstm", (1, 3, 2, 128)))
 #: the fold-axis checks through the "sequence" route: the recipes' shapes
 #: (where it is taken only when asked) and an H that is no multiple of 4
 #: (where "auto" takes it)
@@ -2917,7 +2954,8 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
     chunk and resumed, against the single-shot run (bitwise); the three
     ``audio_clf`` folds stacked (``vmap_folds``) against the serial folds
     (per-step losses within 1e-5 of the largest); and an epoch's time
-    through the graph and eagerly.  Returns the timings."""
+    through the graph and eagerly, serial and stacked
+    (:func:`stacked_step_timing`).  Returns the timings."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3067,8 +3105,54 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
           f"{[r['best']['epoch'] for r in serial]}")
     if worst > TRAIN_TOL:
         fail("the stacked folds differ from the serial folds")
+    timings["vmap_folds"] = stacked_step_timing(
+        torch, card, {"audio_clf": (C.AUDIO_CLF, trainers._clf_fold_datas(
+            [feats], clf, train_idx, 8)),
+                      "text_clf": (C.TEXT_CLF, trainers._clf_fold_datas(
+                          [xt], clf, train_idx, 4))})
     _set_counts(rnn_cuda, counted)
     return timings
+
+
+def stacked_step_timing(torch, card: str, runs: dict) -> dict:
+    """A ``--vmap-folds`` step: for each ``{name: (tcfg, fold datas)}``,
+    the three folds stacked as ``trainers._vmapped_results`` stacks them,
+    timed through the epoch's CUDA graph and eagerly (after two warm
+    epochs, the mean of 8 epochs over CUDA events, per step).  Returns
+    {name: {"graph": ms, "eager": ms}}."""
+    from icassp2022_depression_tpu_torch.models import folds as mfolds
+    from icassp2022_depression_tpu_torch.train import loop, optim, trainers
+
+    out = {}
+    for name, (tcfg, fold_datas) in runs.items():
+        per_step = {}
+        for graph in (True, False):
+            n = len(fold_datas)
+            stacked = mfolds.stack([trainers.init_model(tcfg, 0, f, "cuda")
+                                    for f in range(1, n + 1)])
+            keys = torch.stack([trainers.dropout_key(0, f, "cuda")
+                                for f in range(1, n + 1)])
+            fr = loop.FoldRun(
+                stacked, optim.build_stacked(tcfg.optimizer, stacked),
+                *loop.model_fns(stacked, trainers._branch_fns(tcfg)),
+                loop.stack_fold_data(fold_datas), tcfg.track, tcfg.gate, 12,
+                keys, graph)
+            fr.run(2)
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+            fr.run(8)
+            ev1.record()
+            torch.cuda.synchronize()
+            per_step["graph" if graph else "eager"] = \
+                ev0.elapsed_time(ev1) / 8 / fr.n_steps
+        out[name] = per_step
+        print(f"timing {name} --vmap-folds step ({n} folds stacked, "
+              f"{fr.n_steps} steps + eval an epoch): CUDA graph "
+              f"{per_step['graph']:.4f} ms, eager {per_step['eager']:.4f} ms "
+              f"(mean of 8 epochs, CUDA events) [{card}]")
+    return out
 
 
 # -- phase 9: DAIC-WOZ ------------------------------------------------------
@@ -4291,12 +4375,353 @@ def vggish_phase(torch, card: str, corpus: Path, bundle: Path, work: Path,
             "text_s": text, "cross": cross}
 
 
+# -- phase 12: multi-GPU (parallel/) ------------------------------------------
+
+PARALLEL_EPOCHS = 20
+#: a shared-card run is a smoke reading of the code path, not a scaling one
+SHARED = "shared-card smoke reading, not scaling"
+
+
+def _parallel_speakers(clf, dp: int) -> int:
+    """The most leading speakers of phase 5's corpus whose 3 folds (seed
+    0) give a padded test split that ``dp``-way data parallelism can take:
+    the JAX package's layout asserts that ``dp`` divides it."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.data import augment, folds
+
+    for n in range(len(clf), 11, -1):
+        y = clf[:n]
+        dep, non = np.where(y == 1)[0], np.where(y == 0)[0]
+        tests = [len(augment.plan_classification_fold(y, t, dep, non)[1]
+                     .targets) for t in folds.generate_clf_folds(y, 3)]
+        if max(tests) % dp == 0:
+            return n
+    fail("no leading speakers give an even test split")
+
+
+def _same_results(torch, a, b) -> bool:
+    """Two trainers' per-fold results bitwise equal: gated metrics, every
+    per-epoch log, every step loss and every gated parameter."""
+    import numpy as np
+
+    for ra, rb in zip(a, b):
+        if {k: v for k, v in ra["best"].items() if k != "params"} != \
+                {k: v for k, v in rb["best"].items() if k != "params"}:
+            return False
+        if any(not np.array_equal(ra["logs"][k], rb["logs"][k])
+               for k in rb["logs"]):
+            return False
+        if not np.array_equal(ra["step_losses"], rb["step_losses"]):
+            return False
+        if any(not torch.equal(v.cpu(), rb["best"]["params"][k].cpu())
+               for k, v in ra["best"]["params"].items()):
+            return False
+    return len(a) == len(b)
+
+
+def _logs_gap(a, b) -> tuple:
+    """(max |d log| over every per-epoch log relative to its largest
+    magnitude, whether every fold's gated epoch is the same)."""
+    import numpy as np
+
+    gap = 0.0
+    for ra, rb in zip(a, b):
+        for k, v in rb["logs"].items():
+            scale = max(float(np.abs(v).max()), 1e-30)
+            gap = max(gap, float(np.abs(ra["logs"][k] - v).max()) / scale)
+    return gap, all(ra["best"]["epoch"] == rb["best"]["epoch"]
+                    for ra, rb in zip(a, b))
+
+
+def _steps_gap(a, b) -> float:
+    """Max |d step loss| over every fold relative to its largest
+    magnitude."""
+    import numpy as np
+
+    return max(float(np.abs(ra["step_losses"] - rb["step_losses"]).max())
+               / max(float(np.abs(rb["step_losses"]).max()), 1e-30)
+               for ra, rb in zip(a, b))
+
+
+def _rank_launches(what: str, got: list, want: dict) -> dict:
+    """Each rank's kernel launches must be ``want``; returns their sum."""
+    total = dict(ZERO)
+    for r, counts in enumerate(got):
+        if counts != want:
+            fail(f"{what}: rank {r} launched {counts}, expected {want}")
+        for k, v in counts.items():
+            total[k] += v
+    print(f"{what}: every one of {len(got)} ranks launched exactly {want}")
+    return total
+
+
+def nccl_world_one(torch, rnn_cuda, card: str, data, work: Path) -> dict:
+    """(a) NCCL at world size 1 on cuda:0: each collective the port uses
+    on CUDA tensors, and a DP ``FoldRun`` of ``audio_clf`` with a one-rank
+    NCCL data group (its collectives captured in the epoch's CUDA graph)
+    against the same fold without a group (bitwise).  Returns the DP
+    run's launches (a main path: counted)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.parallel import distributed, dryrun
+    from icassp2022_depression_tpu_torch.train import loop, optim, trainers
+
+    tcfg = C.replace(C.AUDIO_CLF, epochs=COMPARE_EPOCHS + 1)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl_one",
+                            world_size=1, rank=0,
+                            timeout=distributed.COLLECTIVE_TIMEOUT)
+    try:
+        c = dryrun.collectives()
+        base = torch.arange(8, dtype=torch.float32, device="cuda")
+        ok = (torch.equal(c["all_reduce"], base)
+              and torch.equal(c["broadcast"], base)
+              and torch.equal(c["all_gather"], base[None])
+              and c["all_gather_object"] == [{"rank": 0}]
+              and c["broadcast_object_list"] == {"from": 0}
+              and c["device"].startswith("cuda"))
+        print(f"(a) NCCL world size 1 on {c['device']}: all_reduce, "
+              f"broadcast, all_gather, all_gather_object, "
+              f"broadcast_object_list right: {ok}")
+        if not ok:
+            fail(f"NCCL collectives wrong: {c}")
+
+        def fold(group):
+            model = trainers.init_model(tcfg, 0, 1, "cuda")
+            opt = optim.build(tcfg.optimizer, model)
+            run = loop.FoldRun(model, opt, *loop.model_fns(
+                model, trainers._branch_fns(tcfg)), data, tcfg.track,
+                tcfg.gate, COMPARE_EPOCHS, trainers.dropout_key(0, 1, "cuda"),
+                data_group=group)
+            t0 = time.perf_counter()
+            run.run(COMPARE_EPOCHS)
+            _, _, steps = run.results()
+            return (run.graph, steps, time.perf_counter() - t0,
+                    {k: v.cpu() for k, v in model.state_dict().items()},
+                    run.n_steps)
+
+        _set_counts(rnn_cuda, ZERO)
+        captured, dp_steps, dp_s, dp_params, n_steps = fold(dist.group.WORLD)
+        launches = _counts(rnn_cuda)
+        _, steps, plain_s, params, _ = fold(None)
+    finally:
+        dist.destroy_process_group()
+    same = (np.array_equal(dp_steps, steps)
+            and all(torch.equal(dp_params[k], v) for k, v in params.items()))
+    print(f"(a) {COMPARE_EPOCHS}-epoch audio_clf fold with a one-rank NCCL "
+          f"data group: epochs captured in a CUDA graph {captured}; step "
+          f"losses and params bitwise the fold without a group: {same}; "
+          f"{dp_s:.2f} s against {plain_s:.2f} s wall [{card}]")
+    if not (captured and same):
+        fail("the NCCL data-parallel fold differs from the plain fold, or "
+             "was not captured")
+    _check_launches("audio_clf (DP, NCCL world 1)", launches,
+                    (COMPARE_EPOCHS + 1) * n_steps, COMPARE_EPOCHS + 1, 1)
+    return launches
+
+
+def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
+                   work: Path) -> dict:
+    """Phase 12: the multi-GPU paths on one card (NCCL takes one rank a
+    card, so several ranks share cuda:0 over Gloo).  Returns the counted
+    launches (summed over the ranks) and the wall times."""
+    global np
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.parallel import distributed, dryrun
+    from icassp2022_depression_tpu_torch.train import trainers
+
+    t_phase = time.perf_counter()
+    launches, walls = dict(ZERO), {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    feats, _, clf_all = afe.extract_eatd_device(corpus, device="cuda")
+    # (e)'s serial reference, counted: the serial biLM runs TPU kernel #6
+    _set_counts(rnn_cuda, ZERO)
+    t0 = time.perf_counter()
+    xt, _, _ = tfe.extract_eatd(corpus, out_dir=work / "serial",
+                                elmo_weights=str(bundle),
+                                segmenter="fallback", device="cuda")
+    walls["serial extract_eatd"] = time.perf_counter() - t0
+    serial_counts = _counts(rnn_cuda)
+    if serial_counts["lstmp_fwd"] <= 0:
+        fail(f"the serial biLM launched no lstmp_fwd: {serial_counts}")
+    add(serial_counts)
+    n = _parallel_speakers(clf_all, 2)
+    feats, clf, xt_all = feats[:n], clf_all[:n], xt
+    xt = xt_all[:n]
+    tf_idx = folds.generate_clf_folds(clf, 3, seed=0)
+    print(f"phase 12 trains on the first {n} of {len(clf_all)} speakers "
+          "(the most whose padded test split is even)")
+    audio = C.replace(C.AUDIO_CLF, epochs=PARALLEL_EPOCHS + 1)
+    text = C.replace(C.TEXT_CLF, epochs=PARALLEL_EPOCHS + 1)
+
+    # (a) NCCL at world size 1
+    add(nccl_world_one(torch, rnn_cuda, card, trainers._clf_fold_datas(
+        [feats], clf, tf_idx, audio.batch_size)[0], work))
+
+    # the single-process stacked folds the ranks are held against
+    t0 = time.perf_counter()
+    _set_counts(rnn_cuda, ZERO)
+    vmapped = [trainers.train_audio_clf(feats, clf, tf_idx, tcfg=audio,
+                                        vmap_folds=True)]
+    vm_audio = _counts(rnn_cuda)
+    _set_counts(rnn_cuda, ZERO)
+    vmapped.append(trainers.train_text_clf(
+        torch.as_tensor(xt, device="cuda"), clf, tf_idx, tcfg=text,
+        vmap_folds=True))
+    vm_text = _counts(rnn_cuda)
+    walls["vmap_folds audio_clf + text_clf"] = time.perf_counter() - t0
+    feats_np = feats.cpu().numpy()
+
+    def calls(**mode):
+        return [(trainers.train_audio_clf, (feats_np, clf, tf_idx),
+                 dict(tcfg=audio, **mode)),
+                (trainers.train_text_clf, (xt, clf, tf_idx),
+                 dict(tcfg=text, **mode))]
+
+    # (b) fold-parallel: 3 Gloo ranks on cuda:0, one fold a rank
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dryrun.several, 3, ["cuda:0"] * 3, "gloo",
+                               args=(calls(fold_parallel=True),),
+                               with_launches=True, timeout=900)
+    walls["fold-parallel, 3 ranks"] = time.perf_counter() - t0
+    for r, (value, _) in enumerate(ranks):
+        for name, got, want in (("audio_clf", value[0], vmapped[0]),
+                                ("text_clf", value[1], vmapped[1])):
+            same = _same_results(torch, got, want)
+            gap, same_best = _logs_gap(got, want)
+            steps = _steps_gap(got, want)
+            print(f"(b) {PARALLEL_EPOCHS}-epoch {name}, rank {r} of 3: "
+                  f"per-epoch logs within {gap:.3e} and step losses within "
+                  f"{steps:.3e} of their largest magnitude of --vmap-folds "
+                  f"(tol {TRAIN_TOL}), the same gated epochs: {same_best}; "
+                  f"every log, step loss, gated metric and param bitwise: "
+                  f"{same} (a reading: a rank's one-fold products may take "
+                  "another cuBLAS algorithm than the 3-fold batched ones)")
+            if not (gap <= TRAIN_TOL and steps <= TRAIN_TOL and same_best):
+                fail(f"fold-parallel {name} differs from --vmap-folds")
+    add(_rank_launches("(b) fold-parallel audio_clf + text_clf",
+                       [c for _, c in ranks],
+                       {k: vm_audio[k] + vm_text[k] for k in ZERO}))
+
+    # (c) fold x data parallelism: 6 Gloo ranks, eager
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dryrun.several, 6, ["cuda:0"] * 6, "gloo",
+                               args=(calls(fold_parallel=True,
+                                           data_parallel=2),),
+                               with_launches=True, timeout=900)
+    walls["fold x DP, 6 ranks"] = time.perf_counter() - t0
+    for name, i in (("audio_clf", 0), ("text_clf", 1)):
+        gap, same_best = _logs_gap(ranks[0][0][i], vmapped[i])
+        print(f"(c) {PARALLEL_EPOCHS}-epoch {name}, 3 folds x 2 DP ranks "
+              f"(eager on Gloo): per-epoch logs within {gap:.3e} of their "
+              f"largest magnitude of --vmap-folds (tol {TRAIN_TOL}), the "
+              f"same gated epochs: {same_best}")
+        if not (gap <= TRAIN_TOL and same_best):
+            fail(f"fold x DP {name} differs from --vmap-folds")
+    # a rank makes the stacked run's calls, on its rows, eagerly: without
+    # the graph's warm-up epoch
+    e = PARALLEL_EPOCHS
+    add(_rank_launches("(c) fold x DP audio_clf + text_clf",
+                       [c for _, c in ranks],
+                       {k: (vm_audio[k] + vm_text[k]) * e // (e + 1)
+                        for k in ZERO}))
+
+    # (d) dp_train_step and (e) the TP biLM: 2 Gloo ranks on cuda:0
+    tcfg = C.AUDIO_CLF
+    gen = np.random.default_rng(0)
+    x = gen.standard_normal((8, 3, 256)).astype(np.float32)
+    y = gen.integers(0, 2, 8)
+    mask = np.ones(8, np.float32)
+    tp_out = work / "tp"
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dryrun.several, 2, ["cuda:0"] * 2, "gloo",
+                               args=([(dryrun.collectives, (), {}),
+                                      (dryrun.dp_step, (tcfg, x, y, mask),
+                                       {}),
+                                      (tfe.extract_eatd, (corpus,),
+                                       dict(out_dir=tp_out,
+                                            elmo_weights=str(bundle),
+                                            segmenter="fallback",
+                                            elmo_tp=2))],),
+                               with_launches=True, timeout=900)
+    walls["dp_train_step + TP extract_eatd, 2 ranks"] = \
+        time.perf_counter() - t0
+    ref = dryrun.dp_step_reference(tcfg, x, y, mask, 2, device="cuda")
+    base = torch.arange(8, dtype=torch.float32)
+    for r, (value, _) in enumerate(ranks):
+        c, step, (tp, _, _) = value
+        ok = (torch.equal(c["all_reduce"], 2 * base + 1)
+              and torch.equal(c["broadcast"], base)
+              and torch.equal(c["all_gather"], torch.stack([base, base + 1]))
+              and c["all_gather_object"] == [{"rank": 0}, {"rank": 1}]
+              and c["device"] == "cuda:0")
+        d_loss = abs(step["loss"] - ref["loss"])
+        d_l1 = abs(step["param_l1"] - ref["param_l1"])
+        tp_gap = float(np.abs(tp - xt_all).max()) / float(
+            np.abs(xt_all).max())
+        print(f"(d) rank {r}: Gloo collectives on CUDA tensors right: {ok}; "
+              f"dp_train_step loss {step['loss']:.7f} (one process "
+              f"{ref['loss']:.7f}, |d| {d_loss:.3e}, tol 1e-5), param L1 "
+              f"|d| {d_l1:.3e} (tol 1e-4)")
+        print(f"(e) rank {r}: extract_eatd(elmo_tp=2) at the zhs geometry, "
+              f"{tp.shape[0]} speakers: pooled features within {tp_gap:.3e} "
+              f"of their largest magnitude of the serial lstmp_fwd path "
+              f"(tol {SLICE_TOL})")
+        if not (ok and d_loss <= 1e-5 and d_l1 <= 1e-4
+                and tp_gap <= SLICE_TOL):
+            fail(f"rank {r}: collectives, dp_train_step or the TP biLM "
+                 "disagree")
+    meta = json.loads((tp_out / "extraction_meta.json").read_text())
+    if meta["elmo_tp"] != 2 or meta["embedder"] != bundle_id(bundle):
+        fail(f"the TP extraction's sidecar: {meta}")
+    print(f"(e) extraction_meta.json names elmo_tp {meta['elmo_tp']} and "
+          f"{meta['embedder']}")
+    # per rank: the DP step's GRU forward and backward (2 layers), and no
+    # LSTMP kernel: the TP biLM is a step loop of sharded matmuls
+    add(_rank_launches("(d) + (e)", [c for _, c in ranks],
+                       dict(ZERO, gru_fwd=2, gru_bwd=2)))
+
+    # (f) the CLI never puts two ranks on one card
+    have = torch.cuda.device_count()
+    if have < 3:
+        try:
+            cli.main(["train", "--task", "audio_clf", "--root", str(work),
+                      "--fold-parallel"])
+            fail("cli train --fold-parallel ran on a host with < 3 cards")
+        except SystemExit as e:
+            msg = str(e)
+        print(f"(f) cli train --fold-parallel on {have} card(s): exits with "
+              f"{msg!r}")
+        if "need >= 3 devices" not in msg:
+            fail(f"the one-card refusal said {msg!r}")
+    else:
+        print(f"(f) skipped: this host has {have} cards")
+    for what, wall in walls.items():
+        print(f"timing phase 12 {what}: {wall:.2f} s wall [{card}; {SHARED}]")
+    print(f"timing phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": launches, "walls": walls}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
-                                       "daic", "serve", "vggish"],
+                                       "daic", "serve", "vggish",
+                                       "parallel"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
@@ -4305,7 +4730,9 @@ def main(argv=None) -> int:
                          "random features; daic: phase 9 (with a seeded "
                          "bundle); serve: phase 10 (with a seeded DAIC "
                          "checkpoint); vggish: phase 11 (with a corpus, a "
-                         "seeded bundle and DAIC features of its own)")
+                         "seeded bundle and DAIC features of its own); "
+                         "parallel: phase 12 (with a corpus and a seeded "
+                         "bundle of its own)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4333,7 +4760,9 @@ def main(argv=None) -> int:
     names = {"trainer": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd"),
              "daic": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
              "serve": ("gru_fwd", "lstm_fwd"),
-             "vggish": ("gru_fwd", "gru_bwd", "lstmp_fwd")}.get(
+             "vggish": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
+             "parallel": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
+                          "lstmp_fwd")}.get(
         args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
         else SOURCES)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
@@ -4378,6 +4807,21 @@ def main(argv=None) -> int:
                     fail(f"cli extract-daic {split} failed")
             vggish_phase(torch, card, corpus, bundle, work,
                          work / "Features")
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
+    if args.only == "parallel":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+            work = Path(tmp)
+            corpus = work / "corpus"
+            eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
+                                       seconds=(2.0, 12.0), seed=1)
+            chars = "".join(ch for sp in eatd.iter_speakers(
+                corpus, read_text=True) for t in sp.texts for ch in t
+                if not ch.isspace())
+            bundle, _ = seeded_bundle(torch, work / "elmo_zhs_seeded.npz",
+                                      chars)
+            parallel_phase(torch, card, corpus, bundle, work)
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
@@ -4457,12 +4901,13 @@ def main(argv=None) -> int:
         served = serve_phase(torch, card, daic)
         vgg = vggish_phase(torch, card, corpus, bundle, Path(tmp),
                            daic["features"])
+        par = parallel_phase(torch, card, corpus, bundle, Path(tmp))
     standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
         launches[k] += (v + standin_launches[k] + checked["launches"][k]
                         + daic["launches"][k] + served["launches"][k]
-                        + vgg["launches"][k])
+                        + vgg["launches"][k] + par["launches"][k])
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if daic["launches"]["gru_bwd_streamed"] <= 0:

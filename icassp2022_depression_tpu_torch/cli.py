@@ -39,6 +39,11 @@
 
 Every subcommand that computes runs on ``--device`` (default ``cuda``); on
 a machine without a card it raises unless ``--device cpu`` is given.
+``train --fold-parallel [--data-parallel N]`` and ``pipeline
+--fold-parallel`` run on 3 (3 x N) ranks, ``extract-text --elmo-tp N`` and
+``extract-daic --multimodal --elmo-tp N`` on N (:func:`main`): one rank a
+card over NCCL, Gloo ranks on the CPU with ``--device cpu``, or the ranks
+of a ``torchrun`` launch; rank 0 writes the files and the output.
 ``synth-corpus`` and ``export-pt`` run no model and take no device;
 ``baselines`` runs sklearn on the host.
 
@@ -100,6 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from icassp2022_depression_tpu_torch.parallel import distributed
 from icassp2022_depression_tpu_torch.serving.predictors import (
     TASKS,
     DaicPredictor,
@@ -191,45 +197,21 @@ def cmd_predict(args):
     return 0
 
 
-def _reject_text_modes(args) -> None:
-    from icassp2022_depression_tpu_torch.frontend import text as tfe
-
-    _reject((("--elmo-tp", args.elmo_tp > 1, tfe.TP_ITEM),))
-
-
 def cmd_extract_text(args):
     """EATD text features -> ``<out>`` (default ``<root>/Features/
     TextWhole``) in the JAX package's layout."""
     from icassp2022_depression_tpu_torch.frontend import text as tfe
 
-    _reject_text_modes(args)
     root = Path(args.root)
     out = Path(args.out) if args.out else root / "Features" / "TextWhole"
     feats, _, _ = tfe.extract_eatd(root, out_dir=out, seed=args.seed,
                                    elmo_weights=args.elmo_weights,
                                    segmenter=args.segmenter,
                                    device=_device(args),
-                                   elmo_stateful=args.elmo_stateful)
+                                   elmo_stateful=args.elmo_stateful,
+                                   elmo_tp=args.elmo_tp)
     print(f"text features {feats.shape} -> {out}")
     return 0
-
-
-_MULTI_GPU = "the multi-GPU slice (ROADMAP.md Queue 1, item 18)"
-
-
-def _reject(options) -> None:
-    """The JAX CLI's options that arrive with later slices of the port
-    (``ROADMAP.md`` Queue 1) raise instead of being ignored."""
-    for flag, used, where in options:
-        if used:
-            raise SystemExit(f"{flag} is not ported yet: it arrives with "
-                             f"{where}")
-
-
-def _reject_unported(args) -> None:
-    _reject((
-        ("--fold-parallel/--data-parallel",
-         args.fold_parallel or args.data_parallel != 1, _MULTI_GPU),))
 
 
 def _embedder_kw(args) -> dict:
@@ -259,8 +241,11 @@ def _embedder_kw(args) -> dict:
 def _fold_kw(args) -> dict:
     """The trainers' fold options of ``train``: chunked execution with a
     resume bundle (``--chunk-epochs`` counts only with ``--resume-dir``,
-    as in the JAX CLI) and ``--vmap-folds``."""
-    kw = {"vmap_folds": args.vmap_folds}
+    as in the JAX CLI), ``--vmap-folds``, and ``--fold-parallel`` /
+    ``--data-parallel`` (over the ranks :func:`main` launched)."""
+    kw = {"vmap_folds": args.vmap_folds,
+          "fold_parallel": args.fold_parallel,
+          "data_parallel": args.data_parallel}
     if args.resume_dir:
         kw.update(resume_dir=Path(args.resume_dir),
                   chunk_epochs=args.chunk_epochs)
@@ -345,7 +330,10 @@ def cmd_train(args):
     from icassp2022_depression_tpu_torch.train import trainers
     from icassp2022_depression_tpu_torch.utils.logging import MetricsLogger
 
-    _reject_unported(args)
+    if args.data_parallel > 1 and not args.fold_parallel:
+        raise SystemExit("--data-parallel requires --fold-parallel "
+                         "(it shards each fold's batch over that fold's "
+                         "device group)")
     audio_dim = args.audio_dim if args.task.startswith("audio") else 256
     if args.corpus and audio_dim != 256:
         raise SystemExit("--corpus always extracts 256-d wav2vlad "
@@ -435,7 +423,6 @@ def _pipeline_summary(args) -> dict:
     from icassp2022_depression_tpu_torch.train import trainers
     from icassp2022_depression_tpu_torch.utils.logging import MetricsLogger
 
-    _reject((("--fold-parallel", args.fold_parallel, _MULTI_GPU),))
     device = _device(args)
     root = Path(args.root)
     audio_dir, text_dir = _features_dirs(root)
@@ -461,9 +448,10 @@ def _pipeline_summary(args) -> dict:
                                                    learning_rate=args.lr))
 
     kw = dict(seed=args.seed, device=device)
-    # the branches (and the reg fusion) as one stacked program; the clf
-    # fusion chains its folds, so it stays serial, as in the JAX CLI
-    vmap = dict(vmap_folds=args.vmap_folds)
+    # the branches (and the reg fusion) as one stacked program, over the
+    # launched ranks with --fold-parallel; the clf fusion chains its
+    # folds, so it stays serial (on every rank), as in the JAX CLI
+    vmap = dict(vmap_folds=args.vmap_folds, fold_parallel=args.fold_parallel)
     if args.track == "clf":
         out = model_dir / "ClassificationWhole"
         tf_idx = _train_folds(ya, args.seed, args.idx_files)
@@ -901,7 +889,6 @@ def cmd_extract_daic(args):
     also the per-response text modality and ``extraction_meta.json``)."""
     from icassp2022_depression_tpu_torch.frontend import daic
 
-    _reject((("--elmo-tp", args.elmo_tp > 1, _MULTI_GPU),))
     queries = Path(args.queries) if args.queries else None
     device = _device(args)
     if args.multimodal:
@@ -909,7 +896,7 @@ def cmd_extract_daic(args):
             Path(args.daic_dir), Path(args.split_csv), queries,
             out_prefix=Path(args.out), split_name=args.split_name,
             seed=args.seed, elmo_weights=args.elmo_weights,
-            segmenter=args.segmenter, device=device)
+            segmenter=args.segmenter, device=device, elmo_tp=args.elmo_tp)
     else:
         features, _, _ = daic.extract_split(
             Path(args.daic_dir), Path(args.split_csv), queries,
@@ -1211,8 +1198,11 @@ def build_parser():
                     help="emulate upstream ElmobiLm's cross-batch state (one "
                          "sents2elmo call per speaker, biLM states carried "
                          "across speakers; needs a converted bundle)")
-    # the JAX CLI's option that a later slice brings (see _reject_text_modes)
-    sp.add_argument("--elmo-tp", type=int, default=0)
+    sp.add_argument("--elmo-tp", type=int, default=0,
+                    help="run the LSTMP biLM tensor-parallel over N ranks "
+                         "(one a card over NCCL; with --device cpu, Gloo "
+                         "ranks on the CPU); results match serial up to "
+                         "the all-reduce's summation order. 0/1 = serial")
     sp.set_defaults(fn=cmd_extract_text)
 
     sp = sub.add_parser("train", help="train one branch task's 3 folds")
@@ -1246,9 +1236,13 @@ def build_parser():
                     help="audio feature width of the npz features (128: "
                          "extract-audio --embedder vggish); the model's "
                          "input layer takes it")
-    # the JAX CLI's options that a later slice brings (see _reject_unported)
-    sp.add_argument("--fold-parallel", action="store_true")
-    sp.add_argument("--data-parallel", type=int, default=1)
+    sp.add_argument("--fold-parallel", action="store_true",
+                    help="train the 3 folds on 3 ranks, one a card over "
+                         "NCCL (with --device cpu, Gloo ranks on the CPU); "
+                         "implies --vmap-folds")
+    sp.add_argument("--data-parallel", type=int, default=1,
+                    help="with --fold-parallel: ranks per fold, each "
+                         "with its rows of every batch (3 x N ranks)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("pipeline", help="a whole track incl. fusion")
@@ -1272,8 +1266,9 @@ def build_parser():
                     help="train each branch's 3 folds (and the reg "
                          "fusion's) as one program; the clf fusion chains "
                          "its folds and stays serial")
-    # the JAX CLI's option that a later slice brings (see _pipeline_summary)
-    sp.add_argument("--fold-parallel", action="store_true")
+    sp.add_argument("--fold-parallel", action="store_true",
+                    help="each branch's folds (and the reg fusion's) on 3 "
+                         "ranks, as train --fold-parallel")
     sp.set_defaults(fn=cmd_pipeline)
 
     sp = sub.add_parser("predict", help="serve one speaker from a checkpoint")
@@ -1365,8 +1360,9 @@ def build_parser():
                     help="text-modality segmenter (--multimodal only; see "
                          "extract-text --segmenter)")
     sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
-    # the JAX CLI's option that a later slice brings (cmd_extract_daic)
-    sp.add_argument("--elmo-tp", type=int, default=0)
+    sp.add_argument("--elmo-tp", type=int, default=0,
+                    help="tensor-parallel biLM for the text modality "
+                         "(--multimodal only; see extract-text --elmo-tp)")
     sp.set_defaults(fn=cmd_extract_daic)
 
     sp = sub.add_parser("train-daic", help="DAIC-WOZ downstream training")
@@ -1496,8 +1492,86 @@ def build_parser():
     return p
 
 
+def _ranks(args) -> int:
+    """The ranks a command runs on: 3 folds (x ``--data-parallel``) for
+    ``--fold-parallel``, N for ``--elmo-tp N``; else 1."""
+    if getattr(args, "fold_parallel", False):
+        return 3 * getattr(args, "data_parallel", 1)
+    multimodal = getattr(args, "multimodal", True)
+    tp = getattr(args, "elmo_tp", 0) if multimodal else 0
+    return tp if tp > 1 else 1
+
+
+def _need_devices(args, n: int, have: int) -> None:
+    """The JAX CLI's messages when the host has too few devices."""
+    if getattr(args, "fold_parallel", False):
+        try:
+            distributed.devices_needed(3, getattr(args, "data_parallel", 1),
+                                       have)
+        except AssertionError as e:
+            raise SystemExit(str(e)) from None
+    elif have < n:
+        raise SystemExit(
+            f"--elmo-tp {n} needs >= {n} devices but only {have} are "
+            "available (on a single-card host use the serial encoder, or "
+            "--device cpu for Gloo ranks on the CPU)")
+
+
+def _rank_main(argv) -> tuple:
+    """One launched rank of :func:`main`: the command itself, and the
+    standard output of rank 0 kept for the launcher (the other ranks' is
+    dropped, as is their standard error) -> (exit code, rank 0's output,
+    the code of a ``SystemExit`` or None)."""
+    import contextlib
+    import io
+    import os
+
+    out = io.StringIO()
+    main_rank = distributed.is_main()
+    rc, code = 0, None
+    with open(os.devnull, "w") as quiet, \
+            contextlib.redirect_stdout(out if main_rank else quiet), \
+            contextlib.redirect_stderr(sys.stderr if main_rank else quiet):
+        try:
+            rc = main(argv)
+        except SystemExit as e:     # the command's own refusal, every rank's
+            code = e.code
+    return rc, out.getvalue(), code
+
+
+def _launch(args, argv, n: int) -> int:
+    """Run the command on ``n`` ranks: one a card, ``cuda:0 ..
+    cuda:n-1``, over NCCL (never two ranks on one card), or with
+    ``--device cpu`` n Gloo ranks on the CPU.  Rank 0's output is printed
+    here, and its ``SystemExit`` raised here."""
+    if args.device == "cpu":
+        devices = ["cpu"] * n
+    else:
+        default_device()            # no card: the usual error
+        _need_devices(args, n, torch.cuda.device_count())
+        devices = [f"cuda:{i}" for i in range(n)]
+    print(f"# launching {n} ranks on {', '.join(devices)}", file=sys.stderr,
+          flush=True)
+    rc, out, code = distributed.launch(_rank_main, n, devices,
+                                       args=(argv,))[0]
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    if code is not None:
+        raise SystemExit(code)
+    return rc
+
+
 def main(argv=None):
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    """The command line.  A command that runs on several ranks
+    (``--fold-parallel``, ``--elmo-tp N``) joins the group ``torchrun``
+    launched it into, runs on the ranks of the group it is a rank of, or
+    else launches its ranks (:func:`_launch`)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    n = _ranks(args)
+    if n > 1 and not distributed.initialize(
+            "gloo" if getattr(args, "device", "cuda") == "cpu" else None):
+        return _launch(args, argv, n)
     return args.fn(args) or 0
 
 

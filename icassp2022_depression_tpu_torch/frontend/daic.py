@@ -38,6 +38,7 @@ import torch
 from icassp2022_depression_tpu_torch.config import FrontendConfig
 from icassp2022_depression_tpu_torch.data.eatd import read_wav
 from icassp2022_depression_tpu_torch.frontend import audio as audio_fe
+from icassp2022_depression_tpu_torch.parallel import distributed
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 #: the bundled DAIC question bank (the reference ships it as
@@ -272,22 +273,24 @@ def extract_split_multimodal(daic_dir: Path, split_csv: Path,
                              elmo_weights: Optional[str] = "auto",
                              out_prefix: Optional[Path] = None,
                              split_name: str = "train",
-                             segmenter: str = "auto", device=None):
+                             segmenter: str = "auto", device=None,
+                             elmo_tp: int = 0):
     """A split's pass over BOTH modalities (the DAIC text branch the
     reference drops): one session read per participant feeds the audio
     (one ``extract_batch`` for the split) and each response's transcript
     (one embedder call for the split; the embedder resolves as
-    ``extract-text``'s, :func:`..text.make_embedder`).  With
-    ``out_prefix`` it also writes ``{split}_text_samples.npz`` (ragged
-    [n_i, Dt] blocks) and ``extraction_meta.json``, as the JAX package
-    does.  Returns (audio blocks, text blocks, PHQ8_Binary,
+    ``extract-text``'s, :func:`..text.make_embedder`, with ``elmo_tp``
+    its tensor-parallel biLM over that many ranks).  With ``out_prefix``
+    it also writes ``{split}_text_samples.npz`` (ragged [n_i, Dt] blocks)
+    and ``extraction_meta.json``, as the JAX package does (rank 0 of a
+    group writes).  Returns (audio blocks, text blocks, PHQ8_Binary,
     PHQ8_Score)."""
     from icassp2022_depression_tpu_torch.frontend import text as text_fe
 
     device = resolve_device(device)
     embed, tdim, embedder_id = text_fe.make_embedder(
         elmo_params, elmo_cfg, seed, elmo_weights, with_id=True,
-        device=device)
+        device=device, elmo_tp=elmo_tp)
     queries = load_queries(queries_path)
     ids, clabels, rlabels = read_split_csv(split_csv)
     signals, srs, texts, counts = _split_signals(daic_dir, ids, queries,
@@ -302,7 +305,7 @@ def extract_split_multimodal(daic_dir: Path, split_csv: Path,
         flat_text = np.zeros((0, tdim), np.float32)
     audio_features = _ragged(flat_audio, counts)
     text_features = _ragged(flat_text, counts, block=False)
-    if out_prefix is not None:
+    if out_prefix is not None and distributed.is_main():
         out_prefix = _save_split(out_prefix, split_name, audio_features,
                                  clabels, rlabels)
         _save_ragged(out_prefix / f"{split_name}_text_samples.npz",
@@ -311,7 +314,7 @@ def extract_split_multimodal(daic_dir: Path, split_csv: Path,
         # copies it into checkpoint sidecars for serving
         (out_prefix / "extraction_meta.json").write_text(json.dumps(
             {"embedder": embedder_id, "segmenter": segmenter,
-             "seed": seed, "elmo_tp": 0, "text_dim": int(tdim)}))
+             "seed": seed, "elmo_tp": elmo_tp, "text_dim": int(tdim)}))
     return audio_features, text_features, clabels, rlabels
 
 

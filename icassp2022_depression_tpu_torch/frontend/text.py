@@ -15,9 +15,10 @@ the features on the device for the trainers (``cli train --corpus``,
 ``cli pipeline --corpus``).  Each runs on ``device``, by default the
 first card (raising when there is none).  ``elmo_stateful`` (a bundle
 only) emulates upstream's cross-batch biLM state, one embedding call per
-speaker as the reference's persistent ``Embedder`` makes them.  Not
-ported yet: the tensor-parallel biLM (``ROADMAP.md`` Queue 1 item 18);
-the CLI's ``--elmo-tp`` raises.
+speaker as the reference's persistent ``Embedder`` makes them.
+``elmo_tp`` N runs the LSTMP biLM tensor-parallel over the first N ranks
+of the default ``torch.distributed`` group (:mod:`..parallel.elmo_tp`):
+every rank extracts, rank 0 writes.
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ import torch
 from icassp2022_depression_tpu_torch.data import eatd
 from icassp2022_depression_tpu_torch.models import elmo, elmo_pretrained
 from icassp2022_depression_tpu_torch.ops import prng
+from icassp2022_depression_tpu_torch.parallel import distributed
+from icassp2022_depression_tpu_torch.parallel import elmo_tp as tensor_parallel
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
-
-TP_ITEM = "ROADMAP.md Queue 1 item 18 (multi-GPU)"
 
 
 def _is_cjk(ch: str) -> bool:
@@ -129,15 +130,17 @@ def tokenize(text: str, segmenter: str = "auto") -> List[str]:
 
 
 def embed_sentences(params, sentences: Sequence[List[str]],
-                    cfg=elmo.ElmoConfig(),
-                    batch_size: int = 512) -> torch.Tensor:
+                    cfg=elmo.ElmoConfig(), batch_size: int = 512,
+                    encode=None) -> torch.Tensor:
     """Hashed-id encoders (the stand-in :class:`..models.elmo.ElmoConfig`
     BiLSTM or the :class:`..models.elmo.ElmoLstmpConfig` biLM): tokenised
     sentences -> [N, output_dim] on the parameters' device.  Batches pad
     rows to a multiple of 8 (length-1 rows of id 0, sliced away) and tokens
-    to a multiple of 16, as in the JAX package."""
-    encode = (elmo.encode_lstmp if isinstance(cfg, elmo.ElmoLstmpConfig)
-              else elmo.encode)
+    to a multiple of 16, as in the JAX package.  ``encode`` replaces the
+    encoder (:func:`..parallel.elmo_tp.make_tp_encode`)."""
+    if encode is None:
+        encode = (elmo.encode_lstmp if isinstance(cfg, elmo.ElmoLstmpConfig)
+                  else elmo.encode)
     device = params["embed"].device
     pooled = []
     with torch.inference_mode():
@@ -163,7 +166,7 @@ def embed_sentences(params, sentences: Sequence[List[str]],
 def make_embedder(params=None, cfg=None, seed: int = 0,
                   elmo_weights: Optional[str] = "auto",
                   with_id: bool = False, device=None,
-                  elmo_stateful: bool = False):
+                  elmo_stateful: bool = False, elmo_tp: int = 0):
     """Resolve the sentence embedder once -> ``(embed_fn, output_dim)``
     (plus the provenance id with ``with_id``, recorded in extraction
     sidecars).  ``embed_fn(sentences) -> [N, output_dim]`` on ``device``.
@@ -180,6 +183,15 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     ``elmo_stateful`` (a bundle only; explicit params or no bundle raise):
     the bundle's :class:`..models.elmo_pretrained.PretrainedElmo` carries
     its biLM states across calls, and the id gets a ``:stateful`` suffix.
+
+    ``elmo_tp`` N > 1: the LSTMP biLM runs tensor-parallel over a
+    model-axis mesh of the first N ranks of the default group
+    (:func:`..parallel.elmo_tp.model_mesh`, raising with fewer), each rank
+    calling the embedder with the same sentences.  It applies to a bundle
+    and to an explicit or seeded LSTMP encoder; the plain
+    :class:`..models.elmo.ElmoConfig` BiLSTM has no such layout and
+    raises.  The id is the serial encoder's: the results are the same up
+    to the all-reduce's summation order.
     """
     device = resolve_device(device)
 
@@ -188,14 +200,28 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
 
     if cfg is None:
         cfg = elmo.ElmoConfig()
+    tp_mesh = None
+    if elmo_tp and elmo_tp > 1:
+        tp_mesh = tensor_parallel.model_mesh(elmo_tp)
+
+    def embed_fn(params):
+        encode = None
+        if tp_mesh is not None:
+            if not isinstance(cfg, elmo.ElmoLstmpConfig):
+                raise ValueError(
+                    "--elmo-tp shards the stacked LSTMP biLM; the plain "
+                    "ElmoConfig BiLSTM has no tensor-parallel layout (use "
+                    "ElmoLstmpConfig or a converted bundle)")
+            encode = tensor_parallel.make_tp_encode(tp_mesh, params, cfg)
+        return lambda s: embed_sentences(params, s, cfg, encode=encode)
+
     if params is not None:
         if elmo_stateful:
             raise ValueError("elmo_stateful requires a converted "
                              "ELMoForManyLangs bundle (explicit params "
                              "use the stateless encoder)")
         params = elmo_pretrained.tree_to(params, device)
-        return ret(lambda s: embed_sentences(params, s, cfg), cfg.output_dim,
-                   "explicit-params")
+        return ret(embed_fn(params), cfg.output_dim, "explicit-params")
     found = None
     if elmo_weights == "auto":
         found = elmo_pretrained.default_weights_path()
@@ -214,6 +240,8 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
         ident = f"elmo_bundle:{found.name}:{found.stat().st_size}"
         if elmo_stateful:
             ident += ":stateful"
+        if tp_mesh is not None:
+            pretrained.enable_tp(tp_mesh)
         return ret(pretrained.embed_sentences, pretrained.output_dim, ident)
     key = prng.prng_key(seed, device)
     if isinstance(cfg, elmo.ElmoLstmpConfig):
@@ -221,8 +249,7 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     else:
         params, kind = elmo.init(key, cfg), "prng"
     warn_standin_encoder()
-    return ret(lambda s: embed_sentences(params, s, cfg), cfg.output_dim,
-               f"{kind}:seed={seed}")
+    return ret(embed_fn(params), cfg.output_dim, f"{kind}:seed={seed}")
 
 
 def warn_standin_encoder() -> None:
@@ -262,10 +289,11 @@ def extract_eatd_device(root: Path, params=None, cfg=elmo.ElmoConfig(),
                         sds_threshold: float = 53.0,
                         elmo_weights: Optional[str] = "auto",
                         segmenter: str = "auto", device=None,
-                        elmo_stateful: bool = False):
+                        elmo_stateful: bool = False, elmo_tp: int = 0):
     """The corpus text pass with the features left on ``device`` (``cli
     train --corpus`` / ``cli pipeline --corpus``).  Returns (features
     [N, 3, D] on ``device``, sds_targets, clf_targets, provenance dict).
+    ``elmo_tp``: as :func:`make_embedder`.
 
     With ``elmo_stateful`` each speaker's 3 answers are one embedding call,
     the reference's granularity (one ``sents2elmo`` call per speaker on a
@@ -273,7 +301,7 @@ def extract_eatd_device(root: Path, params=None, cfg=elmo.ElmoConfig(),
     states depend on the batches, so they must match call for call."""
     embed, dim, embedder_id = make_embedder(
         params, cfg, seed, elmo_weights, with_id=True, device=device,
-        elmo_stateful=elmo_stateful)
+        elmo_stateful=elmo_stateful, elmo_tp=elmo_tp)
     sentences, sds = _corpus_sentences(Path(root), max_id, segmenter)
     if elmo_stateful:
         flat = torch.cat([embed(sentences[i:i + 3])
@@ -284,7 +312,7 @@ def extract_eatd_device(root: Path, params=None, cfg=elmo.ElmoConfig(),
     features = flat.reshape(len(sds), 3, dim)
     sds_targets, clf_targets = eatd.eatd_targets(sds, sds_threshold)
     meta = {"embedder": embedder_id, "output_dim": int(dim), "seed": seed,
-            "segmenter": segmenter}
+            "segmenter": segmenter, "elmo_tp": elmo_tp}
     return features, sds_targets, clf_targets, meta
 
 
@@ -294,16 +322,17 @@ def extract_eatd(root: Path, params=None, cfg=elmo.ElmoConfig(),
                  sds_threshold: float = 53.0,
                  elmo_weights: Optional[str] = "auto",
                  segmenter: str = "auto", device=None,
-                 elmo_stateful: bool = False):
+                 elmo_stateful: bool = False, elmo_tp: int = 0):
     """The corpus text pass -> ([N, 3, D] features, sds, clf labels) as
     numpy; with ``out_dir``, also the JAX package's
     ``whole_{samples,labels}_{reg,clf}_avg.npz`` and
-    ``extraction_meta.json``."""
+    ``extraction_meta.json`` (rank 0 of a group writes them).
+    ``elmo_tp``: as :func:`make_embedder`."""
     feats, sds_targets, clf_targets, meta = extract_eatd_device(
         root, params, cfg, seed, max_id, sds_threshold, elmo_weights,
-        segmenter, device, elmo_stateful)
+        segmenter, device, elmo_stateful, elmo_tp)
     features = feats.cpu().numpy()
-    if out_dir is not None:
+    if out_dir is not None and distributed.is_main():
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         np.savez(out_dir / "whole_samples_reg_avg.npz", features)
@@ -313,7 +342,7 @@ def extract_eatd(root: Path, params=None, cfg=elmo.ElmoConfig(),
         (out_dir / "extraction_meta.json").write_text(json.dumps(
             {"embedder": meta["embedder"], "output_dim": meta["output_dim"],
              "seed": seed, "n_speakers": len(sds_targets),
-             "segmenter": segmenter, "elmo_tp": 0}))
+             "segmenter": segmenter, "elmo_tp": elmo_tp}))
     return features, sds_targets, clf_targets
 
 

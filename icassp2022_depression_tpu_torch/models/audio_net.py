@@ -77,18 +77,21 @@ class AudioNet(nn.Module):
 
     def features(self, x: torch.Tensor,
                  key: Optional[torch.Tensor] = None,
-                 time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 time_mask: Optional[torch.Tensor] = None,
+                 rows=None) -> torch.Tensor:
         """[B, T, D] -> pooled hidden [B, H * num_dirs] (pre-head); the
         GRU's masks from ``split(key)[1]``.
 
         ``time_mask`` [B, T] restricts the pooling to the valid steps (the
         ragged DAIC batches: responses padded at the tail to a common
         count).  The GRU still runs over the padded steps; mean pooling
-        divides by ``max(sum(mask), 1)``, as the JAX package does."""
+        divides by ``max(sum(mask), 1)``, as the JAX package does.
+        ``rows``: the dropout masks' rows of a larger batch
+        (:func:`..ops.nn.dropout`)."""
         if self.cfg.input_layernorm:
             x = layer_norm(x, self.ln.weight, self.ln.bias)
         k_rnn = split2(key)[1] if self.training else None
-        y, _, _ = self.lstm_net_audio(x, k_rnn)
+        y, _, _ = self.lstm_net_audio(x, k_rnn, rows)
         if self.cfg.pooling not in ("mean", "sum"):
             raise ValueError(
                 f"unsupported audio pooling {self.cfg.pooling!r}")
@@ -103,7 +106,7 @@ class AudioNet(nn.Module):
         return y.sum(dim=-2)
 
     def head(self, pooled: torch.Tensor,
-             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
         """FC head before the final activation: [Dropout, Linear, ReLU,
         Dropout, Linear], the two masks from ``split(key)``."""
         cfg = self.cfg
@@ -112,20 +115,22 @@ class AudioNet(nn.Module):
         k1, k2 = split2(key) if self.training else (None, None)
         h = pooled
         if cfg.head_input_dropout:
-            h = dropout(h, cfg.dropout, self.training, k1)
+            h = dropout(h, cfg.dropout, self.training, k1, rows)
         h = torch.relu(linear(h, fc1.weight, fc1.bias))
-        h = dropout(h, cfg.dropout, self.training, k2)
+        h = dropout(h, cfg.dropout, self.training, k2, rows)
         return linear(h, fc2.weight, fc2.bias)
 
     def forward(self, x: torch.Tensor,
                 key: Optional[torch.Tensor] = None,
-                time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                time_mask: Optional[torch.Tensor] = None,
+                rows=None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
         scores (reg); in train mode the masks come from ``key`` (none
         without one), split as ``audio_net.apply`` splits it.
-        ``time_mask`` [B, T]: see :meth:`features`."""
+        ``time_mask`` [B, T], ``rows``: see :meth:`features`."""
         k_feat, k_head = split2(key) if self.training else (None, None)
-        out = self.head(self.features(x, k_feat, time_mask), k_head)
+        out = self.head(self.features(x, k_feat, time_mask, rows), k_head,
+                        rows)
         if self.cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
         if self.cfg.head_activation == "relu":

@@ -170,6 +170,10 @@ class PretrainedElmo:
     stateful: bool = False
     _states: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    #: (mesh, axis, this rank's share of the encoder) once
+    #: :meth:`enable_tp` ran
+    _tp: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def output_dim(self) -> int:
@@ -189,6 +193,22 @@ class PretrainedElmo:
             self, cc_params=tree_to(self.cc_params, device),
             enc_params=tree_to(self.enc_params, device))
 
+    def enable_tp(self, mesh, axis: str = "model") -> None:
+        """Run the biLM tensor-parallel over ``mesh``'s ``axis``
+        (:mod:`..parallel.elmo_tp`; every rank of the axis calls
+        :meth:`embed_sentences` with the same sentences): the encoder is
+        cut once, here.  Stateless mode only: the stateful emulation
+        carries state from batch to batch, serially."""
+        if self.stateful:
+            raise ValueError("tensor-parallel biLM is stateless-only "
+                             "(--elmo-stateful carries cross-batch state "
+                             "serially); drop one of the two flags")
+        from icassp2022_depression_tpu_torch.parallel import elmo_tp
+
+        self._tp = (mesh, axis,
+                    elmo_tp.shard_encoder_params(mesh, self.enc_params,
+                                                 axis))
+
     def embed_sentences(self, sentences: Sequence[Sequence[str]],
                         batch_size: Optional[int] = None) -> torch.Tensor:
         """Tokenised sentences -> [N, 1024] on the parameters' device:
@@ -197,7 +217,8 @@ class PretrainedElmo:
         multiple of 16, as in the JAX package.  The encoder is zero-state
         per sentence, so a sentence gets the same vector in any batch;
         with ``stateful`` it is :meth:`_embed_sentences_stateful` (default
-        batch 64, upstream's)."""
+        batch 64, upstream's); after :meth:`enable_tp` the biLM runs
+        tensor-parallel."""
         if self.stateful:
             return self._embed_sentences_stateful(sentences,
                                                   batch_size or 64)
@@ -213,13 +234,23 @@ class PretrainedElmo:
                 char_ids, word_ids, lengths = build_batch(
                     chunk, self.char_lexicon, self.word_lexicon,
                     self.char_cfg.max_chars, pad_to=-(-max_t // 16) * 16)
-                _, out = encode_pooled(
-                    self.cc_params, self.enc_params,
-                    torch.from_numpy(char_ids).to(device),
-                    None if word_ids is None
-                    else torch.from_numpy(word_ids).to(device),
-                    torch.from_numpy(lengths).to(device), self.char_cfg,
-                    self.lstmp_cfg)
+                ids = (torch.from_numpy(char_ids).to(device),
+                       None if word_ids is None
+                       else torch.from_numpy(word_ids).to(device),
+                       torch.from_numpy(lengths).to(device))
+                if self._tp is not None:
+                    from icassp2022_depression_tpu_torch.parallel import (
+                        elmo_tp,
+                    )
+
+                    mesh, axis, enc_tp = self._tp
+                    out = elmo_tp.encode_pooled_tp(
+                        mesh, self.cc_params, enc_tp, *ids, self.char_cfg,
+                        self.lstmp_cfg, axis)
+                else:
+                    _, out = encode_pooled(self.cc_params, self.enc_params,
+                                           *ids, self.char_cfg,
+                                           self.lstmp_cfg)
                 pooled.append(out[:real])
         if not pooled:
             return torch.zeros((0, self.output_dim), dtype=torch.float32,

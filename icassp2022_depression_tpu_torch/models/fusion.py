@@ -79,31 +79,33 @@ class FusionNet(nn.Module):
         self.fc_final = nn.Sequential(lin(keys[6], ht + ha, cfg.num_classes,
                                           bias=False))
 
-    def _branch_fc(self, fc: nn.Linear, x: torch.Tensor, k_in, k_out):
+    def _branch_fc(self, fc: nn.Linear, x: torch.Tensor, k_in, k_out,
+                   rows=None):
         p = self.cfg.dropout
-        x = dropout(x, p, self.training, k_in)
+        x = dropout(x, p, self.training, k_in, rows)
         x = torch.relu(linear(x, fc.weight, fc.bias))
-        return dropout(x, p, self.training, k_out)
+        return dropout(x, p, self.training, k_out, rows)
 
     def pretrained_feature(self, x_audio: torch.Tensor, x_text: torch.Tensor,
-                           key: Optional[torch.Tensor] = None):
+                           key: Optional[torch.Tensor] = None, rows=None):
         """Frozen branch forwards -> (text_feature [B, Ht], audio_feature
         [B, Ha]), without a graph; in train mode the masks come from
         ``split(key, 6)`` (text LSTM, text fc in/out, audio GRU, audio fc
-        in/out), none without a key."""
+        in/out), none without a key (``rows``: the masks' rows of a larger
+        batch, :func:`..ops.nn.dropout`)."""
         ks = ([None] * 6 if key is None or not self.training else
               [k for k in prng.split(key, 6).unbind(-2)])
         with torch.no_grad():
-            y, h_n, _ = self.lstm_net(x_text, ks[0])
+            y, h_n, _ = self.lstm_net(x_text, ks[0], rows)
             att = self.attention_layer[0]
             ctx = attention_net_with_w(att.weight, att.bias, y, h_n)
-            tf = self._branch_fc(self.fc_out[1], ctx, ks[1], ks[2])
+            tf = self._branch_fc(self.fc_out[1], ctx, ks[1], ks[2], rows)
             xa = x_audio
             if self.cfg.audio_layernorm:
                 xa = layer_norm(xa, self.ln.weight, self.ln.bias)
-            ya, _, _ = self.lstm_net_audio(xa, ks[3])
+            ya, _, _ = self.lstm_net_audio(xa, ks[3], rows)
             af = self._branch_fc(self.fc_audio[1], ya.sum(dim=-2), ks[4],
-                                 ks[5])
+                                 ks[5], rows)
         return tf, af
 
     def forward(self, concat_x: torch.Tensor) -> torch.Tensor:

@@ -73,25 +73,27 @@ class TextNet(nn.Module):
         self.ln2 = nn.LayerNorm(h, device=device)
 
     def features(self, x: torch.Tensor,
-                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 key: Optional[torch.Tensor] = None,
+                 rows=None) -> torch.Tensor:
         """[B, T, D] -> attention context [B, H]; the LSTM's masks from
-        ``split(key)[1]``."""
+        ``split(key)[1]`` (``rows``: the masks' rows of a larger batch,
+        :func:`..ops.nn.dropout`)."""
         k_rnn = split2(key)[1] if self.training else None
-        y, h_n, _ = self.lstm_net(x, k_rnn)
+        y, h_n, _ = self.lstm_net(x, k_rnn, rows)
         att = self.attention_layer[0]
         return attention_net_with_w(att.weight, att.bias, y, h_n)
 
     def head(self, context: torch.Tensor,
-             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
         cfg = self.cfg
         fc1, fc2 = (self.fc_out[i] for i in
                     ((1, 4) if cfg.head_input_dropout else (0, 3)))
         k1, k2 = split2(key) if self.training else (None, None)
         h = context
         if cfg.head_input_dropout:
-            h = dropout(h, cfg.dropout, self.training, k1)
+            h = dropout(h, cfg.dropout, self.training, k1, rows)
         h = torch.relu(linear(h, fc1.weight, fc1.bias))
-        h = dropout(h, cfg.dropout, self.training, k2)
+        h = dropout(h, cfg.dropout, self.training, k2, rows)
         out = linear(h, fc2.weight, fc2.bias)
         if cfg.head_activation == "softmax":
             return torch.softmax(out, dim=-1)
@@ -100,9 +102,10 @@ class TextNet(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor,
-                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None,
+                rows=None) -> torch.Tensor:
         """[B, T, D] -> [B, num_classes] probabilities (clf) or [B, 1]
         scores (reg); in train mode the masks come from ``key``, split as
-        ``text_net.apply`` splits it."""
+        ``text_net.apply`` splits it (``rows``: see :meth:`features`)."""
         k_feat, k_head = split2(key) if self.training else (None, None)
-        return self.head(self.features(x, k_feat), k_head)
+        return self.head(self.features(x, k_feat, rows), k_head, rows)

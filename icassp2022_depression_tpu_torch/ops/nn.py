@@ -9,6 +9,11 @@ parameter with a leading fold axis ``[F, ...]`` and runs on inputs
 parameter (:func:`fold_view` lines it up with the input), the losses
 reduce over the last axis only, and :func:`dropout` takes one key per
 fold, so each fold's numbers are the ones it gets alone.
+
+Data parallelism: a rank that holds rows ``first .. first + b`` of a
+batch of ``total`` passes ``rows=(first, total)`` down to :func:`dropout`,
+and its dropout masks are those rows of the whole batch's masks (the
+masks a single process draws), not masks of its own.
 """
 
 from __future__ import annotations
@@ -65,16 +70,19 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            key: Optional[torch.Tensor] = None) -> torch.Tensor:
+            key: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
     """Inverted dropout, ``jax_nn.dropout``: the keep mask is
     ``bernoulli(key, 1 - rate, shape)`` (threefry, the JAX package's
     numbers), kept entries are ``x / keep``.  Identity in eval mode, at rate
     0 and without a key.  Keys ``[F, 2]`` draw one mask per fold of an
-    ``[F, ...]`` input."""
+    ``[F, ...]`` input.  ``rows = (first, total)``: ``x`` holds rows
+    ``first ..`` of a batch of ``total`` (the batch axis is the first
+    after the fold axis), and the mask is those rows of the whole
+    batch's."""
     if not train or rate <= 0.0 or key is None:
         return x
     keep = 1.0 - rate
-    mask = prng.bernoulli(key, keep, x.shape[key.dim() - 1:])
+    mask = prng.bernoulli(key, keep, x.shape[key.dim() - 1:], rows)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -106,19 +106,36 @@ def _bits(k1, k2, start: int, stop: int) -> torch.Tensor:
     return o1 ^ o2
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def _offset(shape, rows) -> int:
+    """The first counter of a draw: 0, or with ``rows = (first, total)``
+    the counter of row ``first`` of a ``[total, *shape[1:]]`` draw."""
+    if rows is None:
+        return 0
+    first, total = rows
+    if not 0 <= first <= first + shape[0] <= total:
+        raise ValueError(f"rows {first}..{first + shape[0]} are not rows "
+                         f"of a draw of {total}")
+    return first * math.prod(shape[1:])
+
+
+def random_bits(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
     """``jax.random.bits`` (32-bit, partitionable): keys [..., 2] ->
-    int64 tensor [..., *shape] of uint32 values."""
+    int64 tensor [..., *shape] of uint32 values.  ``rows = (first,
+    total)``: rows ``first .. first + shape[0]`` of the ``[total,
+    *shape[1:]]`` draw, bit for bit (each value's counter is its row-major
+    index, so a row range is a counter range)."""
     shape = tuple(shape)
     n = math.prod(shape)
+    start0 = _offset(shape, rows)
     k1, k2 = key[..., 0:1], key[..., 1:2]
     if n <= _BITS_CHUNK:
-        return _bits(k1, k2, 0, n).reshape(key.shape[:-1] + shape)
+        return _bits(k1, k2, start0, start0 + n).reshape(key.shape[:-1]
+                                                         + shape)
     out = torch.empty(key.shape[:-1] + (n,), dtype=torch.int64,
                       device=key.device)
     for start in range(0, n, _BITS_CHUNK):
         stop = min(n, start + _BITS_CHUNK)
-        out[..., start:stop] = _bits(k1, k2, start, stop)
+        out[..., start:stop] = _bits(k1, k2, start0 + start, start0 + stop)
     return out.reshape(key.shape[:-1] + shape)
 
 
@@ -133,7 +150,7 @@ def _scale(bits: torch.Tensor, lo: float, span: float) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, rows=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits become the
     mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval).
     XLA fuses the scale and shift into one FMA.  Where the float32 span is
@@ -144,7 +161,7 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
 
     A draw of more than ``_BITS_CHUNK`` values (VGGish's 50 M-float first
     FC) runs slice by slice into the float32 result, so no int64 tensor of
-    the whole draw is ever made."""
+    the whole draw is ever made.  ``rows``: as :func:`random_bits`."""
     # the float32 bounds as Python floats (exact), so that no host value
     # is copied to the device (a CUDA graph may capture this)
     lo = float(np.float32(minval))
@@ -152,13 +169,15 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     shape = tuple(shape)
     n = math.prod(shape)
     if n <= _BITS_CHUNK:
-        return _scale(random_bits(key, shape), lo, span)
+        return _scale(random_bits(key, shape, rows), lo, span)
+    start0 = _offset(shape, rows)
     k1, k2 = key[..., 0:1], key[..., 1:2]
     out = torch.empty(key.shape[:-1] + (n,), dtype=torch.float32,
                       device=key.device)
     for start in range(0, n, _BITS_CHUNK):
         stop = min(n, start + _BITS_CHUNK)
-        out[..., start:stop] = _scale(_bits(k1, k2, start, stop), lo, span)
+        out[..., start:stop] = _scale(
+            _bits(k1, k2, start0 + start, start0 + stop), lo, span)
     return out.reshape(key.shape[:-1] + shape)
 
 
@@ -192,8 +211,8 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     return _SQRT2 * erfinv(u)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape, rows=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` in 32-bit
     mode: keys [..., 2] -> bool [..., *shape], True where a float32
-    uniform draw is below ``p``."""
-    return uniform(key, shape) < p
+    uniform draw is below ``p``.  ``rows``: as :func:`random_bits`."""
+    return uniform(key, shape, rows=rows) < p

@@ -235,7 +235,8 @@ def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,
 
 def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         dropout: float = 0.0, train: bool = False,
-        key: Optional[torch.Tensor] = None, backend: str = "auto"):
+        key: Optional[torch.Tensor] = None, backend: str = "auto",
+        rows=None):
     """Multi-layer (bi)directional GRU or LSTM.
 
     Args:
@@ -248,6 +249,8 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         split(key)``, as the JAX package draws them (keys [F, 2] with a
         fold axis).
       backend: "auto" | "torch" | "cuda" (see :func:`resolve_backend`).
+      rows: the dropout masks' rows of a larger batch (see
+        :func:`..ops.nn.dropout`).
 
     Returns:
       (output [B, T, H * num_dirs], h_n [B, num_layers * num_dirs, H] and
@@ -269,7 +272,7 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         if train and dropout > 0.0 and key is not None and \
                 layer_idx < len(params) - 1:
             key, sub = prng.split2(key)
-            y = _dropout(y, dropout, True, sub)
+            y = _dropout(y, dropout, True, sub, rows)
     c_n = torch.stack(c_finals, dim=-2) if cell == "lstm" else None
     return y, torch.stack(h_finals, dim=-2), c_n
 
@@ -312,6 +315,7 @@ class RNN(nn.Module):
                  for d, suffix in dirs}
                 for k in range(self.num_layers)]
 
-    def forward(self, x: torch.Tensor, key: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, key: Optional[torch.Tensor] = None,
+                rows=None):
         return rnn(self.layers(), x, self.cell, self.dropout, self.training,
-                   key, self.backend)
+                   key, self.backend, rows)

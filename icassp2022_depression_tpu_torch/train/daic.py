@@ -72,14 +72,14 @@ DAIC_REG = C.replace(
 
 
 def _fns(model: AudioNet, tcfg: C.TrainerConfig):
-    """``(train_loss(xs, y, mask, key), eval_fn(xs))`` for
+    """``(train_loss(xs, y, mask, key, rows), eval_fn(xs))`` for
     :class:`..train.loop.FoldRun`, ``xs = (x, time_mask)``: the masked CE
     on probabilities (clf) or the L1 loss (reg), as JAX ``_fns``."""
     num_classes = tcfg.model.num_classes
 
-    def train_loss(xs, y, mask, key):
+    def train_loss(xs, y, mask, key, rows=None):
         x, time_mask = xs
-        pred = model(x, key, time_mask)
+        pred = model(x, key, time_mask, rows)
         if tcfg.track == "classification":
             loss = masked_cross_entropy_on_probs(pred, y, mask, num_classes)
         else:

@@ -33,6 +33,18 @@ Stacked folds (``--vmap-folds``, JAX ``make_multi_fold_runner``): a
 :func:`stack_fold_data` of F folds, a model of :func:`..models.folds.stack`
 and an :class:`..train.optim.StackedAdam` run all folds in one epoch
 program, each with its own key, gated best and optimizer count.
+
+Data parallelism (``--fold-parallel --data-parallel N``, the JAX
+package's batch axis over a ``data`` mesh axis): a :class:`FoldRun` with
+a ``data_group`` holds its rank's rows of every batch's features
+(:func:`..parallel.distributed.shard_stacked_fold_data`) and computes
+what the single-process run computes: its dropout masks are its rows of
+the whole batch's (``train_loss``'s ``rows``), its loss is its rows'
+sum over the whole batch's valid count, the gradients are summed over the
+group before the replicated optimizer steps, and the epoch's per-step
+losses and train predictions are summed back together before the gate,
+which reads the whole batch; the test split is evaluated whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -42,12 +54,14 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from icassp2022_depression_tpu_torch.config import GateConfig
 from icassp2022_depression_tpu_torch.data.augment import PERM_TABLE
 from icassp2022_depression_tpu_torch.eval import metrics as M
 from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
+from icassp2022_depression_tpu_torch.parallel import collectives
 from icassp2022_depression_tpu_torch.train import optim
 
 CLF_LOGS = ("loss", "train_correct", "f1", "accuracy", "precision",
@@ -229,10 +243,12 @@ def init_best(track: str, model: nn.Module, device, folds: int = 0) -> dict:
 
 def model_fns(model: nn.Module, loss_fn: Callable):
     """:func:`run_fold`'s ``(train_loss, eval_fn)`` for a one-input model:
-    ``loss_fn(pred, y, mask)`` on ``model(xs[0], key)``, and the eval
-    forward ``model(xs[0])``."""
-    def train_loss(xs, y, mask, key):
-        pred = model(xs[0], key)
+    ``loss_fn(pred, y, mask)`` on ``model(xs[0], key)`` (``model(xs[0],
+    key, rows=rows)`` on a data-parallel rank), and the eval forward
+    ``model(xs[0])``."""
+    def train_loss(xs, y, mask, key, rows=None):
+        pred = (model(xs[0], key) if rows is None
+                else model(xs[0], key, rows=rows))
         return loss_fn(pred, y, mask), pred
 
     def eval_fn(xs):
@@ -259,7 +275,7 @@ class FoldRun:
     counter :attr:`epoch_at`.
 
     :meth:`epoch` runs one epoch: ``n_steps`` steps of ``train_loss(xs, y,
-    mask, key) -> (loss, pred)`` with ``model`` in train mode, then
+    mask, key, rows) -> (loss, pred)`` with ``model`` in train mode, then
     ``eval_fn(data.test_x)`` in eval mode without a graph, the metric
     gate, and the epoch's log row.  :meth:`run` runs epochs: on CUDA with
     ``graph`` (the default there) it captures :meth:`epoch` once into a
@@ -267,13 +283,25 @@ class FoldRun:
     then put back -- and replays it; otherwise it calls :meth:`epoch`.  A
     failed capture raises: there is no fallback.  The kernels' launch
     counters (:mod:`..ops.rnn_cuda`) count the warm-up's calls, and the
-    captured calls (:attr:`captured`) once per replay."""
+    captured calls (:attr:`captured`) once per replay.
+
+    ``n_steps`` (default: the last batch with a valid row in any fold) is
+    the steps an epoch takes; a fold-parallel rank takes the steps of all
+    folds, so its program and logs are the stacked run's.  ``data_group``
+    (a ``torch.distributed`` group): data parallelism over its ranks (the
+    module docstring); ``data.train_x`` then holds this rank's rows, the
+    rest of ``data`` the whole batch, and ``train_loss`` gets ``rows =
+    (first, batch)``, the place of those rows, for its dropout masks
+    (None without a group).  The graph route is the default
+    there only on NCCL, whose collectives a CUDA graph captures (Gloo's it
+    cannot)."""
 
     def __init__(self, model: nn.Module, optimizer, train_loss: Callable,
                  eval_fn: Callable, data: FoldData, track: str,
                  gate: GateConfig, n_epochs: int,
                  key: Optional[torch.Tensor] = None,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None,
+                 n_steps: Optional[int] = None, data_group=None):
         self.folded = isinstance(data.n_train, tuple)
         n_train = data.n_train if self.folded else (data.n_train,)
         if min(n_train) <= 0:
@@ -285,13 +313,30 @@ class FoldRun:
         self.data, self.gate = data, gate
         self.clf = track == "classification"
         device = data.train_y.device
-        self.graph = (device.type == "cuda") if graph is None else graph
+        self.data_group = data_group
+        if graph is None:
+            graph = device.type == "cuda" and (
+                data_group is None
+                or dist.get_backend(data_group) == "nccl")
+        self.graph = graph
         if self.graph and device.type != "cuda":
             raise ValueError("a CUDA graph needs the fold on a card")
         self.n_batches, batch = data.train_y.shape[-2:]
         # later batches are all padding
         self.fold_steps = [-(-n // batch) for n in n_train]
-        self.n_steps = max(self.fold_steps)
+        self.n_steps = max(self.fold_steps) if n_steps is None else n_steps
+        if self.n_steps < max(self.fold_steps):
+            raise ValueError(f"{self.n_steps} steps cut the fold's "
+                             f"{max(self.fold_steps)}")
+        self.rows = None
+        if data_group is not None:
+            # this rank's rows: (first, count) of each batch of `batch`
+            local = data.train_x[0].shape[2 if self.folded else 1]
+            self.rows = (dist.get_rank(data_group) * local, local)
+            mask = data.train_mask
+            # n_local / n_global of each batch (0 for a batch of padding)
+            self.share = (mask.narrow(-1, self.rows[0], local).sum(-1)
+                          / torch.clamp(mask.sum(-1), min=1.0))
         self.n_epochs = n_epochs
         self.key = None if key is None else key.to(device).clone()
         folds = len(n_train) if self.folded else 0
@@ -329,35 +374,65 @@ class FoldRun:
         self.key.copy_(key)
         return sub
 
+    def _batch(self, i: int):
+        """Batch ``i``'s (features, labels, mask) as this rank holds them,
+        and the place of its rows in the whole batch (None: all of it)."""
+        data = self.data
+        axis = 1 if self.folded else 0     # the batch index of train_x
+        xs = tuple(x.select(axis, i) for x in data.train_x)
+        y, mask = data.train_y.select(axis, i), data.train_mask.select(axis, i)
+        if self.rows is None:
+            return xs, y, mask, None
+        first, count = self.rows
+        return (xs, y.narrow(-1, first, count), mask.narrow(-1, first, count),
+                (first, y.shape[-1]))
+
+    def _whole(self, losses: torch.Tensor, preds: torch.Tensor):
+        """The epoch's per-step losses ([..., steps], each rank's share of
+        the mean) and train predictions ([..., steps, rows, C], this
+        rank's rows) summed over the data group into the whole batch's."""
+        first, count = self.rows
+        shape = list(preds.shape)
+        shape[-2] = self.data.train_y.shape[-1]
+        whole = preds.new_zeros(shape)
+        whole.narrow(-2, first, count).copy_(preds)
+        dist.all_reduce(losses, group=self.data_group)
+        dist.all_reduce(whole, group=self.data_group)
+        return losses, whole
+
     def epoch(self) -> None:
         """One epoch, every result written in place (what the graph
         captures)."""
-        data, model, opt = self.data, self.model, self.optimizer
-        axis = 1 if self.folded else 0     # the batch index of train_x
+        model, opt = self.model, self.optimizer
         model.train()
         losses, preds = [], []
         for i in range(self.n_steps):
             opt.zero_grad(set_to_none=True)
             sub = self._split_key()
-            loss, pred = self.train_loss(
-                tuple(x.select(axis, i) for x in data.train_x),
-                data.train_y.select(axis, i), data.train_mask.select(axis, i),
-                sub)
+            xs, y, mask, rows = self._batch(i)
+            loss, pred = self.train_loss(xs, y, mask, sub, rows)
+            if self.rows is not None:
+                loss = loss * self.share.select(-1, i)
+            (loss.sum() if self.folded else loss).backward()
+            if self.rows is not None:
+                collectives.all_reduce_grads(model.parameters(),
+                                             self.data_group)
             if self.folded:
-                loss.sum().backward()
                 opt.step(self.active[i])
             else:
-                loss.backward()
                 opt.step()
             losses.append(loss.detach())
             preds.append(pred.detach())
         for _ in range(self.n_batches - self.n_steps):
             self._split_key()    # the JAX scan splits on padding batches
+        losses = torch.stack(losses, dim=-1)
+        preds = torch.stack(preds, dim=-3)
+        if self.rows is not None:
+            losses, preds = self._whole(losses, preds)
         model.eval()
         with torch.no_grad():
-            test_pred = self.eval_fn(data.test_x)
-            self._gate(torch.stack(losses, dim=-1),
-                       torch.stack(preds, dim=-3), test_pred)
+            test_pred = self.eval_fn(self.data.test_x)
+            self._gate(losses, preds, test_pred)
 
     def _gate(self, losses, preds, test_pred) -> None:
         data, gate, best = self.data, self.gate, self.best

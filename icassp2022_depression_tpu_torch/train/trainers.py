@@ -33,7 +33,12 @@ epoch on a card), optionally in chunks of epochs with a resume bundle
 committed after each (``resume_dir`` / ``chunk_epochs``, JAX
 ``_execute_fold``); with ``vmap_folds`` the three folds run as one
 stacked program (JAX ``_vmapped_fold_results``; the reg fusion only, as
-there: the clf fusion chains its folds).  Multi-GPU is not ported yet.
+there: the clf fusion chains its folds).  ``fold_parallel`` runs that
+stacked program with its fold axis over the ranks of a
+``torch.distributed`` group, one fold a rank (JAX ``fold_mesh``), and
+``data_parallel`` N more splits each fold's batch over N ranks (JAX
+``fold_data_mesh``): every rank of the group calls the trainer, and every
+rank gets every fold's results (:mod:`..parallel.distributed`).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from icassp2022_depression_tpu_torch.ops.nn import (
     masked_cross_entropy_on_probs,
     smooth_l1_loss,
 )
+from icassp2022_depression_tpu_torch.parallel import distributed
 from icassp2022_depression_tpu_torch.train import checkpoints, loop, optim
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
@@ -145,13 +151,18 @@ def _logs_arrays(run: loop.FoldRun) -> dict:
     return out
 
 
-def _load_bundle(run: loop.FoldRun, state_path: Path,
-                 logs_path: Path) -> None:
+def _load_bundle(run: loop.FoldRun, state_path: Path, logs_path: Path,
+                 folds: Optional[slice] = None) -> None:
     """Resume ``run`` from a bundle: every tensor back in place, and the
     logs sidecar truncated to ``epoch_done`` (the bundle is the commit
-    point: a sidecar written after it may run ahead)."""
+    point: a sidecar written after it may run ahead).  ``folds``: a
+    fold-parallel rank's folds of a stacked bundle."""
+    def mine(a):
+        return a if folds is None else a[folds]
+
     with np.load(state_path) as z:
-        arrays = {k: z[k] for k in z.files}
+        arrays = {k: z[k] if k == "epoch_done" else mine(z[k])
+                  for k in z.files}
 
     def put(dst: torch.Tensor, a) -> None:
         dst.copy_(torch.from_numpy(np.asarray(a)))
@@ -177,26 +188,31 @@ def _load_bundle(run: loop.FoldRun, state_path: Path,
             at = run.logs.dim() - 2
             with np.load(logs_path) as z:
                 for i, k in enumerate(keys):
-                    rows = torch.from_numpy(z[k]).narrow(at, 0, e)
+                    rows = torch.from_numpy(mine(z[k])).narrow(at, 0, e)
                     run.logs.select(-1, i).narrow(at, 0, e).copy_(rows)
                 run.step_losses.narrow(at, 0, e).copy_(
-                    torch.from_numpy(z["step_losses"]).narrow(at, 0, e))
+                    torch.from_numpy(mine(z["step_losses"]))
+                    .narrow(at, 0, e))
 
 
 def _execute_fold(run: loop.FoldRun, chunk_epochs: Optional[int] = None,
-                  resume_path: Optional[Path] = None):
+                  resume_path: Optional[Path] = None,
+                  mesh: Optional[distributed.FoldMesh] = None):
     """Run a fold to its end, in chunks of ``chunk_epochs`` epochs (each
     chunk is that many replays of the fold's graph) with a resume bundle
     ``<resume_path>.npz`` (+ ``_logs.npz``, written first, both atomic)
     committed after each, as JAX ``_execute_fold`` does: a run that finds
     a bundle continues from it, and a completed one only reads it back.
-    Returns :meth:`..loop.FoldRun.results`."""
+    On a fold-parallel rank (``mesh``) the bundle is the stacked run's:
+    every rank loads its folds of it, and rank 0 writes it after
+    gathering the folds.  Returns :meth:`..loop.FoldRun.results`."""
     total = run.n_epochs
+    folds = None if mesh is None else mesh.folds
     if resume_path is not None:
         state_path = Path(str(resume_path) + ".npz")
         logs_path = Path(str(resume_path) + "_logs.npz")
         if state_path.exists():
-            _load_bundle(run, state_path, logs_path)
+            _load_bundle(run, state_path, logs_path, folds)
     chunk = chunk_epochs or total
     while run.epoch_done < total:
         n = min(chunk, total - run.epoch_done)
@@ -206,8 +222,13 @@ def _execute_fold(run: loop.FoldRun, chunk_epochs: Optional[int] = None,
                   file=sys.stderr, flush=True)
         run.run(n)
         if resume_path is not None:
-            checkpoints.atomic_savez(logs_path, **_logs_arrays(run))
-            checkpoints.atomic_savez(state_path, **_bundle_arrays(run))
+            logs, state = _logs_arrays(run), _bundle_arrays(run)
+            if mesh is not None:
+                logs = distributed.gather_folds(mesh, logs)
+                state = distributed.gather_folds(mesh, state)
+            if distributed.is_main():
+                checkpoints.atomic_savez(logs_path, **logs)
+                checkpoints.atomic_savez(state_path, **state)
             print(f"# chunk committed: {Path(resume_path).name} "
                   f"epochs {run.epoch_done}/{total}",
                   file=sys.stderr, flush=True)
@@ -218,14 +239,23 @@ def _resume_path(resume_dir, name: str) -> Optional[Path]:
     return Path(resume_dir) / name if resume_dir is not None else None
 
 
+_DP_WITHOUT_FOLDS = (
+    "data_parallel shards each fold's batch over that fold's device group "
+    "and therefore requires fold_parallel=True (otherwise it would be "
+    "silently ignored)")
+
+
 def _run_folds(tcfg: C.TrainerConfig, fold_datas, seed: int,
                init_params_per_fold=None, resume_dir=None,
                chunk_epochs=None, task_name: str = "task",
-               vmap_folds: bool = False):
+               vmap_folds: bool = False, fold_parallel: bool = False,
+               data_parallel: int = 1):
     """Fold loop of a branch trainer: init -> one :class:`loop.FoldRun` a
-    fold (or one for all folds, stacked, with ``vmap_folds``) -> host
-    summary.  The device is the fold tensors'.  Returns one ``{"fold",
-    "best", "logs", "step_losses"}`` per fold."""
+    fold (or one for all folds, stacked, with ``vmap_folds`` or
+    ``fold_parallel``) -> host summary.  The device is the fold tensors'.
+    Returns one ``{"fold", "best", "logs", "step_losses"}`` per fold."""
+    if data_parallel > 1 and not fold_parallel:
+        raise ValueError(_DP_WITHOUT_FOLDS)
     loss_fn = _branch_fns(tcfg)
 
     def model(fold: int, device):
@@ -233,12 +263,12 @@ def _run_folds(tcfg: C.TrainerConfig, fold_datas, seed: int,
                           None if init_params_per_fold is None
                           else init_params_per_fold[fold - 1])
 
-    if vmap_folds:
+    if vmap_folds or fold_parallel:
         return _vmapped_results(
-            tcfg, fold_datas, seed, [model(f, fold_datas[0].train_y.device)
-                                     for f in range(1, len(fold_datas) + 1)],
+            tcfg, fold_datas, seed,
+            lambda f, data: (model(f, data.train_y.device), data),
             lambda m: loop.model_fns(m, loss_fn), resume_dir, chunk_epochs,
-            task_name)
+            task_name, fold_parallel, data_parallel)
     results = []
     for fold, data in enumerate(fold_datas, start=1):
         device = data.train_y.device
@@ -255,25 +285,71 @@ def _run_folds(tcfg: C.TrainerConfig, fold_datas, seed: int,
     return results
 
 
-def _vmapped_results(tcfg: C.TrainerConfig, fold_datas, seed: int, models,
+def _on_host(out) -> tuple:
+    """A fold's ``(best, logs, step_losses)`` with its gated params on the
+    host, to be gathered."""
+    best, logs, step_losses = out
+    best = dict(best, params={k: v.detach().cpu()
+                              for k, v in best["params"].items()})
+    return best, logs, step_losses
+
+
+def _vmapped_results(tcfg: C.TrainerConfig, fold_datas, seed: int, build,
                      make_fns, resume_dir=None, chunk_epochs=None,
-                     task_name: str = "task"):
+                     task_name: str = "task", fold_parallel: bool = False,
+                     data_parallel: int = 1):
     """All folds as one stacked program (JAX ``_vmapped_fold_results``):
-    the fold models stacked (:func:`..models.folds.stack`), the fold
-    tensors stacked, one dropout key per fold (the serial path's), a
+    ``build(fold, data) -> (model, data)`` for each fold, the models
+    stacked (:func:`..models.folds.stack`), the fold tensors stacked, one
+    dropout key per fold (the serial path's), a
     :class:`..optim.StackedAdam`, and one ``{task_name}_folds`` resume
     bundle.  ``make_fns(stacked_model)`` gives ``(train_loss,
-    eval_fn)``."""
+    eval_fn)``.
+
+    ``fold_parallel``: the default group's ranks share the folds (JAX
+    ``fold_mesh``): each rank builds and runs the stacked program of its
+    folds over the steps of all folds, and the results are gathered onto
+    every rank.  ``data_parallel`` N (JAX ``fold_data_mesh``): N ranks a
+    fold, each with its rows of every batch (:class:`..loop.FoldRun`'s
+    ``data_group``), eager on Gloo and in the epoch's CUDA graph on
+    NCCL."""
+    n_folds = len(fold_datas)
     device = fold_datas[0].train_y.device
+    mesh, folds = None, range(1, n_folds + 1)
+    if fold_parallel:
+        mesh = distributed.fold_data_mesh(n_folds, data_parallel)
+        folds = folds[mesh.folds]
+    models, datas = zip(*(build(f, fold_datas[f - 1]) for f in folds))
     stacked = mfolds.stack(models)
     optimizer = optim.build_stacked(tcfg.optimizer, stacked)
-    keys = torch.stack([dropout_key(seed, f, device)
-                        for f in range(1, len(fold_datas) + 1)])
-    run = loop.FoldRun(stacked, optimizer, *make_fns(stacked),
-                       loop.stack_fold_data(fold_datas), tcfg.track,
-                       tcfg.gate, tcfg.epochs - 1, keys)
+    keys = torch.stack([dropout_key(seed, f, device) for f in folds])
+    data = loop.stack_fold_data(datas)
+    group = None
+    if mesh is not None and data_parallel > 1:
+        data = distributed.shard_batch_rows(mesh, data)
+        group = mesh.data_group
+    batch = data.train_y.shape[-1]
+    run = loop.FoldRun(stacked, optimizer, *make_fns(stacked), data,
+                       tcfg.track, tcfg.gate, tcfg.epochs - 1, keys,
+                       n_steps=max(-(-d.n_train // batch)
+                                   for d in fold_datas),
+                       data_group=group)
+    if mesh is not None:
+        print(f"# {task_name}: rank {distributed.rank()} of "
+              f"{distributed.world_size()} trains fold(s) {list(folds)} as "
+              f"data rank {mesh.data_rank} of {data_parallel} on {device}, "
+              + ("epochs as one CUDA graph" if run.graph else "eager epochs")
+              + (f" ({torch.distributed.get_backend(group)} data group)"
+                 if group is not None else ""),
+              file=sys.stderr, flush=True)
     outs = _execute_fold(run, chunk_epochs,
-                         _resume_path(resume_dir, f"{task_name}_folds"))
+                         _resume_path(resume_dir, f"{task_name}_folds"),
+                         mesh)
+    if mesh is not None:
+        outs = distributed.gather_folds(mesh, [_on_host(o) for o in outs])
+        for best, _, _ in outs:
+            best["params"] = {k: v.to(device)
+                              for k, v in best["params"].items()}
     return [{"fold": f, "best": best, "logs": logs,
              "step_losses": step_losses}
             for f, (best, logs, step_losses) in enumerate(outs, start=1)]
@@ -294,7 +370,10 @@ def _save_gated(out_dir, name, r, task: str, seed: int, tree: dict,
     (task, seed, fold, the fold's train indices, ``extras``), and with
     ``dump_idx`` the winning train-idx artifact
     ``train_idxs_{f1:.2f}_{fold}.npy`` next to it, as the reference writes
-    on gate fire (``Classification/audio_gru_whole.py:240``)."""
+    on gate fire (``Classification/audio_gru_whole.py:240``).  In a group
+    of ranks only rank 0 writes."""
+    if not distributed.is_main():
+        return
     meta = {k: v for k, v in r["best"].items() if k != "params"}
     meta.update(task=task, seed=seed, fold=r["fold"])
     if train_idx is not None:
@@ -417,18 +496,22 @@ def train_audio_clf(features, targets: np.ndarray,
                     out_dir: Optional[Path] = None, seed: int = 0,
                     fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                     init_params_per_fold=None, resume_dir=None,
-                    chunk_epochs=None, vmap_folds: bool = False):
+                    chunk_epochs=None, vmap_folds: bool = False,
+                    fold_parallel: bool = False, data_parallel: int = 1):
     """3-fold audio GRU classifier.  ``features``: [N, 3, 256], numpy or a
     tensor (trained where it lies unless ``device`` says otherwise; numpy
-    features with ``device`` None go to the first card).
+    features with ``device`` None go to the first card, or a launched
+    rank's card).
     ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
     resume bundle, ``vmap_folds`` runs the folds as one stacked
-    program."""
+    program, ``fold_parallel`` / ``data_parallel`` run it over the ranks
+    of the default group (every rank calls the trainer)."""
     return _clf_branch("audio_clf", features, targets, train_folds_idx,
                        tcfg, out_dir, seed, fold_cfg, device,
                        init_params_per_fold,
                        resume_dir=resume_dir, chunk_epochs=chunk_epochs,
-                       vmap_folds=vmap_folds)
+                       vmap_folds=vmap_folds, fold_parallel=fold_parallel,
+                       data_parallel=data_parallel)
 
 
 def train_text_clf(features, targets: np.ndarray,
@@ -438,18 +521,17 @@ def train_text_clf(features, targets: np.ndarray,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                    init_params_per_fold=None, resume_dir=None,
                    chunk_epochs=None, vmap_folds: bool = False,
-                   meta_extras: dict | None = None):
+                   meta_extras: dict | None = None,
+                   fold_parallel: bool = False, data_parallel: int = 1):
     """3-fold text BiLSTM classifier.  ``features``: [N, 3, 1024];
     ``meta_extras`` (the text embedder's provenance) goes into every
-    checkpoint sidecar.
-    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
-    resume bundle, ``vmap_folds`` runs the folds as one stacked
-    program."""
+    checkpoint sidecar; the fold options as :func:`train_audio_clf`."""
     return _clf_branch("text_clf", features, targets, train_folds_idx,
                        tcfg, out_dir, seed, fold_cfg, device,
                        init_params_per_fold, meta_extras,
                        resume_dir=resume_dir, chunk_epochs=chunk_epochs,
-                       vmap_folds=vmap_folds)
+                       vmap_folds=vmap_folds, fold_parallel=fold_parallel,
+                       data_parallel=data_parallel)
 
 
 def train_audio_reg(features, targets: np.ndarray,
@@ -458,18 +540,18 @@ def train_audio_reg(features, targets: np.ndarray,
                     out_dir: Optional[Path] = None, seed: int = 0,
                     fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                     init_params_per_fold=None, resume_dir=None,
-                    chunk_epochs=None, vmap_folds: bool = False):
+                    chunk_epochs=None, vmap_folds: bool = False,
+                    fold_parallel: bool = False, data_parallel: int = 1):
     """3-fold audio GRU SDS-score regressor (L1 loss, MAE gating).  Pass
     the same ``fold_cfg`` here and to :func:`train_fuse_reg`, which
-    re-derives these splits.
-    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
-    resume bundle, ``vmap_folds`` runs the folds as one stacked
-    program."""
+    re-derives these splits.  The fold options as
+    :func:`train_audio_clf`."""
     return _reg_branch("audio_reg", features, targets, dep_idxs, non_idxs,
                        tcfg, out_dir, seed, fold_cfg, device,
                        init_params_per_fold,
                        resume_dir=resume_dir, chunk_epochs=chunk_epochs,
-                       vmap_folds=vmap_folds)
+                       vmap_folds=vmap_folds, fold_parallel=fold_parallel,
+                       data_parallel=data_parallel)
 
 
 def train_text_reg(features, targets: np.ndarray,
@@ -479,16 +561,15 @@ def train_text_reg(features, targets: np.ndarray,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                    init_params_per_fold=None, resume_dir=None,
                    chunk_epochs=None, vmap_folds: bool = False,
-                   meta_extras: dict | None = None):
-    """As :func:`train_audio_reg` for the text BiLSTM (SmoothL1).
-    ``resume_dir`` / ``chunk_epochs`` run each fold in chunks with a
-    resume bundle, ``vmap_folds`` runs the folds as one stacked
-    program."""
+                   meta_extras: dict | None = None,
+                   fold_parallel: bool = False, data_parallel: int = 1):
+    """As :func:`train_audio_reg` for the text BiLSTM (SmoothL1)."""
     return _reg_branch("text_reg", features, targets, dep_idxs, non_idxs,
                        tcfg, out_dir, seed, fold_cfg, device,
                        init_params_per_fold, meta_extras,
                        resume_dir=resume_dir, chunk_epochs=chunk_epochs,
-                       vmap_folds=vmap_folds)
+                       vmap_folds=vmap_folds, fold_parallel=fold_parallel,
+                       data_parallel=data_parallel)
 
 
 # -- fusion -------------------------------------------------------------------
@@ -504,8 +585,8 @@ def _fusion_fns(model: FusionNet, tcfg: C.TrainerConfig):
     myloss = (losses.myloss_ce if tcfg.track == "classification"
               else losses.myloss_smooth_l1)
 
-    def train_loss(xs, y, mask, key):
-        tf, af = model.pretrained_feature(xs[0], xs[1], key)
+    def train_loss(xs, y, mask, key, rows=None):
+        tf, af = model.pretrained_feature(xs[0], xs[1], key, rows)
         loss = myloss(tf, af, y, model.fc_final[0].weight,
                       cfg.text_hidden_dims, mask)
         return loss, model(torch.cat([tf, af], dim=-1))
@@ -543,7 +624,8 @@ def _run_fusion_folds(fcfg: C.FusionConfig, tcfg: C.TrainerConfig,
                       fold_datas, branch_params, seed: int,
                       init_params_per_fold=None, resume_dir=None,
                       chunk_epochs=None, task_name: str = "fuse",
-                      vmap_folds: bool = False):
+                      vmap_folds: bool = False, fold_parallel: bool = False,
+                      data_parallel: int = 1):
     """Fold loop of the fusion trainers, with the reference's cross-fold
     state:
 
@@ -555,18 +637,23 @@ def _run_fusion_folds(fcfg: C.FusionConfig, tcfg: C.TrainerConfig,
       carried state;
     * regression (``Regression/fuse_net.py:549-552``): model and optimizer
       are made afresh for every fold, from :func:`init_key`; with
-      ``vmap_folds`` the folds run as one stacked program.
+      ``vmap_folds`` the folds run as one stacked program, with
+      ``fold_parallel`` (and ``data_parallel``) over the ranks of the
+      default group.
 
     ``branch_params[fold - 1]`` is the (text, audio) pair of branch state
     dicts.  Only ``fc_final.0.weight`` may receive a gradient: a branch
     parameter that gets one raises."""
     carry = tcfg.track == "classification"
-    if vmap_folds and carry:
+    if (vmap_folds or fold_parallel) and carry:
         raise ValueError(
             "fold vectorisation is impossible for the clf fusion trainer: "
             "the reference chains folds sequentially -- fold k+1 starts "
             "from fold k's trained fc_final weights and accumulated Adam "
-            "moments (fuse_net_whole.py:413-416)")
+            "moments (fuse_net_whole.py:413-416) -- so fold programs "
+            "cannot run concurrently")
+    if data_parallel > 1 and not fold_parallel:
+        raise ValueError(_DP_WITHOUT_FOLDS)
 
     def fresh(fold: int, device) -> FusionNet:
         model = _fusion_model(
@@ -576,13 +663,18 @@ def _run_fusion_folds(fcfg: C.FusionConfig, tcfg: C.TrainerConfig,
         model.init_from_branches(*branch_params[fold - 1], tcfg.track)
         return model
 
-    if vmap_folds:
-        device = fold_datas[0].train_y.device
-        models = [fresh(f, device) for f in range(1, len(fold_datas) + 1)]
-        datas = [_head_test_split(m, d) for m, d in zip(models, fold_datas)]
+    if vmap_folds or fold_parallel:
+        models = []
+
+        def build(fold, data):
+            model = fresh(fold, data.train_y.device)
+            models.append(model)
+            return model, _head_test_split(model, data)
+
         results = _vmapped_results(
-            tcfg, datas, seed, models, lambda m: _fusion_fns(m, tcfg),
-            resume_dir, chunk_epochs, task_name)
+            tcfg, fold_datas, seed, build, lambda m: _fusion_fns(m, tcfg),
+            resume_dir, chunk_epochs, task_name, fold_parallel,
+            data_parallel)
         for m in models:
             _check_frozen(m, "all")
         return results
@@ -617,21 +709,23 @@ def train_fuse_clf(audio_features, text_features, targets: np.ndarray,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                    init_params_per_fold=None, resume_dir=None,
                    chunk_epochs=None, vmap_folds: bool = False,
-                   meta_extras: dict | None = None):
+                   meta_extras: dict | None = None,
+                   fold_parallel: bool = False, data_parallel: int = 1):
     """3-fold multimodal fusion classifier.  ``branch_params[fold]`` is the
     (text, audio) pair of gated branch state dicts from
     :func:`train_text_clf` / :func:`train_audio_clf` (the reference's
     state-dict surgery); ``init_params_per_fold[0]``, when given, is the
     fusion's initial state dict.  ``resume_dir`` / ``chunk_epochs`` as in
-    :func:`train_audio_clf`; ``vmap_folds`` raises: the folds chain their
-    state."""
+    :func:`train_audio_clf`; ``vmap_folds`` / ``fold_parallel`` raise: the
+    folds chain their state."""
     xa = _features(audio_features, device)
     feats = [xa, _features(text_features, xa.device)]
     datas = _clf_fold_datas(feats, np.asarray(targets), train_folds_idx,
                             tcfg.batch_size, fold_cfg)
     results = _run_fusion_folds(fcfg, tcfg, datas, branch_params, seed,
                                 init_params_per_fold, resume_dir,
-                                chunk_epochs, "fuse_clf", vmap_folds)
+                                chunk_epochs, "fuse_clf", vmap_folds,
+                                fold_parallel, data_parallel)
     if out_dir is not None:
         for r in _gated(results):
             name = checkpoints.fuse_clf_name(r["best"]["f1"], r["fold"])
@@ -652,18 +746,21 @@ def train_fuse_reg(audio_features, text_features, targets: np.ndarray,
                    fold_cfg: C.FoldConfig = C.FoldConfig(), device=None,
                    init_params_per_fold=None, resume_dir=None,
                    chunk_epochs=None, vmap_folds: bool = False,
-                   meta_extras: dict | None = None):
+                   meta_extras: dict | None = None,
+                   fold_parallel: bool = False, data_parallel: int = 1):
     """3-fold multimodal fusion SDS regressor (SmoothL1 MyLoss, MAE
-    gating); arguments as :func:`train_fuse_clf` (``vmap_folds`` runs the
-    folds, which start afresh, as one stacked program), folds as
-    :func:`train_audio_reg` (pass the branches' ``fold_cfg``)."""
+    gating); arguments as :func:`train_fuse_clf` (``vmap_folds``,
+    ``fold_parallel`` and ``data_parallel`` run the folds, which start
+    afresh, as one stacked program), folds as :func:`train_audio_reg`
+    (pass the branches' ``fold_cfg``)."""
     xa = _features(audio_features, device)
     feats = [xa, _features(text_features, xa.device)]
     datas = _reg_fold_datas(feats, np.asarray(targets), dep_idxs, non_idxs,
                             tcfg.batch_size, fold_cfg)
     results = _run_fusion_folds(fcfg, tcfg, datas, branch_params, seed,
                                 init_params_per_fold, resume_dir,
-                                chunk_epochs, "fuse_reg", vmap_folds)
+                                chunk_epochs, "fuse_reg", vmap_folds,
+                                fold_parallel, data_parallel)
     if out_dir is not None:
         for r in _gated(results):
             _save_gated(Path(out_dir) / f"Fuse{r['fold']}",

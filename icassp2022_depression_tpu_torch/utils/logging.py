@@ -20,10 +20,13 @@ import numpy as np
 
 
 class MetricsLogger:
-    """Append-only JSONL logger, one record per event."""
+    """Append-only JSONL logger, one record per event; in a group of
+    ranks only rank 0 writes the file."""
 
     def __init__(self, path: Optional[Path] = None, echo: bool = False):
-        self.path = Path(path) if path else None
+        from icassp2022_depression_tpu_torch.parallel import distributed
+
+        self.path = Path(path) if path and distributed.is_main() else None
         self.echo = echo
         if self.path:
             self.path.parent.mkdir(parents=True, exist_ok=True)

@@ -382,7 +382,8 @@ def test_cli_train_text_reads_npz_features(tmp_path, monkeypatch, capsys):
      "audio features not found"),
     # --vmap-folds is ported: it passes to the feature check
     (["--vmap-folds", "--device", "cpu"], "audio features not found"),
-    (["--fold-parallel"], "item 18"),
+    # --fold-parallel is ported: its 3 CPU ranks pass to the feature check
+    (["--fold-parallel", "--device", "cpu"], "audio features not found"),
 ])
 def test_cli_pipeline_unported_options_name_their_slice(argv, match,
                                                         tmp_path):

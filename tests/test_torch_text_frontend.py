@@ -334,23 +334,28 @@ def test_entry_points_without_a_card_raise(monkeypatch, corpus, tmp_path):
             tcli.main(argv)
 
 
-@pytest.mark.parametrize("flag,match", [(["--elmo-stateful"], None),
-                                        (["--elmo-tp", "2"], "item 18")])
-def test_cli_extract_text_unported_modes_name_their_items(flag, match, bundle,
-                                                          corpus, tmp_path):
-    """``--elmo-stateful`` is ported (the stateful mode, held against JAX in
-    test_torch_elmo_stateful.py): with a bundle it writes the features
-    under the ``:stateful`` id; ``--elmo-tp`` still names item 18."""
+@pytest.mark.parametrize("flag,suffix", [(["--elmo-stateful"], ":stateful"),
+                                         (["--elmo-tp", "2"], "")])
+def test_cli_extract_text_unported_modes_name_their_items(flag, suffix,
+                                                          bundle, corpus,
+                                                          tmp_path):
+    """Both modes are ported: ``--elmo-stateful`` (the stateful mode, held
+    against JAX in test_torch_elmo_stateful.py) writes the features under
+    the ``:stateful`` id; ``--elmo-tp 2`` (2 Gloo ranks on the CPU, rank 0
+    writes; held against JAX in test_torch_elmo_tp.py) the serial
+    features (1e-5) under the serial id, and names ``elmo_tp: 2``."""
     argv = ["extract-text", "--root", str(corpus), "--out", str(tmp_path),
             "--elmo-weights", str(bundle), "--segmenter", "fallback",
             "--device", "cpu", *flag]
-    if match:
-        with pytest.raises(SystemExit, match=match):
-            tcli.main(argv)
-        return
     assert tcli.main(argv) == 0
     meta = json.loads((tmp_path / "extraction_meta.json").read_text())
     assert meta["embedder"] == \
-        f"elmo_bundle:{bundle.name}:{bundle.stat().st_size}:stateful"
+        f"elmo_bundle:{bundle.name}:{bundle.stat().st_size}{suffix}"
     with np.load(tmp_path / "whole_samples_clf_avg.npz") as z:
         assert z["arr_0"].shape == (9, 3, 1024)
+        got = z["arr_0"]
+    if flag[0] == "--elmo-tp":
+        assert meta["elmo_tp"] == 2
+        want, _, _ = ttext.extract_eatd(corpus, elmo_weights=str(bundle),
+                                        segmenter="fallback", device="cpu")
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

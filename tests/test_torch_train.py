@@ -603,13 +603,19 @@ def test_cli_train_corpus_writes_artifacts(tmp_path, monkeypatch, capsys):
      "Features/AudioWhole"),
     (["--task", "audio_clf", "--resume-dir", "x", "--chunk-epochs", "3",
       "--device", "cpu"], "Features/AudioWhole"),
-    (["--task", "audio_reg", "--fold-parallel"], "multi-GPU"),
+    # --fold-parallel is ported: its 3 CPU ranks pass to the feature
+    # check, whose refusal the launcher raises
+    (["--task", "audio_reg", "--fold-parallel", "--device", "cpu"],
+     "Features/AudioWhole"),
     # --audio-dim is ported (test_torch_vggish.py): it passes to the
     # feature check, and with --corpus it is refused as the JAX CLI does
     (["--task", "audio_clf", "--audio-dim", "128", "--device", "cpu"],
      "Features/AudioWhole"),
     (["--task", "audio_clf", "--audio-dim", "128", "--corpus", "x"],
      "--audio-dim must stay 256"),
+    # --data-parallel without --fold-parallel exits as in the JAX CLI
+    (["--task", "audio_reg", "--data-parallel", "2", "--device", "cpu"],
+     "--data-parallel requires --fold-parallel"),
 ])
 def test_cli_train_unported_options_name_their_slice(argv, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
