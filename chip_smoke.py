@@ -22,6 +22,7 @@ width.
     python3 chip_smoke.py --only serve  # phase 10 alone, no ok line
     python3 chip_smoke.py --only vggish  # phase 11 alone, no ok line
     python3 chip_smoke.py --only parallel  # phase 12 alone, no ok line
+    python3 chip_smoke.py --only operations  # phase 13 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -46,7 +47,8 @@ seeded DAIC checkpoint.  ``--only vggish`` builds the GRU sources and the
 LSTMP forward and runs phase 11 on a corpus, a seeded bundle and DAIC
 features of its own.  ``--only parallel`` builds the GRU and LSTM sources
 and the LSTMP forward and runs phase 12 on a corpus and a seeded bundle
-of its own.
+of its own.  ``--only operations`` builds the six sources and runs phase
+13 on a corpus and a seeded bundle of its own.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
@@ -264,6 +266,23 @@ Phases (each raises on failure, so the exit code is nonzero):
    --fold-parallel`` on a host with fewer than 3 cards exits with the
    JAX CLI's "need >= 3 devices" message.  Each stage's wall time is
    printed as a shared-card smoke reading, not a scaling figure.
+13. operations, on phase 5's corpus and bundle: (a) ``cli doctor``, its
+   ``card`` and ``link`` readings printed with the card's name and power
+   limit; (b) ``cli warmup --tracks clf --vmap-folds`` (24 + 12
+   speakers, the bundle) with ``ICASSP_TPU_TORCH_BUILD_DIR`` an empty
+   temp dir: it builds the 6 sources and reuses none, then a second run
+   (``--skip-train``) builds none and reuses 6; the cold and warm
+   ``kernel_builds`` seconds; each run's launches exact (counted); (c) a
+   released-layout zhs model directory at the zhs geometry written from a
+   seed (upstream key names and lexicons, the word branch) through the
+   port's ``convert_elmo_zhs``: every bundle array bitwise the pickles'
+   mapping, ``--check``'s norms on the card within 1e-5 of the CPU's
+   (counted: its 4 ``lstmp_fwd``), then ``text_clf`` served from the
+   bundle through ``Predictor`` (counted, against the CPU within 1e-5);
+   (d) a ``profiling.trace`` of ``extract_eatd`` and of a one-fold ``cli
+   train --task audio_clf --corpus`` (counted): the Chrome trace holds
+   ``wav2vlad/bucket*``, ``wav2vlad/readback`` and ``audio_clf/fold1``,
+   and the GRU kernels launched inside the fold's region.
 
 The line before the last is a JSON object describing each kernel (#3's
 timed at its DAIC shape); the last line is ``{"ok": true, "device":
@@ -280,7 +299,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -1351,9 +1369,6 @@ def kernel_bounds() -> dict:
             "lstmp_fwd": lstmp["fwd"], "lstmp_bwd": lstmp["bwd"]}
 
 
-#: the kernel sources, each built by one nvcc
-SOURCES = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "lstmp_fwd",
-           "lstmp_bwd")
 #: the wrappers' launch counters: one a source, and the backwards' calls
 #: at the shapes the JAX package streams (TPU kernels #3 and #5)
 COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
@@ -4715,13 +4730,471 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
     return {"launches": launches, "walls": walls}
 
 
+#: epochs of phase 13 (d)'s traced fold
+OPS_EPOCHS = 4
+READBACK = "wav2vlad/readback"
+#: char-CNN of the released zhs model (cnn_50_100_512_4096_sample.json)
+ZHS_WORD_DIM = 100
+
+
+def _cli_json(cli, argv: list) -> tuple:
+    """``cli.main(argv)`` in this process -> (exit code, its JSON lines,
+    its standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    return rc, [json.loads(line) for line in out.splitlines()
+                if line.startswith("{")], out
+
+
+def stacked_launches(task: str, results: list) -> dict:
+    """The launches of a ``vmap_folds`` branch trainer from its results:
+    one stacked call an optimizer step of the folds' longest epoch and one
+    an eval, each epoch and the warm-up epoch before the capture."""
+    epochs = len(results[0]["logs"]["steps"])
+    steps = max(int(r["logs"]["steps"][0]) for r in results)
+    return expected_launches(task, (epochs + 1) * steps, epochs + 1,
+                             len(results))
+
+
+def serial_launches(task: str, results: list) -> dict:
+    """The launches of a serial trainer from its results (``warmed``)."""
+    epochs = [{"fold": r["fold"], "steps": s} for r in results
+              for s in r["logs"]["steps"]]
+    steps, evals = warmed(epochs)
+    return expected_launches(task, steps, evals, len(results))
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] += v
+
+
+def warmup_runs(torch, card: str, bundle: Path, work: Path) -> dict:
+    """Phase 13 (b): ``cli warmup`` twice into an empty build directory,
+    counted; each trainer of the train stage recorded, to check its
+    launches.  Returns the launches and readings."""
+    import os
+
+    from icassp2022_depression_tpu_torch import _build, cli
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.train import trainers
+
+    build_dir = work / "kernel_builds"
+    build_dir.mkdir()
+    argv = ["warmup", "--device", "cuda", "--n-data", "24",
+            "--n-validation", "12", "--tracks", "clf", "--vmap-folds",
+            "--elmo-weights", str(bundle)]
+    tasks = PIPELINE_TASKS["clf"]
+    originals = {t: getattr(trainers, f"train_{t}") for t in tasks}
+    recorded = {}
+
+    def recording(task, fn):
+        def run(*args, **kwargs):
+            recorded[task] = fn(*args, **kwargs)
+            return recorded[task]
+        return run
+
+    before = os.environ.get("ICASSP_TPU_TORCH_BUILD_DIR")
+    os.environ["ICASSP_TPU_TORCH_BUILD_DIR"] = str(build_dir)
+    launches, runs = dict(ZERO), []
+    try:
+        for run_argv in (argv, argv + ["--skip-train"]):
+            for t, fn in originals.items():
+                setattr(trainers, f"train_{t}", recording(t, fn))
+            recorded.clear()
+            _set_counts(rnn_cuda, ZERO)
+            t0 = time.perf_counter()
+            try:
+                rc, lines, _ = _cli_json(cli, run_argv)
+            finally:
+                for t, fn in originals.items():
+                    setattr(trainers, f"train_{t}", fn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _counts(rnn_cuda)
+            if rc != 0:
+                fail(f"cli warmup returned {rc}")
+            stages = {ln["warmup"]: ln for ln in lines if "warmup" in ln}
+            runs.append((stages, wall, dict(recorded)))
+            # the text stage: 4 lstmp_fwd a batch of 128 sentences (108
+            # here: one) a token bucket; the train stage extracts the
+            # corpus's 108 answers once more through the bundle
+            want = dict(ZERO, lstmp_fwd=4 * len(
+                stages["text_chunks"]["token_buckets"]))
+            if "train_programs" in stages:
+                want["lstmp_fwd"] += 4
+                _add(want, stacked_launches("audio_clf",
+                                            recorded["audio_clf"]))
+                _add(want, stacked_launches("text_clf",
+                                            recorded["text_clf"]))
+                _add(want, serial_launches("fuse_clf",
+                                           recorded["fuse_clf"]))
+            print(f"cli warmup {' '.join(run_argv[1:])}: "
+                  + "; ".join(json.dumps(ln) for ln in lines)
+                  + f"; wall {wall:.2f} s; kernel launches {got} [{card}]")
+            if got != want:
+                fail(f"cli warmup launched {got}, expected {want}")
+            _add(launches, got)
+    finally:
+        if before is None:
+            os.environ.pop("ICASSP_TPU_TORCH_BUILD_DIR", None)
+        else:
+            os.environ["ICASSP_TPU_TORCH_BUILD_DIR"] = before
+    (cold, cold_wall, _), (warm, warm_wall, _) = runs
+    for stages, n_built in ((cold, 6), (warm, 0)):
+        kb = stages["kernel_builds"]
+        if (len(kb["built"]) != n_built
+                or len(kb["reused"]) != 6 - n_built
+                or sorted(kb["built"] + kb["reused"])
+                != sorted(_build.SOURCES) or kb["dir"] != str(build_dir)):
+            fail(f"cli warmup's kernel_builds {kb}: expected {n_built} "
+                 f"built and {6 - n_built} reused in {build_dir}")
+        if stages.get("done") is None:
+            fail(f"cli warmup printed no done line: {stages}")
+    if "train_programs" not in cold or "jax" in sys.modules:
+        fail("cli warmup ran no train stage, or imported jax")
+    print(f"timing cli warmup kernel_builds: cold "
+          f"{cold['kernel_builds']['seconds']} s (6 sources built in "
+          f"parallel), warm "
+          f"{warm['kernel_builds']['seconds']} s (6 reused); run walls "
+          f"{cold_wall:.2f} s (clf --vmap-folds, 24 + 12 speakers), "
+          f"{warm_wall:.2f} s (--skip-train) [{card}]")
+    return {"launches": launches, "cold_s": cold["kernel_builds"]["seconds"],
+            "warm_s": warm["kernel_builds"]["seconds"],
+            "stages": {k: v.get("seconds") for k, v in cold.items()}}
+
+
+def released_zhs_dir(root: Path, chars: list, words: list,
+                     seed: int = 21) -> tuple:
+    """A model directory in the released zhs layout (``config.json``
+    naming the architecture file, tab-separated ``char.dic`` /
+    ``word.dic``, ``token_embedder.pkl`` / ``encoder.pkl`` state dicts
+    under upstream's key names, as ``tests/test_torch_elmo.py`` writes it
+    small) at the zhs geometry, weights from ``seed`` at init scale.
+    Returns the two state dicts as numpy arrays."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch.models import char_cnn, elmo
+    from icassp2022_depression_tpu_torch.models import elmo_pretrained as ep
+
+    ccfg = char_cnn.CharCnnConfig()
+    lcfg = elmo.ElmoLstmpConfig()
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    specials = [ep.PAD, ep.OOV, ep.BOS, ep.EOS, ep.BOW, ep.EOW]
+    char_lex = {tok: i for i, tok in enumerate(specials + chars)}
+    word_lex = {tok: i for i, tok in enumerate(specials[:4] + words)}
+    for name, lex in (("char.dic", char_lex), ("word.dic", word_lex)):
+        with open(root / name, "w", encoding="utf-8") as f:
+            for tok, i in lex.items():
+                f.write(f"{tok}\t{i}\n")
+    arch = {"encoder": {"name": "elmo", "projection_dim": lcfg.proj_size,
+                        "dim": lcfg.cell_size, "n_layers": lcfg.layers,
+                        "cell_clip": 3, "proj_clip": 3},
+            "token_embedder": {"name": "cnn", "activation": "relu",
+                               "filters": [list(f) for f in ccfg.filters],
+                               "n_highway": ccfg.n_highway,
+                               "word_dim": ZHS_WORD_DIM,
+                               "char_dim": ccfg.char_dim,
+                               "max_characters_per_token": ccfg.max_chars}}
+    (root / "cnn_50_100_512_4096_sample.json").write_text(json.dumps(arch))
+    (root / "config.json").write_text(json.dumps(
+        {"config_path": "/released/configs/cnn_50_100_512_4096_sample.json"}))
+
+    def t(*shape):
+        bound = 1.0 / np.sqrt(shape[-1])
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    nf = ccfg.n_filters
+    te = {"char_emb_layer.embedding.weight": t(len(char_lex), ccfg.char_dim),
+          "word_emb_layer.embedding.weight": t(len(word_lex), ZHS_WORD_DIM),
+          "projection.weight": t(ccfg.output_dim, ZHS_WORD_DIM + nf),
+          "projection.bias": t(ccfg.output_dim)}
+    for i, (w, out) in enumerate(ccfg.filters):
+        te[f"convolutions.{i}.weight"] = t(out, ccfg.char_dim, w)
+        te[f"convolutions.{i}.bias"] = t(out)
+    for i in range(ccfg.n_highway):
+        te[f"highways._layers.{i}.weight"] = t(2 * nf, nf)
+        te[f"highways._layers.{i}.bias"] = t(2 * nf)
+    enc = {}
+    c, p = lcfg.cell_size, lcfg.proj_size
+    for d in ("forward", "backward"):
+        for k in range(lcfg.layers):
+            pre = f"{d}_layer_{k}"
+            enc[f"{pre}.input_linearity.weight"] = t(4 * c, p)
+            enc[f"{pre}.state_linearity.weight"] = t(4 * c, p)
+            enc[f"{pre}.state_linearity.bias"] = t(4 * c)
+            enc[f"{pre}.state_projection.weight"] = t(p, c)
+    torch.save({k: torch.from_numpy(v) for k, v in te.items()},
+               root / "token_embedder.pkl")
+    torch.save({k: torch.from_numpy(v) for k, v in enc.items()},
+               root / "encoder.pkl")
+    return te, enc
+
+
+def _bundle_mapping(te: dict, enc: dict, n_highway: int, n_convs: int,
+                    layers: int) -> dict:
+    """The bundle keys a converter must write from the released state
+    dicts (the projection's columns from upstream's [word | char] to the
+    char-CNN's [char | word])."""
+    import numpy as np
+
+    want = {"cc/char_emb": te["char_emb_layer.embedding.weight"],
+            "cc/word_emb": te["word_emb_layer.embedding.weight"],
+            "cc/projection/w": np.concatenate(
+                [te["projection.weight"][:, ZHS_WORD_DIM:],
+                 te["projection.weight"][:, :ZHS_WORD_DIM]], axis=1),
+            "cc/projection/b": te["projection.bias"]}
+    for i in range(n_convs):
+        want[f"cc/convs/{i}/w"] = te[f"convolutions.{i}.weight"]
+        want[f"cc/convs/{i}/b"] = te[f"convolutions.{i}.bias"]
+    for i in range(n_highway):
+        want[f"cc/highways/{i}/w"] = te[f"highways._layers.{i}.weight"]
+        want[f"cc/highways/{i}/b"] = te[f"highways._layers.{i}.bias"]
+    for k in range(layers):
+        for d, name in (("fwd", "forward"), ("bwd", "backward")):
+            pre = f"{name}_layer_{k}"
+            for ours, theirs in (("w_x", "input_linearity.weight"),
+                                 ("w_h", "state_linearity.weight"),
+                                 ("b", "state_linearity.bias"),
+                                 ("w_p", "state_projection.weight")):
+                want[f"enc/layers/{k}/{d}/{ours}"] = enc[f"{pre}.{theirs}"]
+    return want
+
+
+def converter_checks(torch, card: str, corpus: Path, work: Path) -> dict:
+    """Phase 13 (c): a released-layout zhs directory through the port's
+    ``convert_elmo_zhs``, the bundle against the pickles' mapping, the
+    ``--check`` norms card against CPU, and ``text_clf`` served from the
+    bundle.  Returns the counted launches."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import eatd
+    from icassp2022_depression_tpu_torch.frontend import text as tfe
+    from icassp2022_depression_tpu_torch.models import char_cnn, elmo
+    from icassp2022_depression_tpu_torch.models.text_net import TextNet
+    from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
+    from icassp2022_depression_tpu_torch.scripts import convert_elmo_zhs
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+
+    launches = dict(ZERO)
+    speakers = eatd.load_speakers(corpus, read_text=True)
+    words = list(dict.fromkeys(
+        w for sp in speakers for t in sp.texts
+        for w in tfe.tokenize(t, "fallback")))
+    for s in convert_elmo_zhs.CHECK_SENTENCES:
+        words += [w for w in s if w not in words]
+    chars = list(dict.fromkeys(ch for w in words for ch in w))
+    code = 0x4E00
+    ccfg = char_cnn.CharCnnConfig()
+    while len(chars) < ccfg.n_chars - 6:
+        if chr(code) not in chars:
+            chars.append(chr(code))
+        code += 1
+    t0 = time.perf_counter()
+    model_dir = work / "zhs.model"
+    te, enc = released_zhs_dir(model_dir, chars, words)
+    written_s = time.perf_counter() - t0
+    out = work / "elmo_zhs_converted.npz"
+    norms = {}
+    for device in ("cpu", "cuda"):
+        _set_counts(rnn_cuda, ZERO)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = convert_elmo_zhs.main([str(model_dir), "-o", str(out),
+                                        "--check", "--device", device])
+        wall = time.perf_counter() - t0
+        got = _counts(rnn_cuda)
+        if rc != 0:
+            fail(f"convert_elmo_zhs --device {device} returned {rc}")
+        lines = buf.getvalue().strip().splitlines()
+        norms[device] = [float(ln.split("norm")[-1]) for ln in lines
+                         if " norm " in ln]
+        print(f"convert_elmo_zhs --check --device {device}: "
+              + " | ".join(lines) + f"; wall {wall:.2f} s; kernel launches "
+              f"{got} [{card}]")
+        if device == "cuda":
+            # the two sentences are one batch: 4 LSTMP forwards
+            if got != dict(ZERO, lstmp_fwd=4):
+                fail(f"convert_elmo_zhs --check launched {got}")
+            _add(launches, got)
+    lcfg = elmo.ElmoLstmpConfig()
+    want = _bundle_mapping(te, enc, ccfg.n_highway, len(ccfg.filters),
+                           lcfg.layers)
+    with np.load(out) as z:
+        got_keys = sorted(k for k in z.files if k != "__meta__")
+        same = got_keys == sorted(want) and all(
+            z[k].dtype == want[k].dtype and np.array_equal(z[k], want[k])
+            for k in want)
+        meta = json.loads(str(z["__meta__"]))
+    n_params = sum(v.size for v in want.values())
+    print(f"released-layout zhs dir ({len(chars) + 6} chars, "
+          f"{len(words) + 4} words, {n_params:,} params) written in "
+          f"{written_s:.2f} s; the bundle's {len(want)} arrays bitwise the "
+          f"pickles' mapping: {same}")
+    if not same or len(meta["char_lexicon"]) != len(chars) + 6:
+        fail("the converted bundle differs from the released pickles")
+    d = max(abs(a - b) for a, b in zip(norms["cuda"], norms["cpu"]))
+    print(f"--check norms card {norms['cuda']} against CPU {norms['cpu']}: "
+          f"max|d| {d:.3e} (tol {SLICE_TOL}) [{card}]")
+    if len(norms["cuda"]) != 2 or d > SLICE_TOL:
+        fail(f"--check norms card vs CPU differ by {d}")
+
+    # text_clf served from the converted bundle
+    model = TextNet(C.TEXT_CLF.model, prng.prng_key(7, "cpu"))
+    texts = [sp.texts for sp in speakers[:4]]
+    results = {}
+    for device in ("cuda", "cpu"):
+        with contextlib.redirect_stderr(io.StringIO()):
+            pred = Predictor(model, "text_clf", device=device,
+                             elmo_weights=str(out), segmenter="fallback")
+        _set_counts(rnn_cuda, ZERO)
+        results[device] = pred.predict_batch(texts_per_speaker=texts)
+        got = _counts(rnn_cuda)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if got != dict(ZERO, lstmp_fwd=4, lstm_fwd=4):
+                fail(f"text_clf from the converted bundle launched {got}")
+            _add(launches, got)
+    check_results(results["cuda"], len(texts), "text_clf from the bundle")
+    err = compare(results["cuda"], results["cpu"],
+                  "text_clf from the converted bundle, card vs CPU")
+    print(f"text_clf served from the converted bundle ({len(texts)} "
+          f"speakers, one request): card vs CPU {err:.3e}; kernel launches "
+          f"4 lstmp_fwd, 4 lstm_fwd [{card}]")
+    return {"launches": launches}
+
+
+def _trace_regions(path: Path) -> tuple:
+    """A Chrome trace -> ({region name: [(start, end)]} of the CPU
+    annotations, [(kernel name, launch time)]): each kernel placed at the
+    host time of the runtime call that launched it (by correlation id)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    regions, launch_ts = {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat == "user_annotation":
+            regions.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0)))
+        elif cat == "cuda_runtime" and "correlation" in e.get("args", {}):
+            launch_ts[e["args"]["correlation"]] = e["ts"]
+    kernels = [(e["name"], launch_ts.get(e["args"].get("correlation")))
+               for e in events if e.get("cat") == "kernel"]
+    return regions, kernels
+
+
+def trace_checks(torch, card: str, corpus: Path, work: Path) -> dict:
+    """Phase 13 (d): ``extract_eatd`` and a one-fold ``cli train --task
+    audio_clf --corpus`` under ``profiling.trace``, counted; the trace's
+    regions and the GRU kernels inside the fold's."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import cli
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.data import folds
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+    from icassp2022_depression_tpu_torch.utils import profiling
+
+    _, _, clf, _ = afe.extract_eatd(corpus, device="cuda")
+    idx = work / "fold1_train_idx.npy"
+    np.save(idx, folds.generate_clf_folds(clf, 3, seed=0)[0])
+    model = work / "ModelTraced"
+    full = C.AUDIO_CLF
+    C.AUDIO_CLF = C.replace(full, epochs=OPS_EPOCHS + 1)
+    _set_counts(rnn_cuda, ZERO)
+    t0 = time.perf_counter()
+    try:
+        with profiling.trace(work / "trace") as prof:
+            afe.extract_eatd(corpus, device="cuda")
+            rc, _, _ = _cli_json(cli, [
+                "train", "--task", "audio_clf", "--root", str(corpus),
+                "--corpus", str(corpus), "--idx-files", str(idx),
+                "--model-dir", str(model), "--device", "cuda"])
+            torch.cuda.synchronize()
+    finally:
+        C.AUDIO_CLF = full
+    wall = time.perf_counter() - t0
+    got = _counts(rnn_cuda)
+    if rc != 0:
+        fail(f"traced cli train returned {rc}")
+    epochs = [json.loads(line) for line in
+              (model / "audio_clf_metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in epochs if r["event"] == "epoch"]
+    steps, evals = warmed(epochs)
+    _check_launches("audio_clf (traced, one fold)", got, steps, evals, 1)
+    regions, kernels = _trace_regions(prof.trace_path)
+    buckets = sorted(n for n in regions if n.startswith("wav2vlad/bucket"))
+    fold = regions.get("audio_clf/fold1", [])
+    inside = {}
+    for name, ts in kernels:
+        if ts is not None and any(a <= ts <= b for a, b in fold):
+            kind = ("gru_fwd" if "gru_fwd" in name else
+                    "gru_bwd" if ("gates_kernel<false>" in name
+                                  or "gru_bwd" in name) else "other")
+            inside[kind] = inside.get(kind, 0) + 1
+    print(f"profiling.trace {prof.trace_path.name} "
+          f"({prof.trace_path.stat().st_size / 2**20:.1f} MiB): regions "
+          f"{buckets}, wav2vlad/readback x{len(regions.get(READBACK, []))},"
+          f" audio_clf/fold1 x{len(fold)}; kernels launched inside the "
+          f"fold's "
+          f"region by kind {inside}; wall {wall:.2f} s; kernel launches "
+          f"{got} [{card}]")
+    if (not buckets or READBACK not in regions or len(fold) != 1
+            or "audio_clf/fold2" in regions or not inside.get("gru_fwd")
+            or not inside.get("gru_bwd")):
+        fail("the trace lacks a region, or the GRU kernels in the fold's")
+    return {"launches": got}
+
+
+def operations_phase(torch, card: str, corpus: Path, bundle: Path,
+                     work: Path) -> dict:
+    """Phase 13: ``cli doctor``, ``cli warmup`` twice, the ELMo converter
+    at the zhs geometry, and a trace of the named regions.  Returns the
+    counted launches."""
+    from icassp2022_depression_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    work = work / "operations"
+    work.mkdir()
+    rc, lines, _ = _cli_json(cli, ["doctor", "--device", "cuda"])
+    if rc != 0 or not lines:
+        fail(f"cli doctor returned {rc}")
+    rep = lines[-1]
+    link, kb = rep.get("link") or {}, rep["kernel_builds"]
+    print(f"cli doctor: card {json.dumps(rep['card'])}; nvcc "
+          f"{json.dumps(rep['nvcc'])}; kernel builds {kb['sources']}; link "
+          f"roundtrip {link.get('roundtrip_s')} s, up {link.get('up_mb_s')} "
+          f"MB/s, down {link.get('down_mb_s')} MB/s ({link.get('size_mb')} "
+          f"MB x {link.get('reps')}, pageable) [{card}]")
+    if (rep["backend"] != "cuda" or not rep["card"] or not rep["nvcc"]
+            or not link.get("up_mb_s", 0) > 0
+            or not link.get("down_mb_s", 0) > 0
+            or set(kb["sources"].values()) != {"built"}):
+        fail(f"cli doctor's report is incomplete: {rep}")
+    launches = dict(ZERO)
+    warm = warmup_runs(torch, card, bundle, work)
+    _add(launches, warm["launches"])
+    _add(launches, converter_checks(torch, card, corpus, work)["launches"])
+    _add(launches, trace_checks(torch, card, corpus, work)["launches"])
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    print(f"timing phase 13: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": launches, "doctor": rep, "warmup": warm}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
                                        "daic", "serve", "vggish",
-                                       "parallel"],
+                                       "parallel", "operations"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
@@ -4732,7 +5205,8 @@ def main(argv=None) -> int:
                          "checkpoint); vggish: phase 11 (with a corpus, a "
                          "seeded bundle and DAIC features of its own); "
                          "parallel: phase 12 (with a corpus and a seeded "
-                         "bundle of its own)")
+                         "bundle of its own); operations: phase 13 (the "
+                         "same)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4762,13 +5236,13 @@ def main(argv=None) -> int:
              "serve": ("gru_fwd", "lstm_fwd"),
              "vggish": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
              "parallel": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
-                          "lstmp_fwd")}.get(
+                          "lstmp_fwd"),
+             "operations": _build.SOURCES}.get(
         args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
-        else SOURCES)
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        libs = list(pool.map(_build.build, names))
-    print(f"built {', '.join(so.name for so in libs)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+        else _build.SOURCES)
+    _build.build_all(names)                        # one nvcc per source
+    print(f"built {', '.join(_build.library_path(n).name for n in names)} "
+          f"in {time.perf_counter() - t0:.2f} s")
     for name in names:
         print(_build.build_log(name).strip())
 
@@ -4807,6 +5281,21 @@ def main(argv=None) -> int:
                     fail(f"cli extract-daic {split} failed")
             vggish_phase(torch, card, corpus, bundle, work,
                          work / "Features")
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
+    if args.only == "operations":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as tmp:
+            work = Path(tmp)
+            corpus = work / "corpus"
+            eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
+                                       seconds=(2.0, 12.0), seed=1)
+            chars = "".join(ch for sp in eatd.iter_speakers(
+                corpus, read_text=True) for t in sp.texts for ch in t
+                if not ch.isspace())
+            bundle, _ = seeded_bundle(torch, work / "elmo_zhs_seeded.npz",
+                                      chars)
+            operations_phase(torch, card, corpus, bundle, work)
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
@@ -4902,12 +5391,14 @@ def main(argv=None) -> int:
         vgg = vggish_phase(torch, card, corpus, bundle, Path(tmp),
                            daic["features"])
         par = parallel_phase(torch, card, corpus, bundle, Path(tmp))
+        ops = operations_phase(torch, card, corpus, bundle, Path(tmp))
     standin_launches, _ = standin_serving_phase(torch, card)
     launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
         launches[k] += (v + standin_launches[k] + checked["launches"][k]
                         + daic["launches"][k] + served["launches"][k]
-                        + vgg["launches"][k] + par["launches"][k])
+                        + vgg["launches"][k] + par["launches"][k]
+                        + ops["launches"][k])
     if launches["lstmp_bwd"] != 0:
         fail(f"a main path launched the LSTMP backward: {launches}")
     if daic["launches"]["gru_bwd_streamed"] <= 0:

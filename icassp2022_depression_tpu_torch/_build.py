@@ -6,15 +6,21 @@ A source is compiled at its first use in a process::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-into ``_build/`` beside this file (listed in ``.gitignore``), keyed by a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
-an edited kernel is rebuilt and an unchanged one is reused.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
-then on ``PATH``, then in ``/usr/local/cuda/bin``.  A missing compiler or
+into ``_build/`` beside this file (listed in ``.gitignore``), or into the
+directory ``ICASSP_TPU_TORCH_BUILD_DIR`` names (read at each call; the
+counterpart of the JAX package's ``ICASSP_TPU_COMPILE_CACHE``, for an
+installed package or a build made ahead of time by ``cli warmup``), keyed
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+Processes may build into one directory at once: each writes its own
+temporary file and renames it into place.  ``nvcc`` is looked up in
+``$CUDA_HOME/bin``, then on ``PATH``, then in ``/usr/local/cuda/bin``.  A missing compiler or
 a failed build raises: there is no fallback to a plain version.  The
 compiler's report (``-Xptxas=-v``: registers, shared memory, spills) is
 kept in ``_build/lib<name>-<hash>.log``.
 
-Importing this module runs nothing; only :func:`load` builds.
+Importing this module runs nothing; only :func:`load`, :func:`build` and
+:func:`build_all` build.
 """
 
 from __future__ import annotations
@@ -25,10 +31,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the build directory unless ``ICASSP_TPU_TORCH_BUILD_DIR`` names another
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+#: every CUDA source of the package, one library each
+SOURCES = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "lstmp_fwd",
+           "lstmp_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -54,13 +65,19 @@ def find_nvcc() -> str:
         "first use and need the CUDA toolkit")
 
 
+def build_dir() -> Path:
+    """``ICASSP_TPU_TORCH_BUILD_DIR`` when set, else :data:`BUILD_DIR`."""
+    env = os.environ.get("ICASSP_TPU_TORCH_BUILD_DIR")
+    return Path(env).expanduser() if env else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     """Where :func:`load` builds ``csrc/<name>.cu``."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -68,17 +85,42 @@ def build(name: str) -> Path:
     so = library_path(name)
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    so.parent.mkdir(parents=True, exist_ok=True)
+    # unique per process and thread, so concurrent builds of one source
+    # never write the same file; the last rename wins, with equal bytes
+    stem = f"{so.name}.{os.getpid()}.{threading.get_ident()}"
+    tmp, tmp_log = so.with_name(f"{stem}.tmp"), so.with_name(f"{stem}.log")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tmp_log.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp_log, so.with_suffix(".log"))
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{name}.cu:\n{proc.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build ``names`` in parallel, one ``nvcc`` process a source ->
+    ``{name: True if it was built now, False if an up-to-date library was
+    reused}``.  A failed build raises after every build has ended."""
+    names = list(dict.fromkeys(names))
+    fresh = {name: not library_path(name).exists() for name in names}
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        for future in [pool.submit(build, name) for name in names]:
+            future.result()
+    return fresh
+
+
+def source_status(name: str) -> str:
+    """``"built"`` (an up-to-date library is in :func:`build_dir`),
+    ``"stale"`` (only libraries of an older source, headers or flags) or
+    ``"missing"``."""
+    if library_path(name).exists():
+        return "built"
+    return "stale" if any(build_dir().glob(f"lib{name}-*.so")) else "missing"
 
 
 def load(name: str) -> ctypes.CDLL:

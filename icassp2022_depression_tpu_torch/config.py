@@ -12,7 +12,38 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class DataPaths:
+    """Filesystem layout of corpora, features, and model checkpoints.
+
+    Replaces the reference's hard-coded ``prefix``-relative tree
+    (``Data/``, ``ValidationData/``, ``Features/``, ``Model/``; see
+    ``Classification/audio_gru_whole.py:18-19``).
+    """
+
+    root: Path = Path(".")
+    #: EATD training split: directories ``<root>/<data_dir>/<n>/``
+    data_dir: str = "Data"
+    #: EATD validation split
+    validation_dir: str = "ValidationData"
+    features_dir: str = "Features"
+    models_dir: str = "Model"
+    daic_dir: str = "DAIC"
+
+    def eatd_speaker_dir(self, split_dir: str, number: int) -> Path:
+        return self.root / split_dir / str(number)
+
+    @property
+    def audio_features(self) -> Path:
+        return self.root / self.features_dir / "AudioWhole"
+
+    @property
+    def text_features(self) -> Path:
+        return self.root / self.features_dir / "TextWhole"
 
 
 @dataclass(frozen=True)

@@ -124,6 +124,11 @@ def eatd_targets(sds, threshold: float = 53.0):
     return sds_targets, (sds_targets >= threshold).astype(np.int64)
 
 
+def binary_label(sds: float, threshold: float = 53.0) -> int:
+    """Scalar form of :func:`eatd_targets`'s clf rule."""
+    return int(eatd_targets([sds], threshold)[1][0])
+
+
 def load_speakers(root: Path, splits=("Data", "ValidationData"),
                   max_id: int = MAX_SPEAKER_ID,
                   read_text: bool = False) -> List[Speaker]:

@@ -30,7 +30,7 @@ import torch
 from icassp2022_depression_tpu_torch.config import FoldConfig, FrontendConfig
 from icassp2022_depression_tpu_torch.data import eatd
 from icassp2022_depression_tpu_torch.ops import mel, netvlad
-from icassp2022_depression_tpu_torch.utils import shapes
+from icassp2022_depression_tpu_torch.utils import profiling, shapes
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
@@ -104,20 +104,21 @@ def extract_batch(waveforms: Sequence[np.ndarray], sample_rates: Sequence[int],
     out = torch.empty((n, cfg.netvlad_output_dim), dtype=torch.float32,
                       device=device)
     for (blen, sr), idxs in buckets.items():
-        # batch rows rounded up to a multiple of 8: a few shapes per bucket
-        brows = -(-len(idxs) // 8) * 8
-        rows = np.zeros((brows, blen), np.float32)
-        lengths = np.zeros((brows,), np.int64)
-        row_ordinals = np.zeros((brows,), np.int64)
-        for r, i in enumerate(idxs):
-            _fill_row(rows[r], waveforms[i], tail)
-            lengths[r] = len(waveforms[i])
-            row_ordinals[r] = ordinals[i]
-        feats = bucket_pipeline(torch.from_numpy(rows).to(device),
-                                torch.from_numpy(lengths).to(device),
-                                torch.from_numpy(row_ordinals).to(device),
-                                sr, cfg)
-        out[torch.as_tensor(idxs, device=device)] = feats[:len(idxs)]
+        with profiling.annotate(f"wav2vlad/bucket{blen}", device):
+            # batch rows rounded up to a multiple of 8: a few shapes per bucket
+            brows = -(-len(idxs) // 8) * 8
+            rows = np.zeros((brows, blen), np.float32)
+            lengths = np.zeros((brows,), np.int64)
+            row_ordinals = np.zeros((brows,), np.int64)
+            for r, i in enumerate(idxs):
+                _fill_row(rows[r], waveforms[i], tail)
+                lengths[r] = len(waveforms[i])
+                row_ordinals[r] = ordinals[i]
+            feats = bucket_pipeline(torch.from_numpy(rows).to(device),
+                                    torch.from_numpy(lengths).to(device),
+                                    torch.from_numpy(row_ordinals).to(device),
+                                    sr, cfg)
+            out[torch.as_tensor(idxs, device=device)] = feats[:len(idxs)]
     return out
 
 
@@ -229,7 +230,9 @@ def extract_eatd(root: Path, cfg: FrontendConfig = FrontendConfig(),
         flat = extract_batch(waveforms, rates, cfg,
                              ordinals=[3 * idx + k for idx in todo
                                        for k in range(3)],
-                             device=device).cpu().numpy()
+                             device=device)
+        with profiling.annotate("wav2vlad/readback", flat.device):
+            flat = flat.cpu().numpy()
         features[todo] = flat.reshape(len(todo), 3, 1, dim)
     for idx, sp in enumerate(speakers):
         key = cache_key(sp, idx)

@@ -111,6 +111,13 @@ SEGMENTERS = {
 }
 
 
+def register_segmenter(name: str, fn) -> None:
+    """Extension point (JAX ``frontend/text.py:113``): register ``fn(text)
+    -> list[str]`` under ``name``, so :func:`tokenize`, the extraction
+    passes and ``extract-text --segmenter`` can dispatch to it."""
+    SEGMENTERS[name] = fn
+
+
 def get_segmenter(name: str):
     """A segmenter by name ('auto': jieba where it can be imported, else
     the CJK fallback)."""
@@ -119,8 +126,10 @@ def get_segmenter(name: str):
     try:
         return SEGMENTERS[name]
     except KeyError:
-        raise ValueError(f"unknown segmenter {name!r}; available: "
-                         f"{', '.join(sorted(SEGMENTERS))}") from None
+        raise ValueError(
+            f"unknown segmenter {name!r}; available: "
+            f"{', '.join(sorted(SEGMENTERS))} (register_segmenter to add)"
+        ) from None
 
 
 def tokenize(text: str, segmenter: str = "auto") -> List[str]:
@@ -230,10 +239,10 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     if elmo_stateful and found is None:
         raise ValueError(
             "elmo_stateful emulates the pretrained upstream ElmobiLm's "
-            "cross-batch state and needs a converted bundle "
-            "(scripts/convert_elmo_zhs.py; set ICASSP_ELMO_WEIGHTS or "
-            "pass --elmo-weights) - refusing to silently run the "
-            "stateless PRNG encoder instead")
+            "cross-batch state and needs a converted bundle (python -m "
+            "icassp2022_depression_tpu_torch.scripts.convert_elmo_zhs; set "
+            "ICASSP_ELMO_WEIGHTS or pass --elmo-weights) - refusing to "
+            "silently run the stateless PRNG encoder instead")
     if found is not None:
         pretrained = elmo_pretrained.load_npz(found, device)
         pretrained.stateful = elmo_stateful
@@ -265,7 +274,8 @@ def warn_standin_encoder() -> None:
         "stand-in text encoder.  Text features will be deterministic and",
         "self-consistent but NOT comparable to the reference's published",
         "metrics (it uses the pretrained zhs ELMoForManyLangs model).",
-        "Convert real weights with scripts/convert_elmo_zhs.py and set",
+        "Convert real weights with python -m",
+        "icassp2022_depression_tpu_torch.scripts.convert_elmo_zhs and set",
         "ICASSP_ELMO_WEIGHTS (or pass --elmo-weights).",
         "=" * 72,
     ]), file=sys.stderr, flush=True)

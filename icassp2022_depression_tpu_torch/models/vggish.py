@@ -25,7 +25,8 @@ such a tree onto :class:`VGGish`'s ``state_dict`` (OIHW convolutions,
 to NHWC before flattening, so the first FC reads its rows in the order
 they were trained for.
 
-Weights: a bundle written by ``scripts/convert_vggish.py`` (:func:`load_npz`,
+Weights: a bundle written by ``python -m
+icassp2022_depression_tpu_torch.scripts.convert_vggish`` (:func:`load_npz`,
 auto-loaded from :func:`default_weights_path`), the released TF checkpoint
 (:func:`from_tf_checkpoint`, needs tensorflow), or the seeded stand-in
 (:func:`init`: the JAX package's draw, bit for bit, on the port's
@@ -287,7 +288,7 @@ def default_weights_path() -> Optional[Path]:
 
 
 def load_npz(path, device=None):
-    """A bundle written by ``scripts/convert_vggish.py`` (the JAX
+    """A bundle written by :mod:`..scripts.convert_vggish` (either
     package's ``checkpoints.save``: ``convs/{i}/{w,b}``, ``fcs/{j}/{w,b}``
     and optionally ``pca/{matrix,means}``) -> (:class:`VGGish` on
     ``device``, None: the first card; :class:`Postprocessor` or None)."""
@@ -331,7 +332,8 @@ def warn_standin_weights() -> None:
         "stand-in conv weights.  VGGish features will be deterministic",
         "and self-consistent but NOT comparable to features from the",
         "released vggish_model.ckpt the reference uses.  Convert real",
-        "weights with scripts/convert_vggish.py and set",
+        "weights with python -m",
+        "icassp2022_depression_tpu_torch.scripts.convert_vggish and set",
         "ICASSP_VGGISH_WEIGHTS (or pass --vggish-ckpt).",
         "=" * 72,
     ]), file=sys.stderr, flush=True)

@@ -1,4 +1,5 @@
-"""Log-mel spectrogram frontend (port of :mod:`icassp2022_depression_tpu.ops.mel`).
+"""Log-mel spectrogram and MFCC frontend (port of
+:mod:`icassp2022_depression_tpu.ops.mel`).
 
 ``frame -> Hann window -> rFFT -> |.|^2 -> mel filterbank matmul -> log
 floor``, the reference's ``log(max(1e-6, librosa melspectrogram))``
@@ -87,6 +88,13 @@ def hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def num_frames(length: int, n_fft: int, hop: int, center: bool = True) -> int:
+    """Frames of a ``length``-sample waveform."""
+    if center:
+        return 1 + length // hop
+    return 1 + (length - n_fft) // hop
+
+
 def power_spectrogram(y: torch.Tensor, n_fft: int = 2048, hop: int = 512,
                       center: bool = True) -> torch.Tensor:
     """[..., T] waveforms -> [..., frames, 1 + n_fft//2] power spectrogram."""
@@ -109,6 +117,58 @@ def log_mel(y: torch.Tensor, sr: int = 16000, n_fft: int = 2048,
     fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(y.device)
     mel = torch.matmul(spec, fb.t())
     return torch.log(torch.clamp_min(mel, log_floor))
+
+
+def dct_ii_matrix(n_out: int, n_in: int,
+                  norm: str | None = "ortho") -> np.ndarray:
+    """[n_out, n_in] DCT-II basis (scipy.fftpack.dct(type=2) convention),
+    host-side numpy as the filterbank is.  With ``norm='ortho'`` the rows
+    are orthonormal, matching librosa's ``feature.mfcc`` (``dct(S,
+    axis=-2, type=2, norm='ortho')`` over the dB-scaled mel spectrogram)."""
+    k = np.arange(n_out, dtype=np.float64)[:, None]
+    m = np.arange(n_in, dtype=np.float64)[None, :]
+    basis = 2.0 * np.cos(np.pi * k * (2.0 * m + 1.0) / (2.0 * n_in))
+    if norm == "ortho":
+        basis *= np.sqrt(1.0 / (2.0 * n_in))
+        basis[0] *= np.sqrt(0.5)
+    elif norm is not None:
+        raise ValueError(f"unknown DCT norm {norm!r}")
+    return basis.astype(np.float32)
+
+
+def power_to_db(S: torch.Tensor, amin: float = 1e-10,
+                top_db: float | None = 80.0) -> torch.Tensor:
+    """librosa.power_to_db with ref=1.0: 10*log10(max(amin, S)), then clamp
+    to within ``top_db`` of the maximum: of the whole of a 1-D or 2-D
+    ``S`` (the JAX package's and librosa's global maximum), of each
+    [frames, bins] spectrogram of a batch ``[..., frames, bins]``."""
+    log_spec = 10.0 * torch.log10(torch.clamp_min(S, amin))
+    if top_db is not None:
+        dims = tuple(range(max(S.ndim - 2, 0), S.ndim))
+        peak = log_spec.amax(dim=dims, keepdim=True)
+        log_spec = torch.maximum(log_spec, peak - top_db)
+    return log_spec
+
+
+def mfcc(y: torch.Tensor, sr: int = 16000, n_fft: int = 2048, hop: int = 512,
+         n_mels: int = 80, n_mfcc: int = 20, center: bool = True,
+         lifter: int = 0) -> torch.Tensor:
+    """[..., T] waveforms -> [..., frames, n_mfcc] MFCCs on ``y``'s device,
+    librosa.feature.mfcc semantics: DCT-II (ortho) over the dB-scaled mel
+    power spectrogram (each waveform's own ``top_db`` clamp), optional
+    sinusoidal liftering.  The reference's pipeline stops at log-mel
+    (``Classification/audio_features_whole.py:60``): MFCC is the JAX
+    package's extension, not a parity requirement."""
+    spec = power_spectrogram(y, n_fft, hop, center)            # [..., F, bins]
+    fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(y.device)
+    db = power_to_db(torch.matmul(spec, fb.t()))               # [..., F, M]
+    dct = torch.from_numpy(dct_ii_matrix(n_mfcc, n_mels)).to(y.device)
+    out = torch.matmul(db, dct.t())                            # [..., F, C]
+    if lifter > 0:
+        lift = 1.0 + (lifter / 2.0) * np.sin(
+            np.pi * (1.0 + np.arange(n_mfcc)) / lifter)
+        out = out * torch.from_numpy(lift.astype(np.float32)).to(y.device)
+    return out
 
 
 def frame_mask(lengths: torch.Tensor, max_frames: int, hop: int = 512,

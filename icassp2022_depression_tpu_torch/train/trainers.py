@@ -31,7 +31,9 @@ and on a card.
 A fold runs as one :class:`..train.loop.FoldRun` (one CUDA graph an
 epoch on a card), optionally in chunks of epochs with a resume bundle
 committed after each (``resume_dir`` / ``chunk_epochs``, JAX
-``_execute_fold``); with ``vmap_folds`` the three folds run as one
+``_execute_fold``), inside the profiling region ``{task_name}/fold{i}``
+(:func:`..utils.profiling.annotate`, JAX ``trainers.py:423``; around the
+graph's capture and replays, not inside them); with ``vmap_folds`` the three folds run as one
 stacked program (JAX ``_vmapped_fold_results``; the reg fusion only, as
 there: the clf fusion chains its folds).  ``fold_parallel`` runs that
 stacked program with its fold axis over the ranks of a
@@ -65,6 +67,7 @@ from icassp2022_depression_tpu_torch.ops.nn import (
 )
 from icassp2022_depression_tpu_torch.parallel import distributed
 from icassp2022_depression_tpu_torch.train import checkpoints, loop, optim
+from icassp2022_depression_tpu_torch.utils import profiling
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 
@@ -277,9 +280,10 @@ def _run_folds(tcfg: C.TrainerConfig, fold_datas, seed: int,
         run = loop.FoldRun(net, optimizer, *loop.model_fns(net, loss_fn),
                            data, tcfg.track, tcfg.gate, tcfg.epochs - 1,
                            dropout_key(seed, fold, device))
-        best, logs, step_losses = _execute_fold(
-            run, chunk_epochs, _resume_path(resume_dir,
-                                            f"{task_name}_fold{fold}"))
+        with profiling.annotate(f"{task_name}/fold{fold}", device):
+            best, logs, step_losses = _execute_fold(
+                run, chunk_epochs, _resume_path(resume_dir,
+                                                f"{task_name}_fold{fold}"))
         results.append({"fold": fold, "best": best, "logs": logs,
                         "step_losses": step_losses})
     return results
@@ -691,9 +695,10 @@ def _run_fusion_folds(fcfg: C.FusionConfig, tcfg: C.TrainerConfig,
                            _head_test_split(model, data), tcfg.track,
                            tcfg.gate, tcfg.epochs - 1,
                            dropout_key(seed, fold, device))
-        best, logs, step_losses = _execute_fold(
-            run, chunk_epochs, _resume_path(resume_dir,
-                                            f"{task_name}_fold{fold}"))
+        with profiling.annotate(f"{task_name}/fold{fold}", device):
+            best, logs, step_losses = _execute_fold(
+                run, chunk_epochs, _resume_path(resume_dir,
+                                                f"{task_name}_fold{fold}"))
         _check_frozen(model, fold)
         results.append({"fold": fold, "best": best, "logs": logs,
                         "step_losses": step_losses})
