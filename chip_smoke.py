@@ -10,8 +10,8 @@ DAIC-WOZ (``cli extract-daic`` / ``train-daic`` / ``check-daic`` /
 --audio-embedder vggish``), cross-corpus evaluation and the stateful ELMo
 mode (``extract-text --elmo-stateful``), and multi-GPU (``parallel/``:
 fold-parallel and fold x data-parallel training, the explicit
-data-parallel step, the tensor-parallel biLM) on one card, at full
-width.
+data-parallel step, the clf fusion's DP x TP step, the tensor-parallel
+biLM) on one card, at full width.
 
     python3 chip_smoke.py               # everything, ends with the ok line
     python3 chip_smoke.py --only lstmp  # the LSTMP kernels alone, no ok line
@@ -256,6 +256,13 @@ Phases (each raises on failure, so the exit code is nonzero):
    epochs, each rank's launches exactly the stacked run's; (c) 3 folds x 2 data-parallel
    ranks, eager on Gloo: logs within 1e-5 of their largest magnitude of
    ``vmap_folds``, the same gated epochs, each rank's launches exact;
+   then on the same 6 ranks the clf fusion's DP x TP step
+   (``dp_tp_train_step``, mesh (data 3, model 2), the GRU and BiLSTM gate
+   rows split over ``model``) at full ``FUSE_CLF`` width, batch 12 x 3,
+   against the one-process step on cuda:0 (kernels #1 and #4, 2 + 4
+   launches, counted): ``tf``, ``af``, the loss and ``fc_final``'s
+   gradient and update within 1e-5 of their largest magnitude, the frozen
+   parameters bitwise, no kernel launch on a rank;
    (d) on 2 Gloo ranks, the collectives on CUDA tensors and
    ``dp_train_step`` at the audio model's width against the one-process
    step with the same per-rank keys (loss 1e-5, params' L1 1e-4); (e) on
@@ -4537,6 +4544,102 @@ def nccl_world_one(torch, rnn_cuda, card: str, data, work: Path) -> dict:
     return launches
 
 
+#: the clf fusion's DP x TP step of (c): ``dryrun_multichip``'s mesh for 6
+#: devices (model 2), its batch (2 * devices), the recipe's 3 answers
+DP_TP_MESH = (3, 2)
+DP_TP_BATCH, DP_TP_STEPS = 12, 3
+
+
+def dp_tp_call(torch) -> tuple:
+    """(fn, args, kwargs) of ``dryrun.dp_tp_fusion_step`` at the full
+    ``FUSE_CLF`` width (audio 256 -> GRU 256 x 2, text 1024 -> BiLSTM 128
+    x 2): a seeded ``FusionNet``'s state dict (threefry, the JAX package's
+    init) and a seeded batch, dropout 0.3 in train mode."""
+    import numpy as np
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.ops import prng
+    from icassp2022_depression_tpu_torch.parallel import dryrun
+
+    fcfg = C.FUSE_CLF
+    sd = FusionNet(fcfg, prng.prng_key(0)).state_dict()
+    gen = np.random.default_rng(6)
+    shape = (DP_TP_BATCH, DP_TP_STEPS)
+    xa = gen.standard_normal(shape + (fcfg.audio_embed_size,)).astype(
+        np.float32)
+    xt = gen.standard_normal(shape + (fcfg.text_embed_size,)).astype(
+        np.float32)
+    y = gen.integers(0, 2, DP_TP_BATCH)
+    mask = np.ones(DP_TP_BATCH, np.float32)
+    return (dryrun.dp_tp_fusion_step,
+            (fcfg, C.FUSE_CLF_TRAINER, sd, xa, xt, y, mask),
+            dict(key_seed=1, model_parallel=DP_TP_MESH[1]))
+
+
+def dp_tp_checks(torch, rnn_cuda, card: str, call: tuple,
+                 got: list) -> dict:
+    """(c)'s DP x TP step: the 6 ranks' results (``got``, in rank order)
+    against ``dryrun.dp_tp_fusion_step_reference`` on cuda:0 (the serial
+    ``pretrained_feature``: TPU kernels #1 and #4, counted exactly).
+    ``tf`` / ``af`` (the data ranks' rows), the loss and ``fc_final``'s
+    gradient and update within 1e-5 of their largest magnitude; every
+    rank of a model group the same, bitwise; the frozen parameters bitwise
+    their initial values.  Returns the reference's launches."""
+    from icassp2022_depression_tpu_torch.parallel import dryrun
+
+    _, args, kwargs = call
+    fcfg = args[0]
+    data, model = DP_TP_MESH
+    _set_counts(rnn_cuda, ZERO)
+    ref = dryrun.dp_tp_fusion_step_reference(
+        *args, key_seed=kwargs["key_seed"], device="cuda")
+    launches = _counts(rnn_cuda)
+    want = dict(ZERO, gru_fwd=fcfg.rnn_layers, lstm_fwd=2 * fcfg.rnn_layers)
+    if launches != want:
+        fail(f"the one-process DP x TP reference launched {launches}, "
+             f"expected {want}")
+    print(f"(c) the one-process reference step launched exactly {want}")
+    for r, v in enumerate(got):
+        peer = got[r - r % model]
+        if not all(torch.equal(v[k], peer[k])
+                   for k in ("tf", "af", "grad", "fc_final")) or \
+                v["loss"] != peer["loss"]:
+            fail(f"DP x TP rank {r} differs from rank {r - r % model} of "
+                 "its model group")
+
+    def gap(a, b) -> float:
+        b = b.cpu()
+        return float((a.cpu() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    gaps = {k: gap(torch.cat([got[d * model][k] for d in range(data)]),
+                   ref[k]) for k in ("tf", "af")}
+    for k in ("grad", "fc_final"):
+        gaps[k] = max(gap(v[k], ref[k]) for v in got)
+    gaps["loss"] = max(abs(v["loss"] - ref["loss"]) for v in got) / max(
+        abs(ref["loss"]), 1e-30)
+    frozen = (ref["frozen_same"] and all(
+        v["frozen_same"] and v["frozen_l1"] == ref["frozen_l1"]
+        for v in got))
+    print(f"(c) clf fusion DP x TP step at full FUSE_CLF width, mesh "
+          f"(data {data}, model {model}) on 6 Gloo ranks of cuda:0, batch "
+          f"{DP_TP_BATCH} x {DP_TP_STEPS}, dropout {fcfg.dropout}: within "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" of their largest magnitude of the one-process reference "
+          f"(kernels #1, #4; tol {SLICE_TOL}); loss {got[0]['loss']:.7f} "
+          f"(reference {ref['loss']:.7f}); frozen parameters bitwise: "
+          f"{frozen}")
+    steps = [v["step_s"] for v in got]
+    print(f"timing phase 12 (c) DP x TP step: {min(steps):.3f}-"
+          f"{max(steps):.3f} s a rank (6 ranks sharing the card over Gloo), "
+          f"reference {ref['step_s']:.3f} s wall [{card}; {SHARED}]")
+    if not (max(gaps.values()) <= SLICE_TOL and frozen):
+        fail(f"the DP x TP step differs from the one-process step: {gaps}, "
+             f"frozen parameters bitwise {frozen}")
+    return launches
+
+
 def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
                    work: Path) -> dict:
     """Phase 12: the multi-GPU paths on one card (NCCL takes one rank a
@@ -4631,13 +4734,15 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
                        [c for _, c in ranks],
                        {k: vm_audio[k] + vm_text[k] for k in ZERO}))
 
-    # (c) fold x data parallelism: 6 Gloo ranks, eager
+    # (c) fold x data parallelism: 6 Gloo ranks, eager; then, on the same
+    # ranks, the clf fusion's DP x TP step
+    fusion = dp_tp_call(torch)
     t0 = time.perf_counter()
     ranks = distributed.launch(dryrun.several, 6, ["cuda:0"] * 6, "gloo",
                                args=(calls(fold_parallel=True,
-                                           data_parallel=2),),
+                                           data_parallel=2) + [fusion],),
                                with_launches=True, timeout=900)
-    walls["fold x DP, 6 ranks"] = time.perf_counter() - t0
+    walls["fold x DP + DP x TP step, 6 ranks"] = time.perf_counter() - t0
     for name, i in (("audio_clf", 0), ("text_clf", 1)):
         gap, same_best = _logs_gap(ranks[0][0][i], vmapped[i])
         print(f"(c) {PARALLEL_EPOCHS}-epoch {name}, 3 folds x 2 DP ranks "
@@ -4647,12 +4752,15 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
         if not (gap <= TRAIN_TOL and same_best):
             fail(f"fold x DP {name} differs from --vmap-folds")
     # a rank makes the stacked run's calls, on its rows, eagerly: without
-    # the graph's warm-up epoch
+    # the graph's warm-up epoch; its DP x TP step launches no kernel (the
+    # gate-row recurrences are sliced matmuls)
     e = PARALLEL_EPOCHS
-    add(_rank_launches("(c) fold x DP audio_clf + text_clf",
-                       [c for _, c in ranks],
+    add(_rank_launches("(c) fold x DP audio_clf + text_clf and the DP x TP "
+                       "step (0 of its own)", [c for _, c in ranks],
                        {k: (vm_audio[k] + vm_text[k]) * e // (e + 1)
                         for k in ZERO}))
+    add(dp_tp_checks(torch, rnn_cuda, card, fusion,
+                     [value[2] for value, _ in ranks]))
 
     # (d) dp_train_step and (e) the TP biLM: 2 Gloo ranks on cuda:0
     tcfg = C.AUDIO_CLF

@@ -33,7 +33,7 @@ in the JAX package): ``lstm_net.*`` (text LSTM), ``attention_layer.0.*``,
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 from torch import nn
@@ -87,23 +87,30 @@ class FusionNet(nn.Module):
         return dropout(x, p, self.training, k_out, rows)
 
     def pretrained_feature(self, x_audio: torch.Tensor, x_text: torch.Tensor,
-                           key: Optional[torch.Tensor] = None, rows=None):
+                           key: Optional[torch.Tensor] = None, rows=None,
+                           text_rnn: Optional[Callable] = None,
+                           audio_rnn: Optional[Callable] = None):
         """Frozen branch forwards -> (text_feature [B, Ht], audio_feature
         [B, Ha]), without a graph; in train mode the masks come from
         ``split(key, 6)`` (text LSTM, text fc in/out, audio GRU, audio fc
         in/out), none without a key (``rows``: the masks' rows of a larger
-        batch, :func:`..ops.nn.dropout`)."""
+        batch, :func:`..ops.nn.dropout`).  ``text_rnn`` / ``audio_rnn``
+        replace the two recurrences (``fn(x, key, rows) -> (y, h_n,
+        c_n)``, default ``self.lstm_net`` / ``self.lstm_net_audio``): the
+        DP x TP step passes its tensor-parallel ones."""
+        text_rnn = self.lstm_net if text_rnn is None else text_rnn
+        audio_rnn = self.lstm_net_audio if audio_rnn is None else audio_rnn
         ks = ([None] * 6 if key is None or not self.training else
               [k for k in prng.split(key, 6).unbind(-2)])
         with torch.no_grad():
-            y, h_n, _ = self.lstm_net(x_text, ks[0], rows)
+            y, h_n, _ = text_rnn(x_text, ks[0], rows)
             att = self.attention_layer[0]
             ctx = attention_net_with_w(att.weight, att.bias, y, h_n)
             tf = self._branch_fc(self.fc_out[1], ctx, ks[1], ks[2], rows)
             xa = x_audio
             if self.cfg.audio_layernorm:
                 xa = layer_norm(xa, self.ln.weight, self.ln.bias)
-            ya, _, _ = self.lstm_net_audio(xa, ks[3], rows)
+            ya, _, _ = audio_rnn(xa, ks[3], rows)
             af = self._branch_fc(self.fc_audio[1], ya.sum(dim=-2), ks[4],
                                  ks[5], rows)
         return tf, af

@@ -139,13 +139,19 @@ def dct_ii_matrix(n_out: int, n_in: int,
 def power_to_db(S: torch.Tensor, amin: float = 1e-10,
                 top_db: float | None = 80.0) -> torch.Tensor:
     """librosa.power_to_db with ref=1.0: 10*log10(max(amin, S)), then clamp
-    to within ``top_db`` of the maximum: of the whole of a 1-D or 2-D
-    ``S`` (the JAX package's and librosa's global maximum), of each
-    [frames, bins] spectrogram of a batch ``[..., frames, bins]``."""
+    to within ``top_db`` of the global maximum of ``S`` (of any rank, as
+    the JAX package and librosa clamp)."""
+    return _clamped_db(S, amin, top_db)
+
+
+def _clamped_db(S: torch.Tensor, amin: float, top_db: float | None,
+                dims: tuple | None = None) -> torch.Tensor:
+    """:func:`power_to_db` with the ``top_db`` peak taken over ``dims``
+    (None: the whole of ``S``)."""
     log_spec = 10.0 * torch.log10(torch.clamp_min(S, amin))
     if top_db is not None:
-        dims = tuple(range(max(S.ndim - 2, 0), S.ndim))
-        peak = log_spec.amax(dim=dims, keepdim=True)
+        peak = (log_spec.max() if dims is None
+                else log_spec.amax(dim=dims, keepdim=True))
         log_spec = torch.maximum(log_spec, peak - top_db)
     return log_spec
 
@@ -161,7 +167,8 @@ def mfcc(y: torch.Tensor, sr: int = 16000, n_fft: int = 2048, hop: int = 512,
     package's extension, not a parity requirement."""
     spec = power_spectrogram(y, n_fft, hop, center)            # [..., F, bins]
     fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(y.device)
-    db = power_to_db(torch.matmul(spec, fb.t()))               # [..., F, M]
+    mel = torch.matmul(spec, fb.t())                           # [..., F, M]
+    db = _clamped_db(mel, 1e-10, 80.0, (-2, -1))   # each waveform's own peak
     dct = torch.from_numpy(dct_ii_matrix(n_mfcc, n_mels)).to(y.device)
     out = torch.matmul(db, dct.t())                            # [..., F, C]
     if lifter > 0:

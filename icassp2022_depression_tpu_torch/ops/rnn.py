@@ -32,7 +32,7 @@ projection (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -236,7 +236,7 @@ def _run_direction(p: dict, x: torch.Tensor, cell: str, reverse: bool,
 def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
         dropout: float = 0.0, train: bool = False,
         key: Optional[torch.Tensor] = None, backend: str = "auto",
-        rows=None):
+        rows=None, direction: Optional[Callable] = None):
     """Multi-layer (bi)directional GRU or LSTM.
 
     Args:
@@ -251,6 +251,10 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
       backend: "auto" | "torch" | "cuda" (see :func:`resolve_backend`).
       rows: the dropout masks' rows of a larger batch (see
         :func:`..ops.nn.dropout`).
+      direction: runs one layer's direction, ``direction(p, x, cell,
+        reverse, backend) -> (ys, h_last, c_last or None)``; the default
+        is the serial :func:`gru_layer` / :func:`lstm_layer` (the
+        tensor-parallel one is :mod:`..parallel.rnn_tp`'s).
 
     Returns:
       (output [B, T, H * num_dirs], h_n [B, num_layers * num_dirs, H] and
@@ -258,13 +262,14 @@ def rnn(params: Sequence[dict], x: torch.Tensor, cell: str = "gru",
       layer 0 forward, layer 0 backward, layer 1 forward, ...)
     """
     _check_cell(cell)
+    run = _run_direction if direction is None else direction
     h_finals, c_finals = [], []
     y = x
     for layer_idx, layer in enumerate(params):
         outs = []
         for dirn in ("fwd", "bwd")[:len(layer)]:
-            ys, h_last, c_last = _run_direction(layer[dirn], y, cell,
-                                                dirn == "bwd", backend)
+            ys, h_last, c_last = run(layer[dirn], y, cell, dirn == "bwd",
+                                     backend)
             outs.append(ys)
             h_finals.append(h_last)
             c_finals.append(c_last)

@@ -156,6 +156,15 @@ def _gates(x: torch.Tensor, hp: torch.Tensor, hidden: int):
     return r, z, n
 
 
+def gru_cell(xp_t: torch.Tensor, hp: torch.Tensor,
+             h: torch.Tensor) -> torch.Tensor:
+    """One GRU step from the step's input projection ``xp_t`` and hidden
+    projection ``hp = h @ W_hh^T + b_hh`` (each [B, 3H], gates r, z, n):
+    the new ``h``."""
+    r, z, n = _gates(xp_t, hp, h.shape[-1])
+    return (1.0 - z) * n + z * h
+
+
 def _per_fold(fn, *args):
     """``fn`` on each fold of fold-stacked arguments, the results stacked
     (a tuple of results: each stacked)."""
@@ -177,9 +186,7 @@ def gru_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
     h = xp.new_zeros((batch, hidden))
     ys = []
     for t in range(t_steps):
-        hp = torch.matmul(h, w_hh_t) + b_hh
-        r, z, n = _gates(xp[t], hp, hidden)
-        h = (1.0 - z) * n + z * h
+        h = gru_cell(xp[t], torch.matmul(h, w_hh_t) + b_hh, h)
         ys.append(h)
     if not ys:
         return xp.new_zeros((0, batch, hidden))
@@ -372,6 +379,14 @@ def _lstm_gates(gp: torch.Tensor, hidden: int):
     return i, f, g, o
 
 
+def lstm_cell(gp: torch.Tensor, c: torch.Tensor):
+    """One LSTM step from the gate sums ``gp`` [B, 4H] (gates i, f, g, o)
+    and the cell ``c``: (the new h, the new c)."""
+    i, f, g, o = _lstm_gates(gp, c.shape[-1])
+    c = f * c + i * g
+    return o * torch.tanh(c), c
+
+
 def lstm_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
                         b_hh: torch.Tensor):
     """Plain PyTorch LSTM recurrence, the forward kernel's reference.
@@ -385,10 +400,7 @@ def lstm_sequence_torch(xp: torch.Tensor, w_hh_t: torch.Tensor,
     c = xp.new_zeros((batch, hidden))
     ys, cs = [], []
     for t in range(t_steps):
-        i, f, gg, o = _lstm_gates(xp[t] + torch.matmul(h, w_hh_t) + b_hh,
-                                  hidden)
-        c = f * c + i * gg
-        h = o * torch.tanh(c)
+        h, c = lstm_cell(xp[t] + torch.matmul(h, w_hh_t) + b_hh, c)
         ys.append(h)
         cs.append(c)
     if not ys:

@@ -10,17 +10,22 @@ Launch them with :func:`.distributed.launch`, e.g. ``launch(dp_step, 2,
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from icassp2022_depression_tpu_torch.models import losses
 from icassp2022_depression_tpu_torch.models.elmo_pretrained import tree_to
-from icassp2022_depression_tpu_torch.ops import prng
+from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+from icassp2022_depression_tpu_torch.ops import prng, rnn
 from icassp2022_depression_tpu_torch.parallel import (
     collectives as coll,
     distributed,
     elmo_tp,
     mesh as mesh_mod,
+    rnn_tp as rnn_tp_mod,
 )
 from icassp2022_depression_tpu_torch.utils.device import default_device
 
@@ -128,6 +133,104 @@ def dp_step_reference(tcfg, x, y, mask, shards: int, seed: int = 0,
         optimizer.step()
     return _step_result(model, optimizer, total.detach() if n > 0 else 0.0,
                         torch.cat(preds))
+
+
+def rnn_tp(layers, x, cell: str, dropout: float = 0.0, key_seed=None,
+           model_parallel: int = 2) -> tuple:
+    """:func:`.rnn_tp.rnn_tp` in train mode of the layer list ``layers``
+    (:func:`..ops.rnn.init_params`' layout, host arrays) over a ``(data,
+    model_parallel)`` mesh of the whole group: this rank's rows of ``x``
+    [B, T, D] with the masks of ``PRNGKey(key_seed)`` (none for None) ->
+    (y, h_n, c_n) of those rows."""
+    device = default_device()
+    module = rnn.RNN(x.shape[-1], layers[0]["fwd"]["w_hh"].shape[1],
+                     len(layers), len(layers[0]) == 2, dropout, cell,
+                     device=device)
+    with torch.no_grad():
+        for src, dst in zip(layers, module.layers()):
+            for d, p in dst.items():
+                for k, t in p.items():
+                    t.copy_(torch.as_tensor(np.asarray(src[d][k])))
+    mesh = mesh_mod.make_mesh(model_parallel=model_parallel)
+    xs = mesh_mod.batch_sharding(mesh, torch.as_tensor(np.asarray(x),
+                                                       device=device))
+    key = None if key_seed is None else prng.prng_key(key_seed, device)
+    n = xs.shape[0]
+    with torch.no_grad():
+        return rnn_tp_mod.rnn_tp(mesh, rnn_tp_mod.shard_layers(mesh, module),
+                                 xs, cell, dropout, True, key,
+                                 (mesh.data_index * n, mesh.data * n))
+
+
+def _fusion(fcfg, tcfg, state_dict, device):
+    from icassp2022_depression_tpu_torch.train import optim
+
+    model = FusionNet(fcfg, None, device)
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           for k, v in state_dict.items()}, strict=True)
+    model.train()
+    return model, optim.build(tcfg.optimizer, model)
+
+
+def _fusion_result(model, state_dict, loss, tf, af, t0: float) -> dict:
+    loss = float(loss.detach())             # waits for the step
+    seconds = time.perf_counter() - t0
+    w = model.fc_final[0].weight
+    frozen = [(k, v) for k, v in model.state_dict().items()
+              if k != "fc_final.0.weight"]
+    return {"loss": loss, "step_s": seconds, "tf": tf.detach(),
+            "af": af.detach(), "grad": w.grad.detach().clone(),
+            "fc_final": w.detach().clone(),
+            "frozen_l1": float(sum(v.abs().sum() for _, v in frozen)),
+            "frozen_same": all(torch.equal(v.cpu(), torch.as_tensor(
+                np.asarray(state_dict[k]))) for k, v in frozen)}
+
+
+def _as_tensors(device, *arrays):
+    return [torch.as_tensor(np.asarray(a), device=device) for a in arrays]
+
+
+def dp_tp_fusion_step(fcfg, tcfg, state_dict, x_audio, x_text, y, mask,
+                      key_seed: int = 1, model_parallel: int = 2) -> dict:
+    """One :func:`.collectives.dp_tp_train_step` of the clf fusion
+    ``fcfg`` (optimizer of ``tcfg``) from ``state_dict`` over a ``(data,
+    model_parallel)`` mesh of the whole group, as the JAX package's
+    ``dryrun_multichip`` lays its devices out: this rank's rows of the
+    global batch ``x_audio`` [B, T, Da] / ``x_text`` [B, T, Dt] / ``y`` /
+    ``mask`` (host arrays), the key ``PRNGKey(key_seed)``.  Returns the
+    global loss, this rank's ``tf`` / ``af``, ``fc_final``'s gradient and
+    updated weight, the L1 of the frozen parameters and whether each
+    equals ``state_dict``'s bitwise, and the step's wall time."""
+    device = default_device()
+    model, optimizer = _fusion(fcfg, tcfg, state_dict, device)
+    mesh = mesh_mod.make_mesh(model_parallel=model_parallel)
+    step = coll.dp_tp_train_step(model, mesh, optimizer)
+    args = [mesh_mod.batch_sharding(mesh, a) for a in _as_tensors(
+        device, x_audio, x_text, y, mask)]
+    t0 = time.perf_counter()
+    loss, tf, af = step(prng.prng_key(key_seed, device), *args)
+    return _fusion_result(model, state_dict, loss, tf, af, t0)
+
+
+def dp_tp_fusion_step_reference(fcfg, tcfg, state_dict, x_audio, x_text, y,
+                                mask, key_seed: int = 1,
+                                device=None) -> dict:
+    """:func:`dp_tp_fusion_step` in one process through the serial
+    :meth:`FusionNet.pretrained_feature` (on a card: the ``gru_fwd`` and
+    ``lstm_fwd`` kernels): the global batch's ``myloss_ce``, its gradient
+    and one optimizer step."""
+    device = default_device() if device is None else torch.device(device)
+    model, optimizer = _fusion(fcfg, tcfg, state_dict, device)
+    x_audio, x_text, y, mask = _as_tensors(device, x_audio, x_text, y, mask)
+    t0 = time.perf_counter()
+    optimizer.zero_grad(set_to_none=True)
+    tf, af = model.pretrained_feature(x_audio, x_text,
+                                      prng.prng_key(key_seed, device))
+    loss = losses.myloss_ce(tf, af, y, model.fc_final[0].weight,
+                            fcfg.text_hidden_dims, mask)
+    loss.backward()
+    optimizer.step()
+    return _fusion_result(model, state_dict, loss, tf, af, t0)
 
 
 def cli_main(argv, presets: dict) -> tuple:

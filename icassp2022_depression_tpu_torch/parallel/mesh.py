@@ -6,13 +6,15 @@ on it: ``data`` splits the batch axis, ``model`` the RNN gate matrices'
 rows.  Here a device is a rank of the default ``torch.distributed``
 group: :func:`make_mesh` puts the first ``n_devices`` ranks on the grid
 and makes the row and column subgroups the collectives run in,
-:func:`batch_sharding` gives a rank its rows of a batch, and
+:func:`batch_sharding` gives a rank its rows of a batch,
 :func:`param_shardings` states which parameters the gate-row tensor
-parallelism would split (the rule the JAX package's ``_param_spec``
-applies).  The gate-row tensor-parallel RNN step itself is reached in the
-JAX package only from its dry runs and benchmark, not from its CLI, and
-is not ported; the tensor-parallel biLM that the CLI runs is
-:mod:`.elmo_tp`.
+parallelism splits (the rule the JAX package's ``_param_spec`` applies),
+and :func:`shard_params` hands a rank its slice of each.  The gate-row
+tensor-parallel GRU / LSTM that runs on those slices is :mod:`.rnn_tp`,
+and the clf fusion's DP x TP training step on it is
+:func:`.collectives.dp_tp_train_step` (the JAX package reaches its
+counterpart only from its dry run, not from its CLI; so does the port).
+The tensor-parallel biLM that the CLI runs is :mod:`.elmo_tp`.
 """
 
 from __future__ import annotations
@@ -114,3 +116,20 @@ def param_shardings(mesh: Mesh, model: nn.Module) -> dict:
     the rule still names the gate rows, which then split one way."""
     return {name: _param_spec(name, p, mesh.model)
             for name, p in model.named_parameters()}
+
+
+def shard_params(mesh: Mesh, model: nn.Module) -> dict:
+    """This rank's slice of every parameter of ``model`` by name, under
+    :func:`param_shardings`: a ``("model", None)`` or ``("model",)`` spec
+    gives rows ``[m R / M, (m + 1) R / M)`` of model index ``m`` of ``M``
+    (JAX's flat split of the ``[G*H]`` gate rows, not one a gate: at ``M =
+    2`` rank 0 of a GRU holds all of ``r`` and half of ``z``), ``()`` the
+    whole tensor.  The slices are views of the parameters."""
+    out = {}
+    for name, p in model.named_parameters():
+        if _param_spec(name, p, mesh.model):
+            rows = p.shape[0] // mesh.model
+            out[name] = p.narrow(0, mesh.model_index * rows, rows)
+        else:
+            out[name] = p
+    return out

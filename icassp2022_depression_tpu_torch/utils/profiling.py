@@ -48,18 +48,23 @@ def trace(log_dir):
     Perfetto or ``chrome://tracing``, or TensorBoard's PyTorch profiler
     plugin).  The card's kernels are recorded when there is a card.
     Yields the ``torch.profiler.profile``; its ``trace_path`` attribute is
-    set to the file once the region has ended."""
+    set to the file once the region has ended.  A region that raises
+    still writes its trace (as the JAX package stops its trace in a
+    ``finally``), and the error goes on."""
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    path = log_dir / (f"{socket.gethostname()}_{os.getpid()}."
-                      f"{int(time.time() * 1000)}.pt.trace.json")
-    prof.export_chrome_trace(str(path))
-    prof.trace_path = path
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        path = log_dir / (f"{socket.gethostname()}_{os.getpid()}."
+                          f"{int(time.time() * 1000)}.pt.trace.json")
+        prof.export_chrome_trace(str(path))
+        prof.trace_path = path
 
 
 class Stopwatch:

@@ -451,6 +451,20 @@ def test_trace_names_each_fold(tmp_path):
         ["audio_clf/fold1", "audio_clf/fold2", "audio_clf/fold3"]
 
 
+def test_trace_of_a_region_that_raises(tmp_path):
+    """A region that raises still leaves exactly one Chrome trace, which
+    holds the region's annotation, and the error goes on (JAX's ``trace``
+    stops its trace in a ``finally``)."""
+    with pytest.raises(RuntimeError, match="region failed"):
+        with profiling.trace(tmp_path) as prof:
+            with profiling.annotate("doomed"):
+                torch.ones(3).sum()
+            raise RuntimeError("region failed")
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert files == [Path(prof.trace_path)]
+    assert "doomed" in _trace_names(prof)
+
+
 def test_stopwatch_and_annotate(monkeypatch):
     """As the JAX package's test; and a region on the CPU never touches
     ``torch.cuda.nvtx``."""
@@ -576,6 +590,15 @@ def test_power_to_db_dct_and_num_frames_match_jax():
             tmel.power_to_db(torch.from_numpy(s), top_db=top_db).numpy(),
             np.asarray(jmel.power_to_db(jnp.asarray(s), top_db=top_db)),
             rtol=0, atol=ATOL * 100)
+    # a batch whose second spectrogram is quiet: the global peak clamps it
+    batch = (rng.random((2, 7, 12)) ** 6).astype(np.float32)
+    batch[1] *= 1e-6
+    for top_db in (80.0, 20.0, None):
+        got = tmel.power_to_db(torch.from_numpy(batch), top_db=top_db)
+        want = np.asarray(jmel.power_to_db(jnp.asarray(batch),
+                                           top_db=top_db))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=ATOL * np.abs(want).max())
     for norm in ("ortho", None):
         np.testing.assert_array_equal(tmel.dct_ii_matrix(13, 24, norm),
                                       jmel.dct_ii_matrix(13, 24, norm))

@@ -675,7 +675,7 @@ def test_cli_refuses_more_ranks_than_cards(monkeypatch):
 def test_parallel_package_imports_no_jax():
     code = ("import sys\n"
             "from icassp2022_depression_tpu_torch.parallel import "
-            "collectives, distributed, dryrun, elmo_tp, mesh\n"
+            "collectives, distributed, dryrun, elmo_tp, mesh, rnn_tp\n"
             "from icassp2022_depression_tpu_torch import cli\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'icassp2022_depression_tpu.'))\n"
