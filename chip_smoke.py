@@ -289,7 +289,12 @@ Phases (each raises on failure, so the exit code is nonzero):
    (d) a ``profiling.trace`` of ``extract_eatd`` and of a one-fold ``cli
    train --task audio_clf --corpus`` (counted): the Chrome trace holds
    ``wav2vlad/bucket*``, ``wav2vlad/readback`` and ``audio_clf/fold1``,
-   and the GRU kernels launched inside the fold's region.
+   and the GRU kernels launched inside the fold's region; (e) a recorded
+   region around a 4096 x 4096 matmul and ``torch.cuda.synchronize()``
+   under ``torch.profiler`` holds the matmul's kernel and its own
+   profiler region (offsets printed; profiled up to three times, since a
+   short trace now and then comes back with no device events), and a
+   region's host cost with the profiler off and on.
 
 The line before the last is a JSON object describing each kernel (#3's
 timed at its DAIC shape); the last line is ``{"ok": true, "device":
@@ -5260,11 +5265,93 @@ def trace_checks(torch, card: str, corpus: Path, work: Path) -> dict:
     return {"launches": got}
 
 
+def span_checks(torch, card: str) -> dict:
+    """Phase 13 (e): a recorded region (``profiling.annotate``) around a
+    4096 x 4096 float32 matmul and ``torch.cuda.synchronize()`` under
+    ``torch.profiler`` holds the matmul kernel's interval on the card, on
+    the one clock (``time.time_ns()``) the records and the trace share;
+    then a region's host cost with no profiler (with and without NVTX)
+    and under one, beside a bare ``record_function``."""
+    from torch.autograd import DeviceType
+
+    from icassp2022_depression_tpu_torch.utils import profiling
+
+    a = torch.randn(4096, 4096, device="cuda")
+    (a @ a).sum().item()
+    torch.cuda.synchronize()
+    for tries in range(1, 4):  # a short call's trace now and then is empty
+        spans = []
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                with profiling.annotate(f"smoke/matmul{i}", "cuda") as span:
+                    a @ a
+                    torch.cuda.synchronize()
+                spans.append(span)
+        kernels, regions = [], {}
+        for e in prof.profiler.kineto_results.events():
+            iv = (e.start_ns(), e.start_ns() + e.duration_ns())
+            if e.device_type() != DeviceType.CUDA:
+                if e.name().startswith("smoke/matmul"):
+                    regions[e.name()] = iv
+            elif "/" not in e.name():       # not a region's device mirror
+                kernels.append((e.name(), iv))
+        if kernels:
+            break
+    offsets, held = [], 0
+    for span in spans:
+        inside = [iv for n, iv in kernels
+                  if span.start_ns <= iv[0] and iv[1] <= span.end_ns]
+        region = regions.get(span.name)
+        if not inside or region is None or not (
+                span.start_ns <= region[0] and region[1] <= span.end_ns):
+            fail(f"the record {span} does not hold its kernel and its "
+                 f"profiler region: kernels {kernels}, region {region}")
+        held += len(inside)
+        offsets.append((min(k0 for k0, _ in inside) - span.start_ns,
+                        span.end_ns - max(k1 for _, k1 in inside),
+                        region[0] - span.start_ns, span.end_ns - region[1]))
+    if held != len(kernels):
+        fail(f"kernels outside every record: {kernels}")
+    print("recorded region around a 4096^2 matmul + synchronize, under "
+          "torch.profiler (ns: record start -> kernel start, kernel end "
+          "-> record end, record start -> profiler region start, profiler "
+          f"region end -> record end; profiled {tries} time(s)): {offsets}"
+          f" [{card}]")
+
+    def per_region_us(device, n=20000) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with profiling.annotate("smoke/empty", device):
+                pass
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    def bare_us(n=20000) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with torch.profiler.record_function("smoke/bare"):
+                pass
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    per_region_us(None, 2000)
+    cost = {"off": per_region_us(None), "off_nvtx": per_region_us("cuda"),
+            "bare_record_function": bare_us()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        cost["on"] = per_region_us(None, 5000)
+        cost["on_nvtx"] = per_region_us("cuda", 5000)
+    profiling.clear()
+    print(f"a recorded region's host cost, us: {cost} [{card}]")
+    return {"offsets_ns": offsets, "cost_us": cost}
+
+
 def operations_phase(torch, card: str, corpus: Path, bundle: Path,
                      work: Path) -> dict:
     """Phase 13: ``cli doctor``, ``cli warmup`` twice, the ELMo converter
-    at the zhs geometry, and a trace of the named regions.  Returns the
-    counted launches."""
+    at the zhs geometry, a trace of the named regions and the span
+    records on the trace's clock.  Returns the counted launches."""
     from icassp2022_depression_tpu_torch import cli
 
     t_phase = time.perf_counter()
@@ -5290,6 +5377,7 @@ def operations_phase(torch, card: str, corpus: Path, bundle: Path,
     _add(launches, warm["launches"])
     _add(launches, converter_checks(torch, card, corpus, work)["launches"])
     _add(launches, trace_checks(torch, card, corpus, work)["launches"])
+    span_checks(torch, card)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(f"timing phase 13: {time.perf_counter() - t_phase:.1f} s [{card}]")

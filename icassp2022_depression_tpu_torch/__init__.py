@@ -45,7 +45,7 @@ asks for the CPU (:mod:`.utils.device`).
   ``Predictor``, ``DaicPredictor``, the HTTP front, the facade
 * :mod:`.parallel`             fold-parallel and data-parallel training and
   the tensor-parallel biLM on ``torch.distributed``
-* :mod:`.utils.profiling`      named profiler regions, traces, a stopwatch
+* :mod:`.utils.profiling`      named, recorded regions and traces
 * :mod:`.scripts`              the ELMo and VGGish weight converters
 * :mod:`.cli`                  the command line (all 17 of the JAX CLI's
   subcommands; console script ``icassp2022-depression-tpu-torch``)

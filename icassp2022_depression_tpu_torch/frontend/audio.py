@@ -104,9 +104,12 @@ def extract_batch(waveforms: Sequence[np.ndarray], sample_rates: Sequence[int],
     out = torch.empty((n, cfg.netvlad_output_dim), dtype=torch.float32,
                       device=device)
     for (blen, sr), idxs in buckets.items():
-        with profiling.annotate(f"wav2vlad/bucket{blen}", device):
-            # batch rows rounded up to a multiple of 8: a few shapes per bucket
-            brows = -(-len(idxs) // 8) * 8
+        # batch rows rounded up to a multiple of 8: a few shapes per bucket
+        brows = -(-len(idxs) // 8) * 8
+        samples = sum(len(waveforms[i]) for i in idxs)
+        with profiling.annotate(f"wav2vlad/bucket{blen}", device,
+                                samples=samples,
+                                padded_samples=brows * blen - samples):
             rows = np.zeros((brows, blen), np.float32)
             lengths = np.zeros((brows,), np.int64)
             row_ordinals = np.zeros((brows,), np.int64)

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from icassp2022_depression_tpu_torch.models import char_cnn, elmo
+from icassp2022_depression_tpu_torch.utils import profiling
 from icassp2022_depression_tpu_torch.utils.device import resolve_device
 
 #: upstream create_one_batch reads ('<eow>', '<bow>', ...) into
@@ -75,44 +76,46 @@ def build_batch(sents: Sequence[Sequence[str]],
                 max_chars: int, pad_to: Optional[int] = None):
     """Tokenised sentences -> (char_ids [B, T, C], word_ids [B, T] or None,
     lengths [B]) as int numpy arrays, with BOS/EOS wrapping, upstream's
-    truncation rule and char markers.  ``T`` covers the wrapped length."""
-    bow_key, eow_key = (EOW, BOW) if SWAP_BOW_EOW else (BOW, EOW)
-    bow = char_lexicon[bow_key]
-    eow = char_lexicon[eow_key]
-    cpad = char_lexicon[PAD]
-    coov = char_lexicon[OOV]
+    truncation rule and char markers.  ``T`` covers the wrapped length.
+    It is the profiling region ``elmo/build_batch``."""
+    with profiling.annotate("elmo/build_batch"):
+        bow_key, eow_key = (EOW, BOW) if SWAP_BOW_EOW else (BOW, EOW)
+        bow = char_lexicon[bow_key]
+        eow = char_lexicon[eow_key]
+        cpad = char_lexicon[PAD]
+        coov = char_lexicon[OOV]
 
-    wrapped: List[List[str]] = []
-    for sent in sents:
-        toks = [BOS]
-        for tok in sent:
-            if len(tok) + 2 > max_chars:
-                tok = tok[:max_chars - 2]
-            toks.append(tok)
-        toks.append(EOS)
-        wrapped.append(toks)
+        wrapped: List[List[str]] = []
+        for sent in sents:
+            toks = [BOS]
+            for tok in sent:
+                if len(tok) + 2 > max_chars:
+                    tok = tok[:max_chars - 2]
+                toks.append(tok)
+            toks.append(EOS)
+            wrapped.append(toks)
 
-    lengths = np.asarray([len(t) for t in wrapped], np.int32)
-    max_t = int(pad_to if pad_to is not None else lengths.max())
-    b = len(wrapped)
-    char_ids = np.full((b, max_t, max_chars), cpad, np.int32)
-    word_ids = None
-    if word_lexicon is not None:
-        woov = word_lexicon[OOV]
-        word_ids = np.full((b, max_t), word_lexicon[PAD], np.int32)
-    for i, toks in enumerate(wrapped):
-        for j, tok in enumerate(toks):
-            char_ids[i, j, 0] = bow
-            if tok in (BOS, EOS):
-                char_ids[i, j, 1] = char_lexicon[tok]
-                char_ids[i, j, 2] = eow
-            else:
-                for k, ch in enumerate(tok):
-                    char_ids[i, j, k + 1] = char_lexicon.get(ch, coov)
-                char_ids[i, j, len(tok) + 1] = eow
-            if word_ids is not None:
-                word_ids[i, j] = word_lexicon.get(tok, woov)
-    return char_ids, word_ids, lengths
+        lengths = np.asarray([len(t) for t in wrapped], np.int32)
+        max_t = int(pad_to if pad_to is not None else lengths.max())
+        b = len(wrapped)
+        char_ids = np.full((b, max_t, max_chars), cpad, np.int32)
+        word_ids = None
+        if word_lexicon is not None:
+            woov = word_lexicon[OOV]
+            word_ids = np.full((b, max_t), word_lexicon[PAD], np.int32)
+        for i, toks in enumerate(wrapped):
+            for j, tok in enumerate(toks):
+                char_ids[i, j, 0] = bow
+                if tok in (BOS, EOS):
+                    char_ids[i, j, 1] = char_lexicon[tok]
+                    char_ids[i, j, 2] = eow
+                else:
+                    for k, ch in enumerate(tok):
+                        char_ids[i, j, k + 1] = char_lexicon.get(ch, coov)
+                    char_ids[i, j, len(tok) + 1] = eow
+                if word_ids is not None:
+                    word_ids[i, j] = word_lexicon.get(tok, woov)
+        return char_ids, word_ids, lengths
 
 
 def _interior_mean(rep: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -128,11 +131,12 @@ def encode_pooled(cc_params, enc_params, char_ids, word_ids, lengths,
                   char_cfg: char_cnn.CharCnnConfig,
                   lstmp_cfg: elmo.ElmoLstmpConfig, backend: str = "auto"):
     """ids (tensors) -> ([B, T, 2P] 3-layer-averaged reps, [B, 2P] mean
-    over the real tokens)."""
-    reps = char_cnn.embed_tokens(cc_params, char_ids, char_cfg, word_ids)
-    rep, _ = elmo.encode_lstmp_from_reps(enc_params, reps, lengths,
-                                         lstmp_cfg, backend)
-    return rep, _interior_mean(rep, lengths)
+    over the real tokens), in the profiling region ``elmo/encode``."""
+    with profiling.annotate("elmo/encode", char_ids.device):
+        reps = char_cnn.embed_tokens(cc_params, char_ids, char_cfg, word_ids)
+        rep, _ = elmo.encode_lstmp_from_reps(enc_params, reps, lengths,
+                                             lstmp_cfg, backend)
+        return rep, _interior_mean(rep, lengths)
 
 
 def encode_pooled_stateful(cc_params, enc_params, char_ids, word_ids,

@@ -25,17 +25,55 @@ The arithmetic is int64 with a ``& 0xFFFFFFFF`` mask after every add
 (torch's uint32 coverage is thin); every operation is elementwise, so a
 batch of keys broadcasts against the counters and a whole bucket's
 weights are one pass on the device.
+
+Each public draw is a profiling region ``prng/{fold_in,split,uniform,
+normal,bernoulli,random_bits}``; a draw made inside another, or under
+:func:`unrecorded`, opens none.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
 
+from icassp2022_depression_tpu_torch.utils import profiling
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_drawing = threading.local()
+
+
+def _draw(fn):
+    """A public draw as the region ``prng/<name>``, unless it is made
+    inside another draw."""
+    name = f"prng/{fn.__name__}"
+
+    @functools.wraps(fn)
+    def draw(key, *args, **kw):
+        if getattr(_drawing, "on", False):
+            return fn(key, *args, **kw)
+        with unrecorded(), profiling.annotate(name, key.device):
+            return fn(key, *args, **kw)
+
+    return draw
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """The draws made inside open no profiling region (a captured
+    program's draws run once, at capture, so their regions would time
+    nothing of its replays)."""
+    was = getattr(_drawing, "on", False)
+    _drawing.on = True
+    try:
+        yield
+    finally:
+        _drawing.on = was
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -63,6 +101,7 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+@_draw
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys [..., 2] with data broadcastable to
     ``key.shape[:-1]`` -> keys [..., 2]."""
@@ -78,6 +117,7 @@ def _counters(n: int, device):
     return idx >> 32, idx & MASK
 
 
+@_draw
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): keys [..., 2] -> [..., num, 2]."""
     hi, lo = _counters(num, key.device)
@@ -118,6 +158,7 @@ def _offset(shape, rows) -> int:
     return first * math.prod(shape[1:])
 
 
+@_draw
 def random_bits(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
     """``jax.random.bits`` (32-bit, partitionable): keys [..., 2] ->
     int64 tensor [..., *shape] of uint32 values.  ``rows = (first,
@@ -149,6 +190,7 @@ def _scale(bits: torch.Tensor, lo: float, span: float) -> torch.Tensor:
     return torch.clamp(scaled, min=lo)
 
 
+@_draw
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0, rows=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits become the
@@ -205,12 +247,14 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2)))
 
 
+@_draw
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: keys [..., 2] -> [..., *shape]."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * erfinv(u)
 
 
+@_draw
 def bernoulli(key: torch.Tensor, p: float, shape, rows=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` in 32-bit
     mode: keys [..., 2] -> bool [..., *shape], True where a float32

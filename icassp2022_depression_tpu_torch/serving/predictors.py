@@ -16,7 +16,12 @@ per-speaker features are memoised in a content-addressed LRU
 (:class:`_FeatureCache`); the forward batch is padded to a power of two,
 as in the JAX package, and runs under ``torch.inference_mode()``.  On a
 card the recurrences run in the hand-written CUDA kernels
-(``rnn_backend="auto"``).
+(``rnn_backend="auto"``).  A :meth:`Predictor.predict_batch` call is the
+profiling region ``serve/call`` (:mod:`..utils.profiling`), the root of
+``serve/cache_key`` (the blake2b keys), ``serve/audio`` and
+``serve/text`` (the lookups and the cold speakers' extraction),
+``serve/forward`` (up to the forward's enqueue) and ``serve/readback``
+(the wait for the device and the copy).
 
 The device is the caller's choice: without one, :func:`default_device`
 takes the first card and raises when there is none (``device="cpu"`` runs
@@ -45,7 +50,7 @@ from icassp2022_depression_tpu_torch.frontend import daic as daic_fe
 from icassp2022_depression_tpu_torch.frontend import text as text_fe
 from icassp2022_depression_tpu_torch.models import elmo, porting, vggish
 from icassp2022_depression_tpu_torch.train import checkpoints
-from icassp2022_depression_tpu_torch.utils import shapes
+from icassp2022_depression_tpu_torch.utils import profiling, shapes
 from icassp2022_depression_tpu_torch.utils.device import (  # noqa: F401
     default_device,
     resolve_device,
@@ -340,37 +345,40 @@ class Predictor:
                 zip(waveforms_per_speaker, sample_rates)):
             raise ValueError("every speaker needs exactly 3 waveforms and "
                              "3 sample rates (positive, neutral, negative)")
-        return [
-            _FeatureCache.key(
-                ["audio", self.audio_embedder,
-                 str(0 if ordinal_bases is None else ordinal_bases[i]),
-                 str(list(sample_rates[i]))] + list(waveforms_per_speaker[i]))
-            for i in range(len(waveforms_per_speaker))]
+        with profiling.annotate("serve/cache_key"):
+            return [
+                _FeatureCache.key(
+                    ["audio", self.audio_embedder,
+                     str(0 if ordinal_bases is None else ordinal_bases[i]),
+                     str(list(sample_rates[i]))]
+                    + list(waveforms_per_speaker[i]))
+                for i in range(len(waveforms_per_speaker))]
 
     def _audio_feature_rows(self, waveforms_per_speaker, sample_rates,
                             ordinal_bases, keys):
         """Cache-aware extraction -> list of per-speaker [3, D] device
         tensors."""
-        rows: list = [None] * len(keys)
-        todo = []
-        for i, key in enumerate(keys):
-            cached = self.feature_cache.get(key)
-            if cached is not None:
-                rows[i] = cached
-            else:
-                todo.append(i)
-        if todo:
-            flat_w = [w for i in todo for w in waveforms_per_speaker[i]]
-            flat_sr = [sr for i in todo for sr in sample_rates[i]]
-            base = [0 if ordinal_bases is None else ordinal_bases[i]
-                    for i in todo]
-            ordinals = [b + k for b in base for k in range(3)]
-            feats = self._embed_audio(flat_w, flat_sr, ordinals).reshape(
-                len(todo), 3, -1)
-            for row, i in enumerate(todo):
-                rows[i] = feats[row].clone()
-                self.feature_cache.put(keys[i], rows[i])
-        return rows
+        with profiling.annotate("serve/audio", self.device):
+            rows: list = [None] * len(keys)
+            todo = []
+            for i, key in enumerate(keys):
+                cached = self.feature_cache.get(key)
+                if cached is not None:
+                    rows[i] = cached
+                else:
+                    todo.append(i)
+            if todo:
+                flat_w = [w for i in todo for w in waveforms_per_speaker[i]]
+                flat_sr = [sr for i in todo for sr in sample_rates[i]]
+                base = [0 if ordinal_bases is None else ordinal_bases[i]
+                        for i in todo]
+                ordinals = [b + k for b in base for k in range(3)]
+                feats = self._embed_audio(flat_w, flat_sr, ordinals).reshape(
+                    len(todo), 3, -1)
+                for row, i in enumerate(todo):
+                    rows[i] = feats[row].clone()
+                    self.feature_cache.put(keys[i], rows[i])
+            return rows
 
     def text_features(self, texts_per_speaker: Sequence[Sequence[str]]
                       ) -> np.ndarray:
@@ -388,23 +396,26 @@ class Predictor:
             raise ValueError(
                 f"task {self.task!r} needs 3 transcripts per speaker; "
                 "got None (speaker has no transcript files?)")
-        keys = [_FeatureCache.key(["text"] + list(ts))
-                for ts in texts_per_speaker]
-        rows: list = [None] * len(keys)
-        todo = []
-        for i, key in enumerate(keys):
-            cached = self.feature_cache.get(key)
-            if cached is not None:
-                rows[i] = cached
-            else:
-                todo.append(i)
-        if todo:
-            sentences = [text_fe.tokenize(t, segmenter=self.segmenter)
-                         for i in todo for t in texts_per_speaker[i]]
-            flat = self._text_embed(sentences).reshape(len(todo), 3, -1)
-            for row, i in enumerate(todo):
-                rows[i] = flat[row].clone()
-                self.feature_cache.put(keys[i], rows[i])
+        with profiling.annotate("serve/cache_key"):
+            keys = [_FeatureCache.key(["text"] + list(ts))
+                    for ts in texts_per_speaker]
+        with profiling.annotate("serve/text", self.device):
+            rows: list = [None] * len(keys)
+            todo = []
+            for i, key in enumerate(keys):
+                cached = self.feature_cache.get(key)
+                if cached is not None:
+                    rows[i] = cached
+                else:
+                    todo.append(i)
+            if todo:
+                with profiling.annotate("text/segment"):
+                    sentences = [text_fe.tokenize(t, segmenter=self.segmenter)
+                                 for i in todo for t in texts_per_speaker[i]]
+                flat = self._text_embed(sentences).reshape(len(todo), 3, -1)
+                for row, i in enumerate(todo):
+                    rows[i] = flat[row].clone()
+                    self.feature_cache.put(keys[i], rows[i])
         return rows
 
     # -- prediction ---------------------------------------------------------
@@ -423,7 +434,8 @@ class Predictor:
         batch is padded to a power of two."""
         n = (audio_feats if audio_feats is not None else text_feats).shape[0]
         bucket = _pow2(n)
-        with torch.inference_mode():
+        with profiling.annotate("serve/forward", self.device), \
+                torch.inference_mode():
             if self.task.startswith("fuse"):
                 tf, af = self.model.pretrained_feature(
                     self._pad_batch(audio_feats, bucket),
@@ -433,24 +445,29 @@ class Predictor:
                 out = self.model(self._pad_batch(audio_feats, bucket))
             else:
                 out = self.model(self._pad_batch(text_feats, bucket))
-        return out[:n].cpu().numpy()
+        with profiling.annotate("serve/readback", self.device):
+            return out[:n].cpu().numpy()
 
     def predict_batch(self, waveforms_per_speaker=None, sample_rates=None,
                       texts_per_speaker=None, ordinal_bases=None
                       ) -> List[dict]:
         """Raw inputs -> one result dict per speaker: waveforms for the
         audio and fusion tasks, transcripts for the text and fusion
-        tasks."""
+        tasks.  The call is the profiling region ``serve/call``, the root
+        of its ``serve/*`` regions."""
         af = tf = None
-        if not self.task.startswith("text"):
-            keys = self._audio_keys(waveforms_per_speaker, sample_rates,
-                                    ordinal_bases)
-            af = self._stack_rows(self._audio_feature_rows(
-                waveforms_per_speaker, sample_rates, ordinal_bases, keys))
-        if not self.task.startswith("audio"):
-            tf = self._stack_rows(self._text_feature_rows(texts_per_speaker),
-                                  dim=self._text_dim)
-        out = self.predict_features(af, tf)
+        with profiling.annotate("serve/call", self.device):
+            if not self.task.startswith("text"):
+                keys = self._audio_keys(waveforms_per_speaker, sample_rates,
+                                        ordinal_bases)
+                af = self._stack_rows(self._audio_feature_rows(
+                    waveforms_per_speaker, sample_rates, ordinal_bases,
+                    keys))
+            if not self.task.startswith("audio"):
+                tf = self._stack_rows(
+                    self._text_feature_rows(texts_per_speaker),
+                    dim=self._text_dim)
+            out = self.predict_features(af, tf)
         return _format_outputs(out, self.task.endswith("clf"), "sds_score")
 
     def predict_speaker(self, waveforms=None, sample_rates=None,

@@ -63,6 +63,7 @@ from icassp2022_depression_tpu_torch.eval import metrics as M
 from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
 from icassp2022_depression_tpu_torch.parallel import collectives
 from icassp2022_depression_tpu_torch.train import optim
+from icassp2022_depression_tpu_torch.utils import profiling
 
 CLF_LOGS = ("loss", "train_correct", "f1", "accuracy", "precision",
             "recall")
@@ -283,7 +284,10 @@ class FoldRun:
     then put back -- and replays it; otherwise it calls :meth:`epoch`.  A
     failed capture raises: there is no fallback.  The kernels' launch
     counters (:mod:`..ops.rnn_cuda`) count the warm-up's calls, and the
-    captured calls (:attr:`captured`) once per replay.
+    captured calls (:attr:`captured`) once per replay.  The profiling
+    regions ``foldrun/warm_epoch``, ``foldrun/capture``,
+    ``foldrun/replay`` (one a :meth:`run` call) and ``foldrun/readback``
+    (:meth:`results`) lie around the epoch program, never inside it.
 
     ``n_steps`` (default: the last batch with a valid row in any fold) is
     the steps an epoch takes; a fold-parallel rank takes the steps of all
@@ -402,37 +406,40 @@ class FoldRun:
 
     def epoch(self) -> None:
         """One epoch, every result written in place (what the graph
-        captures)."""
-        model, opt = self.model, self.optimizer
-        model.train()
-        losses, preds = [], []
-        for i in range(self.n_steps):
-            opt.zero_grad(set_to_none=True)
-            sub = self._split_key()
-            xs, y, mask, rows = self._batch(i)
-            loss, pred = self.train_loss(xs, y, mask, sub, rows)
+        captures).  Its threefry draws open no profiling region
+        (:func:`..ops.prng.unrecorded`): under a graph they would run
+        once, at capture."""
+        with prng.unrecorded():
+            model, opt = self.model, self.optimizer
+            model.train()
+            losses, preds = [], []
+            for i in range(self.n_steps):
+                opt.zero_grad(set_to_none=True)
+                sub = self._split_key()
+                xs, y, mask, rows = self._batch(i)
+                loss, pred = self.train_loss(xs, y, mask, sub, rows)
+                if self.rows is not None:
+                    loss = loss * self.share.select(-1, i)
+                (loss.sum() if self.folded else loss).backward()
+                if self.rows is not None:
+                    collectives.all_reduce_grads(model.parameters(),
+                                                 self.data_group)
+                if self.folded:
+                    opt.step(self.active[i])
+                else:
+                    opt.step()
+                losses.append(loss.detach())
+                preds.append(pred.detach())
+            for _ in range(self.n_batches - self.n_steps):
+                self._split_key()    # the JAX scan splits on padding batches
+            losses = torch.stack(losses, dim=-1)
+            preds = torch.stack(preds, dim=-3)
             if self.rows is not None:
-                loss = loss * self.share.select(-1, i)
-            (loss.sum() if self.folded else loss).backward()
-            if self.rows is not None:
-                collectives.all_reduce_grads(model.parameters(),
-                                             self.data_group)
-            if self.folded:
-                opt.step(self.active[i])
-            else:
-                opt.step()
-            losses.append(loss.detach())
-            preds.append(pred.detach())
-        for _ in range(self.n_batches - self.n_steps):
-            self._split_key()    # the JAX scan splits on padding batches
-        losses = torch.stack(losses, dim=-1)
-        preds = torch.stack(preds, dim=-3)
-        if self.rows is not None:
-            losses, preds = self._whole(losses, preds)
-        model.eval()
-        with torch.no_grad():
-            test_pred = self.eval_fn(self.data.test_x)
-            self._gate(losses, preds, test_pred)
+                losses, preds = self._whole(losses, preds)
+            model.eval()
+            with torch.no_grad():
+                test_pred = self.eval_fn(self.data.test_x)
+                self._gate(losses, preds, test_pred)
 
     def _gate(self, losses, preds, test_pred) -> None:
         data, gate, best = self.data, self.gate, self.best
@@ -491,25 +498,28 @@ class FoldRun:
         return out
 
     def _capture(self) -> None:
-        state = self.state_tensors()
-        saved = [t.detach().clone() for t in state]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.epoch()                  # warm-up, then undone below
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.no_grad():
-            for t, s in zip(state, saved):
-                t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        before = rnn_cuda.launch_counts()
-        with torch.cuda.graph(graph):
-            self.epoch()
-        # the wrappers counted their calls, but nothing ran: the kernels
-        # launch at each replay, and are counted there
-        after = rnn_cuda.launch_counts()
-        self.captured = {k: after[k] - before[k] for k in after}
-        rnn_cuda.add_launches(self.captured, -1)
+        device = self.data.train_y.device
+        with profiling.annotate("foldrun/warm_epoch", device):
+            state = self.state_tensors()
+            saved = [t.detach().clone() for t in state]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.epoch()              # warm-up, then undone below
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+        with profiling.annotate("foldrun/capture", device):
+            graph = torch.cuda.CUDAGraph()
+            before = rnn_cuda.launch_counts()
+            with torch.cuda.graph(graph):
+                self.epoch()
+            # the wrappers counted their calls, but nothing ran: the
+            # kernels launch at each replay, and are counted there
+            after = rnn_cuda.launch_counts()
+            self.captured = {k: after[k] - before[k] for k in after}
+            rnn_cuda.add_launches(self.captured, -1)
         self._graph = graph
 
     def run(self, n: int) -> None:
@@ -519,15 +529,16 @@ class FoldRun:
             raise ValueError(f"{n} epochs past the fold's {self.n_epochs}")
         if n <= 0:
             return
-        if self.graph:
-            if self._graph is None:
-                self._capture()
-            for _ in range(n):
-                self._graph.replay()
-            rnn_cuda.add_launches(self.captured, n)
-        else:
-            for _ in range(n):
-                self.epoch()
+        if self.graph and self._graph is None:
+            self._capture()
+        with profiling.annotate("foldrun/replay", self.data.train_y.device):
+            if self.graph:
+                for _ in range(n):
+                    self._graph.replay()
+                rnn_cuda.add_launches(self.captured, n)
+            else:
+                for _ in range(n):
+                    self.epoch()
         self.epoch_done += n
 
     def results(self):
@@ -543,7 +554,8 @@ class FoldRun:
         parts = [torch.stack([self.best[k] for k in keys], dim=-1),
                  self.logs.narrow(-2, 0, e).flatten(-2),
                  self.step_losses.narrow(-2, 0, e).flatten(-2)]
-        flat = torch.cat(parts, dim=-1).cpu().numpy()
+        with profiling.annotate("foldrun/readback", self.data.train_y.device):
+            flat = torch.cat(parts, dim=-1).cpu().numpy()
         rows = flat if self.folded else flat[None]
         out = []
         for f, row in enumerate(rows):

@@ -41,6 +41,11 @@ stacked program with its fold axis over the ranks of a
 ``data_parallel`` N more splits each fold's batch over N ranks (JAX
 ``fold_data_mesh``): every rank of the group calls the trainer, and every
 rank gets every fold's results (:mod:`..parallel.distributed`).
+
+A branch trainer's track is the profiling region ``{task}/track``,
+which holds ``{task}/plan`` (the fold datas' build and upload), the
+folds' regions (``{task}/fold{i}``, or ``{task}/folds`` for the stacked
+program) and ``{task}/save`` (the gated checkpoints).
 """
 
 from __future__ import annotations
@@ -346,9 +351,10 @@ def _vmapped_results(tcfg: C.TrainerConfig, fold_datas, seed: int, build,
               + (f" ({torch.distributed.get_backend(group)} data group)"
                  if group is not None else ""),
               file=sys.stderr, flush=True)
-    outs = _execute_fold(run, chunk_epochs,
-                         _resume_path(resume_dir, f"{task_name}_folds"),
-                         mesh)
+    with profiling.annotate(f"{task_name}/folds", device):
+        outs = _execute_fold(run, chunk_epochs,
+                             _resume_path(resume_dir, f"{task_name}_folds"),
+                             mesh)
     if mesh is not None:
         outs = distributed.gather_folds(mesh, [_on_host(o) for o in outs])
         for best, _, _ in outs:
@@ -446,51 +452,64 @@ def _reg_fold_datas(feature_arrays, targets, dep_idxs, non_idxs, batch_size,
 def _clf_branch(task: str, features, targets, train_folds_idx, tcfg,
                 out_dir, seed, fold_cfg, device, init_params_per_fold,
                 meta_extras=None, **run_kw):
-    """A classification branch trainer: folds, training, gated saves."""
+    """A classification branch trainer: folds, training, gated saves,
+    in the profiling region ``{task}/track``."""
     feats = _features(features, device)
-    datas = _clf_fold_datas([feats], np.asarray(targets), train_folds_idx,
-                            tcfg.batch_size, fold_cfg)
-    results = _run_folds(tcfg, datas, seed, init_params_per_fold,
-                         task_name=task, **run_kw)
-    if out_dir is not None:
+    with profiling.annotate(f"{task}/track", feats.device):
+        with profiling.annotate(f"{task}/plan", feats.device):
+            datas = _clf_fold_datas([feats], np.asarray(targets),
+                                    train_folds_idx, tcfg.batch_size,
+                                    fold_cfg)
+        results = _run_folds(tcfg, datas, seed, init_params_per_fold,
+                             task_name=task, **run_kw)
+        if out_dir is None:
+            return results
         m = tcfg.model
-        for r in _gated(results):
-            f1, fold = r["best"]["f1"], r["fold"]
-            name = (checkpoints.audio_clf_name(m.embedding_size,
-                                               m.hidden_dims, f1, fold)
-                    if task == "audio_clf"
-                    else checkpoints.text_clf_name(m.hidden_dims, f1, fold))
-            _save_gated(out_dir, name, r, task, seed, _branch_tree(r, tcfg),
-                        train_idx=train_folds_idx[fold - 1], dump_idx=True,
-                        extras=meta_extras)
+        with profiling.annotate(f"{task}/save"):
+            for r in _gated(results):
+                f1, fold = r["best"]["f1"], r["fold"]
+                name = (checkpoints.audio_clf_name(m.embedding_size,
+                                                   m.hidden_dims, f1, fold)
+                        if task == "audio_clf"
+                        else checkpoints.text_clf_name(m.hidden_dims, f1,
+                                                       fold))
+                _save_gated(out_dir, name, r, task, seed,
+                            _branch_tree(r, tcfg),
+                            train_idx=train_folds_idx[fold - 1],
+                            dump_idx=True, extras=meta_extras)
     return results
 
 
 def _reg_branch(task: str, features, targets, dep_idxs, non_idxs, tcfg,
                 out_dir, seed, fold_cfg, device, init_params_per_fold,
                 meta_extras=None, **run_kw):
-    """A regression branch trainer: folds, training, gated saves."""
+    """A regression branch trainer: folds, training, gated saves, in the
+    profiling region ``{task}/track``."""
     feats = _features(features, device)
-    datas = _reg_fold_datas([feats], np.asarray(targets), dep_idxs,
-                            non_idxs, tcfg.batch_size, fold_cfg)
-    results = _run_folds(tcfg, datas, seed, init_params_per_fold,
-                         task_name=task, **run_kw)
-    if out_dir is not None:
+    with profiling.annotate(f"{task}/track", feats.device):
+        with profiling.annotate(f"{task}/plan", feats.device):
+            datas = _reg_fold_datas([feats], np.asarray(targets), dep_idxs,
+                                    non_idxs, tcfg.batch_size, fold_cfg)
+        results = _run_folds(tcfg, datas, seed, init_params_per_fold,
+                             task_name=task, **run_kw)
+        if out_dir is None:
+            return results
         m = tcfg.model
-        for r in _gated(results):
-            mae = r["best"]["mae"]
-            if task == "audio_reg":
-                name = checkpoints.audio_reg_name(m.embedding_size,
-                                                  m.hidden_dims, mae)
-                sub = f"Audio{r['fold']}"
-            else:
-                name = checkpoints.text_reg_name(m.hidden_dims, mae)
-                sub = f"Text{r['fold']}"
-            _save_gated(Path(out_dir) / sub, name, r, task, seed,
-                        _branch_tree(r, tcfg),
-                        extras={"dep_idxs": _intlist(dep_idxs),
-                                "non_idxs": _intlist(non_idxs),
-                                **(meta_extras or {})})
+        with profiling.annotate(f"{task}/save"):
+            for r in _gated(results):
+                mae = r["best"]["mae"]
+                if task == "audio_reg":
+                    name = checkpoints.audio_reg_name(m.embedding_size,
+                                                      m.hidden_dims, mae)
+                    sub = f"Audio{r['fold']}"
+                else:
+                    name = checkpoints.text_reg_name(m.hidden_dims, mae)
+                    sub = f"Text{r['fold']}"
+                _save_gated(Path(out_dir) / sub, name, r, task, seed,
+                            _branch_tree(r, tcfg),
+                            extras={"dep_idxs": _intlist(dep_idxs),
+                                    "non_idxs": _intlist(non_idxs),
+                                    **(meta_extras or {})})
     return results
 
 
