@@ -23,6 +23,7 @@ biLM) on one card, at full width.
     python3 chip_smoke.py --only vggish  # phase 11 alone, no ok line
     python3 chip_smoke.py --only parallel  # phase 12 alone, no ok line
     python3 chip_smoke.py --only operations  # phase 13 alone, no ok line
+    python3 chip_smoke.py --only threefry  # phase 14 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -47,16 +48,17 @@ seeded DAIC checkpoint.  ``--only vggish`` builds the GRU sources and the
 LSTMP forward and runs phase 11 on a corpus, a seeded bundle and DAIC
 features of its own.  ``--only parallel`` builds the GRU and LSTM sources
 and the LSTMP forward and runs phase 12 on a corpus and a seeded bundle
-of its own.  ``--only operations`` builds the six sources and runs phase
-13 on a corpus and a seeded bundle of its own.
+of its own.  ``--only operations`` builds the seven sources and runs phase
+13 on a corpus and a seeded bundle of its own.  ``--only threefry`` builds
+the threefry source and runs phase 14 (about half a minute).
 
 Phases (each raises on failure, so the exit code is nonzero):
 
 1. setup: require CUDA, print the card's name and power limit, turn TF32
-   off, build the six kernels from ``icassp2022_depression_tpu_torch/csrc``
-   (GRU, LSTM and LSTMP, forward and backward) with ``nvcc``, one compiler
-   process per source, started together, and print the build time and the
-   compiler's reports;
+   off, build the seven sources of ``icassp2022_depression_tpu_torch/csrc``
+   (GRU, LSTM and LSTMP, forward and backward, and threefry) with
+   ``nvcc``, one compiler process per source, started together, and print
+   the build time and the compiler's reports;
 2. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes of the paths below, a ragged shape and one the JAX package would
    stream ((256, 16, H)): outputs and dxp within 1e-5, dw and db within
@@ -277,8 +279,8 @@ Phases (each raises on failure, so the exit code is nonzero):
    ``card`` and ``link`` readings printed with the card's name and power
    limit; (b) ``cli warmup --tracks clf --vmap-folds`` (24 + 12
    speakers, the bundle) with ``ICASSP_TPU_TORCH_BUILD_DIR`` an empty
-   temp dir: it builds the 6 sources and reuses none, then a second run
-   (``--skip-train``) builds none and reuses 6; the cold and warm
+   temp dir: it builds the 7 sources and reuses none, then a second run
+   (``--skip-train``) builds none and reuses 7; the cold and warm
    ``kernel_builds`` seconds; each run's launches exact (counted); (c) a
    released-layout zhs model directory at the zhs geometry written from a
    seed (upstream key names and lexicons, the word branch) through the
@@ -295,6 +297,30 @@ Phases (each raises on failure, so the exit code is nonzero):
    profiler region (offsets printed; profiled up to three times, since a
    short trace now and then comes back with no device events), and a
    region's host cost with the profiler off and on.
+14. threefry, first in a whole run: the threefry kernel
+   (``csrc/threefry.cu``) against the plain route (``ops/prng.py``'s
+   ``*_torch``, run on the card) bitwise at the main paths' shapes
+   (``fold_in`` of 8 and 96 ordinals, ``split(4)`` and ``split2`` of [3,
+   2] keys, one wav2vlad bucket's NetVLAD weights at 8 and 32 rows, the
+   audio train step's dropout masks at [3, 8, 256] and with ``rows``, bits
+   with ``rows``, a uniform over more than ``_BITS_CHUNK`` values with a
+   span that is not a power of two), each with its exact launches (one a
+   draw, including the ``threefry`` counter, none on the plain route),
+   then each timed with CUDA events beside the plain route and its bound
+   (52 INT32-pipe instructions a cipher evaluation, from the kernel's
+   SASS, over 132 x 64 x 1.98 GHz, or
+   the bytes written over 3.35 TB/s), and the kernel's device time where
+   a draw is large enough to show it (``torch.profiler``).
+
+Phases 2-13 zero the ``threefry`` counter with the others before each
+counted run and read it after, as a main path's draws: exact in each
+``predict_batch`` (6 a wav2vlad bucket: a ``fold_in``, a ``split`` and four
+``normal`` of NetVLAD weights, none for text) and in a replayed epoch
+(the captured draws; the profiler's count of their kernels is printed
+beside them), counted and not held where a run draws keys, weights and masks that no phase works
+out (model set-up, training, extraction).  The kernels line's
+``launches`` of ``threefry`` are the main paths' sum, as for the other
+kernels: phase 14's own calls and the comparisons are not in it.
 
 The line before the last is a JSON object describing each kernel (#3's
 timed at its DAIC shape); the last line is ``{"ok": true, "device":
@@ -376,6 +402,15 @@ LSTM_BWD_PROFILED = ((256, 16, 128),)
 #: cores, HBM3), for each kernel's bound
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+#: the INT32 pipe's instructions a second (132 SMs x 64 lanes x 1.98 GHz)
+#: and a threefry2x32 evaluation's instructions on it, read off the built
+#: kernel's SASS (``cuobjdump -sass``, CUDA 12.8): ``threefry_kernel``'s
+#: uniform body, 4 evaluations a thread, holds 85 LOP3, 80 SHF.L.W and 42
+#: IADD3 (51.75 an evaluation; the bits' body 52.5, the masks' 52.9), and
+#: 69 IMAD.IADD that nvcc puts on the FMA pipe, which is not the one that
+#: binds; the kernel's bound
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+THREEFRY_OPS = 52
 TRAIN_TOL = 1e-5
 COMPARE_EPOCHS = 5
 #: epochs of the runs cut to keep the script short (cli train --corpus and
@@ -582,7 +617,7 @@ def slice_phase(torch, card: str):
               f"{time.perf_counter() - t0:.2f} s")
 
         # -- the main path, counted ------------------------------------
-        rnn_cuda.LAUNCHES = 0
+        _set_counts(rnn_cuda, ZERO)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["predict", "--task", "audio_clf", "--ckpt",
@@ -617,7 +652,7 @@ def slice_phase(torch, card: str):
                      "times, expected 2")
             check_results(outputs[n], n, f"predict_batch({n})")
             requests[n] = req
-        launches = rnn_cuda.LAUNCHES
+        launches = _counts(rnn_cuda)
 
         # -- comparison runs (not counted) -----------------------------
         plain = Predictor.from_checkpoint(
@@ -638,7 +673,7 @@ def slice_phase(torch, card: str):
         d_cpu = compare([cli_out], [ref_cpu], "cli predict vs CPU run")
         print(f"cli predict vs the same predictor on the CPU: max|dprob| = "
               f"{d_cpu:.3e} (tol {SLICE_TOL})")
-        if rnn_cuda.LAUNCHES != launches:
+        if rnn_cuda.LAUNCHES != launches["gru_fwd"]:
             fail("a comparison run launched the CUDA kernel")
 
         # -- warm serving latency ----------------------------------------
@@ -1381,25 +1416,70 @@ def kernel_bounds() -> dict:
             "lstmp_fwd": lstmp["fwd"], "lstmp_bwd": lstmp["bwd"]}
 
 
-#: the wrappers' launch counters: one a source, and the backwards' calls
-#: at the shapes the JAX package streams (TPU kernels #3 and #5)
-COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
-            "lstm_fwd": "LSTM_LAUNCHES", "lstm_bwd": "LSTM_BWD_LAUNCHES",
-            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES",
-            "gru_bwd_streamed": "GRU_BWD_STREAMED_LAUNCHES",
-            "lstm_bwd_streamed": "LSTM_BWD_STREAMED_LAUNCHES"}
+#: the wrappers' launch counters (``rnn_cuda.launch_counts()``): one a
+#: recurrence source, the backwards' calls at the shapes the JAX package
+#: streams (TPU kernels #3 and #5), and the threefry draws'
+COUNTERS = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "lstmp_fwd",
+            "lstmp_bwd", "gru_bwd_streamed", "lstm_bwd_streamed",
+            "threefry")
 
 
 def _counts(rnn_cuda) -> dict:
-    return {k: getattr(rnn_cuda, v) for k, v in COUNTERS.items()}
+    return rnn_cuda.launch_counts()
 
 
 def _set_counts(rnn_cuda, counts: dict) -> None:
-    for k, v in COUNTERS.items():
-        setattr(rnn_cuda, v, counts[k])
+    now = rnn_cuda.launch_counts()
+    rnn_cuda.add_launches({k: v - now[k] for k, v in counts.items()})
 
 
-ZERO = {k: 0 for k in COUNTERS}
+#: every counter at 0: where a counted run starts, and a phase's sum
+ZERO = dict.fromkeys(COUNTERS, 0)
+
+
+class _Unheld:
+    """A run's expected threefry launches where its draws are counted but
+    not held: model set-up, training and extraction draw a number of keys,
+    weights and masks that no phase works out.  Sums and multiples of it
+    stay unheld."""
+
+    def __add__(self, other):
+        return self
+
+    __radd__ = __mul__ = __rmul__ = __add__
+
+    def __repr__(self) -> str:
+        return "counted"
+
+
+UNHELD = _Unheld()
+#: a run's expected launches, its draws counted but not held; a run whose
+#: draws are known (``predict_batch``, a replayed epoch, phase 14) gives
+#: ``threefry`` their number
+DRAWN = dict(ZERO, threefry=UNHELD)
+
+
+def _held(got: dict, want: dict) -> bool:
+    """Whether a run's launches are ``want``: every counter exactly, but
+    an unheld one."""
+    return got.keys() == want.keys() and all(
+        v is UNHELD or got[k] == v for k, v in want.items())
+
+
+def wav2vlad_draws(waveforms, sample_rates) -> int:
+    """The threefry launches of ``extract_batch`` over speakers' answers
+    (None: no audio): 6 a bucket (its NetVLAD weights: a ``fold_in``, a
+    ``split`` and four ``normal``), a bucket a padded length and sample
+    rate."""
+    from icassp2022_depression_tpu_torch.config import FrontendConfig
+    from icassp2022_depression_tpu_torch.frontend import audio as afe
+
+    if waveforms is None:
+        return 0
+    tail = FrontendConfig().n_fft // 2
+    return 6 * len({(afe._bucket_length(len(w) + tail), sr)
+                    for ws, srs in zip(waveforms, sample_rates)
+                    for w, sr in zip(ws, srs)})
 
 
 def warmed(epochs: list) -> tuple:
@@ -1422,10 +1502,10 @@ def expected_launches(task: str, steps: int, evals: int, folds: int) -> dict:
     per step and once per fold (the test split's features), and no
     backward kernel launches."""
     if task.startswith("audio"):
-        return dict(ZERO, gru_fwd=2 * (steps + evals), gru_bwd=2 * steps)
+        return dict(DRAWN, gru_fwd=2 * (steps + evals), gru_bwd=2 * steps)
     if task.startswith("text"):
-        return dict(ZERO, lstm_fwd=4 * (steps + evals), lstm_bwd=4 * steps)
-    return dict(ZERO, gru_fwd=2 * (steps + folds),
+        return dict(DRAWN, lstm_fwd=4 * (steps + evals), lstm_bwd=4 * steps)
+    return dict(DRAWN, gru_fwd=2 * (steps + folds),
                 lstm_fwd=4 * (steps + folds))
 
 
@@ -1434,7 +1514,7 @@ def _check_launches(task: str, got: dict, steps: int, evals: int,
     want = expected_launches(task, steps, evals, folds)
     print(f"{task}: {steps} optimizer steps, {evals} evals, {folds} folds; "
           f"kernel launches {got}")
-    if got != want:
+    if not _held(got, want):
         fail(f"{task} launched {got}, expected {want}")
 
 
@@ -1578,9 +1658,10 @@ def pipeline_run(torch, root: Path, track: str, card: str, embedder: str,
                  else f", their sidecars name {embedder}")
         print(f"  {task}: {len(gated)} of 3 folds gated, their artifacts "
               f"written{named}; wall {stages[task][0]:.2f} s [{card}]")
-    outside = dict(ZERO, **(outside or {}))
-    if total != {k: outside[k] + sum(st[1][k] for st in stages.values())
-                 for k in total}:
+    outside = dict(DRAWN, **(outside or {}))
+    if not _held(total, {k: outside[k] + sum(st[1][k]
+                                             for st in stages.values())
+                         for k in total}):
         fail(f"launches outside the trainers: {total}, stages {stages}, "
              f"expected {outside} outside")
     print(f"cli pipeline --track {track}: wall {wall:.2f} s, launches "
@@ -1755,10 +1836,12 @@ def _plain(tcfg, C):
 
 
 def _no_kernel(rnn_cuda, fn):
-    """``fn()``, failing if it launched any kernel."""
+    """``fn()``, failing if it launched any recurrence kernel (its
+    dropout masks are threefry draws, as on every route)."""
     before = _counts(rnn_cuda)
     out = fn()
-    if _counts(rnn_cuda) != before:
+    after = _counts(rnn_cuda)
+    if any(after[k] != before[k] for k in after if k != "threefry"):
         fail("the plain recurrence launched a kernel")
     return out
 
@@ -1831,11 +1914,11 @@ def extract_text_run(torch, card: str, corpus: Path, out: Path,
     got = _counts(rnn_cuda)
     if rc != 0:
         fail(f"cli extract-text returned {rc}")
-    want = dict(ZERO, lstmp_fwd=4 * n_batches)
+    want = dict(DRAWN, lstmp_fwd=4 * n_batches)
     print(f"cli extract-text: {buf.getvalue().strip()}; {3 * len(texts)} "
           f"answers in {n_batches} batch(es), kernel launches {got}; wall "
           f"{wall:.2f} s [{card}]")
-    if got != want:
+    if not _held(got, want):
         fail(f"cli extract-text launched {got}, expected {want}")
     feats = np.load(out / "whole_samples_clf_avg.npz")["arr_0"]
     if feats.shape != (len(texts), 3, 1024) or not np.isfinite(feats).all():
@@ -2075,7 +2158,8 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
     Counted: ``cli predict`` of one speaker per task, then
     ``Predictor.predict_batch`` (``fuse_clf``) at 1 and 8 speakers with
     seeded transcripts, each with exact launches (4 ``lstmp_fwd`` per
-    sentence batch, the fusion's 4 LSTM and 2 GRU forwards, no backward).
+    sentence batch, the fusion's 4 LSTM and 2 GRU forwards, no backward;
+    ``predict_batch``'s threefry draws, 6 a wav2vlad bucket).
     Not counted: the same ``cli predict`` and the 8 speakers'
     ``predict_batch`` and text features on the CPU, which must agree, and
     the warm latencies.  Returns the launches and the latencies."""
@@ -2095,9 +2179,9 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
     from icassp2022_depression_tpu_torch.train import checkpoints
 
     launches = dict(ZERO)
-    per_request = {"fuse_clf": dict(ZERO, lstmp_fwd=4, lstm_fwd=4,
+    per_request = {"fuse_clf": dict(DRAWN, lstmp_fwd=4, lstm_fwd=4,
                                     gru_fwd=2),
-                   "text_clf": dict(ZERO, lstmp_fwd=4, lstm_fwd=4)}
+                   "text_clf": dict(DRAWN, lstmp_fwd=4, lstm_fwd=4)}
     before_env = os.environ.get("ICASSP_ELMO_WEIGHTS")
     os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
     try:
@@ -2134,7 +2218,7 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
                 out = json.loads(buf.getvalue().strip().splitlines()[-1])
                 print(f"cli predict --task {task} Data/1: {json.dumps(out)} "
                       f"(kernel launches {got})")
-                if got != per_request[task]:
+                if not _held(got, per_request[task]):
                     fail(f"cli predict --task {task} launched {got}, "
                          f"expected {per_request[task]}")
                 check_results([out], 1, f"cli predict {task}")
@@ -2169,10 +2253,13 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
                 res = predictor.predict_batch(*req)
                 torch.cuda.synchronize()
                 got = _counts(rnn_cuda)
+                want = dict(per_request["fuse_clf"],
+                            threefry=wav2vlad_draws(*req[:2]))
                 print(f"predict_batch fuse_clf {n} speakers: kernel launches "
                       f"{got}")
-                if got != per_request["fuse_clf"]:
-                    fail(f"predict_batch({n}) fuse_clf launched {got}")
+                if not _held(got, want):
+                    fail(f"predict_batch({n}) fuse_clf launched {got}, "
+                         f"expected {want}")
                 check_results(res, n, f"predict_batch fuse_clf ({n})")
                 served[n] = (req, res)
                 for k, v in got.items():
@@ -2228,7 +2315,9 @@ def standin_serving_phase(torch, card: str) -> tuple:
     ``Predictor.predict_batch`` at 1 and 8 speakers with seeded
     transcripts, each with exact launches (the stand-in's 2 layers x 2
     directions of ``lstm_fwd`` and the text model's 4, the fusion's 2 GRU
-    forwards, no backward).  Not counted: the warm latencies, and the 8
+    forwards, no backward, the fusion's threefry draws 6 a wav2vlad
+    bucket and the text model's none).  Not counted: the warm latencies,
+    and the 8
     speakers' ``text_clf`` results and text features against the same
     predictor on the CPU.  Returns the launches and the latencies."""
     import numpy as np
@@ -2284,11 +2373,13 @@ def standin_serving_phase(torch, card: str) -> tuple:
                 res = predictor.predict_batch(*req)
                 torch.cuda.synchronize()
                 got = _counts(rnn_cuda)
+                want = dict(per_request[task],
+                            threefry=wav2vlad_draws(*req[:2]))
                 print(f"predict_batch {task} {n} speakers (stand-in "
                       f"encoder): kernel launches {got}")
-                if got != per_request[task]:
+                if not _held(got, want):
                     fail(f"predict_batch({n}) {task} with the stand-in "
-                         f"launched {got}, expected {per_request[task]}")
+                         f"launched {got}, expected {want}")
                 check_results(res, n, f"predict_batch {task} stand-in ({n})")
                 for k, v in got.items():
                     launches[k] += v
@@ -2368,8 +2459,9 @@ class RefFusionReg(torch.nn.Module):
 
 
 #: kernel launches of one check fold's forward, by branch
-CHECK_FOLD = {"audio": dict(ZERO, gru_fwd=2), "text": dict(ZERO, lstm_fwd=4),
-              "fuse": dict(ZERO, lstm_fwd=4, gru_fwd=2)}
+CHECK_FOLD = {"audio": dict(DRAWN, gru_fwd=2),
+              "text": dict(DRAWN, lstm_fwd=4),
+              "fuse": dict(DRAWN, lstm_fwd=4, gru_fwd=2)}
 
 
 def check_launches(task: str, n_answers: int = 0) -> dict:
@@ -2457,7 +2549,7 @@ class _Counted:
         got = _counts(self.rnn_cuda)
         if rc != 0:
             fail(f"{what} returned {rc}")
-        if got != want:
+        if not _held(got, want):
             fail(f"{what} launched {got}, expected {want}")
         for k, v in got.items():
             self.launches[k] += v
@@ -2513,7 +2605,7 @@ def extract_audio_checks(counted, card: str, corpus: Path, work: Path):
 
     audio_dir = work / "features" / "Features" / "AudioWhole"
     lines, wall = counted(["extract-audio", "--root", corpus, "--out",
-                           audio_dir], ZERO, "cli extract-audio")
+                           audio_dir], DRAWN, "cli extract-audio")
     print(f"cli extract-audio: {lines[-1]}; wall {wall:.2f} s [{card}]")
     xa = np.load(audio_dir / "whole_samples_clf_256.npz")["arr_0"][:, :, 0]
     fused, sds, clf = afe.extract_eatd_device(corpus, device="cuda")
@@ -2668,7 +2760,7 @@ def pt_round_trip(torch, counted, corpus: Path, work: Path,
     for task, ref in refs.items():
         exported = pt / f"{task}_export.pt"
         lines, _ = counted(["export-pt", "--task", task, "--ckpt",
-                            ckpts[task][0], "--out", exported], ZERO,
+                            ckpts[task][0], "--out", exported], DRAWN,
                            f"cli export-pt --task {task}")
         print(f"cli export-pt --task {task}: {lines[-1]}")
         ref.load_state_dict(torch.load(exported, weights_only=True),
@@ -2726,7 +2818,7 @@ def eatd_size_timing(torch, rnn_cuda, counted, card: str, bundle: Path,
     eatd.make_synthetic_corpus(big, n_data=83, n_validation=79,
                                seconds=(2.0, 12.0), seed=5)
     make_s = time.perf_counter() - t0
-    _, extract_s = counted(["extract-audio", "--root", big], ZERO,
+    _, extract_s = counted(["extract-audio", "--root", big], DRAWN,
                            "cli extract-audio (83 + 79)")
     audio = big / "Features" / "AudioWhole"
     m = json.loads((audio / "manifest.json").read_text())
@@ -3039,11 +3131,17 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
                          for k in before}
                 seen = _kernel_calls(prof.events(), 3)
                 want = {k: fr.captured.get(k, 0) for k in seen}
+                # a reading, not held: late in a whole run the trace has
+                # shown 2-3 threefry kernels fewer than the capture counted,
+                # where a fresh process's trace of the same fold shows all
+                traced = sum("threefry_kernel" in e.name
+                             for e in prof.events())
                 kinds, busy = _busy_split(prof)
                 span = ev[0].elapsed_time(ev[1]) * 1e3
                 print(f"{name}: one replayed epoch launched {seen} kernel "
                       f"calls by the profiler's kernel names; captured "
-                      f"{fr.captured}; counters moved {moved}")
+                      f"{fr.captured}; counters moved {moved}; threefry "
+                      f"kernels in the trace {traced}")
                 print(f"{name}: a replayed epoch, some kernel running "
                       f"{busy:.1f} us of a {span:.1f} us span (CUDA "
                       f"events; idle {1 - busy / span:.3f}); kernel time "
@@ -3281,7 +3379,7 @@ def daic_train_launches(rnn_cuda, n_train: int, max_r: int,
     steps = -(-n_train // batch) * epochs
     bwd = ("gru_bwd_streamed" if rnn_cuda.streamed(max_r, batch, 256, 3)
            else "gru_bwd")
-    return dict(ZERO, gru_fwd=2 * (steps + epochs), **{bwd: 2 * steps})
+    return dict(DRAWN, gru_fwd=2 * (steps + epochs), **{bwd: 2 * steps})
 
 
 def daic_kernel_checks(torch, rnn_cuda, card: str, max_r: int,
@@ -3452,7 +3550,7 @@ def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
     for split in ("train", "dev"):
         _, stage_s[f"extract-daic {split}"] = counted(
             ["extract-daic", *data, "--split-csv", csv[split], "--out",
-             feats, "--split-name", split], dict(ZERO),
+             feats, "--split-name", split], DRAWN,
             f"cli extract-daic {split}")
     xtr, ytr = daic_fe.load_features(feats, "train", "clf")
     xte, yte = daic_fe.load_features(feats, "dev", "clf")
@@ -3470,7 +3568,7 @@ def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
         ["extract-daic", *data, "--split-csv", csv["dev"], "--out", mm,
          "--split-name", "dev", "--multimodal", "--elmo-weights", bundle,
          "--segmenter", "fallback"],
-        dict(ZERO, lstmp_fwd=4 * -(-n_dev // 128)),
+        dict(DRAWN, lstmp_fwd=4 * -(-n_dev // 128)),
         "cli extract-daic --multimodal")
     meta = json.loads((mm / "extraction_meta.json").read_text())
     _, tt, _ = daic_fe.load_features(mm, "dev", "clf", True)
@@ -3530,7 +3628,7 @@ def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
                    else ["--features", feats, "--eval-split", "dev"])
             lines, wall = counted(["check-daic", "--track", track, *src,
                                    "--ckpt", ckpts[name]],
-                                  dict(ZERO, gru_fwd=2),
+                                  dict(DRAWN, gru_fwd=2),
                                   f"cli check-daic {name}")
             printed = json.loads(lines[-1])
             recorded = checkpoints.load_meta(ckpts[name])
@@ -3561,7 +3659,7 @@ def daic_phase(torch, card: str, bundle: Path, work: Path) -> dict:
     start = sum(counts[p] for p in dev_ids[:idx])
     argv = ["predict-daic", "--task", "daic_clf", *data, "--ckpt",
             ckpts["clf"], "--participant", pid, "--start-ordinal", start]
-    lines, wall = counted(argv, dict(ZERO, gru_fwd=2), "cli predict-daic")
+    lines, wall = counted(argv, dict(DRAWN, gru_fwd=2), "cli predict-daic")
     on_card = json.loads(lines[-1])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -3788,7 +3886,7 @@ def _serve_one(torch, rnn_cuda, transport, card: str, task: str, predictor,
         got = _counts(rnn_cuda)
         health = json.loads(_http(port, "GET", "/healthz")[1])
     want = {k: v * calls.n for k, v in per_call.items()}
-    if got != dict(ZERO, **want):
+    if not _held(got, dict(DRAWN, **want)):
         fail(f"serve {task}: {calls.n} device batches launched {got}, "
              f"expected {want}")
     worst = 0.0
@@ -4115,7 +4213,7 @@ def vggish_cli_checks(torch, counted, card: str, work: Path, on_cpu):
                         ("netvlad again", []),
                         ("vggish again", ["--embedder", "vggish"])):
         lines, walls[name] = counted(
-            ["extract-audio", "--root", big, *extra], ZERO,
+            ["extract-audio", "--root", big, *extra], DRAWN,
             f"cli extract-audio {name} ({n_spk} speakers)")
     print(f"timing cli extract-audio at {n_spk} speakers ({3 * n_spk} "
           f"answers of 2-12 s; corpus written in {make_s:.2f} s), in turns: "
@@ -4196,7 +4294,7 @@ def vggish_cli_checks(torch, counted, card: str, work: Path, on_cpu):
     lines, wall = counted(
         ["predict", "--task", "audio_clf", "--ckpt", ckpt, "--root", big,
          "--speaker", f"{sp.split}/{sp.number}", "--audio-embedder",
-         "vggish"], dict(ZERO, gru_fwd=2), "cli predict --audio-embedder "
+         "vggish"], dict(DRAWN, gru_fwd=2), "cli predict --audio-embedder "
         "vggish")
     on_card = json.loads(lines[-1])
     cfg128 = C.replace(C.AUDIO_CLF.model, embedding_size=128)
@@ -4257,7 +4355,7 @@ def cross_corpus_checks(torch, rnn_cuda, card: str, daic_features: Path):
         on_card = fn(model, feats, labels, cfg, device="cuda")
         wall = time.perf_counter() - t0
         got = _counts(rnn_cuda)
-        if got != dict(ZERO, gru_fwd=2):
+        if not _held(got, dict(DRAWN, gru_fwd=2)):
             fail(f"{name} launched {got}, expected 2 gru_fwd")
         for k, v in got.items():
             launches[k] += v
@@ -4333,10 +4431,10 @@ def stateful_text_checks(torch, counted, card: str, corpus: Path,
     n_batches = -(-3 * len(texts) // 128)
     outs, walls = {}, {}
     for name, flag, want in (
-            ("stateless", [], dict(ZERO, lstmp_fwd=4 * n_batches)),
-            ("stateful", ["--elmo-stateful"], ZERO),
-            ("stateless again", [], dict(ZERO, lstmp_fwd=4 * n_batches)),
-            ("stateful again", ["--elmo-stateful"], ZERO)):
+            ("stateless", [], dict(DRAWN, lstmp_fwd=4 * n_batches)),
+            ("stateful", ["--elmo-stateful"], DRAWN),
+            ("stateless again", [], dict(DRAWN, lstmp_fwd=4 * n_batches)),
+            ("stateful again", ["--elmo-stateful"], DRAWN)):
         outs[name] = work / f"text {name}"
         _, walls[name] = counted(
             ["extract-text", "--root", corpus, "--out", outs[name],
@@ -4475,7 +4573,8 @@ def _rank_launches(what: str, got: list, want: dict) -> dict:
     """Each rank's kernel launches must be ``want``; returns their sum."""
     total = dict(ZERO)
     for r, counts in enumerate(got):
-        if counts != want:
+        counts = {k: counts[k] for k in ZERO}
+        if not _held(counts, want):
             fail(f"{what}: rank {r} launched {counts}, expected {want}")
         for k, v in counts.items():
             total[k] += v
@@ -4600,8 +4699,8 @@ def dp_tp_checks(torch, rnn_cuda, card: str, call: tuple,
     ref = dryrun.dp_tp_fusion_step_reference(
         *args, key_seed=kwargs["key_seed"], device="cuda")
     launches = _counts(rnn_cuda)
-    want = dict(ZERO, gru_fwd=fcfg.rnn_layers, lstm_fwd=2 * fcfg.rnn_layers)
-    if launches != want:
+    want = dict(DRAWN, gru_fwd=fcfg.rnn_layers, lstm_fwd=2 * fcfg.rnn_layers)
+    if not _held(launches, want):
         fail(f"the one-process DP x TP reference launched {launches}, "
              f"expected {want}")
     print(f"(c) the one-process reference step launched exactly {want}")
@@ -4737,7 +4836,8 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
                 fail(f"fold-parallel {name} differs from --vmap-folds")
     add(_rank_launches("(b) fold-parallel audio_clf + text_clf",
                        [c for _, c in ranks],
-                       {k: vm_audio[k] + vm_text[k] for k in ZERO}))
+                       dict({k: vm_audio[k] + vm_text[k] for k in ZERO},
+                            threefry=UNHELD)))
 
     # (c) fold x data parallelism: 6 Gloo ranks, eager; then, on the same
     # ranks, the clf fusion's DP x TP step
@@ -4762,8 +4862,8 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
     e = PARALLEL_EPOCHS
     add(_rank_launches("(c) fold x DP audio_clf + text_clf and the DP x TP "
                        "step (0 of its own)", [c for _, c in ranks],
-                       {k: (vm_audio[k] + vm_text[k]) * e // (e + 1)
-                        for k in ZERO}))
+                       dict({k: (vm_audio[k] + vm_text[k]) * e // (e + 1)
+                             for k in ZERO}, threefry=UNHELD)))
     add(dp_tp_checks(torch, rnn_cuda, card, fusion,
                      [value[2] for value, _ in ranks]))
 
@@ -4820,7 +4920,7 @@ def parallel_phase(torch, card: str, corpus: Path, bundle: Path,
     # per rank: the DP step's GRU forward and backward (2 layers), and no
     # LSTMP kernel: the TP biLM is a step loop of sharded matmuls
     add(_rank_launches("(d) + (e)", [c for _, c in ranks],
-                       dict(ZERO, gru_fwd=2, gru_bwd=2)))
+                       dict(DRAWN, gru_fwd=2, gru_bwd=2)))
 
     # (f) the CLI never puts two ranks on one card
     have = torch.cuda.device_count()
@@ -4935,7 +5035,7 @@ def warmup_runs(torch, card: str, bundle: Path, work: Path) -> dict:
             # the text stage: 4 lstmp_fwd a batch of 128 sentences (108
             # here: one) a token bucket; the train stage extracts the
             # corpus's 108 answers once more through the bundle
-            want = dict(ZERO, lstmp_fwd=4 * len(
+            want = dict(DRAWN, lstmp_fwd=4 * len(
                 stages["text_chunks"]["token_buckets"]))
             if "train_programs" in stages:
                 want["lstmp_fwd"] += 4
@@ -4948,7 +5048,7 @@ def warmup_runs(torch, card: str, bundle: Path, work: Path) -> dict:
             print(f"cli warmup {' '.join(run_argv[1:])}: "
                   + "; ".join(json.dumps(ln) for ln in lines)
                   + f"; wall {wall:.2f} s; kernel launches {got} [{card}]")
-            if got != want:
+            if not _held(got, want):
                 fail(f"cli warmup launched {got}, expected {want}")
             _add(launches, got)
     finally:
@@ -4957,22 +5057,24 @@ def warmup_runs(torch, card: str, bundle: Path, work: Path) -> dict:
         else:
             os.environ["ICASSP_TPU_TORCH_BUILD_DIR"] = before
     (cold, cold_wall, _), (warm, warm_wall, _) = runs
-    for stages, n_built in ((cold, 6), (warm, 0)):
+    n_sources = len(_build.SOURCES)
+    for stages, n_built in ((cold, n_sources), (warm, 0)):
         kb = stages["kernel_builds"]
         if (len(kb["built"]) != n_built
-                or len(kb["reused"]) != 6 - n_built
+                or len(kb["reused"]) != n_sources - n_built
                 or sorted(kb["built"] + kb["reused"])
                 != sorted(_build.SOURCES) or kb["dir"] != str(build_dir)):
             fail(f"cli warmup's kernel_builds {kb}: expected {n_built} "
-                 f"built and {6 - n_built} reused in {build_dir}")
+                 f"built and {n_sources - n_built} reused in {build_dir}")
         if stages.get("done") is None:
             fail(f"cli warmup printed no done line: {stages}")
     if "train_programs" not in cold or "jax" in sys.modules:
         fail("cli warmup ran no train stage, or imported jax")
     print(f"timing cli warmup kernel_builds: cold "
-          f"{cold['kernel_builds']['seconds']} s (6 sources built in "
-          f"parallel), warm "
-          f"{warm['kernel_builds']['seconds']} s (6 reused); run walls "
+          f"{cold['kernel_builds']['seconds']} s ({n_sources} sources built "
+          f"in parallel), warm "
+          f"{warm['kernel_builds']['seconds']} s ({n_sources} reused); run "
+          f"walls "
           f"{cold_wall:.2f} s (clf --vmap-folds, 24 + 12 speakers), "
           f"{warm_wall:.2f} s (--skip-train) [{card}]")
     return {"launches": launches, "cold_s": cold["kernel_builds"]["seconds"],
@@ -5133,7 +5235,7 @@ def converter_checks(torch, card: str, corpus: Path, work: Path) -> dict:
               f"{got} [{card}]")
         if device == "cuda":
             # the two sentences are one batch: 4 LSTMP forwards
-            if got != dict(ZERO, lstmp_fwd=4):
+            if not _held(got, dict(DRAWN, lstmp_fwd=4)):
                 fail(f"convert_elmo_zhs --check launched {got}")
             _add(launches, got)
     lcfg = elmo.ElmoLstmpConfig()
@@ -5171,7 +5273,7 @@ def converter_checks(torch, card: str, corpus: Path, work: Path) -> dict:
         got = _counts(rnn_cuda)
         if device == "cuda":
             torch.cuda.synchronize()
-            if got != dict(ZERO, lstmp_fwd=4, lstm_fwd=4):
+            if not _held(got, dict(DRAWN, lstmp_fwd=4, lstm_fwd=4)):
                 fail(f"text_clf from the converted bundle launched {got}")
             _add(launches, got)
     check_results(results["cuda"], len(texts), "text_clf from the bundle")
@@ -5384,13 +5486,165 @@ def operations_phase(torch, card: str, corpus: Path, bundle: Path,
     return {"launches": launches, "doctor": rep, "warmup": warm}
 
 
+@contextlib.contextmanager
+def _plain_draws(prng):
+    """The public threefry draws swapped for their plain versions (on any
+    device) inside: the callers (``netvlad``, ``dropout``) as they are,
+    the draws through ``ops/prng.py``'s ``*_torch``."""
+    names = ("fold_in", "split", "random_bits", "uniform", "normal",
+             "bernoulli")
+    saved = {n: getattr(prng, n) for n in names}
+    for n in names:
+        setattr(prng, n, getattr(prng, f"{n}_torch"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(prng, n, fn)
+
+
+def _equal_tree(torch, got, want) -> bool:
+    """Every tensor of two results (a tensor, a dict or a tuple of them)
+    bitwise equal, dtype and shape included."""
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(
+            _equal_tree(torch, got[k], want[k]) for k in got)
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(
+            _equal_tree(torch, a, b) for a, b in zip(got, want))
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got, want))
+
+
+def threefry_bound(evals: int, nbytes: int):
+    """(least ms, "operations" or "bytes") of threefry draws making
+    ``evals`` cipher evaluations and writing ``nbytes``."""
+    t_ops = evals * THREEFRY_OPS / PEAK_INT32_OPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def threefry_phase(torch, card: str) -> dict:
+    """Phase 14: the threefry kernel (``csrc/threefry.cu``) against the
+    plain route (``ops/prng.py``'s ``*_torch``) run on the card, bitwise
+    (keys, bits, uniforms, normals and masks), at the main paths' shapes
+    (``fold_in`` of 8 and 96 ordinals, ``split(4)`` and ``split2`` of [3,
+    2] keys, one wav2vlad bucket's NetVLAD weights at 8 and 32 rows
+    through ``netvlad.batched_per_utterance_params``, the audio train
+    step's dropout masks at [3, 8, 256] and, as a data-parallel rank draws
+    them, with ``rows``, bits with ``rows`` and a uniform over more than
+    ``_BITS_CHUNK`` values with a span that is not a power of two),
+    each with its exact launches (one a draw, none on the plain route),
+    then timed with CUDA events beside the plain route and the bound.
+    Returns {case: (kernel ms, plain ms, bound ms, bound by)}."""
+    from icassp2022_depression_tpu_torch.config import FrontendConfig
+    from icassp2022_depression_tpu_torch.ops import netvlad, prng
+    from icassp2022_depression_tpu_torch.ops import rnn_cuda
+
+    t_phase = time.perf_counter()
+    cfg = FrontendConfig()
+    dev = "cuda"
+    root = prng.fold_in(prng.prng_key(20, dev), 3)
+    keys3 = prng.split(root, 3)                     # [3, 2]: three folds
+    keep = 1.0 - 0.5                                # the audio dropout
+    chunk = prng._BITS_CHUNK + 5
+
+    def bucket(rows):
+        ordinals = torch.arange(1000, 1000 + rows, device=dev)
+        return lambda: netvlad.batched_per_utterance_params(
+            cfg.netvlad_seed, ordinals, cfg.n_mels, cfg.netvlad_clusters,
+            cfg.netvlad_output_dim)
+
+    weights = cfg.n_mels * cfg.netvlad_clusters
+    per_row = (2 * weights + cfg.netvlad_clusters
+               + weights * cfg.netvlad_output_dim)
+    # case: (call, draws, cipher evaluations, bytes written)
+    cases = {
+        "fold_in [8]": (lambda: prng.fold_in(
+            prng.prng_key(0, dev), torch.arange(8, device=dev)), 1, 8, 128),
+        "fold_in [96]": (lambda: prng.fold_in(
+            prng.prng_key(0, dev), torch.arange(96, device=dev)), 1, 96,
+            1536),
+        "split(4) [3, 2]": (lambda: prng.split(keys3, 4), 1, 12, 192),
+        "split2 [3, 2]": (lambda: prng.split2(keys3), 1, 6, 96),
+        "netvlad bucket, 8 rows": (bucket(8), 6, 8 * (1 + 4 + per_row),
+                                   8 * (16 + 64 + 4 * per_row)),
+        "netvlad bucket, 32 rows": (bucket(32), 6, 32 * (1 + 4 + per_row),
+                                    32 * (16 + 64 + 4 * per_row)),
+        "dropout mask [3, 8, 256]": (
+            lambda: prng.bernoulli(keys3, keep, (8, 256)), 1, 3 * 8 * 256,
+            3 * 8 * 256),
+        "dropout mask [3, 4, 256] rows (4, 8)": (
+            lambda: prng.bernoulli(keys3, keep, (4, 256), (4, 8)), 1,
+            3 * 4 * 256, 3 * 4 * 256),
+        "random_bits [3, 5, 7] rows (2, 9)": (
+            lambda: prng.random_bits(keys3, (5, 7), rows=(2, 9)), 1,
+            3 * 35, 3 * 35 * 8),
+        f"uniform [{chunk}] in [-0.3, 0.3)": (
+            lambda: prng.uniform(root, (chunk,), -0.3, 0.3), 1, chunk,
+            4 * chunk),
+    }
+    for name, (call, draws, _, _) in cases.items():
+        before = rnn_cuda.launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in rnn_cuda.launch_counts().items()}
+        with _plain_draws(prng):
+            want = call()
+        plain_moved = rnn_cuda.launch_counts()["threefry"] - before[
+            "threefry"] - moved["threefry"]
+        same = _equal_tree(torch, got, want)
+        print(f"threefry {name}: kernel against the plain route on the "
+              f"card bitwise: {same}; launches {moved}")
+        if not same:
+            fail(f"threefry {name}: the kernel differs from the plain route")
+        if moved != dict(ZERO, threefry=draws):
+            fail(f"threefry {name} launched {moved}, expected {draws} "
+                 "threefry launch(es) and nothing else")
+        if plain_moved != 0:
+            fail(f"threefry {name}: the plain route launched the kernel")
+    timed = {}
+    for name, (call, draws, evals, nbytes) in cases.items():
+        def plain(call=call):
+            with _plain_draws(prng):
+                return call()
+        reps = 5 if "uniform" in name else 20
+        call()
+        plain()
+        ms, plain_ms = event_ms(call, reps, torch), event_ms(plain, reps,
+                                                               torch)
+        bound_ms, bound_by = threefry_bound(evals, nbytes)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"timing threefry {name}: {draws} draw(s), {ms:.4f} ms "
+              f"(plain route {plain_ms:.4f} ms, {plain_ms / ms:.1f}x), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%} of it) "
+              f"[{card}]")
+    # the kernel's device time where the draws are large enough to show
+    # it behind the host's enqueue
+    for name in ("netvlad bucket, 8 rows", "netvlad bucket, 32 rows",
+                 f"uniform [{chunk}] in [-0.3, 0.3)"):
+        call, draws = cases[name][:2]
+        split = profile_split(torch, call, f"threefry {name}", draws, card)
+        us, n = (split or {"kernels": {}})["kernels"].get("threefry_kernel",
+                                                          (None, 0))
+        if us is None:
+            continue
+        bound_ms = timed[name][2]
+        print(f"timing threefry {name}: the kernel's device time {us:.2f} us "
+              f"in {n} launches against a bound of {bound_ms * 1e3:.2f} us "
+              f"({bound_ms * 1e3 / us:.1%} of it) [{card}]")
+    print(f"timing phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return timed
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
                                        "daic", "serve", "vggish",
-                                       "parallel", "operations"],
+                                       "parallel", "operations",
+                                       "threefry"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
@@ -5402,7 +5656,7 @@ def main(argv=None) -> int:
                          "seeded bundle and DAIC features of its own); "
                          "parallel: phase 12 (with a corpus and a seeded "
                          "bundle of its own); operations: phase 13 (the "
-                         "same)")
+                         "same); threefry: phase 14")
     args = ap.parse_args(argv)
     import torch
 
@@ -5433,7 +5687,8 @@ def main(argv=None) -> int:
              "vggish": ("gru_fwd", "gru_bwd", "lstmp_fwd"),
              "parallel": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
                           "lstmp_fwd"),
-             "operations": _build.SOURCES}.get(
+             "operations": _build.SOURCES,
+             "threefry": ("threefry",)}.get(
         args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
         else _build.SOURCES)
     _build.build_all(names)                        # one nvcc per source
@@ -5442,6 +5697,11 @@ def main(argv=None) -> int:
     for name in names:
         print(_build.build_log(name).strip())
 
+    if args.only == "threefry":
+        threefry_phase(torch, card)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        return 0
     if args.only == "trainer":
         fold_kernel_phase(torch, rnn_cuda, card)
         gen = torch.Generator().manual_seed(3)
@@ -5549,6 +5809,7 @@ def main(argv=None) -> int:
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
         return 0
+    threefry_times = threefry_phase(torch, card)
     err, kernel_times = kernel_phase(torch, rnn_cuda, card)
     gru_profile_phase(torch, rnn_cuda, card)
     bwd_err, bwd_times = bwd_kernel_phase(torch, rnn_cuda, card)
@@ -5564,7 +5825,7 @@ def main(argv=None) -> int:
     library = library_phase(torch, card)
     lstmp_summary(card, lstmp_times, library)
     standin_summary(card, standin_times, cudnn)
-    serve_launches, _ = slice_phase(torch, card)
+    slice_launches, _ = slice_phase(torch, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
         corpus = Path(tmp) / "corpus"
         eatd.make_synthetic_corpus(corpus, n_data=24, n_validation=12,
@@ -5589,9 +5850,9 @@ def main(argv=None) -> int:
         par = parallel_phase(torch, card, corpus, bundle, Path(tmp))
         ops = operations_phase(torch, card, corpus, bundle, Path(tmp))
     standin_launches, _ = standin_serving_phase(torch, card)
-    launches["gru_fwd"] += serve_launches
     for k, v in text_launches.items():
-        launches[k] += (v + standin_launches[k] + checked["launches"][k]
+        launches[k] += (v + slice_launches[k] + standin_launches[k]
+                        + checked["launches"][k]
                         + daic["launches"][k] + served["launches"][k]
                         + vgg["launches"][k] + par["launches"][k]
                         + ops["launches"][k])
@@ -5643,6 +5904,8 @@ def main(argv=None) -> int:
         fail(f"the DAIC shape {dk['shape']} is not one the JAX package "
              "streams")
     bounds["gru_bwd_streamed"] = dk["bound"]
+    bounds["threefry"] = threefry_times["netvlad bucket, 8 rows"][2:]
+    library["threefry"] = None
     library["gru_bwd_streamed"] = dk["cudnn_ms"]
     timed = {
         "gru_fwd": (kernel_times[TIMED_SHAPES[0]], max(err, dk["fwd_err"]),
@@ -5660,6 +5923,8 @@ def main(argv=None) -> int:
                       "lstmp_fwd"),
         "lstmp_bwd": (lstmp_times[LSTMP_TIMED[0]]["bwd"], lstmp_err["bwd"],
                       "lstmp_bwd"),
+        "threefry": (threefry_times["netvlad bucket, 8 rows"][:2], 0.0,
+                     "threefry"),
     }
     src = "icassp2022_depression_tpu_torch/csrc"
     pallas = "icassp2022_depression_tpu/ops/rnn_pallas.py"
@@ -5668,7 +5933,8 @@ def main(argv=None) -> int:
                 "lstm_fwd": f"{pallas}:346",
                 "lstm_bwd_streamed": f"{pallas}:377",
                 "lstm_bwd": f"{pallas}:868",
-                "lstmp_fwd": f"{pallas}:562", "lstmp_bwd": f"{pallas}:609"}
+                "lstmp_fwd": f"{pallas}:562", "lstmp_bwd": f"{pallas}:609",
+                "threefry": "none: XLA fused each jax.random draw"}
     entries = []
     for name, ((ms, plain_ms), max_err, lib) in timed.items():
         bound_ms, bound_by = bounds[name]

@@ -21,10 +21,20 @@ reproduces JAX's default PRNG (threefry2x32, 20 rounds) with
   single-precision polynomial (Giles), so the two frameworks agree to an
   ulp instead of to the accuracy of two different approximations.
 
-The arithmetic is int64 with a ``& 0xFFFFFFFF`` mask after every add
-(torch's uint32 coverage is thin); every operation is elementwise, so a
-batch of keys broadcasts against the counters and a whole bucket's
-weights are one pass on the device.
+Two routes, chosen by the key's device:
+
+* on a CUDA key each public draw is one launch of ``threefry_draw``
+  (``csrc/threefry.cu``, built with ``nvcc`` at first use, see
+  :mod:`.._build`) on the current stream, which writes the draw's final
+  type (int64 keys or bits, float32 uniforms or normals, bool masks) and
+  adds one to :data:`LAUNCHES`; a build or launch failure raises, and
+  there is no fallback to the plain route;
+* on a CPU key the draw is its plain version (``fold_in_torch``,
+  ``split_torch``, ``random_bits_torch``, ``uniform_torch``,
+  ``normal_torch``, ``bernoulli_torch``), the kernel's oracle on any
+  device: int64 arithmetic with a ``& 0xFFFFFFFF`` mask after every add
+  (torch's uint32 coverage is thin), every operation elementwise, so a
+  batch of keys broadcasts against the counters.
 
 Each public draw is a profiling region ``prng/{fold_in,split,uniform,
 normal,bernoulli,random_bits}``; a draw made inside another, or under
@@ -33,17 +43,22 @@ normal,bernoulli,random_bits}``; a draw made inside another, or under
 
 from __future__ import annotations
 
-import contextlib
+import ctypes
 import functools
 import math
+import numbers
 import threading
 
 import numpy as np
 import torch
 
+from icassp2022_depression_tpu_torch import _build
 from icassp2022_depression_tpu_torch.utils import profiling
 
 MASK = 0xFFFFFFFF
+#: kernel launches made by the draws on CUDA keys in this process, one a
+#: draw (``rnn_cuda.launch_counts()["threefry"]``)
+LAUNCHES = 0
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _drawing = threading.local()
 
@@ -63,17 +78,21 @@ def _draw(fn):
     return draw
 
 
-@contextlib.contextmanager
-def unrecorded():
+class unrecorded:
     """The draws made inside open no profiling region (a captured
     program's draws run once, at capture, so their regions would time
-    nothing of its replays)."""
-    was = getattr(_drawing, "on", False)
-    _drawing.on = True
-    try:
-        yield
-    finally:
-        _drawing.on = was
+    nothing of its replays).  A plain context manager rather than a
+    generator's: every draw enters one, and its host cost is the hot
+    path."""
+
+    __slots__ = ("was",)
+
+    def __enter__(self) -> None:
+        self.was = getattr(_drawing, "on", False)
+        _drawing.on = True
+
+    def __exit__(self, *exc) -> None:
+        _drawing.on = self.was
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -95,6 +114,12 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
+def _on_card(key: torch.Tensor) -> bool:
+    """Whether a draw of ``key`` takes the kernel route: any key off the
+    CPU (the kernel's wrapper raises on a device it does not take)."""
+    return key.device.type != "cpu"
+
+
 def prng_key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` -> int64 tensor [2]."""
     return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
@@ -105,6 +130,13 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys [..., 2] with data broadcastable to
     ``key.shape[:-1]`` -> keys [..., 2]."""
+    if not _on_card(key):
+        return fold_in_torch(key, data)
+    return _fold_in_kernel(key, data)
+
+
+def fold_in_torch(key: torch.Tensor, data) -> torch.Tensor:
+    """Plain PyTorch :func:`fold_in` (on any device), the kernel's oracle."""
     data = torch.as_tensor(data, dtype=torch.int64,
                            device=key.device) & MASK
     o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
@@ -120,6 +152,13 @@ def _counters(n: int, device):
 @_draw
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): keys [..., 2] -> [..., num, 2]."""
+    if not _on_card(key):
+        return split_torch(key, num)
+    return _kernel_draw(key, _SPLIT, (num,))
+
+
+def split_torch(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """Plain PyTorch :func:`split`."""
     hi, lo = _counters(num, key.device)
     o1, o2 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
     return torch.stack([o1, o2], dim=-1)
@@ -134,9 +173,10 @@ def split2(key):
     return ks[..., 0, :], ks[..., 1, :]
 
 
-#: counters per threefry pass of :func:`random_bits`: a larger draw (an
+#: counters per threefry pass of the plain route: a larger draw (an
 #: embedding table of millions of entries) runs in slices of this many, so
-#: the cipher's int64 temporaries stay bounded
+#: the cipher's int64 temporaries stay bounded (the kernel writes any
+#: number of counters in one launch)
 _BITS_CHUNK = 1 << 22
 
 
@@ -165,6 +205,14 @@ def random_bits(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
     total)``: rows ``first .. first + shape[0]`` of the ``[total,
     *shape[1:]]`` draw, bit for bit (each value's counter is its row-major
     index, so a row range is a counter range)."""
+    if not _on_card(key):
+        return random_bits_torch(key, shape, rows)
+    shape = tuple(shape)
+    return _kernel_draw(key, _BITS, shape, _offset(shape, rows))
+
+
+def random_bits_torch(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
+    """Plain PyTorch :func:`random_bits`."""
     shape = tuple(shape)
     n = math.prod(shape)
     start0 = _offset(shape, rows)
@@ -180,10 +228,22 @@ def random_bits(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
     return out.reshape(key.shape[:-1] + shape)
 
 
+def _bounds(minval: float, maxval: float) -> tuple:
+    """(lo, span) of a uniform draw: the float32 bounds and their float32
+    difference, as Python floats (exact), so that no host value is copied
+    to the device (a CUDA graph may capture the draw)."""
+    lo = float(np.float32(minval))
+    return lo, float(np.float32(maxval) - np.float32(minval))
+
+
+def _pow2(span: float) -> bool:
+    return span > 0 and math.frexp(span)[0] == 0.5
+
+
 def _scale(bits: torch.Tensor, lo: float, span: float) -> torch.Tensor:
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    if span > 0 and math.frexp(span)[0] == 0.5:
+    if _pow2(span):
         scaled = floats * span + lo
     else:
         scaled = (floats.double() * span + lo).float()
@@ -199,19 +259,26 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     a power of two (``normal``'s), the product is exact and a float32
     multiply and add round as the FMA does; otherwise the product of two
     float32 values is exact in float64, so one float64 multiply-add
-    rounded once to float32 gives its bits.
+    rounded once to float32 gives its bits.  ``rows``: as
+    :func:`random_bits`."""
+    if not _on_card(key):
+        return uniform_torch(key, shape, minval, maxval, rows)
+    lo, span = _bounds(minval, maxval)
+    shape = tuple(shape)
+    return _kernel_draw(key, _UNIFORM, shape, _offset(shape, rows), lo=lo,
+                        span=span)
 
-    A draw of more than ``_BITS_CHUNK`` values (VGGish's 50 M-float first
-    FC) runs slice by slice into the float32 result, so no int64 tensor of
-    the whole draw is ever made.  ``rows``: as :func:`random_bits`."""
-    # the float32 bounds as Python floats (exact), so that no host value
-    # is copied to the device (a CUDA graph may capture this)
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(minval))
+
+def uniform_torch(key: torch.Tensor, shape, minval: float = 0.0,
+                  maxval: float = 1.0, rows=None) -> torch.Tensor:
+    """Plain PyTorch :func:`uniform`.  A draw of more than ``_BITS_CHUNK``
+    values (VGGish's 50 M-float first FC) runs slice by slice into the
+    float32 result, so no int64 tensor of the whole draw is ever made."""
+    lo, span = _bounds(minval, maxval)
     shape = tuple(shape)
     n = math.prod(shape)
     if n <= _BITS_CHUNK:
-        return _scale(random_bits(key, shape, rows), lo, span)
+        return _scale(random_bits_torch(key, shape, rows), lo, span)
     start0 = _offset(shape, rows)
     k1, k2 = key[..., 0:1], key[..., 1:2]
     out = torch.empty(key.shape[:-1] + (n,), dtype=torch.float32,
@@ -250,7 +317,15 @@ _SQRT2 = float(np.float32(np.sqrt(2)))
 @_draw
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: keys [..., 2] -> [..., *shape]."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    if not _on_card(key):
+        return normal_torch(key, shape)
+    lo, span = _bounds(_NORMAL_LO, 1.0)
+    return _kernel_draw(key, _NORMAL, tuple(shape), lo=lo, span=span)
+
+
+def normal_torch(key: torch.Tensor, shape) -> torch.Tensor:
+    """Plain PyTorch :func:`normal`."""
+    u = uniform_torch(key, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * erfinv(u)
 
 
@@ -259,4 +334,141 @@ def bernoulli(key: torch.Tensor, p: float, shape, rows=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` in 32-bit
     mode: keys [..., 2] -> bool [..., *shape], True where a float32
     uniform draw is below ``p``.  ``rows``: as :func:`random_bits`."""
-    return uniform(key, shape, rows=rows) < p
+    if not _on_card(key):
+        return bernoulli_torch(key, p, shape, rows)
+    shape = tuple(shape)
+    # the comparison is in float32, as the plain route's ``< p``
+    return _kernel_draw(key, _BERNOULLI, shape, _offset(shape, rows),
+                        p=float(np.float32(p)))
+
+
+def bernoulli_torch(key: torch.Tensor, p: float, shape,
+                    rows=None) -> torch.Tensor:
+    """Plain PyTorch :func:`bernoulli`."""
+    return uniform_torch(key, shape, rows=rows) < p
+
+
+# -- the kernel route ---------------------------------------------------------
+
+#: ``csrc/threefry.cu``'s draws (its ``Mode``) and the type each writes
+_FOLD_IN, _SPLIT, _BITS, _UNIFORM, _NORMAL, _BERNOULLI = range(6)
+_DTYPES = (torch.int64, torch.int64, torch.int64, torch.float32,
+           torch.float32, torch.bool)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_uint32, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong,
+             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p]
+_fn = None
+
+
+def _kernel():
+    """The C entry ``threefry_draw``, built and bound at first use."""
+    global _fn
+    if _fn is None:
+        fn = _build.load("threefry").threefry_draw
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check_key(key: torch.Tensor) -> None:
+    """Raises on keys the kernel does not take."""
+    if key.dtype is not torch.int64:
+        raise TypeError(f"threefry: keys must be int64, got {key.dtype}")
+    shape = key.shape
+    if not shape or shape[-1] != 2:
+        raise ValueError(f"threefry: keys must be [..., 2], got "
+                         f"{tuple(shape)}")
+    if key.stride(-1) != 1:
+        raise ValueError("threefry: keys must be contiguous in their last "
+                         "axis")
+    if not key.is_cuda:
+        raise ValueError(f"threefry: unsupported device {key.device}")
+
+
+def _rows(t: torch.Tensor, dims: int) -> tuple:
+    """``t`` with its first ``dims`` axes read as one row axis -> (t, the
+    rows' stride): the stride of the axes where they collapse into one (0
+    for one row or a broadcast one), else a contiguous copy's.  Reading
+    the strides makes no view, so a draw dispatches no op for its keys."""
+    axes = [(n, s) for n, s in zip(t.shape[:dims], t.stride()[:dims])
+            if n != 1]
+    if all(s0 == s1 * n1 for (_, s0), (n1, s1) in zip(axes, axes[1:])):
+        return t, axes[-1][1] if axes else 0
+    t = t.contiguous()
+    return t, math.prod(t.shape[dims:])
+
+
+def _launch(out: torch.Tensor, rows: int, keys: torch.Tensor,
+            key_stride: int, n: int, mode: int, start: int = 0, data=None,
+            data_stride: int = 0, lo: float = 0.0, span: float = 1.0,
+            p: float = 0.0) -> torch.Tensor:
+    """One ``threefry_draw`` launch into ``out``: ``rows`` rows of ``n``
+    counters, row r's key at ``keys`` + r ``key_stride``, on the current
+    stream.  ``data`` (fold_in): a uint32 value, or int64 rows
+    ``data_stride`` apart."""
+    global LAUNCHES
+    if out.numel() == 0:
+        return out
+    if isinstance(data, torch.Tensor):
+        d_ptr, d_value = data.data_ptr(), 0
+    else:
+        d_ptr, d_value = None, data or 0
+    args = (keys.data_ptr(), key_stride, d_ptr, data_stride, d_value,
+            out.data_ptr(), rows, n, start, mode, lo, span, int(_pow2(span)),
+            p)
+    # the raw stream handle (a ``torch.cuda.Stream`` object costs about
+    # 10 us a draw on the card's host); the device switched only when the
+    # draw is on another card than the current one
+    device = out.get_device()
+    if device == torch.cuda.current_device():
+        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = _kernel()(*args,
+                            torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"threefry_draw launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _kernel_draw(key: torch.Tensor, mode: int, shape: tuple, start: int = 0,
+                 **scale) -> torch.Tensor:
+    """A split, bits, uniform, normal or bernoulli draw of keys [..., 2]
+    at the counters ``start ..`` -> [..., *shape] (a split: [..., num,
+    2])."""
+    _check_key(key)
+    keys, stride = _rows(key, key.dim() - 1)
+    tail = (2,) if mode == _SPLIT else ()
+    out = torch.empty(key.shape[:-1] + shape + tail, dtype=_DTYPES[mode],
+                      device=key.device)
+    return _launch(out, key.numel() // 2, keys, stride, math.prod(shape),
+                   mode, start, **scale)
+
+
+def _fold_in_kernel(key: torch.Tensor, data) -> torch.Tensor:
+    """:func:`fold_in` on a CUDA key: a Python integer goes to the kernel
+    as a value, a tensor as rows of a pointer (one row: stride 0)."""
+    _check_key(key)
+    lead, d_stride = key.shape[:-1], 0
+    if isinstance(data, numbers.Integral):
+        data = int(data) & MASK
+    else:
+        if not (isinstance(data, torch.Tensor) and data.dtype == torch.int64
+                and data.device == key.device):
+            data = torch.as_tensor(data, dtype=torch.int64,
+                                   device=key.device)
+        # numpy's: torch.broadcast_shapes imports sympy at its first call,
+        # seconds on a process's first draw
+        lead = np.broadcast_shapes(tuple(lead), tuple(data.shape))
+        if data.numel() > 1:
+            data, d_stride = _rows(data.expand(lead) if data.shape != lead
+                                   else data, len(lead))
+    if key.numel() > 2 and key.shape[:-1] != lead:
+        key = key.expand(lead + (2,))
+    keys, k_stride = _rows(key, key.dim() - 1)
+    out = torch.empty(lead + (2,), dtype=torch.int64, device=key.device)
+    return _launch(out, math.prod(lead), keys, k_stride, 1, _FOLD_IN,
+                   data=data, data_stride=d_stride)

@@ -32,8 +32,9 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   package runs through its streamed backward kernel instead
   (:func:`streamed`) counts in :data:`GRU_BWD_STREAMED_LAUNCHES` or
   :data:`LSTM_BWD_STREAMED_LAUNCHES` in place of the backward's own.  Calls captured into a CUDA graph are counted at
-  each replay instead (:func:`add_launches`).  They never fall back to the plain versions:
-  a build or launch failure raises.
+  each replay instead (:func:`add_launches`), as are the threefry
+  draws' (:data:`.prng.LAUNCHES`, one entry of :data:`COUNTERS`).  They
+  never fall back to the plain versions: a build or launch failure raises.
 * The GRU and LSTM forwards and the GRU and LSTM backwards each have two
   routes, picked from the shape by :func:`gru_fwd_plan`,
   :func:`lstm_fwd_plan`, :func:`gru_bwd_plan` and :func:`lstm_bwd_plan` (a
@@ -66,10 +67,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import sys
 
 import torch
 
 from icassp2022_depression_tpu_torch import _build
+from icassp2022_depression_tpu_torch.ops import prng
 
 #: forward kernel launches made by :func:`gru_sequence` in this process
 LAUNCHES = 0
@@ -89,12 +92,17 @@ LSTMP_LAUNCHES = 0
 #: LSTMP backward launches made by :func:`lstmp_sequence_bwd`
 LSTMP_BWD_LAUNCHES = 0
 
-#: the launch counters above, by kernel source
-COUNTERS = {"gru_fwd": "LAUNCHES", "gru_bwd": "BWD_LAUNCHES",
-            "lstm_fwd": "LSTM_LAUNCHES", "lstm_bwd": "LSTM_BWD_LAUNCHES",
-            "lstmp_fwd": "LSTMP_LAUNCHES", "lstmp_bwd": "LSTMP_BWD_LAUNCHES",
-            "gru_bwd_streamed": "GRU_BWD_STREAMED_LAUNCHES",
-            "lstm_bwd_streamed": "LSTM_BWD_STREAMED_LAUNCHES"}
+_self = sys.modules[__name__]
+#: every launch counter of the port's kernels, by kernel source: (module,
+#: attribute), the counters above and the threefry draws'
+COUNTERS = {"gru_fwd": (_self, "LAUNCHES"), "gru_bwd": (_self, "BWD_LAUNCHES"),
+            "lstm_fwd": (_self, "LSTM_LAUNCHES"),
+            "lstm_bwd": (_self, "LSTM_BWD_LAUNCHES"),
+            "lstmp_fwd": (_self, "LSTMP_LAUNCHES"),
+            "lstmp_bwd": (_self, "LSTMP_BWD_LAUNCHES"),
+            "gru_bwd_streamed": (_self, "GRU_BWD_STREAMED_LAUNCHES"),
+            "lstm_bwd_streamed": (_self, "LSTM_BWD_STREAMED_LAUNCHES"),
+            "threefry": (prng, "LAUNCHES")}
 
 #: the working set above which the JAX package runs a recurrence through
 #: its streamed kernels (``ops/rnn.py::PALLAS_VMEM_BUDGET_BYTES``)
@@ -114,8 +122,8 @@ def streamed(t_steps: int, batch: int, hidden: int, gates: int) -> bool:
 
 
 def launch_counts() -> dict:
-    """Every launch counter, by kernel source."""
-    return {k: globals()[v] for k, v in COUNTERS.items()}
+    """Every launch counter (:data:`COUNTERS`), by kernel source."""
+    return {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
 
 
 def add_launches(delta: dict, times: int = 1) -> None:
@@ -123,7 +131,8 @@ def add_launches(delta: dict, times: int = 1) -> None:
     captured calls at every replay, and nothing while it is captured (see
     :meth:`..train.loop.FoldRun.run`)."""
     for k, v in delta.items():
-        globals()[COUNTERS[k]] += v * times
+        m, a = COUNTERS[k]
+        setattr(m, a, getattr(m, a) + v * times)
 
 
 #: each source's C entry: (symbol, pointer arguments, int arguments, float

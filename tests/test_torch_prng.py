@@ -9,7 +9,7 @@ import torch
 
 from icassp2022_depression_tpu.ops import netvlad as jnetvlad
 from icassp2022_depression_tpu_torch.ops import netvlad as tnetvlad
-from icassp2022_depression_tpu_torch.ops import prng
+from icassp2022_depression_tpu_torch.ops import prng, rnn_cuda
 
 
 def _bits(key) -> np.ndarray:
@@ -119,3 +119,74 @@ def test_batched_per_utterance_params_close():
     single = tnetvlad.per_utterance_params(3, 300, 16, 4, 32)
     for k in single:
         assert torch.equal(got[k][3], single[k])
+
+
+# -- the kernel route's boundaries, on the CPU -------------------------------
+
+#: each public draw, called with a key
+DRAWS = {
+    "fold_in": lambda key: prng.fold_in(key, [3, 4, 5]),
+    "split": lambda key: prng.split(key, 4),
+    "random_bits": lambda key: prng.random_bits(key, (5, 7), rows=(2, 9)),
+    "uniform": lambda key: prng.uniform(key, (64, 3), -0.3, 0.3),
+    "normal": lambda key: prng.normal(key, (40,)),
+    "bernoulli": lambda key: prng.bernoulli(key, 0.5, (8, 16), (4, 12)),
+}
+PLAIN = {
+    "fold_in": lambda key: prng.fold_in_torch(key, [3, 4, 5]),
+    "split": lambda key: prng.split_torch(key, 4),
+    "random_bits": lambda key: prng.random_bits_torch(key, (5, 7),
+                                                      rows=(2, 9)),
+    "uniform": lambda key: prng.uniform_torch(key, (64, 3), -0.3, 0.3),
+    "normal": lambda key: prng.normal_torch(key, (40,)),
+    "bernoulli": lambda key: prng.bernoulli_torch(key, 0.5, (8, 16),
+                                                  (4, 12)),
+}
+
+
+@pytest.mark.parametrize("draw", sorted(DRAWS))
+def test_cpu_keys_take_the_plain_route(draw, monkeypatch):
+    """A CPU key never reaches the kernel: the draw is its plain version,
+    and the threefry counter does not move."""
+    def no_kernel():
+        raise AssertionError("the kernel route was taken for a CPU key")
+
+    monkeypatch.setattr(prng, "_kernel", no_kernel)
+    key = prng.split(prng.prng_key(17), 3)             # [3, 2], CPU
+    before = rnn_cuda.launch_counts()["threefry"]
+    got = DRAWS[draw](key)
+    assert rnn_cuda.launch_counts()["threefry"] == before == prng.LAUNCHES
+    want = PLAIN[draw](key)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_threefry_counter_in_launch_counts(monkeypatch):
+    """``threefry`` is one of ``rnn_cuda.launch_counts()``'s sources, and
+    ``add_launches`` (a CUDA graph's replays) moves it."""
+    monkeypatch.setattr(prng, "LAUNCHES", 5)
+    counts = rnn_cuda.launch_counts()
+    assert counts["threefry"] == 5
+    assert set(counts) == set(rnn_cuda.COUNTERS) and "threefry" in counts
+    rnn_cuda.add_launches({"threefry": 2, "gru_fwd": 0}, 3)
+    assert prng.LAUNCHES == 11
+    assert rnn_cuda.launch_counts()["threefry"] == 11
+
+
+def _noncontiguous_key():
+    # [2, 3] transposed: each key's two words 3 elements apart
+    return torch.zeros((2, 3), dtype=torch.int64, device="meta").t()
+
+
+@pytest.mark.parametrize("draw", sorted(DRAWS))
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda: torch.zeros((3, 2), dtype=torch.int32, device="meta"),
+     TypeError, "int64"),
+    (_noncontiguous_key, ValueError, "contiguous"),
+    (lambda: torch.zeros((3, 2), dtype=torch.int64, device="meta"),
+     ValueError, "unsupported device"),
+], ids=["dtype", "contiguity", "device"])
+def test_kernel_route_argument_checks(draw, bad, error, match):
+    """A key off the CPU goes to the kernel, whose wrapper raises on a
+    dtype, a layout or a device it does not take (no fallback)."""
+    with pytest.raises(error, match=match):
+        DRAWS[draw](bad())
