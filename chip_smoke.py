@@ -24,6 +24,7 @@ biLM) on one card, at full width.
     python3 chip_smoke.py --only parallel  # phase 12 alone, no ok line
     python3 chip_smoke.py --only operations  # phase 13 alone, no ok line
     python3 chip_smoke.py --only threefry  # phase 14 alone, no ok line
+    python3 chip_smoke.py --only moe_experts  # phase 15 alone, no ok line
 
 ``--only lstmp`` builds the two LSTMP sources, runs phase 2's LSTMP checks
 and timings (the backward in turns with its plain loop and cuDNN), the
@@ -48,15 +49,19 @@ seeded DAIC checkpoint.  ``--only vggish`` builds the GRU sources and the
 LSTMP forward and runs phase 11 on a corpus, a seeded bundle and DAIC
 features of its own.  ``--only parallel`` builds the GRU and LSTM sources
 and the LSTMP forward and runs phase 12 on a corpus and a seeded bundle
-of its own.  ``--only operations`` builds the seven sources and runs phase
+of its own.  ``--only operations`` builds the eight sources and runs phase
 13 on a corpus and a seeded bundle of its own.  ``--only threefry`` builds
-the threefry source and runs phase 14 (about half a minute).
+the threefry source and runs phase 14 (about half a minute).  ``--only
+moe_experts`` builds the grouped-expert and threefry sources and the GRU
+and LSTM forwards, runs phase 15 (about a minute and a half) and prints
+the kernels line with its one entry.
 
 Phases (each raises on failure, so the exit code is nonzero):
 
 1. setup: require CUDA, print the card's name and power limit, turn TF32
-   off, build the seven sources of ``icassp2022_depression_tpu_torch/csrc``
-   (GRU, LSTM and LSTMP, forward and backward, and threefry) with
+   off, build the eight sources of ``icassp2022_depression_tpu_torch/csrc``
+   (GRU, LSTM and LSTMP, forward and backward, threefry and the grouped
+   experts) with
    ``nvcc``, one compiler process per source, started together, and print
    the build time and the compiler's reports;
 2. kernels: each CUDA kernel against its plain PyTorch version at the
@@ -311,6 +316,24 @@ Phases (each raises on failure, so the exit code is nonzero):
    SASS, over 132 x 64 x 1.98 GHz, or
    the bytes written over 3.35 TB/s), and the kernel's device time where
    a draw is large enough to show it (``torch.profiler``).
+15. moe_experts, last in a whole run (its 62.5 GB drawn after every other
+   phase has freed its memory): Moonlight-16B-A3B at its
+   published widths (15.62 B float32 parameters, drawn on the card as the
+   benchmark draws them, ``portbench/harness/lm_weights.py``) as the text
+   embedder of a ``fuse_clf`` ``Predictor``, which serves a cohort call of
+   32 speakers (3 answers of 2-12 s and 3 transcripts of 20-120 CJK
+   characters drawn by a Zipf law each) twice: the second call's launches
+   held exactly, 2 ``moe.LAUNCHES`` an expert layer (52), the GRU and LSTM
+   forwards' and the draws' as every fusion ``predict_batch``; the first
+   and last expert layers' routed slots of that call (from ``route`` and
+   ``dispatch``: about 40,800 rows over 64 experts, H 2048, I 1408) then
+   put through the kernel (``csrc/moe_experts.cu``) again, bitwise its
+   output in the call, and through the plain route (``experts_torch``),
+   within 1e-5 of its largest output, and each timed with CUDA events:
+   the kernel's two launches, the plain route (its host read of the
+   offsets included) and the cuBLAS products alone a used expert (the
+   offsets read beforehand, the library yardstick), against the bound of
+   ``portbench/counts/moe_lm.py``.
 
 Phases 2-13 zero the ``threefry`` counter with the others before each
 counted run and read it after, as a main path's draws: exact in each
@@ -5637,6 +5660,184 @@ def threefry_phase(torch, card: str) -> dict:
     return timed
 
 
+#: phase 15's cohort call: speakers, answers a speaker, the lengths of an
+#: answer (s) and of a transcript (characters), the characters drawn by a
+#: Zipf law of this exponent over their ranks (``fuse_clf_moonlight``'s)
+MOE_SPEAKERS, MOE_ANSWERS = 32, 3
+MOE_SECONDS, MOE_CHARS, MOE_ZIPF = (2.0, 12.0), (20, 120), 1.0
+MOE_LEXICON = 6778
+
+
+def _moe_cohort(seed: int) -> tuple:
+    """(waveforms, sample rates, transcripts) of phase 15's cohort call."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chars = [chr(0x4E00 + i) for i in range(MOE_LEXICON)]
+    p = np.arange(1, MOE_LEXICON + 1, dtype=np.float64) ** -MOE_ZIPF
+    p /= p.sum()
+    waves, rates, texts = [], [], []
+    for _ in range(MOE_SPEAKERS):
+        waves.append([rng.integers(-3000, 3000, int(
+            rng.uniform(*MOE_SECONDS) * 16000)).astype(np.int16)
+            for _ in range(MOE_ANSWERS)])
+        rates.append([16000] * MOE_ANSWERS)
+        texts.append(["".join(chars[i] for i in rng.choice(
+            MOE_LEXICON, int(rng.integers(MOE_CHARS[0], MOE_CHARS[1] + 1)),
+            p=p)) for _ in range(MOE_ANSWERS)])
+    return waves, rates, texts, chars
+
+
+def moe_experts_phase(torch, card: str, seed: int = 21) -> dict:
+    """Phase 15: the grouped-expert kernel (``csrc/moe_experts.cu``) on the
+    main path of Moonlight-16B-A3B's cohort call and at its routed slots.
+    Returns {"launches": the two calls' moe_experts launches, "entry": the
+    kernels line's fields (ms, plain_ms, library_ms, bound_ms, bound_by,
+    max_abs_err)}; no tensor outlives it."""
+    import dataclasses
+    import gc
+
+    import torch.nn.functional as F
+
+    from icassp2022_depression_tpu_torch import config as C
+    from icassp2022_depression_tpu_torch.models import moe_lm
+    from icassp2022_depression_tpu_torch.models.fusion import FusionNet
+    from icassp2022_depression_tpu_torch.ops import moe, prng, rnn_cuda
+    from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+    from portbench.counts import moe_lm as lm_counts
+    from portbench.harness import lm_weights
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = C.MoeLmConfig()
+    expert_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    t0 = time.perf_counter()
+    weights = lm_weights.draw(moe_lm.param_shapes(cfg), seed, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in weights.values())
+    print(f"moe_experts: Moonlight-16B-A3B's {n_params:,} float32 "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} s,"
+          f" {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"[{card}]")
+    if n_params != 15_624_565_888:
+        fail(f"moe_experts: {n_params} parameters, not the published "
+             "widths' 15,624,565,888")
+    waves, rates, texts, chars = _moe_cohort(seed)
+    model = FusionNet(C.replace(C.FUSE_CLF, text_embed_size=cfg.hidden_size),
+                      prng.prng_key(seed, "cuda"), device="cuda")
+    predictor = Predictor(
+        model, "fuse_clf", device="cuda", feature_cache_entries=0,
+        elmo_params={"weights": weights,
+                     "lexicon": lm_weights.lexicon(chars, seed, cfg.bos_id)},
+        elmo_cfg=cfg, segmenter="fallback")
+    del weights
+    answers = MOE_SPEAKERS * MOE_ANSWERS
+    want = dict(ZERO, gru_fwd=2, lstm_fwd=4,
+                threefry=wav2vlad_draws(waves, rates))
+    want_moe = 2 * expert_layers * -(-answers // moe_lm.CHUNK)
+    experts, captured, layer = moe.experts, {}, [0]
+
+    def recording(*args):
+        ys = experts(*args)
+        layer[0] += 1
+        if layer[0] in (1, expert_layers):
+            captured[layer[0]] = (args, ys)
+        return ys
+
+    launches = 0
+    for call in ("first", "second"):
+        _set_counts(rnn_cuda, ZERO)
+        moe.LAUNCHES = 0
+        if call == "second":
+            moe.experts = recording
+        try:
+            t0 = time.perf_counter()
+            res = predictor.predict_batch(waves, rates, texts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            moe.experts = experts
+        got, got_moe = _counts(rnn_cuda), moe.LAUNCHES
+        launches += got_moe
+        print(f"moe_experts: predict_batch fuse_clf with the LM embedder, "
+              f"{MOE_SPEAKERS} speakers ({call} call) in {wall:.3f} s: "
+              f"moe_experts launches {got_moe}, others {got} [{card}]")
+        check_results(res, MOE_SPEAKERS, f"moe_experts cohort ({call})")
+        if got_moe != want_moe or not _held(got, want):
+            fail(f"moe_experts: the {call} call launched {got_moe} "
+                 f"moe_experts and {got}, expected {want_moe} ({expert_layers}"
+                 f" expert layers, two each) and {want}")
+    del predictor, model, res
+
+    def reading(at, args, ys) -> dict:
+        xs, w_gate, w_up, w_down, slot_w, offsets = args
+        rows, n_experts = xs.shape[0], w_gate.shape[0]
+        at += cfg.first_k_dense_replace
+        again = moe.experts(*args)
+        plain = moe.experts_torch(*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(again, ys)
+        err = float((again - plain).abs().max() / plain.abs().max())
+        del again, plain
+        used = offsets.diff().count_nonzero().item()
+        print(f"moe_experts layer {at}: {rows} routed slots over {used} of "
+              f"{n_experts} experts (H {xs.shape[1]}, I {w_gate.shape[1]}):"
+              f" rerun bitwise {bitwise}; against the plain route max|d| / "
+              f"max|plain| = {err:.3e} (tol {KERNEL_TOL})")
+        if not bitwise:
+            fail(f"moe_experts layer {at}: a rerun differs from the main "
+                 "path's output")
+        if not err < KERNEL_TOL:
+            fail(f"moe_experts layer {at}: {err:.3e} from the plain route")
+        bounds = offsets.tolist()
+
+        def library():
+            out = torch.empty_like(xs)
+            for e in range(n_experts):
+                a, b = bounds[e], bounds[e + 1]
+                if a < b:
+                    x = xs[a:b]
+                    h = F.silu(x @ w_gate[e].T) * (x @ w_up[e].T)
+                    out[a:b] = (h @ w_down[e].T) * slot_w[a:b, None]
+            return out
+
+        kernel_ms = event_ms(lambda: moe.experts(*args), 10, torch)
+        plain_ms = event_ms(lambda: moe.experts_torch(*args), 5, torch)
+        library_ms = event_ms(library, 5, torch)
+        ops, bound = lm_counts.moe_experts(rows // cfg.num_experts_per_tok,
+                                           dataclasses.asdict(cfg))
+        bound_by = ("operations" if bound <= ops / PEAK_FP32_FLOPS
+                    * (1 + 1e-9) else "bytes")
+        print(f"timing moe_experts layer {at} ({rows} slots): kernel "
+              f"{kernel_ms:.3f} ms (two launches), plain route "
+              f"{plain_ms:.3f} ms, cuBLAS a used expert {library_ms:.3f} "
+              f"ms, bound {1e3 * bound:.3f} ms by {bound_by} "
+              f"({1e3 * bound / kernel_ms:.1%} of it) [{card}]")
+        return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=1e3 * bound, bound_by=bound_by, max_abs_err=err)
+
+    with torch.inference_mode():
+        readings = {at: reading(at, *captured.pop(at))
+                    for at in sorted(captured)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"timing phase 15: {time.perf_counter() - t_phase:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated "
+          f"[{card}]")
+    return {"launches": launches, "entry": readings[1]}
+
+
+def moe_entry(moe: dict) -> dict:
+    """The kernels line's entry of the grouped-expert kernel, timed at the
+    first expert layer of phase 15's cohort call; its launches are that
+    phase's two main-path calls, the comparisons and timings left out."""
+    return {"name": "moe_experts", "route": "cuda",
+            "source": "icassp2022_depression_tpu_torch/csrc/moe_experts.cu",
+            "replaces": "none: the JAX package has no experts",
+            "launches": moe["launches"], **moe["entry"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5644,7 +5845,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["gru", "lstm", "lstmp", "trainer",
                                        "daic", "serve", "vggish",
                                        "parallel", "operations",
-                                       "threefry"],
+                                       "threefry", "moe_experts"],
                     help="gru / lstm / lstmp: build the GRU / LSTM / LSTMP "
                          "kernels, run their checks, profiles and "
                          "yardsticks, and stop (no ok line); trainer: the "
@@ -5656,7 +5857,8 @@ def main(argv=None) -> int:
                          "seeded bundle and DAIC features of its own); "
                          "parallel: phase 12 (with a corpus and a seeded "
                          "bundle of its own); operations: phase 13 (the "
-                         "same); threefry: phase 14")
+                         "same); threefry: phase 14; moe_experts: phase "
+                         "15 and its kernels entry")
     args = ap.parse_args(argv)
     import torch
 
@@ -5688,7 +5890,9 @@ def main(argv=None) -> int:
              "parallel": ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
                           "lstmp_fwd"),
              "operations": _build.SOURCES,
-             "threefry": ("threefry",)}.get(
+             "threefry": ("threefry",),
+             "moe_experts": ("moe_experts", "threefry", "gru_fwd",
+                             "lstm_fwd")}.get(
         args.only, (f"{args.only}_fwd", f"{args.only}_bwd") if args.only
         else _build.SOURCES)
     _build.build_all(names)                        # one nvcc per source
@@ -5701,6 +5905,12 @@ def main(argv=None) -> int:
         threefry_phase(torch, card)
         print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
               f"[{card}]")
+        return 0
+    if args.only == "moe_experts":
+        moe = moe_experts_phase(torch, card)
+        print(f"timing whole script: {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]")
+        print(json.dumps({"kernels": [moe_entry(moe)]}))
         return 0
     if args.only == "trainer":
         fold_kernel_phase(torch, rnn_cuda, card)
@@ -5850,6 +6060,7 @@ def main(argv=None) -> int:
         par = parallel_phase(torch, card, corpus, bundle, Path(tmp))
         ops = operations_phase(torch, card, corpus, bundle, Path(tmp))
     standin_launches, _ = standin_serving_phase(torch, card)
+    moe = moe_experts_phase(torch, card)
     for k, v in text_launches.items():
         launches[k] += (v + slice_launches[k] + standin_launches[k]
                         + checked["launches"][k]
@@ -5946,6 +6157,7 @@ def main(argv=None) -> int:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library[lib]})
+    entries.append(moe_entry(moe))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

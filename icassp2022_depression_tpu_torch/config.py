@@ -5,7 +5,8 @@ are copied verbatim from the JAX package.  The one difference is the set
 of values ``RNNConfig.rnn_backend`` / ``FusionConfig.rnn_backend`` take:
 ``"auto"`` (the CUDA kernels for CUDA tensors, the plain torch recurrence
 for CPU tensors), ``"torch"`` or ``"cuda"`` — see
-:func:`.ops.rnn.resolve_backend`.
+:func:`.ops.rnn.resolve_backend`.  :class:`MoeLmConfig`, the LM text
+embedder's, has no counterpart there.
 """
 
 from __future__ import annotations
@@ -279,6 +280,41 @@ FUSION_PRESETS = {
     "fuse_clf": FUSE_CLF,
     "fuse_reg": FUSE_REG,
 }
+
+
+@dataclass(frozen=True)
+class MoeLmConfig:
+    """A ``deepseek_v3`` decoder as a sentence embedder (no counterpart in
+    the JAX package; :mod:`.models.moe_lm`).  The defaults are
+    Moonlight-16B-A3B's published ``config.json``
+    (https://huggingface.co/moonshotai/Moonlight-16B-A3B): latent attention
+    without query compression, one dense layer, then layers of 64 routed
+    experts (6 a token, sigmoid scores with a selection bias, the 6
+    weights normalised as the published ``norm_topk_prob`` says) and 2
+    shared ones.  ``kv_a_norm_eps``, ``bos_id`` and ``unk_id`` are not in the
+    published config: the modeling code gives ``kv_a_layernorm`` no eps
+    (its norm class's default, 1e-6), and the ids are the lexicon's."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    rms_norm_eps: float = 1e-5
+    kv_a_norm_eps: float = 1e-6
+    rope_theta: float = 50000.0
+    bos_id: int = 163584
+    unk_id: int = 163586
 
 
 def replace(cfg, **kwargs):

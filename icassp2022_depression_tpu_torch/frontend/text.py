@@ -6,7 +6,9 @@ Per speaker, per answer: the transcript line is segmented
 a CJK-aware fallback), embedded by the resolved sentence embedder
 (:func:`make_embedder`: an explicit encoder, a converted ELMoForManyLangs
 bundle, or the seeded stand-in) and averaged over its tokens -> one
-1024-d vector per answer, [N, 3, 1024] for the corpus.
+1024-d vector per answer, [N, 3, 1024] for the corpus; or embedded by a
+``deepseek_v3`` decoder over explicit weights (a :class:`..config.
+MoeLmConfig`, one ``hidden_size`` vector per answer).
 
 :func:`extract_eatd` writes the JAX package's four npz files and its
 ``extraction_meta.json`` (the embedder's provenance id, byte-identical to
@@ -33,6 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from icassp2022_depression_tpu_torch.config import MoeLmConfig
 from icassp2022_depression_tpu_torch.data import eatd
 from icassp2022_depression_tpu_torch.models import elmo, elmo_pretrained
 from icassp2022_depression_tpu_torch.ops import prng
@@ -187,7 +190,11 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     ("elmo_bundle:<name>:<bytes>"); else the seeded stand-in drawn on ``device`` ("prng:seed=S", or "prng-lstmp:seed=S"
     for an :class:`..models.elmo.ElmoLstmpConfig`), with a stderr banner.
     Explicit ``params`` are moved to ``device``; ``device`` None is the
-    first card (:func:`..utils.device.default_device`).
+    first card (:func:`..utils.device.default_device`).  A
+    :class:`..config.MoeLmConfig` takes explicit ``params`` only (``{"weights":
+    ..., "lexicon": ...}``, :mod:`..models.moe_lm`, imported here at its
+    first use): the decoder's pooled final states, ``cfg.hidden_size``
+    wide, with the weights kept where they lie when already on ``device``.
 
     ``elmo_stateful`` (a bundle only; explicit params or no bundle raise):
     the bundle's :class:`..models.elmo_pretrained.PretrainedElmo` carries
@@ -207,6 +214,16 @@ def make_embedder(params=None, cfg=None, seed: int = 0,
     def ret(fn, dim, ident):
         return (fn, dim, ident) if with_id else (fn, dim)
 
+    if isinstance(cfg, MoeLmConfig):
+        if params is None or elmo_stateful or (elmo_tp and elmo_tp > 1):
+            raise ValueError(
+                "a MoeLmConfig embedder takes explicit params (its weights "
+                "and lexicon), and neither elmo_stateful nor elmo_tp")
+        # imported at its first use: the ELMo paths never load it
+        from icassp2022_depression_tpu_torch.models import moe_lm
+
+        return ret(moe_lm.MoeLmEmbedder(params, cfg, device),
+                   cfg.hidden_size, "explicit-params")
     if cfg is None:
         cfg = elmo.ElmoConfig()
     tp_mesh = None
