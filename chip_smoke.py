@@ -71,9 +71,13 @@ Phases (each raises on failure, so the exit code is nonzero):
    backward with a nonzero cell-state cotangent; the LSTMP kernels at
    (T, B, C, P) = (32, 128, 4096, 512), (16, 8, 4096, 512),
    (48, 104, 4096, 512) and (7, 3, 384, 128) with both +-3 clips engaged
-   and at (128, 24, 4096, 512) with the weights at ``init_lstmp``'s bounds
-   (eight served speakers' long transcripts), the backward (the gate
-   recompute, then one step launch and one fixed-order reduction a step)
+   and at (128, 24, 4096, 512) and (128, 8, 4096, 512) with the weights at
+   ``init_lstmp``'s bounds (eight and one served speakers' long
+   transcripts), the forward through both its routes wherever the plan
+   takes the resident one (at most 32 rows; the two routes and the plain
+   loop timed in turns at (16, 8), (128, 24) and (128, 8)), the backward
+   (the gate recompute, then one step launch and one fixed-order
+   reduction a step)
    fed the plain forward's residuals, every output within 1e-5 of its
    largest magnitude, and the backward, its plain loop and cuDNN timed in
    turns at the timed shapes;
@@ -147,7 +151,8 @@ Phases (each raises on failure, so the exit code is nonzero):
    ``audio_clf``, ``text_clf`` and ``fuse_clf`` folds through the graph
    against the eager route (losses and params bitwise), one replayed
    epoch under ``torch.profiler`` (its kernels by name against the launch
-   counters and the captured calls), an epoch's time through the graph
+   counters and the captured calls; profiled again, up to three times,
+   where the trace comes back short of a counted kernel), an epoch's time through the graph
    and eagerly, a 15-epoch fold with ``--chunk-epochs 7`` killed after
    its first chunk and resumed from its bundle against the single-shot
    run (bitwise), the three ``audio_clf`` folds stacked
@@ -346,7 +351,9 @@ out (model set-up, training, extraction).  The kernels line's
 kernels: phase 14's own calls and the comparisons are not in it.
 
 The line before the last is a JSON object describing each kernel (#3's
-timed at its DAIC shape); the last line is ``{"ok": true, "device":
+timed at its DAIC shape; #6's forward twice, on the step route at (32,
+128, 4096, 512) and as ``lstmp_fwd_resident`` on the resident route at
+(128, 8, 4096, 512), one served speaker's rows); the last line is ``{"ok": true, "device":
 {...}}``.  Nothing of JAX is imported.
 """
 
@@ -397,12 +404,14 @@ LSTM_TIMED = ((3, 4, 128), (3, 2, 128), (256, 16, 128))
 #: one served speaker, a ragged large batch, and a small ragged shape;
 #: "init": the bounds ``init_lstmp`` draws from (the seeded bundle's), at
 #: the rows and steps of eight served speakers' long transcripts (24
-#: sentences of up to 122 tokens)
+#: sentences of up to 122 tokens) and of one speaker's (8 rows padded)
 LSTMP_SHAPES = ((32, 128, 4096, 512, "clips"), (16, 8, 4096, 512, "clips"),
                 (48, 104, 4096, 512, "clips"), (7, 3, 384, 128, "clips"),
-                (128, 24, 4096, 512, "init"))
+                (128, 24, 4096, 512, "init"), (128, 8, 4096, 512, "init"))
+#: the timed shapes; at the three of at most 32 rows the forward's two
+#: routes (resident and step) are timed in turns with the plain loop
 LSTMP_TIMED = ((32, 128, 4096, 512), (16, 8, 4096, 512),
-               (128, 24, 4096, 512))
+               (128, 24, 4096, 512), (128, 8, 4096, 512))
 #: the served shapes whose LSTMP forward is profiled: one call's device
 #: time split by kernel name, and the gaps between its launches
 LSTMP_PROFILED = ((16, 8, 4096, 512), (128, 24, 4096, 512))
@@ -1013,10 +1022,14 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
     same forward residuals (a value within rounding of a clip may fall on
     either side in the two forwards).  Outputs within KERNEL_TOL of their
     largest magnitude, reruns bitwise equal; at the "clips" shapes both
-    clips must engage.  Beside each check, a reading: how far the plain
-    float32 loop and the kernel are from the plain loop in float64, and
-    the same at ``LSTMP_GAIN3``.  Returns the worst absolute errors, the
-    (kernel, plain) ms at the timed shapes and the float64 readings."""
+    clips must engage.  Where the forward's plan takes the resident route
+    (at most 32 rows), the step route is held the same way beside it, and
+    at the timed shapes the two routes and the plain loop are timed in
+    turns.  Beside each check, a reading: how far the plain float32 loop
+    and the kernel are from the plain loop in float64, and the same at
+    ``LSTMP_GAIN3``.  Returns the worst absolute errors, the (kernel,
+    plain) ms at the timed shapes (and the routes' ms where both run) and
+    the float64 readings."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     worst_abs = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator().manual_seed(4)
@@ -1047,8 +1060,12 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
         same = all(torch.equal(a, c_) for a, c_ in
                    zip(got + bgot, again + bagain))
         readings[shape] = _f64_reading(torch, rnn_cuda, fwd_in, got, ref)
-        print(f"kernel lstmp_fwd/lstmp_bwd T={t} B={b} C={c} P={p} "
-              f"({weights} weights): max|d (ys, hpre, cpre, hf)| = "
+        route = rnn_cuda.lstmp_fwd_plan(
+            b, c, p, sms=torch.cuda.get_device_properties(0)
+            .multi_processor_count)["route"]
+        print(f"kernel lstmp_fwd ({route} route)/lstmp_bwd T={t} B={b} "
+              f"C={c} P={p} ({weights} weights): "
+              f"max|d (ys, hpre, cpre, hf)| = "
               f"{fwd:.3e}, max|d (dgates, dhpre)| = {bwd:.3e} (tol "
               f"{KERNEL_TOL} of max|ref|), cell / projection clip engaged "
               f"{clipped}, dcpre nonzero, rerun bitwise equal: {same}; "
@@ -1057,6 +1074,20 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
         if not (fwd <= KERNEL_TOL and bwd <= KERNEL_TOL and same):
             fail(f"LSTMP kernels disagree with their plain versions at "
                  f"{shape}: fwd {fwd}, bwd {bwd}, rerun {same}")
+        step_plan = rnn_cuda.lstmp_fwd_plan(b, c, p, sms=0)
+        if route == "resident":
+            sgot = rnn_cuda.lstmp_sequence(*fwd_in, plan=step_plan)
+            sagain = rnn_cuda.lstmp_sequence(*fwd_in, plan=step_plan)
+            sfwd = _rel(sgot, ref)
+            ssame = all(torch.equal(a, c_) for a, c_ in zip(sgot, sagain))
+            print(f"kernel lstmp_fwd (step route) T={t} B={b} C={c} P={p} "
+                  f"({weights} weights): max|d (ys, hpre, cpre, hf)| = "
+                  f"{sfwd:.3e} (tol {KERNEL_TOL} of max|ref|), rerun bitwise "
+                  f"equal: {ssame}")
+            if not (sfwd <= KERNEL_TOL and ssame):
+                fail(f"the LSTMP forward's step route disagrees with the "
+                     f"plain loop at {shape}: {sfwd}, rerun {ssame}")
+            fwd = max(fwd, sfwd)
         worst["fwd"] = max(worst["fwd"], fwd)
         worst["bwd"] = max(worst["bwd"], bwd)
         for k, gs, rs in (("fwd", got, ref), ("bwd", bgot, bref)):
@@ -1071,8 +1102,19 @@ def lstmp_kernel_phase(torch, rnn_cuda, card: str):
                          torch))}
             ms, pms = timings[shape]["fwd"]
             print(f"timing lstmp_fwd T={t} B={b} C={c} P={p}: cuda kernel "
-                  f"{ms:.4f} ms, plain torch {pms:.4f} ms (median of 5, "
-                  f"CUDA events) [{card}]")
+                  f"({route} route) {ms:.4f} ms, plain torch {pms:.4f} ms "
+                  f"(median of 5, CUDA events) [{card}]")
+            if route == "resident":
+                timings[shape]["routes"] = turns_ms(torch, {
+                    "resident": lambda: rnn_cuda.lstmp_sequence(*fwd_in),
+                    "step": lambda: rnn_cuda.lstmp_sequence(
+                        *fwd_in, plan=step_plan),
+                    "plain": lambda: rnn_cuda.lstmp_sequence_torch(*fwd_in)},
+                    5)
+                print(f"timing lstmp_fwd routes T={t} B={b} C={c} P={p}: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  timings[shape]["routes"].items())
+                      + f" (median of 5 in turns, CUDA events) [{card}]")
             turns = turns_ms(torch, {
                 "kernel": lambda: rnn_cuda.lstmp_sequence_bwd(*bwd_in),
                 "plain": lambda: rnn_cuda.lstmp_sequence_bwd_torch(*bwd_in),
@@ -1304,7 +1346,8 @@ def library_phase(torch, card: str, only=("",)) -> dict:
     backwards are ``torch.autograd.grad`` of the forward's output with
     respect to the input and the weights.  ``only``: the names that start
     with it (a prefix, or a tuple of prefixes)."""
-    (t1, b1, c1, p1), (t2, b2, c2, p2), (t3, b3, c3, p3) = LSTMP_TIMED
+    (t1, b1, c1, p1), (t2, b2, c2, p2), (t3, b3, c3, p3), (t4, b4, c4, p4) = (
+        LSTMP_TIMED)
     shapes = {"gru_fwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd": ("gru",) + BWD_TIMED[0] + (None,),
               "gru_bwd_streamed": ("gru",) + BWD_TIMED[-1] + (None,),
@@ -1316,7 +1359,8 @@ def library_phase(torch, card: str, only=("",)) -> dict:
               "lstmp_fwd_b8": ("lstm", t2, b2, c2, p2),
               "lstmp_bwd_b8": ("lstm", t2, b2, c2, p2),
               "lstmp_fwd_t128": ("lstm", t3, b3, c3, p3),
-              "lstmp_bwd_t128": ("lstm", t3, b3, c3, p3)}
+              "lstmp_bwd_t128": ("lstm", t3, b3, c3, p3),
+              "lstmp_fwd_b8_t128": ("lstm", t4, b4, c4, p4)}
     out = {}
     for name, (cell, t, b, h, proj) in shapes.items():
         if not name.startswith(only):
@@ -1352,7 +1396,7 @@ def lstmp_summary(card: str, lstmp_times: dict, library: dict) -> None:
     """The LSTMP forward at each timed shape beside the plain loop, cuDNN's
     ``nn.LSTM(proj_size=P)`` (no clips) and its bound."""
     lib = dict(zip(LSTMP_TIMED, ("lstmp_fwd", "lstmp_fwd_b8",
-                                 "lstmp_fwd_t128")))
+                                 "lstmp_fwd_t128", "lstmp_fwd_b8_t128")))
     for shape in LSTMP_TIMED:
         ms, plain = lstmp_times[shape]["fwd"]
         b_ms, by = lstmp_bounds(*shape)["fwd"]
@@ -1362,6 +1406,18 @@ def lstmp_summary(card: str, lstmp_times: dict, library: dict) -> None:
               f"{b_ms:.4f} ms ({by}); {plain / ms:.2f}x the plain loop's "
               f"speed, {cudnn / ms:.2f}x cuDNN's, {b_ms / ms:.4f} of the "
               f"bound [{card}]")
+        routes = lstmp_times[shape].get("routes")
+        if routes:
+            t = shape[0]
+            print(f"lstmp_fwd routes at (T, B, C, P) = {shape} (in turns): "
+                  f"resident {routes['resident']:.4f} ms "
+                  f"({1e3 * routes['resident'] / t:.2f} us a step, "
+                  f"{b_ms / routes['resident']:.4f} of the bound), step "
+                  f"{routes['step']:.4f} ms ({1e3 * routes['step'] / t:.2f} "
+                  f"us a step, {b_ms / routes['step']:.4f} of the bound), "
+                  f"plain loop {routes['plain']:.4f} ms; the resident route "
+                  f"{routes['step'] / routes['resident']:.2f}x the step "
+                  f"route's speed [{card}]")
         turns = lstmp_times[shape]["bwd_turns"]
         ms = turns["kernel"]
         b_ms, by = lstmp_bounds(*shape)["bwd"]
@@ -1443,8 +1499,8 @@ def kernel_bounds() -> dict:
 #: recurrence source, the backwards' calls at the shapes the JAX package
 #: streams (TPU kernels #3 and #5), and the threefry draws'
 COUNTERS = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "lstmp_fwd",
-            "lstmp_bwd", "gru_bwd_streamed", "lstm_bwd_streamed",
-            "threefry")
+            "lstmp_fwd_resident", "lstmp_bwd", "gru_bwd_streamed",
+            "lstm_bwd_streamed", "threefry")
 
 
 def _counts(rnn_cuda) -> dict:
@@ -1478,8 +1534,10 @@ class _Unheld:
 UNHELD = _Unheld()
 #: a run's expected launches, its draws counted but not held; a run whose
 #: draws are known (``predict_batch``, a replayed epoch, phase 14) gives
-#: ``threefry`` their number
-DRAWN = dict(ZERO, threefry=UNHELD)
+#: ``threefry`` their number.  Which of a run's ``lstmp_fwd`` calls take
+#: the resident route follows from its batches' row counts, which only
+#: the serving phase and the LSTMP phase hold; elsewhere it is counted
+DRAWN = dict(ZERO, threefry=UNHELD, lstmp_fwd_resident=UNHELD)
 
 
 def _held(got: dict, want: dict) -> bool:
@@ -2202,9 +2260,10 @@ def text_serving_phase(torch, card: str, bundle: Path, chars) -> tuple:
     from icassp2022_depression_tpu_torch.train import checkpoints
 
     launches = dict(ZERO)
-    per_request = {"fuse_clf": dict(DRAWN, lstmp_fwd=4, lstm_fwd=4,
-                                    gru_fwd=2),
-                   "text_clf": dict(DRAWN, lstmp_fwd=4, lstm_fwd=4)}
+    per_request = {"fuse_clf": dict(DRAWN, lstmp_fwd=4, lstmp_fwd_resident=4,
+                                    lstm_fwd=4, gru_fwd=2),
+                   "text_clf": dict(DRAWN, lstmp_fwd=4, lstmp_fwd_resident=4,
+                                    lstm_fwd=4)}
     before_env = os.environ.get("ICASSP_ELMO_WEIGHTS")
     os.environ["ICASSP_ELMO_WEIGHTS"] = str(bundle)
     try:
@@ -3091,7 +3150,8 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
     """The fold program on the card, not counted: 5-epoch ``audio_clf``,
     ``text_clf`` and ``fuse_clf`` folds through the CUDA graph against the
     eager route (bitwise: losses and params); one replayed epoch under
-    ``torch.profiler``, its kernels by name against the launch counters;
+    ``torch.profiler``, its kernels by name against the launch counters
+    (up to three epochs, the counters held on each);
     ``--chunk-epochs 7`` with a resume bundle, killed after its first
     chunk and resumed, against the single-shot run (bitwise); the three
     ``audio_clf`` folds stacked (``vmap_folds``) against the serial folds
@@ -3143,17 +3203,30 @@ def trainer_phase(torch, rnn_cuda, card: str, feats, clf, xt) -> dict:
             fr.run(2)                     # capture (graph), warm
             torch.cuda.synchronize()
             if graph:
-                before = _counts(rnn_cuda)
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    ev[0].record()
-                    fr.run(1)
-                    ev[1].record()
-                    torch.cuda.synchronize()
-                moved = {k: _counts(rnn_cuda)[k] - before[k]
-                         for k in before}
-                seen = _kernel_calls(prof.events(), 3)
-                want = {k: fr.captured.get(k, 0) for k in seen}
+                # the counters held on every try; the trace's kernel calls
+                # on one of up to three (late in a whole run a trace has
+                # come back a kernel short of the replay, PERF.md section 7)
+                for attempt in range(3):
+                    before = _counts(rnn_cuda)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        ev[0].record()
+                        fr.run(1)
+                        ev[1].record()
+                        torch.cuda.synchronize()
+                    moved = {k: _counts(rnn_cuda)[k] - before[k]
+                             for k in before}
+                    seen = _kernel_calls(prof.events(), 3)
+                    want = {k: fr.captured.get(k, 0) for k in seen}
+                    if {k: moved[k] for k in seen} != want:
+                        fail(f"{name}: replay counters {moved}, captured "
+                             f"{fr.captured}")
+                    if seen == want:
+                        break
+                    print(f"{name}: try {attempt + 1}: the trace of a "
+                          f"replayed epoch holds {seen} of the captured "
+                          f"{want} kernel calls; profiling again")
                 # a reading, not held: late in a whole run the trace has
                 # shown 2-3 threefry kernels fewer than the capture counted,
                 # where a fresh process's trace of the same fold shows all
@@ -6109,13 +6182,16 @@ def main(argv=None) -> int:
     # one entry per TPU kernel: #3 and #5 are #2's and #8's sources; #3 is
     # timed at its main path's shape (the DAIC train batch, phase 9), #5 at
     # the streamed T = 256 (no main path reaches it); their launches are
-    # the backward calls at the shapes the JAX package streams
+    # the backward calls at the shapes the JAX package streams.  #6's
+    # forward has a second entry for its resident route (its launches
+    # those of the forward's that took it)
     dk = daic["kernels"]
     if dk["name"] != "gru_bwd_streamed":
         fail(f"the DAIC shape {dk['shape']} is not one the JAX package "
              "streams")
     bounds["gru_bwd_streamed"] = dk["bound"]
     bounds["threefry"] = threefry_times["netvlad bucket, 8 rows"][2:]
+    bounds["lstmp_fwd_resident"] = lstmp_bounds(*LSTMP_TIMED[3])["fwd"]
     library["threefry"] = None
     library["gru_bwd_streamed"] = dk["cudnn_ms"]
     timed = {
@@ -6132,6 +6208,9 @@ def main(argv=None) -> int:
                      "lstm_bwd"),
         "lstmp_fwd": (lstmp_times[LSTMP_TIMED[0]]["fwd"], lstmp_err["fwd"],
                       "lstmp_fwd"),
+        # the forward's resident route, at one served speaker's rows
+        "lstmp_fwd_resident": (lstmp_times[LSTMP_TIMED[3]]["fwd"],
+                               lstmp_err["fwd"], "lstmp_fwd_b8_t128"),
         "lstmp_bwd": (lstmp_times[LSTMP_TIMED[0]]["bwd"], lstmp_err["bwd"],
                       "lstmp_bwd"),
         "threefry": (threefry_times["netvlad bucket, 8 rows"][:2], 0.0,
@@ -6145,11 +6224,12 @@ def main(argv=None) -> int:
                 "lstm_bwd_streamed": f"{pallas}:377",
                 "lstm_bwd": f"{pallas}:868",
                 "lstmp_fwd": f"{pallas}:562", "lstmp_bwd": f"{pallas}:609",
+                "lstmp_fwd_resident": f"{pallas}:562",
                 "threefry": "none: XLA fused each jax.random draw"}
     entries = []
     for name, ((ms, plain_ms), max_err, lib) in timed.items():
         bound_ms, bound_by = bounds[name]
-        source = name.replace("_streamed", "")
+        source = name.replace("_streamed", "").replace("_resident", "")
         entries.append({
             "name": name, "route": "cuda", "source": f"{src}/{source}.cu",
             "replaces": replaces[name],

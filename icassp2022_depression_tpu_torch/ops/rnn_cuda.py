@@ -28,8 +28,9 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   :data:`LAUNCHES`, :data:`BWD_LAUNCHES`, :data:`LSTM_LAUNCHES`,
   :data:`LSTM_BWD_LAUNCHES`, :data:`LSTMP_LAUNCHES` and
   :data:`LSTMP_BWD_LAUNCHES` (one per call of the C entry, which loops over
-  the T steps itself).  A backward call at a (T, B, H) that the JAX
-  package runs through its streamed backward kernel instead
+  the T steps itself; an LSTMP forward on the resident route also adds
+  one to :data:`LSTMP_RESIDENT_LAUNCHES`).  A backward call at a (T, B,
+  H) that the JAX package runs through its streamed backward kernel instead
   (:func:`streamed`) counts in :data:`GRU_BWD_STREAMED_LAUNCHES` or
   :data:`LSTM_BWD_STREAMED_LAUNCHES` in place of the backward's own.  Calls captured into a CUDA graph are counted at
   each replay instead (:func:`add_launches`), as are the threefry
@@ -43,11 +44,12 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   (cell slabs x row tiles, ``W_hh`` streamed through a ``cp.async`` ring,
   programmatic dependent launch); the backwards' step route adds one
   launch that recomputes every step's gates before the walk and one (two)
-  for the weight gradients after it.  The LSTMP forward and backward have
-  one route each, of the same kind (:func:`lstmp_fwd_plan`,
-  :func:`lstmp_bwd_plan`): the backward recomputes every step's gates
+  for the weight gradients after it.  The LSTMP backward has one route of
+  the same kind (:func:`lstmp_bwd_plan`): it recomputes every step's gates
   before the walk and reduces the partial carries in a fixed order after
-  each step.
+  each step.  The LSTMP forward has that step route and, for one tile of at
+  most 32 rows, a "resident" one (:func:`lstmp_fwd_plan`): one cooperative
+  launch a sequence, each block's weights kept on chip across the steps.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
 * Fold axis (the counterpart of ``jax.vmap`` over ``pallas_call``, whose
@@ -89,6 +91,8 @@ GRU_BWD_STREAMED_LAUNCHES = 0
 LSTM_BWD_STREAMED_LAUNCHES = 0
 #: LSTMP forward launches made by :func:`lstmp_sequence`
 LSTMP_LAUNCHES = 0
+#: those of them that took the resident route (:func:`lstmp_fwd_plan`)
+LSTMP_RESIDENT_LAUNCHES = 0
 #: LSTMP backward launches made by :func:`lstmp_sequence_bwd`
 LSTMP_BWD_LAUNCHES = 0
 
@@ -99,6 +103,7 @@ COUNTERS = {"gru_fwd": (_self, "LAUNCHES"), "gru_bwd": (_self, "BWD_LAUNCHES"),
             "lstm_fwd": (_self, "LSTM_LAUNCHES"),
             "lstm_bwd": (_self, "LSTM_BWD_LAUNCHES"),
             "lstmp_fwd": (_self, "LSTMP_LAUNCHES"),
+            "lstmp_fwd_resident": (_self, "LSTMP_RESIDENT_LAUNCHES"),
             "lstmp_bwd": (_self, "LSTMP_BWD_LAUNCHES"),
             "gru_bwd_streamed": (_self, "GRU_BWD_STREAMED_LAUNCHES"),
             "lstm_bwd_streamed": (_self, "LSTM_BWD_STREAMED_LAUNCHES"),
@@ -141,7 +146,7 @@ _ENTRIES = {"gru_fwd": ("gru_seq_fwd_f32", 4, 6, 0),
             "gru_bwd": ("gru_seq_bwd_f32", 12, 7, 0),
             "lstm_fwd": ("lstm_seq_fwd_f32", 5, 6, 0),
             "lstm_bwd": ("lstm_seq_bwd_f32", 13, 7, 0),
-            "lstmp_fwd": ("lstmp_seq_fwd_f32", 9, 6, 2),
+            "lstmp_fwd": ("lstmp_seq_fwd_f32", 10, 8, 2),
             "lstmp_bwd": ("lstmp_seq_bwd_f32", 12, 6, 2)}
 _fns: dict = {}
 
@@ -855,24 +860,97 @@ def _lstmp_dims(xp4: torch.Tensor, w_h_t3: torch.Tensor):
     return t_steps, batch, c_dim, w_h_t3.shape[0]
 
 
-def lstmp_fwd_plan(batch: int, c_dim: int, p_dim: int) -> dict:
-    """How ``csrc/lstmp_fwd.cu`` splits one step: ``cells`` per slab and
-    ``rows`` per tile (one of the tiles its C entry compiles), ``slabs`` =
-    ceil(C / cells) x ``row_tiles`` = ceil(B / rows) blocks, and the shape
-    of the partial-projection scratch, ``[slabs, B, P]``.
+#: the resident route's row tiles, which ``csrc/lstmp_fwd.cu`` compiles
+LSTMP_RESIDENT_ROWS = (8, 16, 24, 32)
+#: the most rows the resident route takes: one row tile
+LSTMP_RESIDENT_MAX_ROWS = 32
+#: the resident route's block (``res::`` in ``csrc/lstmp_fwd.cu``): 32
+#: cells, 256 threads, two projection columns a thread (so P <= 512), the
+#: gate product over 4 parts of P, the first 32 dims of each part's W_h
+#: rows in registers, passes of 8 rows
+_RESIDENT_CELLS, _RESIDENT_MAX_P = 32, 512
+_RESIDENT_PARTS, _RESIDENT_REG_DIMS, _RESIDENT_PASS = 4, 32, 8
+#: dynamic shared memory a block may take on an sm_90 card, the one target
+#: the sources are built for (227 KB), and the SMs of an H100 SXM, the
+#: plan's card when it is given none
+SM90_SMEM_PER_BLOCK = 232448
+H100_SMS = 132
 
-    Up to 64 rows the slabs are 32 cells wide (128 blocks at C = 4096) and
-    the rows are split into at most 32-row tiles padded to a multiple of 8;
-    above, 64 x 64 tiles (128 blocks at B = 128, where the flops bound
-    the step).  The scratch is B / cells times ``w_p_t``'s size: at most
-    twice it for B <= 128."""
+
+def _resident_dims(rows: int, p_dim: int):
+    """(registers, shared memory, L2): how many of each part's W_h dims a
+    resident block holds where, or None where the fixed part of its shared
+    memory leaves no room: h [rows, P], a pass's partials [4, 8, 128] and
+    the hf slab [rows, 32].  Shared memory takes what the registers do not,
+    as far as it holds in multiples of 4 (the product's 16-byte reads of
+    h); L2 the rest."""
+    dims = 4 * _cdiv(p_dim, 4 * _RESIDENT_PARTS)
+    reg = min(dims, _RESIDENT_REG_DIMS)
+    partials = _RESIDENT_PARTS * _RESIDENT_PASS * 4 * _RESIDENT_CELLS
+    free = SM90_SMEM_PER_BLOCK - 4 * (rows * p_dim + partials
+                                      + rows * _RESIDENT_CELLS)
+    if free < 0:
+        return None
+    row_bytes = 4 * _RESIDENT_PARTS * 4 * _RESIDENT_CELLS
+    smem = min(dims - reg, free // row_bytes // 4 * 4)
+    return reg, smem, dims - reg - smem
+
+
+def lstmp_fwd_plan(batch: int, c_dim: int, p_dim: int,
+                   sms: int = H100_SMS) -> dict:
+    """How ``csrc/lstmp_fwd.cu`` runs one call: its ``route``, ``cells``
+    per slab and ``rows`` per tile (one of the tiles its C entry compiles),
+    ``slabs`` = ceil(C / cells) x ``row_tiles`` = ceil(B / rows) blocks, and
+    the shape of the partial-projection scratch, ``[slabs, B, P]``.
+
+    "resident": one cooperative launch for the whole sequence, one block
+    an SM, each keeping its 32-cell slab's weights on chip; ``dims`` says
+    how many of each of the gate product's 4 parts of W_h's dims sit in
+    registers, shared memory and L2 (:func:`_resident_dims`).  Taken
+    where it applies: at most :data:`LSTMP_RESIDENT_MAX_ROWS` rows (one
+    tile of :data:`LSTMP_RESIDENT_ROWS`; at 32 rows it is still ahead of
+    the step route on an H100, PERF.md section 6), P at most 512, and no
+    more slabs than the card's ``sms`` (``sms=0`` gives the step plan at
+    any rows).  Otherwise the step route: two launches a step; up to 64
+    rows 32-cell slabs (128 blocks at C = 4096) and at most 32-row tiles
+    padded to a multiple of 8, above 64 x 64 tiles (128 blocks at B = 128,
+    where the flops bound the step).  The scratch is B / cells times
+    ``w_p_t``'s size: at most twice it for B <= 128."""
+    rows = 8 * _cdiv(batch, 8)
+    dims = _resident_dims(rows, p_dim)
+    slabs = _cdiv(c_dim, _RESIDENT_CELLS)
+    resident = (0 < batch <= LSTMP_RESIDENT_MAX_ROWS and c_dim % 4 == 0
+                and p_dim % 4 == 0 and p_dim <= _RESIDENT_MAX_P
+                and slabs <= sms and dims is not None)
+    if resident:
+        return {"route": "resident", "cells": _RESIDENT_CELLS, "rows": rows,
+                "slabs": slabs, "row_tiles": 1, "dims": dims,
+                "scratch": (slabs, batch, p_dim)}
     if batch > 64:
         cells, rows = 64, 64
     else:
         cells, rows = 32, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
     slabs = _cdiv(c_dim, cells)
-    return {"cells": cells, "rows": rows, "slabs": slabs,
+    return {"route": "step", "cells": cells, "rows": rows, "slabs": slabs,
             "row_tiles": _cdiv(batch, rows), "scratch": (slabs, batch, p_dim)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: each (device, stream)'s grid-barrier word for the resident route,
+#: zeroed once; a launch that runs to its end leaves it at 0 for the next
+#: one on the stream
+_BARRIERS: dict = {}
+
+
+def _grid_barrier(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
 
 
 #: the backward step route's tiles (cells, rows) that ``csrc/lstmp_bwd.cu``
@@ -921,11 +999,14 @@ def _lstmp_bwd_scratch(plan: dict, batch: int, c_dim: int,
 
 def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
                    b3: torch.Tensor, w_p_t: torch.Tensor,
-                   cell_clip: float = 3.0, proj_clip: float = 3.0):
+                   cell_clip: float = 3.0, proj_clip: float = 3.0,
+                   plan: dict | None = None):
     """xp4 [T, B, 4, C], w_h_t3 [P, 4, C], b3 [1, 4, C] (or [4, C]),
     w_p_t [C, P] -> (ys, hpre [T, B, P], cpre, hf [T, B, C]).  As
     :func:`gru_sequence`, a CUDA input that requires grad raises: gradients
-    go through :class:`LSTMPSequence`."""
+    go through :class:`LSTMPSequence`.  ``plan``: a :func:`lstmp_fwd_plan`
+    of this shape, by default the one it picks for (B, C, P) on this card;
+    a CPU call ignores it."""
     if xp4.device.type == "cpu":
         return lstmp_sequence_torch(xp4, w_h_t3, b3, w_p_t, cell_clip,
                                     proj_clip)
@@ -949,20 +1030,29 @@ def lstmp_sequence(xp4: torch.Tensor, w_h_t3: torch.Tensor,
     cpre, hf = new((t_steps, batch, c_dim)), new((t_steps, batch, c_dim))
     if ys.numel() == 0 or cpre.numel() == 0:
         return ys.zero_(), hpre.zero_(), cpre.zero_(), hf.zero_()
-    plan = lstmp_fwd_plan(batch, c_dim, p_dim)
+    if plan is None:
+        plan = lstmp_fwd_plan(batch, c_dim, p_dim,
+                              sms=_sms(xp4.device.index))
+    if plan["scratch"] != (_cdiv(c_dim, plan["cells"]), batch, p_dim):
+        raise ValueError(f"lstmp_sequence: a plan for another shape: "
+                         f"{plan}")
     part = new(plan["scratch"])
+    resident = plan["route"] == "resident"
     fn = _kernel("lstmp_fwd")
     with torch.cuda.device(xp4.device):
         stream = torch.cuda.current_stream().cuda_stream
+        bar = _grid_barrier(xp4.device, stream).data_ptr() if resident else 0
         err = fn(xp4.data_ptr(), w_h_t3.data_ptr(), b3.data_ptr(),
                  w_p_t.data_ptr(), ys.data_ptr(), hpre.data_ptr(),
-                 cpre.data_ptr(), hf.data_ptr(), part.data_ptr(), t_steps,
-                 batch, c_dim, p_dim, plan["cells"], plan["rows"],
+                 cpre.data_ptr(), hf.data_ptr(), part.data_ptr(), bar,
+                 t_steps, batch, c_dim, p_dim, int(resident), plan["cells"],
+                 plan["rows"], plan["dims"][1] if resident else 0,
                  float(cell_clip), float(proj_clip), stream)
     if err != 0:
         raise RuntimeError(f"lstmp_seq_fwd_f32 launch failed: cudaError {err}")
-    global LSTMP_LAUNCHES
+    global LSTMP_LAUNCHES, LSTMP_RESIDENT_LAUNCHES
     LSTMP_LAUNCHES += 1
+    LSTMP_RESIDENT_LAUNCHES += int(resident)
     return ys, hpre, cpre, hf
 
 

@@ -8,14 +8,17 @@ Each variant is a copy of the source and its headers with a few strings
 replaced (the script fails if a replacement applies nowhere), built with
 the package's ``nvcc`` flags into ``_checkout/lstmp_variants/`` (listed in
 ``.gitignore``), one compiler process per variant, started together.  Every
-variant's C entry is called through ``ctypes`` with the tile that
-``ops/rnn_cuda.lstmp_fwd_plan`` picks, at (T, B) = (16, 8), (128, 24) and
-(32, 128) with C = 4096, P = 512 and weights at ``init_lstmp``'s bounds:
-the median and least of 20 calls (CUDA events), the time a step, and the
-largest difference from the plain loop relative to its largest magnitude
-(``nocompute`` skips the gate product on purpose, so it is wrong there).
-Prints the card's name and power limit first and the compiler's
-register and spill lines of each variant.
+variant's C entry is called through ``ctypes`` at (T, B) = (16, 8),
+(128, 8), (128, 24) and (32, 128) with C = 4096, P = 512 and weights at
+``init_lstmp``'s bounds: those of ``VARIANTS`` on the step route, with the
+tile that ``ops/rnn_cuda.lstmp_fwd_plan(..., sms=0)`` picks, and those of
+``RESIDENT_VARIANTS`` on the resident route, with the plan it picks for
+the card, at the shapes where that is the resident route (at most 32
+rows).  Printed: the median and least of 20 calls (CUDA events), the time
+a step, and the largest difference from the plain loop relative to its
+largest magnitude (``nocompute`` and the resident variants that skip a
+product are wrong there on purpose).  Prints the card's name and power
+limit first and the compiler's register and spill lines of each variant.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "icassp2022_depression_tpu_torch" / "csrc"
 OUT = HERE / "_checkout" / "lstmp_variants"
-SHAPES = ((16, 8), (128, 24), (32, 128))
+SHAPES = ((16, 8), (128, 8), (128, 24), (32, 128))
 C_DIM, P_DIM, REPS = 4096, 512, 20
 STAGES = "return CS == 32 ? 8 : 4;"
 CG = "cp.async.cg.shared.global [%0]"
@@ -55,6 +58,21 @@ VARIANTS = {
     # no gate product (the copies, syncs, cell update and projection stay)
     "nocompute": [("for (int k0 = 0; k0 < GK; k0 += KU)",
                    "for (int k0 = 0; k0 < GK * (B < 0); k0 += KU)")],
+}
+NO_PRODUCT = ("if (t > 0) {  // step 0: h = 0, the gates are xp + b",
+              "if (t < 0) {")
+NO_PROJECTION = ("(cells in order)\n    if (p0 < P) {",
+                 "(cells in order)\n    if (p0 < 0) {")
+#: the resident route's: name -> [(text in the source, its replacement)]
+RESIDENT_VARIANTS = {
+    "resident": [],
+    # no gate product (h's load, the update, the projection, the barriers
+    # and the reduce stay)
+    "resident_noproduct": [NO_PRODUCT],
+    # no partial projection (the reduce sums what part holds)
+    "resident_noprojection": [NO_PROJECTION],
+    # neither product: h's load, the update, the barriers and the reduce
+    "resident_neither": [NO_PRODUCT, NO_PROJECTION],
 }
 
 
@@ -92,7 +110,8 @@ def compile_variant(source: Path, name: str, replacements, out: Path):
 
 
 def build(name: str):
-    return compile_variant(CSRC / "lstmp_fwd.cu", name, VARIANTS[name], OUT)
+    return compile_variant(CSRC / "lstmp_fwd.cu", name,
+                           {**VARIANTS, **RESIDENT_VARIANTS}[name], OUT)
 
 
 def main(argv) -> int:
@@ -104,7 +123,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(HERE))
     from icassp2022_depression_tpu_torch.ops import rnn_cuda
 
-    names = argv or list(VARIANTS)
+    names = argv or [*VARIANTS, *RESIDENT_VARIANTS]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -125,14 +144,20 @@ def main(argv) -> int:
             / C_DIM ** 0.5
         inputs[(t, b)] = [a.cuda() for a in (xp4, w_h, b3, w_p)]
         refs[(t, b)] = rnn_cuda.lstmp_sequence_torch(*inputs[(t, b)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
     for name, (so, report) in built.items():
+        resident = name in RESIDENT_VARIANTS
         fn = ctypes.CDLL(str(so)).lstmp_seq_fwd_f32
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         print(f"{name}: " + "; ".join(report))
         for (t, b), (xp4, w_h, b3, w_p) in inputs.items():
-            plan = rnn_cuda.lstmp_fwd_plan(b, C_DIM, P_DIM)
+            plan = rnn_cuda.lstmp_fwd_plan(b, C_DIM, P_DIM,
+                                           sms=sms if resident else 0)
+            if resident and plan["route"] != "resident":
+                continue
             outs = [torch.empty((t, b, d), device="cuda")
                     for d in (P_DIM, P_DIM, C_DIM, C_DIM)]
             part = torch.empty(plan["scratch"], device="cuda")
@@ -141,8 +166,11 @@ def main(argv) -> int:
             def call():
                 err = fn(xp4.data_ptr(), w_h.data_ptr(), b3.data_ptr(),
                          w_p.data_ptr(), *(o.data_ptr() for o in outs),
-                         part.data_ptr(), t, b, C_DIM, P_DIM, plan["cells"],
-                         plan["rows"], 3.0, 3.0, stream)
+                         part.data_ptr(), bar.data_ptr() if resident
+                         else None, t, b, C_DIM, P_DIM, int(resident),
+                         plan["cells"], plan["rows"],
+                         plan["dims"][1] if resident else 0, 3.0, 3.0,
+                         stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError {err}")
 

@@ -199,37 +199,56 @@ def test_init_lstmp_draws_the_jax_weights():
                                       err_msg=k)
 
 
-@pytest.mark.parametrize("b,c,p", [(8, 4096, 512), (24, 4096, 512),
-                                   (128, 4096, 512), (104, 4096, 512),
-                                   (3, 384, 128)])
-def test_lstmp_fwd_plan_covers_every_cell_once(b, c, p):
-    """The forward kernel's split (``rnn_cuda.lstmp_fwd_plan``): a tile the
-    C entry compiles, slabs and row tiles that cover every cell and row
-    exactly once, 128 blocks at the zhs width, and a partial scratch
-    ``[slabs, B, P]`` within twice ``w_p_t``'s size."""
+def _fwd_compiled():
+    """The forward's compiled step tiles (cells, rows), resident row tiles
+    and register dims, read off ``csrc/lstmp_fwd.cu``."""
     import re
 
     from icassp2022_depression_tpu_torch import _build
 
-    compiled = {tuple(map(int, m)) for m in re.findall(
-        r"^  LSTMP_FWD_TILE\((\d+), (\d+)\)$",
-        (_build.CSRC / "lstmp_fwd.cu").read_text(), re.M)}
-    assert len(compiled) == 5
-    plan = rnn_cuda.lstmp_fwd_plan(b, c, p)
-    cells, rows = plan["cells"], plan["rows"]
-    assert (cells, rows) in compiled
-    cover_c, cover_b = np.zeros(c, int), np.zeros(b, int)
-    for s in range(plan["slabs"]):
-        assert s * cells < c                 # no empty slab
-        cover_c[s * cells:(s + 1) * cells] += 1
-    for r in range(plan["row_tiles"]):
-        assert r * rows < b                  # no empty row tile
-        cover_b[r * rows:(r + 1) * rows] += 1
-    assert (cover_c == 1).all() and (cover_b == 1).all()
-    assert plan["scratch"] == (plan["slabs"], b, p)
-    assert np.prod(plan["scratch"]) <= 2 * c * p
-    if c == 4096:
-        assert plan["slabs"] * plan["row_tiles"] == 128
+    source = (_build.CSRC / "lstmp_fwd.cu").read_text()
+    tiles = {tuple(map(int, m)) for m in re.findall(
+        r"^  LSTMP_FWD_TILE\((\d+), (\d+)\)$", source, re.M)}
+    rows = {int(m) for m in re.findall(
+        r"^  LSTMP_FWD_RESIDENT\((\d+)\)$", source, re.M)}
+    reg = int(re.search(r"constexpr int KR = (\d+);", source).group(1))
+    return tiles, rows, reg
+
+
+@pytest.mark.parametrize("b,c,p", [(8, 4096, 512), (24, 4096, 512),
+                                   (128, 4096, 512), (104, 4096, 512),
+                                   (3, 384, 128), (32, 4096, 512)])
+def test_lstmp_fwd_plan_covers_every_cell_once(b, c, p):
+    """The forward kernel's split (``rnn_cuda.lstmp_fwd_plan``), on an H100
+    and with no SMs for the resident route (the step route's plan at every
+    row count): a tile the C entry compiles for the plan's route, slabs and
+    row tiles that cover every cell and row exactly once, 128 blocks at the
+    zhs width, and a partial scratch ``[slabs, B, P]`` within twice
+    ``w_p_t``'s size."""
+    tiles, resident_rows, _ = _fwd_compiled()
+    assert len(tiles) == 5
+    assert resident_rows == set(rnn_cuda.LSTMP_RESIDENT_ROWS)
+    for sms in (rnn_cuda.H100_SMS, 0):
+        plan = rnn_cuda.lstmp_fwd_plan(b, c, p, sms=sms)
+        assert (plan["route"] == "step") == (sms == 0 or b > 32)
+        cells, rows = plan["cells"], plan["rows"]
+        if plan["route"] == "resident":
+            assert cells == 32 and rows in resident_rows
+            assert plan["row_tiles"] == 1 and b <= rows
+        else:
+            assert (cells, rows) in tiles
+        cover_c, cover_b = np.zeros(c, int), np.zeros(b, int)
+        for s in range(plan["slabs"]):
+            assert s * cells < c                 # no empty slab
+            cover_c[s * cells:(s + 1) * cells] += 1
+        for r in range(plan["row_tiles"]):
+            assert r * rows < b                  # no empty row tile
+            cover_b[r * rows:(r + 1) * rows] += 1
+        assert (cover_c == 1).all() and (cover_b == 1).all()
+        assert plan["scratch"] == (plan["slabs"], b, p)
+        assert np.prod(plan["scratch"]) <= 2 * c * p
+        if c == 4096:
+            assert plan["slabs"] * plan["row_tiles"] == 128
 
 
 @pytest.mark.parametrize("b,c,p", [(8, 4096, 512), (24, 4096, 512),
@@ -322,11 +341,94 @@ def _c_entry_args(source: str, symbol: str) -> tuple:
 def test_c_entry_signatures_match_the_bindings(name):
     """Each ``_ENTRIES`` binding names the argument counts of its C entry
     in ``csrc/<name>.cu`` (ctypes would pass a mismatched call silently);
-    the LSTMP forward takes the partial scratch and the tile."""
+    the LSTMP forward takes the partial scratch, the resident route's
+    barrier word, the route, the tile and the shared-memory dims."""
     from icassp2022_depression_tpu_torch import _build
 
     symbol, *counts = rnn_cuda._ENTRIES[name]
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert _c_entry_args(source, symbol) == tuple(counts)
     if name == "lstmp_fwd":
-        assert tuple(counts) == (9, 6, 2)
+        assert tuple(counts) == (10, 8, 2)
+
+
+ZHS = (4096, 512)
+
+
+@pytest.mark.parametrize("c,p", [ZHS, (384, 128)])
+@pytest.mark.parametrize("b", [1, 3, 8, 24, 32, 33, 64, 96, 128])
+def test_lstmp_fwd_plan_route_by_rows(b, c, p):
+    """One row tile (at most 32 rows) takes the resident route, at the zhs
+    width and at a small one; more rows take the step route, whose plan is
+    the one it always had: 32-cell slabs and at most 32-row tiles up to 64
+    rows, 64 x 64 tiles above."""
+    plan = rnn_cuda.lstmp_fwd_plan(b, c, p)
+    if b <= rnn_cuda.LSTMP_RESIDENT_MAX_ROWS:
+        assert plan["route"] == "resident"
+        assert (plan["cells"], plan["rows"]) == (32, 8 * -(-b // 8))
+        assert plan["slabs"] == -(-c // 32)
+        return
+    assert plan["route"] == "step"
+    want = {33: (32, 24, 2), 64: (32, 32, 2), 96: (64, 64, 2),
+            128: (64, 64, 2)}[b]
+    assert (plan["cells"], plan["rows"], plan["row_tiles"]) == want
+    assert plan == rnn_cuda.lstmp_fwd_plan(b, c, p, sms=0)
+
+
+@pytest.mark.parametrize("b", rnn_cuda.LSTMP_RESIDENT_ROWS)
+@pytest.mark.parametrize("c,p", [ZHS, (384, 128), (4096, 12), (64, 500)])
+def test_lstmp_resident_blocks_and_dims_cover_every_cell_once(b, c, p):
+    """The resident route: one block a 32-cell slab, together covering
+    every cell once and no more blocks than an H100's SMs; every W_h dim of
+    each of the gate product's 4 parts in registers, shared memory or L2
+    exactly once, the register dims the source's, the shared ones a
+    multiple of 4 (16-byte reads of h) within an sm_90 block's shared
+    memory beside h, a pass's partials and the hf slab.  At the zhs
+    geometry the shared memory holds every dim the registers do not at 8
+    rows; at 32 rows it holds 68, where room for 71 is left (71 dims would
+    start the L2 reads of h off a 16-byte boundary)."""
+    _, _, reg = _fwd_compiled()
+    plan = rnn_cuda.lstmp_fwd_plan(b, c, p)
+    assert plan["route"] == "resident" and plan["scratch"] == (
+        plan["slabs"], b, p)
+    cover = np.zeros(c, int)
+    for s in range(plan["slabs"]):
+        assert s * 32 < c                    # no empty block
+        cover[s * 32:(s + 1) * 32] += 1
+    assert (cover == 1).all() and plan["slabs"] <= rnn_cuda.H100_SMS
+    part = 4 * -(-p // 16)
+    in_reg, in_smem, in_l2 = plan["dims"]
+    assert in_reg == min(reg, part) and in_smem % 4 == 0 and in_l2 >= 0
+    assert in_reg + in_smem + in_l2 == part and 4 * part >= p
+    smem = 4 * (4 * in_smem * 128 + b * p + 4 * 8 * 128 + b * 32)
+    assert smem <= rnn_cuda.SM90_SMEM_PER_BLOCK
+    if (c, p) == ZHS:
+        assert plan["slabs"] == 128
+        assert plan["dims"] == {8: (32, 96, 0), 16: (32, 88, 8),
+                                24: (32, 80, 16), 32: (32, 68, 28)}[b]
+
+
+def test_lstmp_fwd_plan_refuses_or_steps_where_resident_cannot_run():
+    """The resident route needs its blocks on distinct SMs (a card with
+    fewer SMs than slabs takes the step route), P at most 512 (two
+    projection columns a thread), C a multiple of 4 and one row tile;
+    elsewhere the plan is the step route's."""
+    assert rnn_cuda.lstmp_fwd_plan(8, *ZHS, sms=114)["route"] == "step"
+    assert rnn_cuda.lstmp_fwd_plan(8, *ZHS, sms=128)["route"] == "resident"
+    assert rnn_cuda.lstmp_fwd_plan(8, 4096, 516)["route"] == "step"
+    for b, c, p, sms in ((8, 4096, 512, 114), (8, 4096, 516, 132),
+                         (33, 4096, 512, 132), (8, 4098, 512, 132)):
+        assert rnn_cuda.lstmp_fwd_plan(b, c, p, sms=sms) == \
+            rnn_cuda.lstmp_fwd_plan(b, c, p, sms=0)
+
+
+def test_launch_counts_carry_the_resident_route():
+    """``lstmp_fwd_resident`` is one of ``launch_counts()``'s sources; a
+    CPU call of the forward moves neither LSTMP counter."""
+    counts = rnn_cuda.launch_counts()
+    assert "lstmp_fwd_resident" in counts and "lstmp_fwd" in counts
+    assert rnn_cuda.COUNTERS["lstmp_fwd_resident"][1] == \
+        "LSTMP_RESIDENT_LAUNCHES"
+    ins, _ = _sequence_inputs(17, 3, 8, 16, 8)
+    rnn_cuda.lstmp_sequence(*(torch.from_numpy(a) for a in ins))
+    assert rnn_cuda.launch_counts() == counts
