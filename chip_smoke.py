@@ -32,14 +32,13 @@ LSTMP profiles (one forward and one backward call at (16, 8) and (128,
 24)) and the LSTMP yardsticks, prints their lines and stops: the quick
 loop for work on those kernels.  ``--only lstm`` does the same for the
 two LSTM sources: phase 2's LSTM checks and timings at the text model's
-H = 128 and at the stand-in encoder's H = 512
-(both routes of the forward and of the backward), the profiles of the
+H = 128 and at the stand-in encoder's H = 512, the profiles of the
 forward and of the backward at (256, 16, 128), and the cuDNN yardsticks.
-``--only gru`` does the same for the two GRU sources: both forward routes'
-and both backward routes' checks and timings, the forward's profiles at
-(3, 8, 256), (3, 100, 256) and (3, 200, 256) (each route alone, and one
-round of the timing turns), the
-backward's at (3, 8, 256) and (256, 16, 256), and the cuDNN yardsticks.
+``--only gru`` does the same for the two GRU sources: the forward's and
+the backward's checks and timings, the forward's profiles at (3, 8, 256),
+(3, 100, 256) and (3, 200, 256) (the kernel alone, and one round of the
+timing turns), the backward's at (3, 8, 256) and (256, 16, 256), and the
+cuDNN yardsticks.
 ``--only trainer`` builds the GRU and LSTM sources and runs the fold-axis
 kernel checks and the fold-program checks of phases 2 and 5 on random
 features (about a minute).  ``--only daic`` builds the GRU sources and
@@ -84,23 +83,20 @@ Phases (each raises on failure, so the exit code is nonzero):
    beside each, a reading of how far the plain float32 loop and
    the kernel are from the plain loop in float64, and the same reading at
    a recurrent gain of 3/sqrt(P), where float32 itself parts from float64
-   (not checked); the GRU forward and the LSTM forward through both of
-   their routes (one launch, or one launch a step) at every GRU shape (an
-   H = 254 that only the one-launch route takes among them; the routes,
-   plain loop and cuDNN ``nn.GRU`` in turns at the timed shapes), at every
-   LSTM shape and at the stand-in
+   (not checked); the GRU forward and the LSTM forward (one launch a
+   step) at every GRU shape (the kernel, plain loop and cuDNN ``nn.GRU``
+   in turns at the timed shapes), at every LSTM shape and at the stand-in
    text encoder's H = 512 ((T, B) = (16, 8), (128, 24), (16, 112),
-   (128, 488)), and the GRU and LSTM backwards through both of theirs
-   (two launches, or one a step between a gate recompute and a weight
-   product) at every GRU and LSTM shape, within 1e-5, reruns bitwise
-   equal, the backward's routes, plain loop and cuDNN timed in turns at
-   each timed shape with its bound; timed with CUDA
+   (128, 488)), and the GRU and LSTM backwards (one launch a step between
+   a gate recompute and a weight product) at every GRU and LSTM shape,
+   within 1e-5, reruns bitwise equal, the backward, plain loop and cuDNN
+   timed in turns at each timed shape with its bound; timed with CUDA
    events, beside the nearest PyTorch call (cuDNN ``nn.GRU`` /
    ``nn.LSTM`` / ``nn.LSTM(proj_size=512)``, both directions, and
    ``nn.LSTM(512, 512)`` at every stand-in shape); the forward wrappers
    must refuse a CUDA input that requires grad; one GRU forward call at
-   (3, 8, 256), (3, 100, 256) and (3, 200, 256) through each route (and
-   tile in question) and one round of its timing turns, one
+   (3, 8, 256), (3, 100, 256) and (3, 200, 256) and one round of its
+   timing turns, one
    LSTMP forward and one backward call at (16, 8) and at
    (128, 24), one LSTM forward call at the stand-in's
    (16, 8) and (128, 488), one GRU backward call at (3, 8, 256) and
@@ -114,7 +110,11 @@ Phases (each raises on failure, so the exit code is nonzero):
    (3, 3, 2, 128): against the plain loops (1e-5; dw, db of their largest
    magnitude), against F single-fold launches (bitwise) and their reruns
    (bitwise), then the fold launch, F single-fold launches, the plain
-   loops and F cuDNN calls in turns beside the F folds' bound;
+   loops and F cuDNN calls in turns beside the F folds' bound; and the
+   autograd Functions ``GRUSequence`` / ``LSTMSequence`` with a fold axis
+   at (3, 3, 8, 256) and (3, 3, 4, 128), one kernel launch forward and one
+   backward, and at H = 254 and 126, which the kernels' 16-byte copies
+   cannot take, a ``ValueError`` and no launch at all;
 3. audio serving: a synthetic EATD corpus, a full-width ``audio_clf`` with
    seeded random weights saved as a JAX-layout npz, ``cli predict`` for
    one speaker and ``Predictor.predict_batch`` for 1, 3 and 8 speakers,
@@ -376,14 +376,14 @@ KERNEL_TOL = 1e-5
 SLICE_TOL = 1e-5
 #: the GRU forward at the audio model's H = 256: serving (1, 3 and 8
 #: speakers' rows; 22 and more speakers give 66 and more rows), training
-#: (batches 8 and 2), an eval split, one the JAX package would stream, a
-#: ragged shape, and an H only the "sequence" route takes
+#: (batches 8 and 2), an eval split, one the JAX package would stream, and
+#: a ragged shape
 KERNEL_SHAPES = ((3, 1, 256), (3, 4, 256), (3, 8, 256), (3, 24, 256),
                  (3, 100, 256), (3, 200, 256), (3, 2, 256), (256, 16, 256),
-                 (7, 3, 200), (3, 4, 254))
+                 (7, 3, 200))
 TIMED_SHAPES = ((3, 8, 256), (3, 24, 256), (3, 100, 256), (3, 200, 256))
 #: the GRU forward calls profiled (the audio_clf training shape, and two
-#: batches above 64 rows, where two step tiles are in question)
+#: batches above 64 rows)
 GRU_FWD_PROFILED = ((3, 8, 256), (3, 100, 256), (3, 200, 256))
 BATCHES = (1, 3, 8)
 #: the training shapes (audio_clf batch 8, audio_reg batch 2, eval of a
@@ -492,12 +492,11 @@ def cudnn_gru_fwd(torch, t: int, b: int, h: int):
 
 
 def kernel_phase(torch, rnn_cuda, card: str):
-    """The GRU forward kernel through each route of its plan against its
-    plain version at every ``KERNEL_SHAPES`` entry (within KERNEL_TOL, a
-    rerun bitwise equal); then, at each ``TIMED_SHAPES`` entry, the calls
-    of :func:`_gru_turn_fns` timed in turns.  Returns
-    the worst error and the (kernel through the plan's route, plain) ms at
-    the timed shapes."""
+    """The GRU forward kernel against its plain version at every
+    ``KERNEL_SHAPES`` entry (within KERNEL_TOL, a rerun bitwise equal);
+    then, at each ``TIMED_SHAPES`` entry, the calls of
+    :func:`_gru_turn_fns` timed in turns.  Returns the worst error and the
+    (kernel, plain) ms at the timed shapes."""
     worst = 0.0
     gen = torch.Generator().manual_seed(0)
     inputs = {}
@@ -508,69 +507,48 @@ def kernel_phase(torch, rnn_cuda, card: str):
         bias = ((torch.rand((1, 3 * h), generator=gen) * 2 - 1)
                 * bound).cuda()
         ref = rnn_cuda.gru_sequence_torch(xp, w, bias)
-        errs = {}
-        for route, fn in _route_fns(rnn_cuda, (xp, w, bias), (t, b, h),
-                                    "gru").items():
-            ys, again = fn(), fn()
-            torch.cuda.synchronize()
-            if ys.shape != (t, b, h) or not torch.isfinite(ys).all():
-                fail(f"gru_fwd ({route}) output at {(t, b, h)} is malformed")
-            err = (ys - ref).abs().max().item()
-            same = torch.equal(ys, again)
-            if not (err <= KERNEL_TOL and same):
-                fail(f"GRU kernel ({route} route) disagrees with its plain "
-                     f"version at {(t, b, h)}: {err}, rerun bitwise equal "
-                     f"{same}")
-            errs[route] = (err, same)
+        ys = rnn_cuda.gru_sequence(xp, w, bias)
+        again = rnn_cuda.gru_sequence(xp, w, bias)
+        torch.cuda.synchronize()
+        if ys.shape != (t, b, h) or not torch.isfinite(ys).all():
+            fail(f"gru_fwd output at {(t, b, h)} is malformed")
+        err = (ys - ref).abs().max().item()
+        same = torch.equal(ys, again)
+        if not (err <= KERNEL_TOL and same):
+            fail(f"GRU kernel disagrees with its plain version at "
+                 f"{(t, b, h)}: {err}, rerun bitwise equal {same}")
         print(f"kernel gru_fwd T={t} B={b} H={h}: max|cuda - plain| "
-              + ", ".join(f"{r} {e:.3e} (rerun bitwise equal {sm})"
-                          for r, (e, sm) in errs.items())
-              + f" (tol {KERNEL_TOL}; the plan "
-              f"{rnn_cuda.gru_fwd_plan(b, h)})")
-        worst = max([worst] + [e for e, _ in errs.values()])
+              f"{err:.3e} (rerun bitwise equal {same}) (tol {KERNEL_TOL}; "
+              f"the plan {rnn_cuda.gru_fwd_plan(b, h)})")
+        worst = max(worst, err)
         inputs[(t, b, h)] = (xp, w, bias)
     timings = {}
     for shape in TIMED_SHAPES:
-        fns = _gru_turn_fns(torch, rnn_cuda, inputs[shape], shape)
-        ms = turns_ms(torch, fns, 50)
-        route = rnn_cuda.gru_fwd_plan(*shape[1:])["route"]
+        ms = turns_ms(torch, _gru_turn_fns(torch, rnn_cuda, inputs[shape],
+                                           shape), 50)
         b_ms, by = rnn_bounds("gru", *shape)["fwd"]
-        timings[shape] = (ms[route], ms["plain"])
+        timings[shape] = (ms["kernel"], ms["plain"])
         print(f"timing gru_fwd T={shape[0]} B={shape[1]} H={shape[2]}: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-              + f"; the plan takes {route}; bound {b_ms:.6f} ms ({by}), "
-              f"{b_ms / ms[route]:.4f} of it; cuDNN "
-              f"{ms['cudnn'] / ms[route]:.2f}x the kernel's time (median of "
-              f"50 in turns, CUDA events) [{card}]")
+              + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms['kernel']:.4f} "
+              f"of it; cuDNN {ms['cudnn'] / ms['kernel']:.2f}x the kernel's "
+              f"time (median of 50 in turns, CUDA events) [{card}]")
     return worst, timings
 
 
 def _gru_turn_fns(torch, rnn_cuda, args, shape) -> dict:
-    """{name: call} of the GRU forward's timing turns at ``shape``: each
-    route, above 64 rows also the step route through the other step tile
-    in question there ((4, 32), or the LSTM forward's 32-cell tile), the
-    plain loop and cuDNN's ``nn.GRU``."""
-    t, b, h = shape
-    fns = _route_fns(rnn_cuda, args, shape, "gru")
-    if b > 64 and h % 4 == 0:
-        plan = rnn_cuda.gru_fwd_plan(b, h)
-        for cells, rows in ((4, 32), (32, 16 if b <= 128 else 64)):
-            if (cells, rows) != (plan["cells"], plan["rows"]):
-                tile = dict(plan, cells=cells, rows=rows,
-                            slabs=-(-h // cells), row_tiles=-(-b // rows))
-                fns[f"step {cells}x{rows}"] = (
-                    lambda tile=tile: rnn_cuda.gru_sequence(*args, plan=tile))
-    fns["plain"] = lambda: rnn_cuda.gru_sequence_torch(*args)
-    fns["cudnn"] = cudnn_gru_fwd(torch, *shape)
-    return fns
+    """{name: call} of the GRU forward's timing turns at ``shape``: the
+    kernel, the plain loop and cuDNN's ``nn.GRU``."""
+    return {"kernel": lambda: rnn_cuda.gru_sequence(*args),
+            "plain": lambda: rnn_cuda.gru_sequence_torch(*args),
+            "cudnn": cudnn_gru_fwd(torch, *shape)}
 
 
 def gru_profile_phase(torch, rnn_cuda, card: str) -> dict:
-    """At each ``GRU_FWD_PROFILED`` shape, one ``gru_sequence`` call through
-    each route (above 64 rows also through the other step tile), and one
-    round of :func:`kernel_phase`'s timing turns, split by
-    :func:`profile_split`: each route's and tile's device time, and
-    whether a route's time in the turns is the device's or the host's."""
+    """At each ``GRU_FWD_PROFILED`` shape, one ``gru_sequence`` call and
+    one round of :func:`kernel_phase`'s timing turns, split by
+    :func:`profile_split`: the kernel's device time, and whether its time
+    in the turns is the device's or the host's."""
     gen = torch.Generator().manual_seed(13)
     out = {}
     for t, b, h in GRU_FWD_PROFILED:
@@ -579,10 +557,8 @@ def gru_profile_phase(torch, rnn_cuda, card: str) -> dict:
              * h ** -0.5).cuda()
         bias = torch.zeros((1, 3 * h)).cuda()
         fns = _gru_turn_fns(torch, rnn_cuda, (xp, w, bias), (t, b, h))
-        for name in [k for k in fns if k not in ("plain", "cudnn")]:
-            out[(name, t, b, h)] = profile_split(
-                torch, fns[name], f"gru_fwd ({name}) T={t} B={b} H={h}", t,
-                card)
+        out[("kernel", t, b, h)] = profile_split(
+            torch, fns["kernel"], f"gru_fwd T={t} B={b} H={h}", t, card)
         out[("turns", t, b, h)] = profile_split(
             torch, lambda: [fn() for fn in fns.values()],
             f"gru_fwd turns ({', '.join(fns)}) T={t} B={b} H={h}", t, card)
@@ -732,23 +708,22 @@ def slice_phase(torch, card: str):
 
 
 def bwd_kernel_phase(torch, rnn_cuda, card: str):
-    """The GRU backward kernel through both routes against its plain
-    version at every ``BWD_SHAPES`` entry; then, at each ``BWD_TIMED``
-    shape, both routes, the plain loop and cuDNN timed in turns.  Returns
-    the worst |d dxp| and the (kernel through the plan's route, plain) ms
-    at the timed shapes."""
+    """The GRU backward kernel against its plain version at every
+    ``BWD_SHAPES`` entry; then, at each ``BWD_TIMED`` shape, the kernel,
+    the plain loop and cuDNN timed in turns.  Returns the worst |d dxp|
+    and the (kernel, plain) ms at the timed shapes."""
     worst = 0.0
     gen = torch.Generator().manual_seed(1)
     inputs = {}
     for t, b, h in BWD_SHAPES:
         args = _bwd_inputs(torch, rnn_cuda, gen, "gru", t, b, h)
         ref = rnn_cuda.gru_sequence_bwd_torch(*args)
-        routes = bwd_routes(torch, rnn_cuda, "gru", args, ref, (t, b, h))
-        print(f"kernel gru_bwd T={t} B={b} H={h}: " + ", ".join(
-            f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun bitwise "
-            f"equal {same}" for r, (e, rel, same) in routes.items())
-              + f" (tol {KERNEL_TOL}; dw, db of max|ref|)")
-        worst = max([worst] + [e for e, _, _ in routes.values()])
+        err, rel, same = bwd_check(torch, rnn_cuda, "gru", args, ref,
+                                   (t, b, h))
+        print(f"kernel gru_bwd T={t} B={b} H={h}: max|d dxp| {err:.3e}, "
+              f"dw/db rel {rel:.3e}, rerun bitwise equal {same} (tol "
+              f"{KERNEL_TOL}; dw, db of max|ref|)")
+        worst = max(worst, err)
         inputs[(t, b, h)] = args
     xp, w, bias = inputs[BWD_SHAPES[-1]][:3]
     try:
@@ -763,34 +738,26 @@ def bwd_kernel_phase(torch, rnn_cuda, card: str):
     return worst, timings
 
 
-def bwd_routes(torch, rnn_cuda, cell: str, args, ref, shape) -> dict:
-    """The GRU or LSTM backward through each route of its plan (the step
-    route only where H is a multiple of 4) against the plain ``ref``:
-    {route: (max|d dxp|, max of dw, db's error relative to their largest
-    magnitude, rerun bitwise equal)}, failing past KERNEL_TOL or on a rerun
-    that differs."""
+def bwd_check(torch, rnn_cuda, cell: str, args, ref, shape) -> tuple:
+    """The GRU or LSTM backward kernel against the plain ``ref``: (max|d
+    dxp|, max of dw, db's error relative to their largest magnitude, rerun
+    bitwise equal), failing past KERNEL_TOL or on a rerun that differs."""
     t, b, h = shape
     g = (3 if cell == "gru" else 4) * h
-    plan_fn, bwd, _ = _bwd_fns(rnn_cuda, cell)
-    out = {}
-    for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]:
-        plan = plan_fn(b, h, route, steps=t)
-        got = bwd(*args, plan=plan)
-        again = bwd(*args, plan=plan)
-        torch.cuda.synchronize()
-        for x, want in zip(got, ((t, b, g), (h, g), (1, g))):
-            if tuple(x.shape) != want or not torch.isfinite(x).all():
-                fail(f"{cell}_bwd ({route}) output at {shape} is malformed")
-        err = (got[0] - ref[0]).abs().max().item()
-        rel = max(((x - r).abs().max() / r.abs().max()).item()
-                  for x, r in zip(got[1:], ref[1:]))
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        if not (err <= KERNEL_TOL and rel <= KERNEL_TOL and same):
-            fail(f"{cell} backward kernel ({route} route) disagrees with its "
-                 f"plain version at {shape}: dxp {err}, dw/db {rel}, rerun "
-                 f"bitwise equal {same}")
-        out[route] = (err, rel, same)
-    return out
+    bwd = _bwd_fns(rnn_cuda, cell)[1]
+    got, again = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    for x, want in zip(got, ((t, b, g), (h, g), (1, g))):
+        if tuple(x.shape) != want or not torch.isfinite(x).all():
+            fail(f"{cell}_bwd output at {shape} is malformed")
+    err = (got[0] - ref[0]).abs().max().item()
+    rel = max(((x - r).abs().max() / r.abs().max()).item()
+              for x, r in zip(got[1:], ref[1:]))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    if not (err <= KERNEL_TOL and rel <= KERNEL_TOL and same):
+        fail(f"{cell} backward kernel disagrees with its plain version at "
+             f"{shape}: dxp {err}, dw/db {rel}, rerun bitwise equal {same}")
+    return err, rel, same
 
 
 def _bwd_fns(rnn_cuda, cell: str) -> tuple:
@@ -816,51 +783,40 @@ def cudnn_bwd(torch, cell: str, t: int, b: int, h: int):
 
 
 def bwd_turns(torch, rnn_cuda, cell: str, args, shape, card: str) -> tuple:
-    """Both routes of the backward, the plain loop and cuDNN at ``shape``,
-    timed in turns; prints them with the bound and returns (the plan's
-    route ms, plain ms)."""
+    """The backward kernel, the plain loop and cuDNN at ``shape``, timed
+    in turns; prints them with the bound and returns (kernel ms, plain
+    ms)."""
     t, b, h = shape
-    plan_fn, bwd, plain = _bwd_fns(rnn_cuda, cell)
-    fns = {route: (lambda plan=plan_fn(b, h, route, steps=t):
-                   bwd(*args, plan=plan))
-           for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]}
-    fns["plain"] = lambda: plain(*args)
-    fns["cudnn"] = cudnn_bwd(torch, cell, t, b, h)
+    _, bwd, plain = _bwd_fns(rnn_cuda, cell)
+    fns = {"kernel": lambda: bwd(*args), "plain": lambda: plain(*args),
+           "cudnn": cudnn_bwd(torch, cell, t, b, h)}
     reps = 50 if t * b <= 512 else 20
     ms = turns_ms(torch, fns, reps)
-    route = plan_fn(b, h, steps=t)["route"]
     b_ms, by = rnn_bounds(cell, t, b, h)["bwd"]
     print(f"timing {cell}_bwd T={t} B={b} H={h}: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items())
-          + f"; the plan takes {route}; bound {b_ms:.6f} ms ({by}), "
-          f"{b_ms / ms[route]:.4f} of it; cuDNN {ms['cudnn'] / ms[route]:.2f}x "
-          f"the kernel's time (median of {reps} in turns, CUDA events) "
-          f"[{card}]")
-    return ms[route], ms["plain"]
+          + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms['kernel']:.4f} of it; "
+          f"cuDNN {ms['cudnn'] / ms['kernel']:.2f}x the kernel's time "
+          f"(median of {reps} in turns, CUDA events) [{card}]")
+    return ms["kernel"], ms["plain"]
 
 
-def lstm_routes(torch, rnn_cuda, args, ref, shape) -> dict:
-    """The LSTM forward through each route of ``lstm_fwd_plan`` (the step
-    route only where H is a multiple of 4) against the plain ``ref``:
-    {route: (max|d (ys, cs)|, rerun bitwise equal)}, failing past
-    KERNEL_TOL or on a rerun that differs."""
-    t, b, h = shape
-    out = {}
-    for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]:
-        plan = rnn_cuda.lstm_fwd_plan(b, h, route)
-        got = rnn_cuda.lstm_sequence(*args, plan=plan)
-        again = rnn_cuda.lstm_sequence(*args, plan=plan)
-        torch.cuda.synchronize()
-        for g in got:
-            if tuple(g.shape) != shape or not torch.isfinite(g).all():
-                fail(f"LSTM kernel ({route}) output at {shape} is malformed")
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
-        if not (err <= KERNEL_TOL and same):
-            fail(f"LSTM kernel ({route} route) disagrees with its plain "
-                 f"version at {shape}: {err}, rerun bitwise equal {same}")
-        out[route] = (err, same)
-    return out
+def lstm_fwd_check(torch, rnn_cuda, args, ref, shape) -> tuple:
+    """The LSTM forward kernel against the plain ``ref``: (max|d (ys,
+    cs)|, rerun bitwise equal), failing past KERNEL_TOL or on a rerun that
+    differs."""
+    got = rnn_cuda.lstm_sequence(*args)
+    again = rnn_cuda.lstm_sequence(*args)
+    torch.cuda.synchronize()
+    for g in got:
+        if tuple(g.shape) != shape or not torch.isfinite(g).all():
+            fail(f"LSTM kernel output at {shape} is malformed")
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    if not (err <= KERNEL_TOL and same):
+        fail(f"LSTM kernel disagrees with its plain version at {shape}: "
+             f"{err}, rerun bitwise equal {same}")
+    return err, same
 
 
 def turns_ms(torch, fns: dict, reps: int) -> dict:
@@ -876,23 +832,11 @@ def turns_ms(torch, fns: dict, reps: int) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def _route_fns(rnn_cuda, args, shape, cell: str = "lstm") -> dict:
-    """{route: call} of the LSTM (or GRU) forward through each route at
-    ``shape`` (the step route only where H is a multiple of 4)."""
-    t, b, h = shape
-    plan_fn, fwd = ((rnn_cuda.gru_fwd_plan, rnn_cuda.gru_sequence)
-                    if cell == "gru"
-                    else (rnn_cuda.lstm_fwd_plan, rnn_cuda.lstm_sequence))
-    return {route: (lambda plan=plan_fn(b, h, route): fwd(*args, plan=plan))
-            for route in ("sequence", "step")[:2 if h % 4 == 0 else 1]}
-
-
 def lstm_kernel_phase(torch, rnn_cuda, card: str):
-    """Both LSTM kernels against their plain versions, each through both of
-    its routes, the backward with a nonzero cell-state cotangent (the
-    forward's routes timed in turns at every shape, the backward's routes,
-    the plain loop and cuDNN at the timed shapes); returns the worst errors
-    and the (kernel through the plan's route, plain) ms of each at the
+    """Both LSTM kernels against their plain versions, the backward with a
+    nonzero cell-state cotangent (at the timed shapes the forward and its
+    plain loop timed, and the backward, its plain loop and cuDNN in turns);
+    returns the worst errors and the (kernel, plain) ms of each at the
     timed shapes."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator().manual_seed(2)
@@ -905,34 +849,18 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
                 * bound).cuda()
         dys = torch.randn((t, b, h), generator=gen).cuda()
         dcs = torch.randn((t, b, h), generator=gen).cuda()
-        ys, cs = rnn_cuda.lstm_sequence(xp, w, bias)
         ref_ys, ref_cs = rnn_cuda.lstm_sequence_torch(xp, w, bias)
         args = (xp, w, bias, ref_ys, ref_cs, dys, dcs)
-        torch.cuda.synchronize()
-        for g in (ys, cs):
-            if tuple(g.shape) != (t, b, h) or not torch.isfinite(g).all():
-                fail(f"LSTM kernel output at {(t, b, h)} is malformed")
-        fwd = max((ys - ref_ys).abs().max().item(),
-                  (cs - ref_cs).abs().max().item())
-        routes = lstm_routes(torch, rnn_cuda, args[:3], (ref_ys, ref_cs),
-                             (t, b, h))
-        fwd = max([fwd] + [e for e, _ in routes.values()])
-        by_route_bwd = bwd_routes(torch, rnn_cuda, "lstm", args,
-                                 rnn_cuda.lstm_sequence_bwd_torch(*args),
-                                 (t, b, h))
-        bwd = max(e for e, _, _ in by_route_bwd.values())
+        fwd, same_f = lstm_fwd_check(torch, rnn_cuda, args[:3],
+                                     (ref_ys, ref_cs), (t, b, h))
+        bwd, rel, same_b = bwd_check(torch, rnn_cuda, "lstm", args,
+                                     rnn_cuda.lstm_sequence_bwd_torch(*args),
+                                     (t, b, h))
         print(f"kernel lstm_fwd/lstm_bwd T={t} B={b} H={h}: max|d ys|, "
-              f"|d cs| = {fwd:.3e} (routes "
-              + ", ".join(f"{r} {e:.3e}, rerun bitwise equal {sm}"
-                          for r, (e, sm) in routes.items())
-              + "); backward routes " + ", ".join(
-                  f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun "
-                  f"bitwise equal {same}"
-                  for r, (e, rel, same) in by_route_bwd.items())
-              + f" (tol {KERNEL_TOL}; dw, db of max|ref|), dcs nonzero")
-        if not fwd <= KERNEL_TOL:
-            fail(f"LSTM forward kernel disagrees with its plain version at "
-                 f"{(t, b, h)}: {fwd}")
+              f"|d cs| = {fwd:.3e}, rerun bitwise equal {same_f}; backward "
+              f"max|d dxp| {bwd:.3e}, dw/db rel {rel:.3e}, rerun bitwise "
+              f"equal {same_b} (tol {KERNEL_TOL}; dw, db of max|ref|), dcs "
+              f"nonzero")
         worst["fwd"] = max(worst["fwd"], fwd)
         worst["bwd"] = max(worst["bwd"], bwd)
         inputs[(t, b, h)] = args
@@ -957,15 +885,6 @@ def lstm_kernel_phase(torch, rnn_cuda, card: str):
               f"(median of 50, CUDA events) [{card}]")
         timings[shape] = {"fwd": fwd, "bwd": bwd_turns(
             torch, rnn_cuda, "lstm", args, shape, card)}
-    for shape in LSTM_SHAPES:
-        by_route = turns_ms(
-            torch, _route_fns(rnn_cuda, inputs[shape][:3], shape), 50)
-        print(f"timing lstm_fwd routes T={shape[0]} B={shape[1]} "
-              f"H={shape[2]}: " + ", ".join(
-                  f"{r} {ms:.4f} ms" for r, ms in by_route.items())
-              + f" (the plan takes "
-              f"{rnn_cuda.lstm_fwd_plan(shape[1], shape[2])['route']}; "
-              f"median of 50 in turns, CUDA events) [{card}]")
     return worst, timings
 
 
@@ -1283,20 +1202,19 @@ def bwd_profile_phase(torch, rnn_cuda, card: str, cells=("gru", "lstm")):
 
 def standin_lstm_phase(torch, rnn_cuda, card: str) -> tuple:
     """The LSTM forward kernel at the stand-in text encoder's H = 512
-    (``STANDIN_LSTM_SHAPES``) against its plain version through both
-    routes: within KERNEL_TOL, a rerun bitwise equal.  Then both routes,
-    the plain loop and cuDNN's ``nn.LSTM(512, 512)`` (a yardstick used
-    nowhere, input projection included) timed in turns.  Returns the
-    (kernel, plain) ms per shape (the kernel through the route the plan
-    takes), cuDNN's ms and the worst error."""
+    (``STANDIN_LSTM_SHAPES``) against its plain version: within
+    KERNEL_TOL, a rerun bitwise equal.  Then the kernel, the plain loop and
+    cuDNN's ``nn.LSTM(512, 512)`` (a yardstick used nowhere, input
+    projection included) timed in turns.  Returns the (kernel, plain) ms
+    per shape, cuDNN's ms and the worst error."""
     gen = torch.Generator().manual_seed(5)
     timings, cudnn, worst = {}, {}, 0.0
     for t, b, h in STANDIN_LSTM_SHAPES:
         shape = (t, b, h)
         args = _standin_inputs(torch, gen, t, b, h)
         ref = rnn_cuda.lstm_sequence_torch(*args)
-        routes = lstm_routes(torch, rnn_cuda, args, ref, shape)
-        worst = max([worst] + [e for e, _ in routes.values()])
+        err, same = lstm_fwd_check(torch, rnn_cuda, args, ref, shape)
+        worst = max(worst, err)
         lstm = torch.nn.LSTM(h, h).cuda()
         x = torch.randn((t, b, h), generator=gen).cuda()
 
@@ -1306,21 +1224,17 @@ def standin_lstm_phase(torch, rnn_cuda, card: str) -> tuple:
 
         reps = 20 if t * b <= 4096 else 5
         ms = turns_ms(torch, {
-            **_route_fns(rnn_cuda, args, shape),
+            "kernel": lambda: rnn_cuda.lstm_sequence(*args),
             "plain": lambda: rnn_cuda.lstm_sequence_torch(*args),
             "cudnn": library}, reps)
-        plan = rnn_cuda.lstm_fwd_plan(b, h)
-        timings[shape] = (ms[plan["route"]], ms["plain"])
+        timings[shape] = (ms["kernel"], ms["plain"])
         cudnn[shape] = ms["cudnn"]
         print(f"kernel lstm_fwd T={t} B={b} H={h} (the stand-in encoder): "
-              f"max|d (ys, cs)| " + ", ".join(
-                  f"{r} {e:.3e} (rerun bitwise equal {sm})"
-                  for r, (e, sm) in routes.items())
-              + f" (tol {KERNEL_TOL}); the plan {plan}; routes " + ", ".join(
-                  f"{r} {ms[r]:.4f} ms" for r in routes)
-              + f", plain torch {ms['plain']:.4f} ms, cuDNN "
-              f"{ms['cudnn']:.4f} ms (median of {reps} in turns, CUDA "
-              f"events) [{card}]")
+              f"max|d (ys, cs)| {err:.3e} (rerun bitwise equal {same}) "
+              f"(tol {KERNEL_TOL}); the plan {rnn_cuda.lstm_fwd_plan(b, h)}; "
+              f"kernel {ms['kernel']:.4f} ms, plain torch "
+              f"{ms['plain']:.4f} ms, cuDNN {ms['cudnn']:.4f} ms (median of "
+              f"{reps} in turns, CUDA events) [{card}]")
     return timings, cudnn, worst
 
 
@@ -2968,9 +2882,9 @@ FOLD_SHAPES = (("gru", (3, 3, 8, 256)), ("gru", (3, 3, 2, 256)),
                ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 2, 128)),
                ("gru", (1, 3, 8, 256)), ("gru", (1, 3, 4, 256)),
                ("lstm", (1, 3, 4, 128)), ("lstm", (1, 3, 2, 128)))
-#: the fold-axis checks through the "sequence" route: the recipes' shapes
-#: (where it is taken only when asked) and an H that is no multiple of 4
-#: (where "auto" takes it)
+#: the fold-axis checks through the autograd Functions (``GRUSequence`` /
+#: ``LSTMSequence``): the recipes' shapes, where they launch the kernels,
+#: and an H that is no multiple of 4, where they raise and launch nothing
 FOLD_SEQUENCE_SHAPES = (("gru", (3, 3, 8, 256)), ("gru", (3, 3, 4, 254)),
                         ("lstm", (3, 3, 4, 128)), ("lstm", (3, 3, 4, 126)))
 RESUME_EPOCHS = 15
@@ -2999,19 +2913,18 @@ def _cudnn_fwd(torch, cell: str, t: int, b: int, h: int):
     return fn
 
 
-def _check_fold(torch, rnn_cuda, gen, cell: str, shape: tuple,
-                route: str = "auto") -> tuple:
+def _check_fold(torch, rnn_cuda, gen, cell: str, shape: tuple) -> tuple:
     """One launch over F folds of the ``cell`` forward and backward through
-    ``route``'s plan, held against the plain versions (1e-5; dw, db of
-    their largest magnitude), against F single-fold launches of that plan
+    their plans, held against the plain versions (1e-5; dw, db of their
+    largest magnitude), against F single-fold launches of those plans
     (bitwise) and against itself (rerun bitwise); fails on a difference.
     Returns ``(fwd, plain_fwd, bwd, plain_bwd, (xp, w, bias), bargs,
-    err_f, err_dxp)``, the kernel functions bound to the plan."""
+    err_f, err_dxp)``, the kernel functions bound to the plans."""
     f, t, b, h = shape
     g = (3 if cell == "gru" else 4) * h
     kfwd, plain_fwd, kbwd, plain_bwd = _fold_fns(rnn_cuda, cell)
-    fwd_plan = getattr(rnn_cuda, f"{cell}_fwd_plan")(b, h, route)
-    bwd_plan = getattr(rnn_cuda, f"{cell}_bwd_plan")(b, h, route, steps=t)
+    fwd_plan = getattr(rnn_cuda, f"{cell}_fwd_plan")(b, h)
+    bwd_plan = getattr(rnn_cuda, f"{cell}_bwd_plan")(b, h, steps=t)
 
     def fwd(*a):
         return kfwd(*a, plan=fwd_plan)
@@ -3045,16 +2958,74 @@ def _check_fold(torch, rnn_cuda, gen, cell: str, shape: tuple,
               and all(torch.equal(x[i], s[k]) for i, s in enumerate(singlesb)
                       for k, x in enumerate(gotb)))
     print(f"kernel {cell}_fwd/{cell}_bwd with a fold axis (F, T, B, H) = "
-          f"{shape}, routes {fwd_plan['route']}/{bwd_plan['route']}: "
+          f"{shape}: "
           f"forward max|d| {err_f:.3e}, dxp {err_dxp:.3e}, dw/db rel "
           f"{rel:.3e} (tol {KERNEL_TOL}) against the plain loops; bitwise F "
           f"single-fold launches {single}; reruns bitwise equal {rerun}")
     if not (err_f <= KERNEL_TOL and err_dxp <= KERNEL_TOL
             and rel <= KERNEL_TOL and rerun and single):
-        fail(f"the fold-axis {cell} kernels disagree at {shape} through "
-             f"{fwd_plan['route']}/{bwd_plan['route']}")
+        fail(f"the fold-axis {cell} kernels disagree at {shape}")
     return (fwd, plain_fwd, bwd, plain_bwd, (xp, w, bias), bargs, err_f,
             err_dxp)
+
+
+def _check_fold_function(torch, rnn_cuda, gen, cell: str,
+                         shape: tuple) -> None:
+    """The autograd Function of ``cell`` (``GRUSequence`` /
+    ``LSTMSequence``) forward and backward over F folds, held against the
+    plain versions (1e-5; dw, db of their largest magnitude), launching one
+    forward and one backward kernel; at an H the kernels cannot take (not
+    a multiple of 4) it must raise ``ValueError`` and launch nothing;
+    fails otherwise."""
+    f, t, b, h = shape
+    g = (3 if cell == "gru" else 4) * h
+    fn = rnn_cuda.GRUSequence if cell == "gru" else rnn_cuda.LSTMSequence
+    _, plain_fwd, _, plain_bwd = _fold_fns(rnn_cuda, cell)
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    xp = torch.randn((f, t, b, g), generator=gen).cuda()
+    w, bias = rnd(f, h, g, scale=h ** -0.5), rnd(f, 1, g, scale=h ** -0.5)
+    couts = tuple(torch.randn((f, t, b, h), generator=gen).cuda()
+                  for _ in range(1 if cell == "gru" else 2))
+    ins = tuple(a.clone().requires_grad_() for a in (xp, w, bias))
+    before = rnn_cuda.launch_counts()
+    if h % 4:
+        try:
+            fn.apply(*ins)
+        except ValueError as e:
+            torch.cuda.synchronize()
+            print(f"{fn.__name__} with a fold axis (F, T, B, H) = {shape}: "
+                  f"raises ({e})")
+            if rnn_cuda.launch_counts() == before:
+                return
+        fail(f"the {cell} Function at {shape} did not raise before "
+             f"launching")
+    got = fn.apply(*ins)
+    got = got if isinstance(got, tuple) else (got,)
+    grads = torch.autograd.grad(got, ins, couts)
+    torch.cuda.synchronize()
+    after = rnn_cuda.launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    ref = plain_fwd(xp, w, bias)
+    refb = plain_bwd(xp, w, bias, *ref, *couts)
+    err_f = max((x - r).abs().max().item() for x, r in zip(got, ref))
+    err_dxp = (grads[0] - refb[0]).abs().max().item()
+    rel = max(((x[i] - r[i].reshape(x[i].shape)).abs().max()
+               / r[i].abs().max()).item()
+              for x, r in zip(grads[1:], refb[1:]) for i in range(f))
+    want = {f"{cell}_fwd": 1,
+            (f"{cell}_bwd_streamed" if rnn_cuda.streamed(
+                t, b, h, g // h) else f"{cell}_bwd"): 1}
+    print(f"{fn.__name__} with a fold axis (F, T, B, H) = {shape}: "
+          f"forward max|d| {err_f:.3e}, dxp {err_dxp:.3e}, dw/db rel "
+          f"{rel:.3e} (tol {KERNEL_TOL}) against the plain loops; launches "
+          f"{launched} (expected {want})")
+    if not (err_f <= KERNEL_TOL and err_dxp <= KERNEL_TOL
+            and rel <= KERNEL_TOL and launched == want):
+        fail(f"the {cell} Function disagrees at {shape}: launches "
+             f"{launched}, expected {want}")
 
 
 def fold_kernel_phase(torch, rnn_cuda, card: str) -> dict:
@@ -3062,8 +3033,8 @@ def fold_kernel_phase(torch, rnn_cuda, card: str) -> dict:
     ``lstm_fwd``, #8 ``lstm_bwd``): at ``FOLD_SHAPES`` through their
     default plans, each checked by :func:`_check_fold`, then the fold
     launch, the F single-fold launches, the plain loops and F cuDNN calls
-    timed in turns beside the bound of the F folds' work; then checked at
-    ``FOLD_SEQUENCE_SHAPES`` through the "sequence" route.
+    timed in turns beside the bound of the F folds' work; then the autograd
+    Functions at ``FOLD_SEQUENCE_SHAPES`` (:func:`_check_fold_function`).
     Returns {(name, shape): (ms, plain_ms, bound_ms, bound_by, cudnn_ms,
     max_err)}."""
     gen = torch.Generator().manual_seed(21)
@@ -3097,7 +3068,7 @@ def fold_kernel_phase(torch, rnn_cuda, card: str) -> dict:
                 ms["fold"], ms["plain"], b_ms, by, ms["cudnn x F"],
                 err_f if d == "fwd" else err_dxp)
     for cell, shape in FOLD_SEQUENCE_SHAPES:
-        _check_fold(torch, rnn_cuda, gen, cell, shape, "sequence")
+        _check_fold_function(torch, rnn_cuda, gen, cell, shape)
     return out
 
 
@@ -3480,60 +3451,51 @@ def daic_train_launches(rnn_cuda, n_train: int, max_r: int,
 
 def daic_kernel_checks(torch, rnn_cuda, card: str, max_r: int,
                        serve_r: int) -> dict:
-    """The GRU kernels at the DAIC shapes, not counted: the forward (#1,
-    both routes) at the train batch and eval split (max_r, 16, 256) and
-    at one served participant (serve_r, 1, 256); the backward (#3 where
-    the JAX package streams it, else #2; both routes) at (max_r, 16, 256)
-    against its plain loop (dxp 1e-5, dw / db 1e-5 of their largest
-    magnitude, reruns bitwise), then its routes, the plain loop and cuDNN
-    ``nn.GRU`` timed in turns with its bound.  Returns the worst errors
-    and the timings."""
+    """The GRU kernels at the DAIC shapes, not counted: the forward (#1)
+    at the train batch and eval split (max_r, 16, 256) and at one served
+    participant (serve_r, 1, 256); the backward (#3 where the JAX package
+    streams it, else #2) at (max_r, 16, 256) against its plain loop (dxp
+    1e-5, dw / db 1e-5 of their largest magnitude, reruns bitwise), then
+    the kernel, the plain loop and cuDNN ``nn.GRU`` timed in turns with its
+    bound.  Returns the worst errors and the timings."""
     gen = torch.Generator().manual_seed(12)
     worst_fwd = 0.0
     for t, b in ((max_r, 16), (serve_r, 1)):
         args = _bwd_inputs(torch, rnn_cuda, gen, "gru", t, b, 256)[:3]
         ref = rnn_cuda.gru_sequence_torch(*args)
-        for route, fn in _route_fns(rnn_cuda, args, (t, b, 256),
-                                    "gru").items():
-            ys, again = fn(), fn()
-            torch.cuda.synchronize()
-            err = (ys - ref).abs().max().item()
-            if not (err <= KERNEL_TOL and torch.equal(ys, again)):
-                fail(f"gru_fwd ({route}) at the DAIC shape {(t, b, 256)}: "
-                     f"{err}, rerun bitwise equal {torch.equal(ys, again)}")
-            worst_fwd = max(worst_fwd, err)
-            print(f"kernel gru_fwd at the DAIC shape T={t} B={b} H=256 "
-                  f"({route}): max|cuda - plain| {err:.3e}, rerun bitwise "
-                  f"equal (tol {KERNEL_TOL})")
+        ys, again = rnn_cuda.gru_sequence(*args), rnn_cuda.gru_sequence(*args)
+        torch.cuda.synchronize()
+        err = (ys - ref).abs().max().item()
+        if not (err <= KERNEL_TOL and torch.equal(ys, again)):
+            fail(f"gru_fwd at the DAIC shape {(t, b, 256)}: {err}, rerun "
+                 f"bitwise equal {torch.equal(ys, again)}")
+        worst_fwd = max(worst_fwd, err)
+        print(f"kernel gru_fwd at the DAIC shape T={t} B={b} H=256: "
+              f"max|cuda - plain| {err:.3e}, rerun bitwise equal (tol "
+              f"{KERNEL_TOL})")
     shape = (max_r, 16, 256)
     name = ("gru_bwd_streamed" if rnn_cuda.streamed(*shape, 3)
             else "gru_bwd")
     args = _bwd_inputs(torch, rnn_cuda, gen, "gru", *shape)
     ref = rnn_cuda.gru_sequence_bwd_torch(*args)
-    routes = bwd_routes(torch, rnn_cuda, "gru", args, ref, shape)
+    err, rel, same = bwd_check(torch, rnn_cuda, "gru", args, ref, shape)
     print(f"kernel {name} (TPU kernel #{3 if name.endswith('ed') else 2}) "
-          f"at the DAIC shape T={max_r} B=16 H=256: " + ", ".join(
-              f"{r} max|d dxp| {e:.3e}, dw/db rel {rel:.3e}, rerun bitwise "
-              f"equal {same}" for r, (e, rel, same) in routes.items())
-          + f" (tol {KERNEL_TOL}; dw, db of max|ref|)")
-    plan = rnn_cuda.gru_bwd_plan(16, 256, steps=max_r)
-    fns = {route: (lambda p=rnn_cuda.gru_bwd_plan(16, 256, route,
-                                                  steps=max_r):
-                   rnn_cuda.gru_sequence_bwd(*args, plan=p))
-           for route in ("sequence", "step")}
-    fns["plain"] = lambda: rnn_cuda.gru_sequence_bwd_torch(*args)
-    fns["cudnn"] = cudnn_bwd(torch, "gru", *shape)
-    ms = turns_ms(torch, fns, 20)
+          f"at the DAIC shape T={max_r} B=16 H=256: max|d dxp| {err:.3e}, "
+          f"dw/db rel {rel:.3e}, rerun bitwise equal {same} (tol "
+          f"{KERNEL_TOL}; dw, db of max|ref|)")
+    ms = turns_ms(torch, {
+        "kernel": lambda: rnn_cuda.gru_sequence_bwd(*args),
+        "plain": lambda: rnn_cuda.gru_sequence_bwd_torch(*args),
+        "cudnn": cudnn_bwd(torch, "gru", *shape)}, 20)
     b_ms, by = rnn_bounds("gru", *shape)["bwd"]
     print(f"timing {name} at the DAIC shape T={max_r} B=16 H=256: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-          + f"; the plan takes {plan['route']}; bound {b_ms:.6f} ms ({by}), "
-          f"{b_ms / ms[plan['route']]:.4f} of it; cuDNN "
-          f"{ms['cudnn'] / ms[plan['route']]:.2f}x the kernel's time "
+          + f"; the plan {rnn_cuda.gru_bwd_plan(16, 256, steps=max_r)}; "
+          f"bound {b_ms:.6f} ms ({by}), {b_ms / ms['kernel']:.4f} of it; "
+          f"cuDNN {ms['cudnn'] / ms['kernel']:.2f}x the kernel's time "
           f"(median of 20 in turns, CUDA events) [{card}]")
     return {"name": name, "shape": shape, "fwd_err": worst_fwd,
-            "bwd_err": max(e for e, _, _ in routes.values()),
-            "ms": ms[plan["route"]], "plain_ms": ms["plain"],
+            "bwd_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
             "cudnn_ms": ms["cudnn"], "bound": (b_ms, by)}
 
 
@@ -4501,7 +4463,7 @@ def cross_corpus_checks(torch, rnn_cuda, card: str, daic_features: Path):
           f"{plan}): max|cuda - plain| {err:.3e} (tol {KERNEL_TOL}), rerun "
           f"bitwise {same}; " + ", ".join(f"{k} {v:.4f} ms"
                                           for k, v in ms.items())
-          + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms[plan['route']]:.4f} "
+          + f"; bound {b_ms:.6f} ms ({by}), {b_ms / ms['kernel']:.4f} "
           f"of it (median of 50 in turns, CUDA events) [{card}]")
     readings["gru_fwd"] = dict(ms, err=err, bound_ms=b_ms)
     return launches, readings

@@ -5,7 +5,7 @@
 // `_bwd_rule` at :108-128) and its streamed twin `_gru_stream_bwd_kernel`
 // (:174-219, launched by `_stream_bwd_rule` at :275-307).  The TPU needed
 // the streamed twin only because the single-block kernel keeps all T steps
-// in VMEM; neither route here keeps more than one step on chip, so this
+// in VMEM; the kernels here keep no more than one step on chip, so this
 // file is the counterpart of both.
 //
 // Same contract: zero initial state, torch gate order r, z, n, the gates
@@ -35,19 +35,9 @@
 // bounds the call: each step must spread w_hh_t (768 KB at H = 256) and its
 // B x 3H carry operand over many SMs and finish.
 //
-// Two routes, chosen by the caller (`ops/rnn_cuda.py::gru_bwd_plan`):
-//
-// "sequence" (`gru_bwd_recurrence_kernel` + `gru_bwd_weights_kernel`,
-//   cells = rows = 0): two launches.  One block per batch row walks all T
-//   steps in reverse, h_prev, hp, the carry and the step's [ds_r, ds_z,
-//   dhn] in shared memory (8H floats); hp one column per thread, the carry
-//   product a warp per output over the 3H columns.  Every block reads all
-//   of w_hh_t through L2 twice a step in dependent loops over H and 3H, so
-//   only B SMs work and a step takes tens of us.  Then one thread per dW /
-//   db output sums over the T B rows in order.  It takes any H.
-//
-// "step" (rnn_bwd_step.cuh and `gru_bwd_step_kernel<CS, BM>`): T + 2
-//   launches (T + 3 with a split weight product):
+// T + 2 launches (T + 3 with a split weight product; rnn_bwd_step.cuh and
+// `gru_bwd_step_kernel<CS, BM>`), tiled by the caller
+// (`ops/rnn_cuda.py::gru_bwd_plan`):
 //   1. `gates_kernel<false>`: hp for every step at once, [T B, 3H] =
 //      [0; ys[0:T-1]] . w_hh_t + b_hh (kept apart from xp: the n gate needs
 //      hn on its own), a tiled 64 x 64 product;
@@ -77,12 +67,13 @@
 //   L2; `rnn_bwd_tiles.py`).
 //
 // On an H100 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py --only gru`,
-// PERF.md section 6) the step route takes 1.69 ms at (256, 16, 256)
-// against 18.71 for the sequence route and 5.68 for cuDNN's backward, 6.5
-// us a step (5.9 us of step kernel, the launches overlapping).  At
-// audio_clf's training shape (3, 8, 256) a call takes 0.123 ms against
-// 0.364: 27 us of it on the device, 12.7 us of that the gate recompute,
-// whose 64 x 64 tiles give only 12 blocks at T B = 24 rows.
+// PERF.md section 6, rows 2 and 3, which keep the designs it replaced) a
+// call takes 1.69 ms at (256, 16, 256) against 5.68 for cuDNN's backward,
+// 6.5 us a step (5.9 us of step kernel, the launches overlapping).  At
+// audio_clf's training shape (3, 8, 256) a call takes 0.123 ms, 27 us of
+// it on the device, 12.7 us of that the gate recompute, whose 64 x 64
+// tiles give only 12 blocks at T B = 24 rows.  The 16-byte copies take H
+// only in multiples of 4.
 
 #include <cuda_runtime.h>
 
@@ -90,138 +81,7 @@
 
 namespace {
 
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Block (b, f): row b of fold f (blockIdx.y).
-__global__ void gru_bwd_recurrence_kernel(
-    const float* __restrict__ xp, const float* __restrict__ w_hh_t,
-    const float* __restrict__ b_hh, const float* __restrict__ ys,
-    const float* __restrict__ dys, float* __restrict__ dxp,
-    float* __restrict__ dgates_h, int T, int B, int H) {
-  extern __shared__ float smem[];
-  float* h_prev = smem;       // [H]   ys[t-1, b, :]
-  float* hp = h_prev + H;     // [3H]  h_prev . w_hh_t + b_hh
-  float* carry = hp + 3 * H;  // [H]   dL/dh_t from the steps after t
-  float* dg = carry + H;      // [3H]  [ds_r, ds_z, dhn] of step t
-  const int G = 3 * H;
-  const int b = blockIdx.x;
-  {
-    const FoldStride fs = fold_stride(T, B, H, G);
-    const size_t f = blockIdx.y;
-    xp += f * fs.x;
-    w_hh_t += f * fs.w;
-    b_hh += f * fs.b;
-    ys += f * fs.y;
-    dys += f * fs.y;
-    dxp += f * fs.x;
-    dgates_h += f * fs.x;
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  for (int j = threadIdx.x; j < H; j += blockDim.x) carry[j] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    if (t > 0) {
-      const float* y = ys + ((size_t)(t - 1) * B + b) * H;
-      for (int j = threadIdx.x; j < H; j += blockDim.x) h_prev[j] = y[j];
-    } else {
-      for (int j = threadIdx.x; j < H; j += blockDim.x) h_prev[j] = 0.0f;
-    }
-    __syncthreads();  // h_prev complete; the carry of step t+1 complete
-
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc = b_hh[j];
-      const float* w = w_hh_t + j;
-      for (int k = 0; k < H; ++k) acc = fmaf(h_prev[k], w[(size_t)k * G], acc);
-      hp[j] = acc;
-    }
-    __syncthreads();
-
-    const size_t row = (size_t)t * B + b;
-    const float* x = xp + row * G;
-    const float* dy = dys + row * H;
-    float* dx = dxp + row * G;
-    float* dgo = dgates_h + row * G;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float r = sigmoidf_(x[j] + hp[j]);
-      const float z = sigmoidf_(x[H + j] + hp[H + j]);
-      const float hn = hp[2 * H + j];
-      const float n = tanhf(x[2 * H + j] + r * hn);
-      const float dh = dy[j] + carry[j];
-      const float ds_n = dh * (1.0f - z) * (1.0f - n * n);
-      const float ds_r = ds_n * hn * r * (1.0f - r);
-      const float ds_z = dh * (h_prev[j] - n) * z * (1.0f - z);
-      const float dhn = ds_n * r;
-      dx[j] = ds_r;
-      dx[H + j] = ds_z;
-      dx[2 * H + j] = ds_n;
-      dg[j] = ds_r;
-      dg[H + j] = ds_z;
-      dg[2 * H + j] = dhn;
-      dgo[j] = ds_r;
-      dgo[H + j] = ds_z;
-      dgo[2 * H + j] = dhn;
-      carry[j] = dh * z;  // the direct path; the hp path is added below
-    }
-    __syncthreads();  // dg complete
-
-    // carry[k] += sum_j dg[j] w_hh_t[k, j]: a warp per k, lanes over j
-    for (int k = warp; k < H; k += n_warps) {
-      const float* w = w_hh_t + (size_t)k * G;
-      float acc = 0.0f;
-      for (int j = lane; j < G; j += 32) acc = fmaf(dg[j], w[j], acc);
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) carry[k] += acc;
-    }
-    __syncthreads();  // the carry is read by step t-1
-  }
-}
-
-// Row k < H of the grid's y axis is dW_hh^T[k, :]; row H is db_hh; the z
-// axis is the fold.
-__global__ void gru_bwd_weights_kernel(const float* __restrict__ ys,
-                                       const float* __restrict__ dgates_h,
-                                       float* __restrict__ dw,
-                                       float* __restrict__ db, int T, int B,
-                                       int H) {
-  const int G = 3 * H;
-  {
-    const FoldStride fs = fold_stride(T, B, H, G);
-    const size_t f = blockIdx.z;
-    ys += f * fs.y;
-    dgates_h += f * fs.x;
-    dw += f * fs.w;
-    db += f * fs.b;
-  }
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y;
-  if (j >= G) return;
-  float acc = 0.0f;
-  if (k < H) {
-    // h_prev is zero at t = 0, so that step adds nothing
-    for (int t = 1; t < T; ++t)
-      for (int b = 0; b < B; ++b)
-        acc = fmaf(ys[((size_t)(t - 1) * B + b) * H + k],
-                   dgates_h[((size_t)t * B + b) * G + j], acc);
-    dw[(size_t)k * G + j] = acc;
-  } else {
-    for (int t = 0; t < T; ++t)
-      for (int b = 0; b < B; ++b) acc += dgates_h[((size_t)t * B + b) * G + j];
-    db[j] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Route "step": one launch a step, (cell slab x row tile) blocks.
-// ---------------------------------------------------------------------------
+using rnn_bwd::kThreads;
 
 // Step t of the walk for the block's CS cells and BM rows.  hp_t, xp_t,
 // dxp_t, dgh_t: [B, 3H] rows of step t; ys_prev: ys[t-1] (nullptr at
@@ -323,11 +183,9 @@ cudaError_t run_steps(const float* xp, const float* w_hh_t,
 // (dxp, dw, db) = GRU backward of ys = GRU(xp, w_hh_t, b_hh) given dys,
 // launched on `stream` (a cudaStream_t), for each of F folds of contiguous
 // [F, ...] arrays in the same launches (F = 1: one fold; the scratch per
-// fold too).  `dgates_h` [T, B, 3H] is scratch
-// the caller allocates.  `cells` = `rows` = 0: the "sequence" route (hp,
-// dhz and parts unused); else the "step" route with a (cells, rows) tile,
-// cells in {1, 2, 4} and rows in {8, 16, 32} (H a multiple of 4), the
-// scratch hp [T, B, 3H] and dhz [B, H], and the weight product split into
+// fold too), with a (cells, rows) tile, cells in {1, 2, 4} and rows in
+// {8, 16, 32} (H a multiple of 4).  The caller allocates the scratch:
+// dgates_h and hp [T, B, 3H], dhz [B, H], and the weight product's
 // `splits` parts (parts [splits, H + 1, 3H], unused for one part).
 // Returns the first failing launch's cudaError_t (0 on success),
 // cudaErrorInvalidValue for a tile that is not compiled.
@@ -338,41 +196,24 @@ extern "C" int gru_seq_bwd_f32(const float* xp, const float* w_hh_t,
                                float* parts, int T, int B, int H, int F,
                                int cells, int rows, int splits,
                                void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535 || F <= 0 || F > 1024)
+  if (T <= 0 || B <= 0 || H <= 0 || H >= 65535 || H % 4 || F <= 0 ||
+      F > 1024 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (cells != 0 || rows != 0) {
-    if (H % 4 || splits < 1) return (int)cudaErrorInvalidValue;
 #define GRU_BWD_TILE(CS, BM)                                               \
   if (cells == CS && rows == BM)                                           \
     return (int)run_steps<CS, BM>(xp, w_hh_t, b_hh, ys, dys, dxp,          \
                                   dgates_h, dw, db, hp, dhz, parts, T, B,  \
                                   H, F, splits, s);
-    GRU_BWD_TILE(1, 8)
-    GRU_BWD_TILE(1, 16)
-    GRU_BWD_TILE(1, 32)
-    GRU_BWD_TILE(2, 8)
-    GRU_BWD_TILE(2, 16)
-    GRU_BWD_TILE(2, 32)
-    GRU_BWD_TILE(4, 8)
-    GRU_BWD_TILE(4, 16)
-    GRU_BWD_TILE(4, 32)
+  GRU_BWD_TILE(1, 8)
+  GRU_BWD_TILE(1, 16)
+  GRU_BWD_TILE(1, 32)
+  GRU_BWD_TILE(2, 8)
+  GRU_BWD_TILE(2, 16)
+  GRU_BWD_TILE(2, 32)
+  GRU_BWD_TILE(4, 8)
+  GRU_BWD_TILE(4, 16)
+  GRU_BWD_TILE(4, 32)
 #undef GRU_BWD_TILE
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = (size_t)8 * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_bwd_recurrence_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gru_bwd_recurrence_kernel<<<dim3(B, F), kThreads, smem, s>>>(
-      xp, w_hh_t, b_hh, ys, dys, dxp, dgates_h, T, B, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((3 * H + kThreads - 1) / kThreads, H + 1, F);
-  gru_bwd_weights_kernel<<<grid, kThreads, 0, s>>>(ys, dgates_h, dw, db, T,
-                                                   B, H);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
-// The pieces that the "step" routes of the GRU and LSTM backwards
-// (gru_bwd.cu, lstm_bwd.cu) share, for Hopper (sm_90a), fp32, no tensor
-// cores.  A call of either route is T + 2 launches on the caller's stream
-// (T + 3 when the weight product is split):
+// The pieces that the GRU and LSTM backwards (gru_bwd.cu, lstm_bwd.cu)
+// share, for Hopper (sm_90a), fp32, no tensor cores.  A call of either is
+// T + 2 launches on the caller's stream (T + 3 when the weight product is
+// split):
 //
 //   1. `gates_kernel`: every step's recurrent gate sums at once,
 //      gp[t] = (xp[t] +) ys[t-1] . w_hh_t + b_hh (zeros for ys[-1]), a

@@ -1,7 +1,7 @@
-// The "step" route that the GRU and LSTM forwards (gru_fwd.cu, lstm_fwd.cu)
-// share, for Hopper (sm_90a), fp32, no tensor cores.  The two differ only in
-// their gate count NG (3 or 4) and their cell update, which each file gives
-// as a `Cell`:
+// The one launch a step that the GRU and LSTM forwards (gru_fwd.cu,
+// lstm_fwd.cu) share, for Hopper (sm_90a), fp32, no tensor cores.  The two
+// differ only in their gate count NG (3 or 4) and their cell update, which
+// each file gives as a `Cell`:
 //
 //   struct Cell {
 //     static constexpr int kGates;        // NG

@@ -13,10 +13,11 @@ projection (port of :mod:`icassp2022_depression_tpu.ops.rnn`).
   :func:`lstmp_layer` takes the same seam to
   :class:`.rnn_cuda.LSTMPSequence`; :func:`lstmp_layer_stateful` (carried
   states, the stateful ELMo mode) is a plain step loop, as the JAX package
-  runs it.  The kernels take any batch size,
-  sequence length and geometry, so the TPU package's VMEM-fit guards
-  (``_pallas_fits``, ``_lstmp_pallas_fits``) and its streamed kernels have
-  no counterpart here.
+  runs it.  The kernels take any batch size and
+  sequence length, and any width a multiple of 4 (another width, which no
+  model has, raises on the card; ``"torch"`` runs it), so the TPU
+  package's VMEM-fit guards (``_pallas_fits``, ``_lstmp_pallas_fits``) and
+  its streamed kernels have no counterpart here.
 * Parameters keep torch's layout (row-stacked ``[G*H, D]`` matrices in
   gate order r, z, n for the GRU and i, f, g, o for the LSTM), and
   :class:`RNN` registers them under ``nn.GRU``'s / ``nn.LSTM``'s names, so

@@ -36,20 +36,21 @@ the kernel, as the JAX rule computes them) are the LSTMP's.
   each replay instead (:func:`add_launches`), as are the threefry
   draws' (:data:`.prng.LAUNCHES`, one entry of :data:`COUNTERS`).  They
   never fall back to the plain versions: a build or launch failure raises.
-* The GRU and LSTM forwards and the GRU and LSTM backwards each have two
-  routes, picked from the shape by :func:`gru_fwd_plan`,
-  :func:`lstm_fwd_plan`, :func:`gru_bwd_plan` and :func:`lstm_bwd_plan` (a
-  ``plan=`` argument overrides it): "sequence", one block per batch row
-  walking all T steps in one launch, and "step", one wide launch a step
-  (cell slabs x row tiles, ``W_hh`` streamed through a ``cp.async`` ring,
-  programmatic dependent launch); the backwards' step route adds one
-  launch that recomputes every step's gates before the walk and one (two)
-  for the weight gradients after it.  The LSTMP backward has one route of
-  the same kind (:func:`lstmp_bwd_plan`): it recomputes every step's gates
-  before the walk and reduces the partial carries in a fixed order after
-  each step.  The LSTMP forward has that step route and, for one tile of at
-  most 32 rows, a "resident" one (:func:`lstmp_fwd_plan`): one cooperative
-  launch a sequence, each block's weights kept on chip across the steps.
+* The GRU and LSTM forwards and the GRU and LSTM backwards each have one
+  route, "step": one wide launch a step (cell slabs x row tiles, ``W_hh``
+  streamed through a ``cp.async`` ring, programmatic dependent launch),
+  tiled from the shape by :func:`gru_fwd_plan`, :func:`lstm_fwd_plan`,
+  :func:`gru_bwd_plan` and :func:`lstm_bwd_plan` (a ``plan=`` argument
+  overrides it); the backwards add one launch that recomputes every step's
+  gates before the walk and one (two) for the weight gradients after it.
+  Their 16-byte copies take H only in multiples of 4: at any other H the
+  plans, and so the CUDA wrappers, raise.  The LSTMP backward has one
+  route of the same kind (:func:`lstmp_bwd_plan`): it recomputes every
+  step's gates before the walk and reduces the partial carries in a fixed
+  order after each step.  The LSTMP forward has two, chosen from the rows
+  by :func:`lstmp_fwd_plan`: that step route and, for one tile of at most
+  32 rows, a "resident" one, one cooperative launch a sequence, each
+  block's weights kept on chip across the steps.
 * On CPU tensors they run the plain versions (``*_torch``), which are the
   kernels' oracles.
 * Fold axis (the counterpart of ``jax.vmap`` over ``pallas_call``, whose
@@ -298,7 +299,7 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
         return ys
     if plan is None:
         plan = gru_fwd_plan(batch, hidden)
-    xp, w_hh_t, b_hh = _aligned(plan, xp, w_hh_t, b_hh)
+    xp, w_hh_t, b_hh = _aligned(xp, w_hh_t, b_hh)
     fn = _kernel("gru_fwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -339,7 +340,7 @@ def gru_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
     if plan is None:
         plan = gru_bwd_plan(batch, hidden, steps=t_steps)
     dgates_h = torch.empty_like(xp)
-    xp, w_hh_t, b_hh, ys, dys = _aligned(plan, xp, w_hh_t, b_hh, ys, dys)
+    xp, w_hh_t, b_hh, ys, dys = _aligned(xp, w_hh_t, b_hh, ys, dys)
     scratch = _bwd_scratch(plan, xp, hidden)    # hp, dh z, parts
     fn = _kernel("gru_bwd")
     with torch.cuda.device(xp.device):
@@ -468,122 +469,86 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-#: the step route's tiles (cells, rows) that ``csrc/lstm_fwd.cu`` compiles
+#: the forward's tiles (cells, rows) that ``csrc/lstm_fwd.cu`` compiles
 LSTM_FWD_TILES = ((4, 8), (4, 16), (4, 24), (4, 32), (32, 16), (32, 64))
+#: the forward's tiles (cells, rows) that ``csrc/gru_fwd.cu`` compiles
+GRU_FWD_TILES = ((4, 8), (4, 16), (4, 24), (4, 32))
 
 
-def _fwd_plan(name: str, batch: int, hidden: int, route: str,
-              wide_rows: bool) -> dict:
-    """The forward step routes' plan: 4-cell slabs and the rows in at most
-    32-row tiles padded to a multiple of 8; with ``wide_rows``, above 64
-    rows 32-cell slabs and 16-row (up to 128 rows) or 64-row tiles."""
-    if route == "auto":
-        route = "sequence" if hidden % 4 else "step"
-    if route == "sequence":
-        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
-                "row_tiles": batch}
-    if route != "step" or hidden % 4:
-        raise ValueError(f"{name}: no route {route!r} for H={hidden}")
+def _fwd_plan(name: str, batch: int, hidden: int, wide_rows: bool) -> dict:
+    """The forwards' plan: 4-cell slabs and the rows in at most 32-row
+    tiles padded to a multiple of 8; with ``wide_rows``, above 64 rows
+    32-cell slabs and 16-row (up to 128 rows) or 64-row tiles."""
+    if hidden % 4:
+        raise ValueError(f"{name}: no route for H={hidden} (the kernels take "
+                         f"H in multiples of 4: 16-byte copies)")
     if batch <= 64 or not wide_rows:
         cells, rows = 4, 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
     else:
         cells, rows = 32, 16 if batch <= 128 else 64
-    return {"route": route, "cells": cells, "rows": rows,
+    return {"route": "step", "cells": cells, "rows": rows,
             "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows)}
 
 
-#: the GRU forward's step tiles (cells, rows), which ``csrc/gru_fwd.cu``
-#: compiles: the LSTM forward's.  Its plan takes the 4-cell ones; above 64
-#: rows ``chip_smoke.py`` times the 32-cell ones beside them.
-GRU_FWD_TILES = LSTM_FWD_TILES
+def gru_fwd_plan(batch: int, hidden: int) -> dict:
+    """How ``csrc/gru_fwd.cu`` runs one call: one launch a step,
+    ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
+    blocks, a tile of :data:`GRU_FWD_TILES`; H a multiple of 4, else
+    ``ValueError``.
+
+    The tiles are 4-cell slabs (64 at the audio model's H = 256) and the
+    rows in at most 32-row tiles padded to a multiple of 8, at every B:
+    above 64 rows they beat the LSTM forward's 32-cell tiles, which leave
+    only 8 slabs at H = 256 (on an H100 at (T, B) = (3, 100) and (3, 200),
+    ``chip_smoke.py``'s GRU turns).  PERF.md section 6, row 1, keeps the
+    designs this one replaced."""
+    return _fwd_plan("gru_fwd_plan", batch, hidden, wide_rows=False)
 
 
-def gru_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
-    """How ``csrc/gru_fwd.cu`` runs one call: ``route`` "sequence" (one
-    launch, one block per row walking all T steps, the first design) or
-    "step" (one launch a step, ``slabs`` = ceil(H / ``cells``) x
-    ``row_tiles`` = ceil(B / ``rows``) blocks, a tile of
-    :data:`GRU_FWD_TILES`).
+def lstm_fwd_plan(batch: int, hidden: int) -> dict:
+    """How ``csrc/lstm_fwd.cu`` runs one call: one launch a step,
+    ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
+    blocks, a tile of :data:`LSTM_FWD_TILES`; H a multiple of 4, else
+    ``ValueError``.  PERF.md section 6, row 4, keeps the designs this one
+    replaced.
 
-    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
-    copies), else "sequence".  The step tiles are 4-cell slabs (64 at the
-    audio model's H = 256) and the rows in at most 32-row tiles padded to
-    a multiple of 8, at every B: above 64 rows they beat the LSTM
-    forward's 32-cell tiles, which leave only 8 slabs at H = 256 (on an
-    H100 at (T, B) = (3, 100) and (3, 200), ``chip_smoke.py``'s GRU turns,
-    PERF.md section 6)."""
-    return _fwd_plan("gru_fwd_plan", batch, hidden, route, wide_rows=False)
-
-
-def lstm_fwd_plan(batch: int, hidden: int, route: str = "auto") -> dict:
-    """How ``csrc/lstm_fwd.cu`` runs one call: ``route`` "sequence" (one
-    launch, one block per row walking all T steps) or "step" (one launch a
-    step, ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B /
-    ``rows``) blocks, a tile of :data:`LSTM_FWD_TILES`).
-
-    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
-    copies), else "sequence": measured on an H100, the two routes' calls
-    taken in turns (``chip_smoke.py``, ``PERF.md`` section 6), the
-    step route was the faster at every shape of a main path, so there is
-    no crossover to set: 0.04-0.09 against 0.06-0.10 ms at the text
-    model's training and eval shapes (T, B, H) = (3, 2..24, 128), 0.70-1.32
-    against 2.83-2.96 ms at (256, 16, 128), 0.12-0.27 against 2.86-3.04
-    ms at the stand-in's (16, 8, 512), in four runs (only at a ragged
-    (7, 3, 100) the one-launch kernel was ahead, in two of them, by up to
-    0.016 ms).  One launch does not make up for each block re-reading all
-    of W_hh every step.
-
-    Step tiles: up to 64 rows, 4-cell slabs (128 blocks at H = 512) and the
+    Tiles: up to 64 rows, 4-cell slabs (128 blocks at H = 512) and the
     rows in at most 32-row tiles padded to a multiple of 8; up to 128 rows,
     32 x 16 tiles (112 blocks at B = 112); above, 32 x 64 tiles (128 blocks
     at B = 488, where the flops bound the step)."""
-    return _fwd_plan("lstm_fwd_plan", batch, hidden, route, wide_rows=True)
+    return _fwd_plan("lstm_fwd_plan", batch, hidden, wide_rows=True)
 
 
-#: the backward step route's tiles (cells, rows) that ``csrc/gru_bwd.cu``
-#: and ``csrc/lstm_bwd.cu`` compile
+#: the backwards' tiles (cells, rows) that ``csrc/gru_bwd.cu`` and
+#: ``csrc/lstm_bwd.cu`` compile
 BWD_TILES = tuple((c, r) for c in (1, 2, 4) for r in (8, 16, 32))
 
 
-def _bwd_plan(name: str, batch: int, hidden: int, route: str,
-              steps: int) -> dict:
-    if route == "auto":
-        route = "sequence" if hidden % 4 else "step"
-    if route == "sequence":
-        return {"route": route, "cells": 0, "rows": 0, "slabs": 1,
-                "row_tiles": batch, "splits": 1}
-    if route != "step" or hidden % 4:
-        raise ValueError(f"{name}: no route {route!r} for H={hidden}")
+def _bwd_plan(name: str, batch: int, hidden: int, steps: int) -> dict:
+    if hidden % 4:
+        raise ValueError(f"{name}: no route for H={hidden} (the kernels take "
+                         f"H in multiples of 4: 16-byte copies)")
     cells = 1 if hidden <= 64 else 2 if hidden <= 128 else 4
     rows = 8 if batch <= 8 else 16 if batch <= 16 else 32
     # the weight product's T*B rows in parts of about 256 (a multiple of
     # the kernel's 32-row tiles), at most 64 parts
     k = steps * batch
     chunk = 32 * _cdiv(_cdiv(k, min(64, _cdiv(k, 256))), 32)
-    return {"route": route, "cells": cells, "rows": rows,
+    return {"route": "step", "cells": cells, "rows": rows,
             "slabs": _cdiv(hidden, cells), "row_tiles": _cdiv(batch, rows),
             "splits": _cdiv(k, chunk)}
 
 
-def gru_bwd_plan(batch: int, hidden: int, route: str = "auto", *,
-                 steps: int) -> dict:
-    """How ``csrc/gru_bwd.cu`` runs one call of ``steps`` steps: ``route``
-    "sequence" (two launches, one block per row walking all T steps) or
-    "step" (T + 2 launches: the gate recompute, one launch a step of
-    ``slabs`` = ceil(H / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
-    blocks, a tile of :data:`BWD_TILES`, and the weight product over the
-    T*B rows in ``splits`` parts, plus one launch adding them when there is
-    more than one).
+def gru_bwd_plan(batch: int, hidden: int, *, steps: int) -> dict:
+    """How ``csrc/gru_bwd.cu`` runs one call of ``steps`` steps: T + 2
+    launches, the gate recompute, one launch a step of ``slabs`` =
+    ceil(H / ``cells``) x ``row_tiles`` = ceil(B / ``rows``) blocks, a
+    tile of :data:`BWD_TILES`, and the weight product over the T*B rows in
+    ``splits`` parts, plus one launch adding them when there is more than
+    one; H a multiple of 4, else ``ValueError``.  PERF.md section 6, rows
+    2, 3, 5 and 8, keeps the designs this one replaced.
 
-    "auto" takes "step" wherever H is a multiple of 4 (its 16-byte
-    copies), else "sequence": measured on an H100 (``chip_smoke.py``,
-    both routes' calls taken in turns, ``PERF.md`` section 6), the
-    step route was the faster at every ``BWD_SHAPES`` / ``LSTM_SHAPES``
-    shape, the training shapes at T = 3 included (0.12-0.18 against
-    0.32-0.43 ms for the GRU at (3, 2..8, 256)), so there is no crossover
-    to set; at (256, 16, 256) 1.74 against 18.71 ms.
-
-    Step tiles: slabs of 1 cell up to H = 64, 2 up to 128, else 4 (64
+    Tiles: slabs of 1 cell up to H = 64, 2 up to 128, else 4 (64
     slabs at the text model's H = 128 and the audio model's 256):
     ``rnn_bwd_tiles.py`` timed the three widths in turns, and at (256,
     16) the 64-slab grid was the fastest (LSTM 0.98 ms against 1.15 with
@@ -591,35 +556,25 @@ def gru_bwd_plan(batch: int, hidden: int, route: str = "auto", *,
     block reads all of dG[t+1] for its rows, so fewer, wider blocks move
     less through L2.  The rows in one tile of 8, 16 or 32 up to B = 32,
     above in 32-row tiles."""
-    return _bwd_plan("gru_bwd_plan", batch, hidden, route, steps)
+    return _bwd_plan("gru_bwd_plan", batch, hidden, steps)
 
 
-def lstm_bwd_plan(batch: int, hidden: int, route: str = "auto", *,
-                  steps: int) -> dict:
+def lstm_bwd_plan(batch: int, hidden: int, *, steps: int) -> dict:
     """How ``csrc/lstm_bwd.cu`` runs one call of ``steps`` steps: the
-    routes and tiles of :func:`gru_bwd_plan`, measured the same way.
-
-    "auto" takes "step" wherever H is a multiple of 4, else "sequence":
-    the step route was the faster at every ``LSTM_SHAPES`` shape on an
-    H100 (0.12-0.15 against 0.20-0.22 ms at (3, 2..4, 128); 1.30 against
-    4.60 ms at (256, 16, 128); ``PERF.md`` section 6)."""
-    return _bwd_plan("lstm_bwd_plan", batch, hidden, route, steps)
+    launches and tiles of :func:`gru_bwd_plan`."""
+    return _bwd_plan("lstm_bwd_plan", batch, hidden, steps)
 
 
-def _aligned(plan: dict, *tensors):
-    """``tensors``, each copied where the step route's 16-byte loads would
-    find it off a 16-byte boundary (a view into another tensor)."""
-    if plan["route"] != "step":
-        return tensors
+def _aligned(*tensors):
+    """``tensors``, each copied where the kernels' 16-byte loads would find
+    it off a 16-byte boundary (a view into another tensor)."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
 def _bwd_scratch(plan: dict, xp: torch.Tensor, hidden: int) -> list:
-    """The step route's scratch (None where unused): the gate sums of
-    every step [T, B, G], a carry between steps [B, H], and the weight
-    product's parts [splits, H + 1, G], each per fold."""
-    if plan["route"] != "step":
-        return [None] * 3
+    """The backwards' scratch (None where unused): the gate sums of every
+    step [T, B, G], a carry between steps [B, H], and the weight product's
+    parts [splits, H + 1, G], each per fold."""
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=xp.device)
     lead, (t_steps, batch, g) = tuple(xp.shape[:-3]), xp.shape[-3:]
@@ -659,6 +614,7 @@ def lstm_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor,
         return ys, cs
     if plan is None:
         plan = lstm_fwd_plan(batch, hidden)
+    xp, w_hh_t, b_hh = _aligned(xp, w_hh_t, b_hh)
     fn = _kernel("lstm_fwd")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -702,7 +658,7 @@ def lstm_sequence_bwd(xp: torch.Tensor, w_hh_t: torch.Tensor,
     if plan is None:
         plan = lstm_bwd_plan(batch, hidden, steps=t_steps)
     xp, w_hh_t, b_hh, ys, cs, dys, dcs = _aligned(
-        plan, xp, w_hh_t, b_hh, ys, cs, dys, dcs)
+        xp, w_hh_t, b_hh, ys, cs, dys, dcs)
     scratch = _bwd_scratch(plan, xp, hidden)    # gp, dc carry, parts
     fn = _kernel("lstm_bwd")
     with torch.cuda.device(xp.device):
@@ -958,15 +914,14 @@ def _grid_barrier(device: torch.device, stream: int) -> torch.Tensor:
 LSTMP_BWD_TILES = ((32, 8), (32, 16), (32, 24), (32, 32), (32, 64))
 
 
-def lstmp_bwd_plan(batch: int, c_dim: int, p_dim: int,
-                   route: str = "auto") -> dict:
+def lstmp_bwd_plan(batch: int, c_dim: int, p_dim: int) -> dict:
     """How ``csrc/lstmp_bwd.cu`` runs one call: 2 T + 1 launches, every
     step's gate sums in one product before the walk, then one launch a step
     of ``slabs`` = ceil(C / ``cells``) x ``row_tiles`` = ceil(B / ``rows``)
     blocks, a tile of :data:`LSTMP_BWD_TILES`, each followed by a
     fixed-order reduction of the partial carries, whose scratch is
-    ``scratch`` = ``[slabs, B, P]``.  ``route`` "auto" is "step", the
-    only route; any other raises.
+    ``scratch`` = ``[slabs, B, P]``; its ``route`` is "step", the only
+    one.
 
     The kernels take C and P only in multiples of 4 (16-byte copies), as
     the forward does: any other raises.  Tiles: 32-cell slabs (128 at the
@@ -975,10 +930,10 @@ def lstmp_bwd_plan(batch: int, c_dim: int, p_dim: int,
     served speakers); above, 64-row tiles (each row tile streams the
     weights again: at (T, B) = (32, 128) 8.40 ms against 9.29 with 32-row
     tiles on an H100, ``rnn_bwd_tiles.py``)."""
-    if route not in ("auto", "step") or c_dim % 4 or p_dim % 4:
-        raise ValueError(f"lstmp_bwd_plan: no route {route!r} for "
-                         f"C={c_dim}, P={p_dim} (the kernel takes C and P in "
-                         f"multiples of 4: 16-byte copies)")
+    if c_dim % 4 or p_dim % 4:
+        raise ValueError(f"lstmp_bwd_plan: no route for C={c_dim}, "
+                         f"P={p_dim} (the kernel takes C and P in multiples "
+                         f"of 4: 16-byte copies)")
     if batch <= 64:
         rows = 8 * _cdiv(_cdiv(batch, _cdiv(batch, 32)), 8)
     else:
@@ -1092,7 +1047,7 @@ def lstmp_sequence_bwd(xp4: torch.Tensor, w_h_t3: torch.Tensor,
     if plan is None:
         plan = lstmp_bwd_plan(batch, c_dim, p_dim)
     xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, dys, dcpre = _aligned(
-        plan, xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, dys, dcpre)
+        xp4, w_h_t3, b3, w_p_t, ys, hpre, cpre, dys, dcpre)
     scratch = _lstmp_bwd_scratch(plan, batch, c_dim, xp4.device)
     fn = _kernel("lstmp_bwd")
     with torch.cuda.device(xp4.device):

@@ -105,7 +105,7 @@ def main(argv) -> int:
         bias = ((torch.rand((1, 4 * h), generator=gen) * 2 - 1)
                 * h ** -0.5).cuda()
         ref = rnn_cuda.lstm_sequence_torch(xp, w, bias)
-        plan = rnn_cuda.lstm_fwd_plan(b, h, "step")
+        plan = rnn_cuda.lstm_fwd_plan(b, h)
         outs = [torch.empty((t, b, h), device="cuda") for _ in range(2)]
 
         def call(name):

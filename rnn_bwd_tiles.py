@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Times the step route of the GRU and LSTM backward kernels
-(``csrc/gru_bwd.cu``, ``csrc/lstm_bwd.cu``) at each cell-slab width it
-compiles, beside the plan's own tile and the "sequence" route, and the
-LSTMP backward's step route (``csrc/lstmp_bwd.cu``) at each row tile it
-compiles, on one GPU:
+"""Times the GRU and LSTM backward kernels (``csrc/gru_bwd.cu``,
+``csrc/lstm_bwd.cu``) at each cell-slab width they compile, the plan's own
+tile among them, and the LSTMP backward's step route
+(``csrc/lstmp_bwd.cu``) at each row tile it compiles, on one GPU:
 
     python3 rnn_bwd_tiles.py [--only gru|lstm|lstmp]
 
@@ -140,11 +139,9 @@ def main(argv=None) -> int:
                          dcs]
             ref = plain(*args)
             auto = plan_fn(b, h, steps=t)
-            plans = {"sequence": plan_fn(b, h, "sequence", steps=t)}
-            for cells in (1, 2, 4):
-                name = f"step {cells}x{auto['rows']}"
-                plans[name] = dict(auto, cells=cells,
-                                   slabs=-(-h // cells))
+            plans = {f"step {cells}x{auto['rows']}":
+                     dict(auto, cells=cells, slabs=-(-h // cells))
+                     for cells in (1, 2, 4)}
             for name, plan in plans.items():
                 got = bwd(*args, plan=plan)
                 err = (got[0] - ref[0]).abs().max().item()

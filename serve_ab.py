@@ -153,10 +153,8 @@ def kernel_times(checkout: Path) -> dict:
 
 
 #: the recurrence backward's kernels, by the names ``profile_split`` gives
-#: them, in either route of ``csrc/gru_bwd.cu`` and ``csrc/lstm_bwd.cu``
-BWD_KERNELS = ("gru_bwd_recurrence_kernel", "gru_bwd_weights_kernel",
-               "lstm_bwd_recurrence_kernel", "lstm_bwd_weights_kernel",
-               "gru_bwd_step_kernel", "lstm_bwd_step_kernel", "gates_kernel",
+#: them, in ``csrc/gru_bwd.cu`` and ``csrc/lstm_bwd.cu``
+BWD_KERNELS = ("gru_bwd_step_kernel", "lstm_bwd_step_kernel", "gates_kernel",
                "dw_kernel", "dw_finish_kernel")
 
 

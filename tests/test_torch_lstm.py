@@ -198,8 +198,8 @@ def test_lstm_fwd_plan_covers_every_cell_once(b, h):
     model's H = 128 (training, eval and streamed batches) a step tile that
     the C entry compiles, slabs and row tiles that cover every cell and row
     exactly once, at least 100 blocks at the stand-in's served and
-    extraction shapes; at an H the 16-byte copies cannot take, the
-    one-launch route, one block per row."""
+    extraction shapes; at an H the 16-byte copies cannot take, a
+    ValueError."""
     import re
 
     from icassp2022_depression_tpu_torch import _build
@@ -208,11 +208,11 @@ def test_lstm_fwd_plan_covers_every_cell_once(b, h):
         r"^  LSTM_FWD_TILE\((\d+), (\d+), \d+\)$",
         (_build.CSRC / "lstm_fwd.cu").read_text(), re.M)}
     assert compiled == set(rnn_cuda.LSTM_FWD_TILES)
-    plan = rnn_cuda.lstm_fwd_plan(b, h)
     if h % 4:
-        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
-                        "slabs": 1, "row_tiles": b}
+        with pytest.raises(ValueError, match="no route"):
+            rnn_cuda.lstm_fwd_plan(b, h)
         return
+    plan = rnn_cuda.lstm_fwd_plan(b, h)
     assert plan["route"] == "step"
     cells, rows = plan["cells"], plan["rows"]
     assert (cells, rows) in compiled
@@ -226,14 +226,11 @@ def test_lstm_fwd_plan_covers_every_cell_once(b, h):
     assert (cover_h == 1).all() and (cover_b == 1).all()
     if h == 512 and b in (8, 24, 112, 488):
         assert plan["slabs"] * plan["row_tiles"] >= 100
-    assert rnn_cuda.lstm_fwd_plan(b, h, "sequence")["route"] == "sequence"
 
 
 def test_lstm_fwd_plan_refuses_what_no_route_takes():
     with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.lstm_fwd_plan(8, 102, "step")
-    with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.lstm_fwd_plan(8, 512, "persistent")
+        rnn_cuda.lstm_fwd_plan(8, 102)
 
 
 @pytest.mark.parametrize("t,b,h", [(3, 4, 128), (3, 2, 128), (3, 24, 128),
@@ -246,20 +243,20 @@ def test_lstm_bwd_plan_covers_every_cell_once(t, b, h):
     tiles that cover every cell and row exactly once (64 blocks at
     H = 128 up to 32 rows), and weight-product parts that cover the T*B
     rows exactly once, none empty, as the C entry cuts them; at an H the
-    16-byte copies cannot take, the one-block-per-row route."""
+    16-byte copies cannot take, a ValueError."""
     import re
 
     from icassp2022_depression_tpu_torch import _build
 
     compiled = {tuple(map(int, m)) for m in re.findall(
-        r"^    LSTM_BWD_TILE\((\d+), (\d+)\)$",
+        r"^  LSTM_BWD_TILE\((\d+), (\d+)\)$",
         (_build.CSRC / "lstm_bwd.cu").read_text(), re.M)}
     assert compiled == set(rnn_cuda.BWD_TILES)
-    plan = rnn_cuda.lstm_bwd_plan(b, h, steps=t)
     if h % 4:
-        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
-                        "slabs": 1, "row_tiles": b, "splits": 1}
+        with pytest.raises(ValueError, match="no route"):
+            rnn_cuda.lstm_bwd_plan(b, h, steps=t)
         return
+    plan = rnn_cuda.lstm_bwd_plan(b, h, steps=t)
     assert plan["route"] == "step"
     cells, rows = plan["cells"], plan["rows"]
     assert (cells, rows) in compiled
@@ -276,18 +273,14 @@ def test_lstm_bwd_plan_covers_every_cell_once(t, b, h):
     k, splits = t * b, plan["splits"]
     chunk = 32 * rnn_cuda._cdiv(rnn_cuda._cdiv(k, splits), 32)  # as in C
     assert 1 <= splits <= 64 and (splits - 1) * chunk < k <= splits * chunk
-    assert rnn_cuda.lstm_bwd_plan(b, h, "sequence", steps=t)["route"] \
-        == "sequence"
 
 
 def test_lstm_bwd_plan_refuses_what_no_route_takes():
     with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.lstm_bwd_plan(8, 102, "step", steps=3)
-    with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.lstm_bwd_plan(8, 128, "persistent", steps=3)
+        rnn_cuda.lstm_bwd_plan(8, 102, steps=3)
 
 
-@pytest.mark.parametrize("route", ["step", "sequence", "bogus"])
+@pytest.mark.parametrize("route", ["step", "bogus"])
 def test_lstm_bwd_wrapper_takes_plain_backward_on_cpu_whatever_the_plan(
         route):
     """On CPU tensors ``lstm_sequence_bwd`` runs the plain backward and
@@ -296,7 +289,7 @@ def test_lstm_bwd_wrapper_takes_plain_backward_on_cpu_whatever_the_plan(
                              for a in _inputs(3, 3, 2, 8))
     ys, cs = rnn_cuda.lstm_sequence_torch(xp, w, bias)
     plan = ({"route": "bogus"} if route == "bogus"
-            else rnn_cuda.lstm_bwd_plan(2, 8, route, steps=3))
+            else rnn_cuda.lstm_bwd_plan(2, 8, steps=3))
     before = rnn_cuda.LSTM_BWD_LAUNCHES
     got = rnn_cuda.lstm_sequence_bwd(xp, w, bias, ys, cs, dys, dcs,
                                      plan=plan)

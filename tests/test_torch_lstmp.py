@@ -285,20 +285,13 @@ def test_lstmp_bwd_plan_covers_every_cell_once(b, c, p):
         assert plan["slabs"] == 128
     scratch = rnn_cuda._lstmp_bwd_scratch(plan, b, c, "cpu")
     assert scratch.numel() == b * c + plan["slabs"] * b * p
-    assert rnn_cuda.lstmp_bwd_plan(b, c, p, "step") == plan
 
 
 def test_lstmp_bwd_plan_refuses_what_no_route_takes():
-    """The kernel's 16-byte copies need C and P in multiples of 4, and
-    "auto" is the step route, the only one (the first design's
-    "sequence" route is gone); an unknown route raises."""
+    """The kernel's 16-byte copies need C and P in multiples of 4."""
     for c, p in ((386, 128), (384, 130)):
-        for route in ("step", "auto"):
-            with pytest.raises(ValueError, match="no route"):
-                rnn_cuda.lstmp_bwd_plan(3, c, p, route)
-    for route in ("sequence", "persistent"):
         with pytest.raises(ValueError, match="no route"):
-            rnn_cuda.lstmp_bwd_plan(8, 4096, 512, route)
+            rnn_cuda.lstmp_bwd_plan(3, c, p)
 
 
 @pytest.mark.parametrize("plan_of", ["step", "another_shape", "bogus"])

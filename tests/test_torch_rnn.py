@@ -3,6 +3,8 @@ bidirectional wrapper) against the JAX package's Pallas kernel, run in
 interpret mode on the CPU as ``tests/test_rnn_pallas.py`` runs it, and
 against its scan path."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,22 +64,23 @@ def test_gru_fwd_plan_covers_every_cell_once(b, h):
     """The forward kernel's plan (``rnn_cuda.gru_fwd_plan``): at the audio
     model's H = 256 (serving, training, eval and streamed batches, and
     cross-corpus evaluation's power-of-two batches of windows), a
-    ragged H and a wide one, a step tile that ``csrc/gru_fwd.cu`` compiles,
-    slabs and row tiles that cover every cell and row exactly once with
-    none empty (4-cell slabs and at most 32-row tiles at every B: 64 slabs
-    at H = 256); at an H the 16-byte copies cannot take, the
-    one-block-per-row route."""
+    ragged H and a wide one, a tile that ``csrc/gru_fwd.cu`` compiles, and
+    no other (no 32-cell tile), slabs and row tiles that cover every cell
+    and row exactly once with none empty (4-cell slabs and at most 32-row
+    tiles at every B: 64 slabs at H = 256); at an H the 16-byte copies
+    cannot take, a ValueError."""
     import re
 
     compiled = {tuple(map(int, m)) for m in re.findall(
         r"^  GRU_FWD_TILE\((\d+), (\d+), \d+\)$",
         (_build.CSRC / "gru_fwd.cu").read_text(), re.M)}
     assert compiled == set(rnn_cuda.GRU_FWD_TILES)
-    plan = rnn_cuda.gru_fwd_plan(b, h)
+    assert all(cells == 4 for cells, _ in compiled)
     if h % 4:
-        assert plan == {"route": "sequence", "cells": 0, "rows": 0,
-                        "slabs": 1, "row_tiles": b}
+        with pytest.raises(ValueError, match="no route"):
+            rnn_cuda.gru_fwd_plan(b, h)
         return
+    plan = rnn_cuda.gru_fwd_plan(b, h)
     assert plan["route"] == "step"
     cells, rows = plan["cells"], plan["rows"]
     assert (cells, rows) in compiled
@@ -92,17 +95,14 @@ def test_gru_fwd_plan_covers_every_cell_once(b, h):
     assert cells == 4 and rows <= 32
     if h == 256:
         assert plan["slabs"] == 64
-    assert rnn_cuda.gru_fwd_plan(b, h, "sequence")["route"] == "sequence"
 
 
 def test_gru_fwd_plan_refuses_what_no_route_takes():
     with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.gru_fwd_plan(8, 254, "step")
-    with pytest.raises(ValueError, match="no route"):
-        rnn_cuda.gru_fwd_plan(8, 256, "persistent")
+        rnn_cuda.gru_fwd_plan(8, 254)
 
 
-@pytest.mark.parametrize("route", ["step", "sequence", "bogus"])
+@pytest.mark.parametrize("route", ["step", "bogus"])
 def test_gru_sequence_wrapper_takes_plain_forward_on_cpu_whatever_the_plan(
         route):
     """On CPU tensors ``gru_sequence`` runs the plain recurrence and
@@ -113,12 +113,67 @@ def test_gru_sequence_wrapper_takes_plain_forward_on_cpu_whatever_the_plan(
                           ).astype(np.float32))
     bias = torch.from_numpy(rng.uniform(-1, 1, (1, 24)).astype(np.float32))
     plan = ({"route": "bogus"} if route == "bogus"
-            else rnn_cuda.gru_fwd_plan(2, 8, route))
+            else rnn_cuda.gru_fwd_plan(2, 8))
     before = rnn_cuda.LAUNCHES
     assert torch.equal(rnn_cuda.gru_sequence(xp, w, bias, plan=plan),
                        rnn_cuda.gru_sequence_torch(xp, w, bias))
     assert rnn_cuda.LAUNCHES == before
     assert "gru_fwd" not in rnn_cuda._fns
+
+
+@pytest.mark.parametrize("cell,h", [("gru", 10), ("gru", 8), ("lstm", 6),
+                                    ("lstm", 8)])
+def test_sequence_functions_take_plain_loops_at_an_h_no_kernel_takes(
+        cell, h, monkeypatch):
+    """``GRUSequence`` / ``LSTMSequence`` reach the kernels' wrappers at
+    every H, and on CPU tensors the wrappers run the plain loops, so the
+    outputs and gradients are the plain loops' at an H that is not a
+    multiple of 4 as at one that is.  No kernel takes the former: there
+    the plans, which the wrappers consult for a CUDA tensor, raise."""
+    gates = 3 if cell == "gru" else 4
+    reached = []
+
+    def spy(name):
+        wrapper = getattr(rnn_cuda, name)
+
+        def call(*args, **kwargs):
+            reached.append(name)
+            return wrapper(*args, **kwargs)
+        return call
+
+    names = (f"{cell}_sequence", f"{cell}_sequence_bwd")
+    for name in names:
+        monkeypatch.setattr(rnn_cuda, name, spy(name))
+    rng = np.random.default_rng(h)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.uniform(-1, 1, shape) * scale).astype(np.float32))
+
+    xp, w, bias = (arr(3, 2, gates * h), arr(h, gates * h, scale=h ** -0.5),
+                   arr(1, gates * h, scale=h ** -0.5))
+    ins = tuple(a.clone().requires_grad_() for a in (xp, w, bias))
+    fn = rnn_cuda.GRUSequence if cell == "gru" else rnn_cuda.LSTMSequence
+    outs = fn.apply(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    couts = tuple(arr(3, 2, h) for _ in outs)
+    grads = torch.autograd.grad(outs, ins, couts)
+    want = getattr(rnn_cuda, f"{cell}_sequence_torch")(xp, w, bias)
+    want = want if isinstance(want, tuple) else (want,)
+    want_grads = getattr(rnn_cuda, f"{cell}_sequence_bwd_torch")(
+        xp, w, bias, *want, *couts)
+    for got, ref in zip(outs + grads, want + want_grads):
+        assert torch.equal(got, ref)
+    assert reached == list(names)
+    plans = (getattr(rnn_cuda, f"{cell}_fwd_plan"),
+             functools.partial(getattr(rnn_cuda, f"{cell}_bwd_plan"),
+                               steps=3))
+    for plan in plans:
+        if h % 4:
+            with pytest.raises(ValueError, match="no route"):
+                plan(2, h)
+        else:
+            assert plan(2, h)["route"] == "step"
 
 
 @pytest.mark.parametrize("reverse", [False, True])
