@@ -311,7 +311,8 @@ Phases (each raises on failure, so the exit code is nonzero):
    (``csrc/threefry.cu``) against the plain route (``ops/prng.py``'s
    ``*_torch``, run on the card) bitwise at the main paths' shapes
    (``fold_in`` of 8 and 96 ordinals, ``split(4)`` and ``split2`` of [3,
-   2] keys, one wav2vlad bucket's NetVLAD weights at 8 and 32 rows, the
+   2] keys, one wav2vlad bucket's NetVLAD weights at 1, 2, 4, 8 and 32
+   rows (its row tiles), the
    audio train step's dropout masks at [3, 8, 256] and with ``rows``, bits
    with ``rows``, a uniform over more than ``_BITS_CHUNK`` values with a
    span that is not a power of two), each with its exact launches (one a
@@ -351,10 +352,11 @@ out (model set-up, training, extraction).  The kernels line's
 kernels: phase 14's own calls and the comparisons are not in it.
 
 The line before the last is a JSON object describing each kernel (#3's
-timed at its DAIC shape; #6's forward twice, on the step route at (32,
-128, 4096, 512) and as ``lstmp_fwd_resident`` on the resident route at
-(128, 8, 4096, 512), one served speaker's rows); the last line is ``{"ok": true, "device":
-{...}}``.  Nothing of JAX is imported.
+timed at its DAIC shape; threefry's at a one-row bucket's NetVLAD
+weights; #6's forward twice, on the step route at (32, 128, 4096, 512)
+and as ``lstmp_fwd_resident`` on the resident route at (128, 8, 4096,
+512), one served speaker's rows); the last line is ``{"ok": true,
+"device": {...}}``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -5582,14 +5584,21 @@ def threefry_bound(evals: int, nbytes: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+#: the wav2vlad bucket row tiles phase 14 draws NetVLAD weights at
+#: (``frontend/audio.py::_bucket_rows``): 1 and 2 rows an interactive
+#: request's buckets, 4 and 8 small served batches' (and the warm-up's),
+#: 32 the cohort's
+BUCKET_TILES = (1, 2, 4, 8, 32)
+
+
 def threefry_phase(torch, card: str) -> dict:
     """Phase 14: the threefry kernel (``csrc/threefry.cu``) against the
     plain route (``ops/prng.py``'s ``*_torch``) run on the card, bitwise
     (keys, bits, uniforms, normals and masks), at the main paths' shapes
     (``fold_in`` of 8 and 96 ordinals, ``split(4)`` and ``split2`` of [3,
-    2] keys, one wav2vlad bucket's NetVLAD weights at 8 and 32 rows
-    through ``netvlad.batched_per_utterance_params``, the audio train
-    step's dropout masks at [3, 8, 256] and, as a data-parallel rank draws
+    2] keys, one wav2vlad bucket's NetVLAD weights at each row tile of
+    ``BUCKET_TILES`` through ``netvlad.batched_per_utterance_params``, the
+    audio train step's dropout masks at [3, 8, 256] and, as a data-parallel rank draws
     them, with ``rows``, bits with ``rows`` and a uniform over more than
     ``_BITS_CHUNK`` values with a span that is not a power of two),
     each with its exact launches (one a draw, none on the plain route),
@@ -5625,10 +5634,9 @@ def threefry_phase(torch, card: str) -> dict:
             1536),
         "split(4) [3, 2]": (lambda: prng.split(keys3, 4), 1, 12, 192),
         "split2 [3, 2]": (lambda: prng.split2(keys3), 1, 6, 96),
-        "netvlad bucket, 8 rows": (bucket(8), 6, 8 * (1 + 4 + per_row),
-                                   8 * (16 + 64 + 4 * per_row)),
-        "netvlad bucket, 32 rows": (bucket(32), 6, 32 * (1 + 4 + per_row),
-                                    32 * (16 + 64 + 4 * per_row)),
+        **{f"netvlad bucket, {n} row{'s' * (n > 1)}": (
+            bucket(n), 6, n * (1 + 4 + per_row), n * (16 + 64 + 4 * per_row))
+           for n in BUCKET_TILES},
         "dropout mask [3, 8, 256]": (
             lambda: prng.bernoulli(keys3, keep, (8, 256)), 1, 3 * 8 * 256,
             3 * 8 * 256),
@@ -5679,7 +5687,8 @@ def threefry_phase(torch, card: str) -> dict:
               f"[{card}]")
     # the kernel's device time where the draws are large enough to show
     # it behind the host's enqueue
-    for name in ("netvlad bucket, 8 rows", "netvlad bucket, 32 rows",
+    for name in ("netvlad bucket, 1 row", "netvlad bucket, 8 rows",
+                 "netvlad bucket, 32 rows",
                  f"uniform [{chunk}] in [-0.3, 0.3)"):
         call, draws = cases[name][:2]
         split = profile_split(torch, call, f"threefry {name}", draws, card)
@@ -6152,7 +6161,7 @@ def main(argv=None) -> int:
         fail(f"the DAIC shape {dk['shape']} is not one the JAX package "
              "streams")
     bounds["gru_bwd_streamed"] = dk["bound"]
-    bounds["threefry"] = threefry_times["netvlad bucket, 8 rows"][2:]
+    bounds["threefry"] = threefry_times["netvlad bucket, 1 row"][2:]
     bounds["lstmp_fwd_resident"] = lstmp_bounds(*LSTMP_TIMED[3])["fwd"]
     library["threefry"] = None
     library["gru_bwd_streamed"] = dk["cudnn_ms"]
@@ -6175,7 +6184,8 @@ def main(argv=None) -> int:
                                lstmp_err["fwd"], "lstmp_fwd_b8_t128"),
         "lstmp_bwd": (lstmp_times[LSTMP_TIMED[0]]["bwd"], lstmp_err["bwd"],
                       "lstmp_bwd"),
-        "threefry": (threefry_times["netvlad bucket, 8 rows"][:2], 0.0,
+        # a one-answer bucket's NetVLAD weights, the interactive path's
+        "threefry": (threefry_times["netvlad bucket, 1 row"][:2], 0.0,
                      "threefry"),
     }
     src = "icassp2022_depression_tpu_torch/csrc"

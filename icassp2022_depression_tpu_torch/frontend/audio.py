@@ -8,12 +8,14 @@ Reference: ``wav2vlad`` (``Classification/audio_features_whole.py:57-72``)
 = librosa log-mel -> a freshly initialised NetVLAD per utterance.
 
 Utterances are grouped into padded power-of-two length buckets; each
-bucket is one ``[B, blen]`` float32 upload and one batched pass of
-log-mel, frame mask and per-utterance NetVLAD (weights keyed by the
-utterance ordinal, :mod:`..ops.netvlad`) on the target device.  The rows
-are zero-padded, but each carries the reflected tail of its own signal at
-its TRUE end, as librosa's centred STFT does, so the last valid frames do
-not read bucket padding.  The JAX package's flat int16 wire format (built
+bucket is one ``[B, blen]`` float32 upload (``B`` its rows rounded up
+to 1, 2, 4 or a multiple of 8, :func:`_bucket_rows`) and one batched
+pass of log-mel, frame mask and per-utterance NetVLAD (weights keyed by
+the utterance ordinal, :mod:`..ops.netvlad`) on the target device; the
+padding rows' features are dropped.  Each row is zero-padded to
+``blen``, but carries the reflected tail of its own signal at its TRUE
+end, as librosa's centred STFT does, so the last valid frames do not
+read bucket padding.  The JAX package's flat int16 wire format (built
 for a slow host link) is not ported.
 """
 
@@ -37,6 +39,13 @@ from icassp2022_depression_tpu_torch.utils.device import resolve_device
 def _bucket_length(n: int, min_len: int = 16384) -> int:
     """Next power-of-two padded length (a handful of buckets overall)."""
     return shapes.next_pow2(n, minimum=min_len)
+
+
+def _bucket_rows(n: int) -> int:
+    """A bucket's row tile: 1, 2 or 4 (the next power of two) under 8
+    rows, a multiple of 8 from 8 up, so a small bucket computes few
+    padding rows and a stream reuses a handful of shapes."""
+    return shapes.next_pow2(n) if n < 8 else -(-n // 8) * 8
 
 
 def _fill_row(row: np.ndarray, w: np.ndarray, tail: int) -> None:
@@ -104,8 +113,7 @@ def extract_batch(waveforms: Sequence[np.ndarray], sample_rates: Sequence[int],
     out = torch.empty((n, cfg.netvlad_output_dim), dtype=torch.float32,
                       device=device)
     for (blen, sr), idxs in buckets.items():
-        # batch rows rounded up to a multiple of 8: a few shapes per bucket
-        brows = -(-len(idxs) // 8) * 8
+        brows = _bucket_rows(len(idxs))
         samples = sum(len(waveforms[i]) for i in idxs)
         with profiling.annotate(f"wav2vlad/bucket{blen}", device,
                                 samples=samples,

@@ -480,19 +480,25 @@ class Predictor:
             [texts] if texts is not None else None,
             [ordinal_base] if ordinal_base is not None else None)[0]
 
-    def warmup(self, batch_sizes: Sequence[int] = (1, 2, 4),
-               utt_seconds: float = 4.0, sr: int = 16000) -> None:
+    def warmup(self, batch_sizes: Sequence[int] = (1, 2, 4, 8),
+               utt_seconds: Sequence[float] = (3.0, 6.0, 12.0),
+               sr: int = 16000) -> None:
         """Run the standard serving shapes once with synthetic traffic
         (first-use costs: kernel build, cuFFT plans, allocator growth).
-        The transcripts differ per speaker and batch size, so the feature
+        ``utt_seconds``: the three answers' lengths; the default puts them
+        one each into the 65536-, 131072- and 262144-sample buckets, so
+        batches of 1, 2, 4 and 8 speakers warm each bucket's 1-, 2-, 4-
+        and 8-row tiles.  A bucket of 9 or more answers (its 16-row tile
+        and up) stays cold until a batch first reaches it.  The
+        transcripts differ per speaker and batch size, so the feature
         cache does not skip the larger embedding batches."""
         rng = np.random.default_rng(0)
         for n in batch_sizes:
             kw = {}
             if not self.task.startswith("text"):
                 kw["waveforms_per_speaker"] = [
-                    [np.round(rng.standard_normal(int(sr * utt_seconds))
-                              * 2000).astype(np.int16) for _ in range(3)]
+                    [np.round(rng.standard_normal(int(sr * x))
+                              * 2000).astype(np.int16) for x in utt_seconds]
                     for _ in range(n)]
                 kw["sample_rates"] = [[sr] * 3] * n
             if not self.task.startswith("audio"):

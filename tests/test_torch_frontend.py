@@ -1,6 +1,8 @@
 """The port's log-mel, NetVLAD and bucketed wav2vlad frontend against the
 JAX package on the same waveforms, at small widths."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from icassp2022_depression_tpu_torch.data import eatd as teatd
 from icassp2022_depression_tpu_torch.frontend import audio as taudio
 from icassp2022_depression_tpu_torch.ops import mel as tmel
 from icassp2022_depression_tpu_torch.ops import netvlad as tnetvlad
+from icassp2022_depression_tpu_torch.utils import profiling
 
 SMALL = dict(n_fft=256, hop_length=64, n_mels=16, netvlad_clusters=4,
              netvlad_output_dim=32)
@@ -125,6 +128,68 @@ def test_extract_batch_start_ordinal_and_order():
                                  device="cpu")
     np.testing.assert_allclose(alone[0].numpy(), got[1].numpy(), rtol=0,
                                atol=1e-6)
+
+
+#: a length bucket's answers -> the rows it computes (its row tile)
+ROW_TILES = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 7: 8, 8: 8, 9: 16, 17: 24}
+
+
+def _one_bucket(n: int):
+    """``n`` answers of 4000-16000 samples: with SMALL's tail of 128 all
+    fall into the 16384-sample bucket."""
+    rng = np.random.default_rng(100 + n)
+    return [_pcm(rng, int(m)) for m in rng.integers(4000, 16001, n)]
+
+
+@pytest.mark.parametrize("n", sorted(ROW_TILES))
+def test_bucket_rows_match_one_answer_calls(n, monkeypatch):
+    """A bucket of ``n`` answers computes its row tile's rows, and each
+    real row's features are those of the answer alone (a one-row tile)
+    under the same ordinal: the NetVLAD weights drawn for it bitwise, the
+    features within float32 rounding."""
+    drawn = []
+    draw = tnetvlad.batched_per_utterance_params
+
+    def recording(seed, ordinals, *args, **kw):
+        drawn.append((ordinals.clone(), draw(seed, ordinals, *args, **kw)))
+        return drawn[-1][1]
+
+    monkeypatch.setattr(tnetvlad, "batched_per_utterance_params", recording)
+    cfg = tconfig.FrontendConfig(**SMALL)
+    waves = _one_bucket(n)
+    ordinals = [7 * i + 3 for i in range(n)]
+    got = taudio.extract_batch(waves, [16000] * n, cfg, ordinals=ordinals,
+                               device="cpu")
+    (rows, params), = drawn
+    assert rows.tolist()[:n] == ordinals and len(rows) == ROW_TILES[n]
+    scale = float(got.abs().max())
+    for i, (w, o) in enumerate(zip(waves, ordinals)):
+        alone = taudio.extract_batch([w], [16000], cfg, ordinals=[o],
+                                     device="cpu")
+        one_rows, one_params = drawn[-1]
+        assert one_rows.tolist() == [o]
+        for k, v in params.items():
+            assert torch.equal(v[i], one_params[k][0]), k
+        np.testing.assert_allclose(got[i].numpy(), alone[0].numpy(),
+                                   rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("n", sorted(ROW_TILES))
+def test_bucket_record_pads_to_the_row_tile(n):
+    """The ``wav2vlad/bucket*`` record counts the bucket's real samples
+    and, as ``padded_samples``, the rest of its row tile times its
+    length."""
+    waves = _one_bucket(n)
+    t0 = time.time_ns()
+    taudio.extract_batch(waves, [16000] * n, tconfig.FrontendConfig(**SMALL),
+                         device="cpu")
+    bucket, = [r for r in profiling.records(start_ns=t0)
+               if r.name.startswith("wav2vlad/bucket")]
+    samples = sum(len(w) for w in waves)
+    assert bucket.name == "wav2vlad/bucket16384"
+    assert bucket.counts == {
+        "samples": samples,
+        "padded_samples": ROW_TILES[n] * 16384 - samples}
 
 
 def test_synthetic_corpus_and_reader_equal(tmp_path):

@@ -6,6 +6,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -23,6 +24,7 @@ from icassp2022_depression_tpu_torch.data import eatd as teatd
 from icassp2022_depression_tpu_torch.models import porting as tporting
 from icassp2022_depression_tpu_torch.serving import predictors as tpredictors
 from icassp2022_depression_tpu_torch.serving.predictors import Predictor
+from icassp2022_depression_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "icassp2022_depression_tpu_torch"
@@ -95,10 +97,26 @@ def test_predictor_cache_batching_and_empty_request(tmp_path):
     assert tp.feature_cache.hits == 1
     _assert_same([alone], [batch[1]])
     assert tp.predict_batch([], []) == []
-    tp.warmup(batch_sizes=(1, 2), utt_seconds=0.3)
+    tp.warmup(batch_sizes=(1, 2), utt_seconds=(0.3, 0.3, 0.3))
     out = tp.predict_features(np.zeros((3, 3, 32), np.float32))
     assert out.shape == (3, 2)
     np.testing.assert_allclose(out.sum(-1), 1.0, rtol=0, atol=1e-6)
+
+
+def test_warmup_runs_each_bucket_at_1_2_4_and_8_rows(tmp_path):
+    """The default warm-up's three answers fall one each into the 65536-,
+    131072- and 262144-sample buckets, so its batches of 1, 2, 4 and 8
+    speakers run each bucket at its 1-, 2-, 4- and 8-row tile."""
+    _, tp = _pair(tmp_path, "audio_clf")
+    t0 = time.time_ns()
+    tp.warmup()
+    tiles = sorted(
+        (r.name, (r.counts["samples"] + r.counts["padded_samples"])
+         // int(r.name[len("wav2vlad/bucket"):]))
+        for r in profiling.records(start_ns=t0)
+        if r.name.startswith("wav2vlad/bucket"))
+    assert tiles == [(f"wav2vlad/bucket{b}", t)
+                     for b in (131072, 262144, 65536) for t in (1, 2, 4, 8)]
 
 
 def test_predictor_names_missing_slices(tmp_path):

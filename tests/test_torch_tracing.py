@@ -111,10 +111,14 @@ def test_a_call_is_one_tree(fusion):
     assert by_id[next(r.parent for r in tree
                       if r.name == "text/segment")].name == "serve/text"
     assert sum(b.counts["samples"] for b in buckets) == 32000
+    # each bucket's row tile (2 rows for 3000 and 9000, 1 for 20000)
+    # times its padded length, less its real samples
+    tiles = {"wav2vlad/bucket16384": 2, "wav2vlad/bucket32768": 1}
+    assert sorted(b.name for b in buckets) == sorted(tiles)
     for b in buckets:
-        # the bucket's rows rounded up to 8, over its padded length
         blen = int(b.name[len("wav2vlad/bucket"):])
-        assert b.counts["padded_samples"] == 8 * blen - b.counts["samples"]
+        assert b.counts["padded_samples"] == \
+            tiles[b.name] * blen - b.counts["samples"]
     assert [r.name for r in tree if r.counts and r not in buckets] == []
     # the cached speaker: the call's tree holds no extraction
     t1 = time.time_ns()
